@@ -15,9 +15,17 @@ Phases, each fatal on failure (exit code != 0):
      uint8 frames, seeded random weights) streamed for 6 frames with
      prev_exists 0, 1, 1, 1, 1, 1 through make_infer_fn; checks finite
      outputs and that every kernel launched its per-frame count (A 1, B 6,
-     C 18, D 12); then the `tiny` preset in bf16 against the plain path on
-     the CPU as a small-input agreement check;
-  6. report: a {"kernels": [...]} JSON line, the nvidia-smi line, and last
+     C 18, D 12, int8 kernels 0); then the `tiny` preset in bf16 against the
+     plain path on the CPU as a small-input agreement check;
+  6. int8: the int8 blocks B8 (ws 16, 20) and C8 (the four main-path
+     shapes), dynamic and with static scales, and the head's int8 linear
+     H8, checked and timed as in 3-4; the int8 main path (backbone and
+     decoder quant 'int8') streamed for 6 frames with per-row (dynamic)
+     activation scales, then calibrated on 2 frames and streamed again
+     with static scales, each checking A 1, B8 6, C8 18, D 12, H8 60 and
+     bf16 B / C 0 per frame; the tiny int8 small-input agreement, dynamic
+     and static;
+  7. report: a {"kernels": [...]} JSON line, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 The kernels' plain versions compute in f32 (TF32 off for matmuls and
 convolutions).
@@ -31,6 +39,7 @@ import sys
 import time
 
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
+PEAK_INT8_OPS = 1979e12      # H100 SXM dense int8 tensor-core peak
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 
 # kernel tolerance on the card, bf16 kernel vs its plain version on the same
@@ -73,15 +82,23 @@ def bound(flops: float, nbytes: float):
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
 
-def compare(name, out, ref):
+def bound_int8(ops8: float, flops: float, nbytes: float):
+    """The bound of work split between int8 (ops8) and bf16 (flops)
+    tensor-core products."""
+    t_ops = (ops8 / PEAK_INT8_OPS + flops / PEAK_BF16_FLOPS) * 1e3
+    t_mem = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def compare(name, out, ref, scale=1.0):
+    """Check out against ref with the kernel tolerance times scale."""
     err = (out.float() - ref.float()).abs()
     mx, mean = err.max().item(), err.mean().item()
-    rmax = ref.float().abs().max().item()
-    rmean = ref.float().abs().mean().item()
-    ok = (math.isfinite(mx) and mx <= TOL_MAX_REL * rmax
-          and mean <= TOL_MEAN_REL * rmean)
-    log(f"check {name}: max_abs {mx:.6g} (tol {TOL_MAX_REL * rmax:.6g}) "
-        f"mean_abs {mean:.6g} (tol {TOL_MEAN_REL * rmean:.6g}) "
+    tmax = scale * TOL_MAX_REL * ref.float().abs().max().item()
+    tmean = scale * TOL_MEAN_REL * ref.float().abs().mean().item()
+    ok = math.isfinite(mx) and mx <= tmax and mean <= tmean
+    log(f"check {name}: max_abs {mx:.6g} (tol {tmax:.6g}) "
+        f"mean_abs {mean:.6g} (tol {tmean:.6g}) "
         f"{'ok' if ok else 'FAIL'}")
     return ok, mx
 
@@ -122,20 +139,61 @@ def _lib_rows_block(wts, rows, heads, cos, sin):
     return raw1, s1, raw2
 
 
-def lib_full_block(wts, x, heads, ws, rope):
+def _lib_qmm(a, w, s, b):
+    """One int8 weight matmul from torch._int_mm: a (..., K) quantized per
+    row with torch ops, w (N, K) int8, channel scales s, f32 bias b."""
+    import torch
+    k = a.shape[-1]
+    a2 = a.reshape(-1, k).float()
+    amax = a2.abs().amax(-1, keepdim=True).clamp_min(1e-6)
+    q = torch.round(a2 * (127.0 / amax)).clamp(-127, 127).to(torch.int8)
+    y = torch._int_mm(q, w.t()).float() * (amax / 127.0) * s + b
+    return y.reshape(*a.shape[:-1], w.shape[0])
+
+
+def _lib_rows_block_int8(wts, rows, heads, cos, sin):
+    """_lib_rows_block with the seven weight matmuls as torch._int_mm."""
+    import torch.nn.functional as F
+    from toc3d_tpu_torch.ops.rope import rotate_half
+    nw, n, c = rows.shape
+    d = c // heads
+    dt = rows.dtype
+    hid = F.layer_norm(rows, (c,), wts.ln1w.to(dt), wts.ln1b.to(dt), 1e-6)
+    qkv = _lib_qmm(hid, wts.wqkv, wts.sqkv, wts.bqkv).reshape(nw, n, 3,
+                                                              heads, d)
+    q, k, v = qkv.unbind(2)
+    if cos is not None:
+        cc, ss = cos[:, :, None], sin[:, :, None]
+        q = q * cc + rotate_half(q) * ss
+        k = k * cc + rotate_half(k) * ss
+    q, k, v = (t.to(dt).transpose(1, 2) for t in (q, k, v))
+    o = F.scaled_dot_product_attention(q, k, v, scale=1.0)
+    raw1 = _lib_qmm(o.transpose(1, 2).reshape(nw, n, c), wts.wo, wts.so,
+                    wts.bo).to(dt)
+    s1 = rows + raw1
+    h2 = F.layer_norm(s1, (c,), wts.ln2w.to(dt), wts.ln2b.to(dt), 1e-6)
+    ab = _lib_qmm(h2, wts.w12, wts.s12, wts.b12)
+    hh, hp = wts.hidden, wts.w3.shape[1]
+    g = (F.silu(ab[..., 0:2 * hh:2]) * ab[..., 1:2 * hh:2]).to(dt)
+    g = F.layer_norm(g, (hh,), wts.flw.to(dt), wts.flb.to(dt), 1e-6)
+    raw2 = _lib_qmm(F.pad(g, (0, hp - hh)), wts.w3, wts.s3, wts.b3).to(dt)
+    return raw1, s1, raw2
+
+
+def lib_full_block(wts, x, heads, ws, rope, rows_fn=_lib_rows_block):
     from toc3d_tpu_torch.ops.window import window_partition, window_unpartition
     b, h, w, c = x.shape
     xw, padded = window_partition(x, ws)
     nw, n = xw.shape[0], ws * ws
     cos, sin = (None, None) if rope is None else (rope[0][:n][None],
                                                   rope[1][:n][None])
-    raw1, s1, raw2 = _lib_rows_block(wts, xw.reshape(nw, n, c), heads, cos,
-                                     sin)
+    raw1, s1, raw2 = rows_fn(wts, xw.reshape(nw, n, c), heads, cos, sin)
     y = (s1 + raw2).reshape(nw, ws, ws, c)
     return window_unpartition(y, ws, padded, (h, w))
 
 
-def lib_compressed_block(wts, x, plan, heads, ws, rope):
+def lib_compressed_block(wts, x, plan, heads, ws, rope,
+                         rows_fn=_lib_rows_block):
     import torch
     from toc3d_tpu_torch.ops.window import window_partition, window_unpartition
     b, h, w, c = x.shape
@@ -150,8 +208,7 @@ def lib_compressed_block(wts, x, plan, heads, ws, rope):
     rows = torch.cat([slow, rep], 1)
     pos = torch.cat([plan.slow_idx,
                      torch.full_like(plan.slow_idx[:, :1], plan.k)], 1)
-    raw1, s1, raw2 = _lib_rows_block(wts, rows, heads, rope[0][pos],
-                                     rope[1][pos])
+    raw1, s1, raw2 = rows_fn(wts, rows, heads, rope[0][pos], rope[1][pos])
     y = s1 + raw2
     k = plan.k
     fast = fast + (raw1[:, k:k + 1] + raw2[:, k:k + 1])
@@ -187,6 +244,33 @@ def compressed_block_work(b, h, w, c, hid, ws, k, has_rep):
     nbytes = (2 * m * c * 2 + m * 2 + block_weight_bytes(c, hid)
               + 2 * n * (c // 16) * 4)
     return flops, nbytes
+
+
+def block_weight_bytes_int8(c, hid):
+    """int8 matrices, f32 channel scales, f32 biases and LN vectors."""
+    return (4 * c * c + 3 * hid * c) + (4 * c + 3 * hid) * 4 \
+        + (8 * c + 3 * hid) * 4
+
+
+def full_block_work_int8(b, h, w, c, hid, ws):
+    """(int8 ops, bf16 flops, bytes) of one B8 call."""
+    nwh, nww = -(-h // ws), -(-w // ws)
+    nw, n, m = b * nwh * nww, ws * ws, b * h * w
+    nbytes = (2 * m * c * 2 + block_weight_bytes_int8(c, hid)
+              + 2 * n * (c // 16) * 4)
+    return 2 * m * c * (4 * c + 3 * hid), 4 * nw * n * n * c, nbytes
+
+
+def compressed_block_work_int8(b, h, w, c, hid, ws, k, has_rep):
+    """(int8 ops, bf16 flops, bytes) of one C8 call."""
+    nwh, nww = -(-h // ws), -(-w // ws)
+    nw, n, m = b * nwh * nww, ws * ws, b * h * w
+    kr = k + int(has_rep)
+    rows = nw * kr
+    flops = 4 * nw * kr * kr * c + 2 * nw * (n - k) * c * int(has_rep)
+    nbytes = (2 * m * c * 2 + m * 2 + block_weight_bytes_int8(c, hid)
+              + 2 * n * (c // 16) * 4)
+    return 2 * rows * c * (4 * c + 3 * hid), flops, nbytes
 
 
 # ---------------------------------------------------------------------------
@@ -376,13 +460,142 @@ def phase_kernels(model, results):
     return ok_all
 
 
+def phase_kernels_int8(model, results):
+    """Check and time B8 and C8 at every main-path shape, with per-row
+    (dynamic) activation scales and with static site scales (calibrated on
+    the same input by the plain probes of ops/int8_calib), and the head's
+    int8 linear H8 at its largest main-path shape."""
+    import torch
+    from toc3d_tpu_torch.layers import quantize_linear
+    from toc3d_tpu_torch.models.eva_vit import (make_rope_tables,
+                                                rope_tensors, set_act_scales)
+    from toc3d_tpu_torch.ops import int8_calib
+    from toc3d_tpu_torch.ops.cuda import int8, vit_block
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    cfg = model.cfg.backbone
+    c, heads = cfg.embed_dim, cfg.num_heads
+    bf = torch.bfloat16
+    hid = int(c * cfg.mlp_ratio)
+    win, glb = make_rope_tables(cfg)
+    rope = {cfg.window_size: rope_tensors(win, dev),
+            cfg.global_window_size: rope_tensors(glb, dev)}
+    x = (torch.randn(6, 50, 100, c, device=dev, generator=g) * 0.5).to(bf)
+    scores = torch.randn(6, 5000, device=dev, generator=g).to(bf)
+    ok_all = True
+    shapes = [(0, None), (2, None), (6, 0.5), (8, 0.5), (12, 0.4), (20, 0.3)]
+    for blk_i, ratio in shapes:
+        blk = model.img_backbone.blocks[blk_i]
+        ws = cfg.global_window_size if blk_i in cfg.global_attn_indexes \
+            else cfg.window_size
+        key = "B8" if ratio is None else "C8"
+        plan = None if ratio is None else vit_block.compress_plan(
+            scores, 6, 50, 100, ws, ratio, True, cfg.mxu_align_k)
+        for mode in ("dynamic", "static"):
+            if mode == "static":
+                amax = (int8_calib.full_block_site_amax(
+                    blk, x, heads, ws, rope[ws]) if plan is None else
+                    int8_calib.compressed_block_site_amax(
+                        blk, x, scores, cfg, ws, ratio, rope[ws]))
+                set_act_scales(blk, (amax.float() / 127.0).tolist())
+            wts = vit_block.pack_block_weights_int8(blk, heads, bf)
+            if plan is None:
+                tag = f"B8 ws{ws} {mode}"
+                run = lambda: vit_block.fused_full_block_int8(
+                    blk, x, heads, ws, rope[ws])
+                plain = lambda: vit_block.full_block_plain(
+                    wts, x, heads, ws, rope[ws])
+                lib = lambda: lib_full_block(wts, x, heads, ws, rope[ws],
+                                             _lib_rows_block_int8)
+                ops8, flops, nbytes = full_block_work_int8(6, 50, 100, c,
+                                                           hid, ws)
+                shape = f"x (6,50,100,1024) bf16, ws {ws}, {mode}"
+            else:
+                tag = f"C8 ws{ws} r{ratio} k{plan.k} {mode}"
+                run = lambda: vit_block.fused_compressed_block_int8(
+                    blk, x, scores, heads, ws, ratio, rope[ws], True, True,
+                    cfg.mxu_align_k)
+                plain = lambda: vit_block.compressed_block_plain(
+                    wts, x, plan, heads, ws, rope[ws])
+                lib = lambda: lib_compressed_block(
+                    wts, x, plan, heads, ws, rope[ws], _lib_rows_block_int8)
+                ops8, flops, nbytes = compressed_block_work_int8(
+                    6, 50, 100, c, hid, ws, plan.k, plan.has_rep)
+                shape = (f"x (6,50,100,1024) bf16, ws {ws}, ratio {ratio}, "
+                         f"k {plan.k}, {mode}")
+            ok, err = compare(tag, run(), plain())
+            ok_all &= ok
+            ok_all &= compare(
+                f"{tag} attention delta",
+                vit_block.attention_delta(blk, x, heads, ws, rope[ws], plan,
+                                          int8=True),
+                vit_block.attention_delta_plain(wts, x, heads, ws, rope[ws],
+                                                plan))[0]
+            b_ms, b_by = bound_int8(ops8, flops, nbytes)
+            entry = dict(shape=shape, max_abs_err=err,
+                         ms=cuda_time(run, 10), plain_ms=cuda_time(plain, 3),
+                         library_ms=cuda_time(lib, 10), bound_ms=b_ms,
+                         bound_by=b_by)
+            log(f"time {tag}: {json.dumps(entry)}")
+            if key not in results:
+                results[key] = dict(
+                    name=("fused_full_block_int8" if key == "B8"
+                          else "fused_compressed_block_int8"),
+                    route="cuda", source="toc3d_tpu_torch/csrc/vit_block.cu",
+                    replaces=("toc3d_tpu/ops/pallas/vit_block.py:602"
+                              if key == "B8" else
+                              "toc3d_tpu/ops/pallas/vit_block.py:819"),
+                    **entry)
+            results[key]["max_abs_err"] = max(results[key]["max_abs_err"],
+                                              err)
+        set_act_scales(blk, None)
+    del x, scores
+
+    # H8: the decoder's cross-attention key projection, 6 x 50 x 100 image
+    # tokens of width 256 (the largest of the head's int8 linears)
+    xk = torch.randn(1, 30000, 256, device=dev, generator=g).to(bf)
+    lin = model.pts_bbox_head.transformer.decoder.layers[0].attentions[1]
+    w = lin.attn.in_proj_weight
+    p = quantize_linear(w[256:512], lin.attn.in_proj_bias[256:512])
+    ok, err = compare("H8 int8 linear (1,30000,256)->256",
+                      int8.int8_linear(xk, p), int8.int8_linear_plain(xk, p))
+    ok_all &= ok
+    m = 30000
+    b_ms, b_by = bound_int8(2 * m * 256 * 256, 0,
+                            m * 256 * 2 * 2 + 256 * 256 + 256 * 8)
+    results["H8"] = dict(
+        name="int8_linear", route="cuda",
+        source="toc3d_tpu_torch/csrc/vit_block.cu",
+        replaces="toc3d_tpu/layers.py:110",
+        shape="x (1,30000,256) bf16 -> 256, int8 weights",
+        max_abs_err=err, ms=cuda_time(lambda: int8.int8_linear(xk, p), 20),
+        plain_ms=cuda_time(lambda: int8.int8_linear_plain(xk, p), 5),
+        library_ms=cuda_time(lambda: _lib_qmm(xk, p.w, p.scale, p.bias), 20),
+        bound_ms=b_ms, bound_by=b_by)
+    log(f"time H8: {json.dumps(results['H8'])}")
+    return ok_all
+
+
+KERNELS = ("A", "B", "C", "D", "B8", "C8", "H8")
+
+
 def counters():
-    from toc3d_tpu_torch.ops.cuda import cross_attn, patch_embed, vit_block
+    """The launch-counting wrapper of each kernel, in KERNELS order."""
+    from toc3d_tpu_torch.ops.cuda import (cross_attn, int8, patch_embed,
+                                          vit_block)
     return [patch_embed.patchify_matmul, vit_block.fused_full_block,
-            vit_block.fused_compressed_block, cross_attn.flash_attention_core]
+            vit_block.fused_compressed_block, cross_attn.flash_attention_core,
+            vit_block.fused_full_block_int8,
+            vit_block.fused_compressed_block_int8, int8.int8_linear]
 
 
-def phase_main_path(model, results):
+def phase_main_path(model, results, label="bf16",
+                    per_frame=(1, 6, 18, 12, 0, 0, 0),
+                    record=("A", "B", "C", "D")):
+    """Stream 6 full-size frames through make_infer_fn(model) with every
+    launch count set to 0 just before; per_frame: the launches each frame
+    must make of each kernel, in KERNELS order; record: the kernels whose
+    launch counts this run reports. Returns (ok, decoded per frame)."""
     import torch
     from toc3d_tpu_torch.models.detector import (init_state, make_infer_fn,
                                                  synthetic_frame)
@@ -391,25 +604,26 @@ def phase_main_path(model, results):
     g = torch.Generator(device=dev).manual_seed(2)
     frames = [synthetic_frame(g, t) for t in range(6)]
     state = init_state(1, model.cfg, device=dev)
+    torch.cuda.synchronize()
     for f in counters():
         f.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    times = []
+    times, dets = [], []
     for frame in frames:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, det = infer(state, frame)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+        dets.append(det)
     launches = [f.launches for f in counters()]
-    per_frame = {"A": 1, "B": 6, "C": 18, "D": 12}
     ok = True
-    for key, got in zip("ABCD", launches):
-        results[key]["launches"] = got
-        want = per_frame[key] * len(frames)
-        if got != want:
-            log(f"main path: kernel {key} launched {got} times, "
-                f"expected {want}")
+    for key, got, want in zip(KERNELS, launches, per_frame):
+        if key in record:
+            results[key]["launches"] = got
+        if got != want * len(frames):
+            log(f"main path {label}: kernel {key} launched {got} times, "
+                f"expected {want * len(frames)}")
             ok = False
     finite = all(bool(torch.isfinite(t).all()) for t in
                  (det.bboxes, det.scores, state.memory.embedding,
@@ -418,18 +632,78 @@ def phase_main_path(model, results):
               and tuple(det.scores.shape) == (1, 300))
     ok &= finite and shapes
     steady = times[2:]
-    log(f"main path ToC3D_faster_1600, 6 x 1600x800 uint8, batch 1: frame ms "
-        f"{[round(t, 3) for t in times]}; steady mean "
+    log(f"main path ToC3D_faster_1600 {label}, 6 x 1600x800 uint8, batch 1: "
+        f"frame ms {[round(t, 3) for t in times]}; steady mean "
         f"{sum(steady) / len(steady):.3f} ms/frame over frames 2-5; peak "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
-        f"launches A/B/C/D {launches}; finite {finite} shapes {shapes}")
-    return ok
+        f"launches {'/'.join(KERNELS)} {launches}; finite {finite} shapes "
+        f"{shapes}")
+    return ok, dets
 
 
-def phase_small_agreement():
+def _against_bf16(label, dets, ref):
+    """Printed, not checked: per frame, how many of the int8 run's 50 best
+    boxes have a bf16 box among the bf16 run's 50 best within 0.5 m
+    (centres), the median distance to the nearest one, and the mean |score
+    difference| rank by rank over the 300 decoded."""
+    import torch
+    overlap, near, mad = [], [], []
+    for d, r in zip(dets, ref):
+        dist = torch.cdist(d.bboxes[0, :50, :3].float(),
+                           r.bboxes[0, :50, :3].float()).amin(dim=1)
+        overlap.append(int((dist <= 0.5).sum()))
+        near.append(round(dist.median().item(), 3))
+        mad.append(round((d.scores - r.scores).abs().mean().item(), 6))
+    log(f"{label} against bf16, same frames (not checked): top-50 overlap "
+        f"{overlap}; median nearest centre (m) {near}; score MAD {mad}")
+
+
+def phase_main_path_int8(results, bf16_dets):
+    """The int8 serving path at full width: ToC3D_faster_1600 with backbone
+    and decoder quant 'int8' and the bf16 run's random weights (same seed),
+    streamed with dynamic scales, then calibrated on 2 synthetic frames and
+    streamed with static scales."""
+    import torch
+    from dataclasses import replace
+    from toc3d_tpu_torch.configs import get_config
+    from toc3d_tpu_torch.models.detector import build_detector, synthetic_frame
+    from toc3d_tpu_torch.ops.int8_calib import (attach_act_scales,
+                                                calibrate_act_scales)
+    cfg = get_config("ToC3D_faster_1600")
+    cfg = replace(cfg, backbone=replace(cfg.backbone, quant="int8"),
+                  head=replace(cfg.head, decoder=replace(cfg.head.decoder,
+                                                         quant="int8")))
+    model = build_detector(cfg, device="cuda", seed=0)
+    per_frame = (1, 0, 0, 12, 6, 18, 60)
+    ok, dets = phase_main_path(model, results, "int8 dynamic", per_frame,
+                               ("B8", "C8", "H8"))
+    _against_bf16("int8 dynamic", dets, bf16_dets)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    cal = [synthetic_frame(g, t) for t in range(2)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    attach_act_scales(model, calibrate_act_scales(model, cal))
+    torch.cuda.synchronize()
+    log(f"calibration: 2 frames in {time.perf_counter() - t0:.3f} s")
+    ok_s, dets = phase_main_path(model, results, "int8 static", per_frame,
+                                 ())
+    _against_bf16("int8 static", dets, bf16_dets)
+    return ok and ok_s
+
+
+def phase_small_agreement(quant="none"):
     """The tiny preset in bf16 on the card (kernels) against the same model
     on the CPU (plain versions, bf16), streamed for 3 frames (prev_exists
     0, 1, 1), each side carrying its own memory bank from frame to frame.
+    quant 'dynamic' / 'static': backbone and decoder int8 (B8, C8, H8 on
+    the card), static with scales calibrated on the card on 2 frames and
+    loaded into the CPU model with the weights. The int8 checks take twice
+    the kernel tolerance: an int8 step is 2^-7 of a row's range, and a
+    last-bit bf16 difference before the quantization (the card's and the
+    CPU's LayerNorm and matmuls round apart) flips the step of up to half
+    the values near the row's maximum, so after the decoder's 60 int8
+    linears the banks' mean error reaches 2^-6 of their mean (measured on
+    the card).
 
     Two discrete choices are a top-k over nearly tied values: token
     routing, over bf16 selector scores, and the queries that enter the
@@ -457,10 +731,23 @@ def phase_small_agreement():
                                                  init_state,
                                                  precast_backbone_,
                                                  synthetic_frame)
+    from toc3d_tpu_torch.ops.int8_calib import (attach_act_scales,
+                                                calibrate_act_scales)
     cfg = get_config("tiny", compute_dtype="bfloat16")
     cfg = replace(cfg, head=replace(cfg.head, compute_dtype="bfloat16"))
+    if quant != "none":
+        cfg = replace(cfg, backbone=replace(cfg.backbone, quant="int8"),
+                      head=replace(cfg.head, decoder=replace(
+                          cfg.head.decoder, quant="int8")))
+    tag = "tiny" if quant == "none" else f"tiny int8 {quant}"
+    tol = 1.0 if quant == "none" else 2.0
     gpu = build_detector(cfg, device="cuda", seed=3)
     cpu = build_detector(cfg, device="cpu")
+    if quant == "static":
+        gc = torch.Generator(device="cuda").manual_seed(5)
+        attach_act_scales(gpu, calibrate_act_scales(gpu, [
+            synthetic_frame(gc, t, views=2, height=64, width=128,
+                            device="cuda") for t in range(2)]))
     cpu.load_state_dict(gpu.state_dict())
     precast_backbone_(gpu)
     precast_backbone_(cpu)
@@ -508,10 +795,10 @@ def phase_small_agreement():
             toc3d_vit.selector_score = selector
             streampetr_head.propagated_queries = propagated
             for i, (card, own) in enumerate(zip(card_sel, cpu_pred)):
-                ok &= compare(f"frame {t} selector {i} scores (tiny)",
-                              card[1].cpu(), own)[0]
-            ok &= compare(f"frame {t} neck features (tiny)", featg.cpu(),
-                          featc)[0]
+                ok &= compare(f"frame {t} selector {i} scores ({tag})",
+                              card[1].cpu(), own, tol)[0]
+            ok &= compare(f"frame {t} neck features ({tag})", featg.cpu(),
+                          featc, tol)[0]
             free = ((featw - featg.cpu()).abs().mean()
                     / featg.abs().mean()).item()
             rec, own_idx = cpu_bank[-1]
@@ -522,16 +809,16 @@ def phase_small_agreement():
             flips = int((~taken.gather(1, own_idx)).sum())
             bank_ok = gap <= 0.01
             ok &= bank_ok
-            log(f"frame {t} bank choice (tiny): best query left out beats "
+            log(f"frame {t} bank choice ({tag}): best query left out beats "
                 f"the worst taken by {gap:.6g} (tol 0.01) "
                 f"{'ok' if bank_ok else 'FAIL'}; the CPU's own top-k "
                 f"differs in {flips} of {own_idx.numel()}; neck features "
                 f"with the CPU's own routing: mean |d| {free:.4%} of mean "
                 f"|card|")
             for name in ("embedding", "reference_point", "velo"):
-                ok &= compare(f"frame {t} memory {name} (tiny)",
+                ok &= compare(f"frame {t} memory {name} ({tag})",
                               getattr(sg.memory, name).cpu(),
-                              getattr(sc.memory, name))[0]
+                              getattr(sc.memory, name), tol)[0]
             score_abs = max(score_abs,
                             (dg.scores.cpu() - dc.scores).abs().max().item())
             ok &= bool(torch.isfinite(dg.scores).all())
@@ -539,7 +826,7 @@ def phase_small_agreement():
         toc3d_vit.selector_score = selector
         streampetr_head.propagated_queries = propagated
     ok &= score_abs <= 0.01
-    log(f"small-input agreement (tiny, bf16, card vs CPU plain, 3 frames): "
+    log(f"small-input agreement ({tag}, bf16, card vs CPU plain, 3 frames): "
         f"decoded scores max |d| {score_abs:.6g} (tol 0.01) "
         f"{'ok' if ok else 'FAIL'}")
     return ok
@@ -568,18 +855,25 @@ def main() -> int:
     results = {}
     with torch.no_grad():
         ok_k = phase_kernels(model, results)
-        ok_m = phase_main_path(model, results)
+        ok_k8 = phase_kernels_int8(model, results)
+        ok_m, bf16_dets = phase_main_path(model, results)
         del model
         torch.cuda.empty_cache()
+        ok_m8 = phase_main_path_int8(results, bf16_dets)
+        del bf16_dets
+        torch.cuda.empty_cache()
         ok_s = phase_small_agreement()
-    if not (ok_k and ok_m and ok_s):
-        log(f"chip_smoke: FAILED (kernels {ok_k}, main path {ok_m}, "
-            f"small-input agreement {ok_s})")
+        ok_s8 = all([phase_small_agreement("dynamic"),
+                     phase_small_agreement("static")])
+    if not (ok_k and ok_k8 and ok_m and ok_m8 and ok_s and ok_s8):
+        log(f"chip_smoke: FAILED (kernels {ok_k}, int8 kernels {ok_k8}, "
+            f"main path {ok_m}, int8 main path {ok_m8}, small-input "
+            f"agreement {ok_s}, int8 small-input agreement {ok_s8})")
         return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     log(json.dumps({"kernels": [{k: results[r][k] for k in keys}
-                                for r in "ABCD"]}))
+                                for r in KERNELS]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

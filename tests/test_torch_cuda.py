@@ -1,10 +1,12 @@
-"""The port's four CUDA kernels (toc3d_tpu_torch/ops/cuda) against their
-plain PyTorch versions on the card, at small shapes that reach the edge
-cases the main path of chip_smoke.py does not: ragged maps with
-zero-padded edge windows, compressed blocks with and without the
-representative token and with RoPE off, ws 16 with and without
-mxu_align_k, head dims 32 and 64, and key counts that are not a multiple
-of the flash kernel's key tile.
+"""The port's CUDA kernels (toc3d_tpu_torch/ops/cuda) against their plain
+PyTorch versions on the card, at small shapes that reach the edge cases the
+main path of chip_smoke.py does not: ragged maps with zero-padded edge
+windows, compressed blocks with and without the representative token and
+with RoPE off, ws 16 with and without mxu_align_k, head dims 32 and 64, and
+key counts that are not a multiple of the flash kernel's key tile. The int8
+forms B8 / C8 (dynamic and static) and their parts: the int8 GEMM with
+every epilogue (K not a multiple of the 64-deep tile, M = 1), the
+quantizing LayerNorm and row quantization, and the head's int8 linear.
 
 Every test needs a CUDA card and skips without one. This file imports no
 JAX, so a GPU host without JAX runs it (the tests' conftest.py imports JAX,
@@ -20,8 +22,10 @@ activation can pass through LayerNorm and softmax).
 import pytest
 import torch
 
-from toc3d_tpu_torch.models.eva_vit import Block, EVAViTConfig
-from toc3d_tpu_torch.ops.cuda import cross_attn, patch_embed, vit_block
+from toc3d_tpu_torch.layers import quantize_linear
+from toc3d_tpu_torch.models.eva_vit import Block, EVAViTConfig, set_act_scales
+from toc3d_tpu_torch.ops.cuda import cross_attn, int8, patch_embed, vit_block
+from toc3d_tpu_torch.ops.int8_calib import full_block_site_amax
 from toc3d_tpu_torch.ops.rope import build_rope_table
 
 BF = torch.bfloat16
@@ -177,3 +181,147 @@ def test_cuda_tensor_never_takes_the_plain_path(dev):
     with pytest.raises(ValueError):
         vit_block.fused_full_block(blk, torch.randn(1, 4, 4, 64, device=dev),
                                    2, 4, None)
+    with pytest.raises(ValueError):
+        vit_block.fused_full_block_int8(
+            blk, torch.randn(1, 4, 4, 64, device=dev), 2, 4, None)
+    with pytest.raises(ValueError):
+        int8.row_quant(torch.randn(4, 64, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# int8: B8 / C8 and their kernels
+# ---------------------------------------------------------------------------
+
+def _calibrate(blk, x, heads, ws, tables):
+    """Static site scales of blk from its own input (plain probe)."""
+    amax = full_block_site_amax(blk, x, heads, ws, tables)
+    set_act_scales(blk, (amax.float() / 127.0).tolist())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("shape,c,heads,hidden,ws", [
+    ((2, 7, 11), 64, 2, 170, 4),      # ragged map, edge pads, hp 176
+    ((1, 20, 20), 128, 2, 256, 16),   # head_dim 64, ws 16
+])
+def test_full_block_int8_kernel(dev, shape, c, heads, hidden, ws, static):
+    blk = _block(c, heads, hidden, 5, dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = (torch.randn(*shape, c, device=dev, generator=g) * 0.5).to(BF)
+    tables = _rope(c, heads, ws, dev)
+    if static:
+        _calibrate(blk, x, heads, ws, tables)
+    out = _counted(vit_block.fused_full_block_int8, blk, x, heads, ws, tables)
+    wts = vit_block.pack_block_weights_int8(blk, heads, BF)
+    assert vit_block.is_quantized(wts) == ("static" if static else "dynamic")
+    _close(out, vit_block.full_block_plain(wts, x, heads, ws, tables))
+    _close(vit_block.attention_delta(blk, x, heads, ws, tables, int8=True),
+           vit_block.attention_delta_plain(wts, x, heads, ws, tables))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("shape,c,heads,hidden,ws,use_rep,align", [
+    ((2, 7, 10), 64, 2, 170, 4, True, True),
+    ((2, 7, 10), 64, 2, 170, 4, False, True),
+    ((1, 20, 20), 128, 2, 256, 16, True, True),    # k = 127
+])
+def test_compressed_block_int8_kernel(dev, shape, c, heads, hidden, ws,
+                                      use_rep, align, static):
+    blk = _block(c, heads, hidden, 6, dev)
+    g = torch.Generator(device=dev).manual_seed(6)
+    b, h, w = shape
+    x = (torch.randn(b, h, w, c, device=dev, generator=g) * 0.5).to(BF)
+    scores = torch.randn(b, h * w, device=dev, generator=g).to(BF)
+    tables = _rope(c, heads, ws, dev)
+    if static:
+        _calibrate(blk, x, heads, ws, tables)
+    out = _counted(vit_block.fused_compressed_block_int8, blk, x, scores,
+                   heads, ws, 0.5, tables, use_rep, True, align)
+    plan = vit_block.compress_plan(scores, b, h, w, ws, 0.5, use_rep, align)
+    wts = vit_block.pack_block_weights_int8(blk, heads, BF)
+    _close(out, vit_block.compressed_block_plain(wts, x, plan, heads, ws,
+                                                 tables))
+    _close(vit_block.attention_delta(blk, x, heads, ws, tables, plan,
+                                     int8=True),
+           vit_block.attention_delta_plain(wts, x, heads, ws, tables, plan))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epi", ["plain", "bias", "res", "gate", "f32",
+                                 "head", "static"])
+@pytest.mark.parametrize("m,n,k", [(1, 64, 48), (130, 96, 80),
+                                   (257, 272, 1040)])
+def test_int8_gemm_kernel(dev, m, n, k, epi):
+    """Every epilogue of the int8 GEMM. The int32 sums are exact on both
+    sides and the dequantization is the same f32 product, so the f32 and
+    bias outputs must be equal; the rest round to bf16 the same way, and
+    the gate's silu may differ in its last f32 bit."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    aq = torch.randint(-127, 128, (m, k), device=dev, generator=g,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, k), device=dev, generator=g,
+                       dtype=torch.int8)
+    xs = torch.rand(1 if epi == "static" else m, device=dev,
+                    generator=g) * 0.01 + 1e-3
+    ws = torch.rand(n, device=dev, generator=g) * 1e-3 + 1e-4
+    bias = torch.randn(n, device=dev, generator=g)
+    res = torch.randn(m, n, device=dev, generator=g).to(BF)
+    kw = dict(bias=None if epi == "plain" else bias,
+              res=res if epi == "res" else None, out_f32=epi == "f32",
+              gate=epi == "gate", head=epi == "head")
+    out = int8.gemm_s8(aq, xs, wq, ws, **kw)
+    ref = int8.gemm_s8_plain(aq, xs, wq, ws, **kw)
+    if epi in ("f32", "bias", "plain", "static", "head"):
+        assert torch.equal(out, ref.to(out.dtype))
+    else:
+        _close(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,static", [(1, 64, False), (37, 2736, False),
+                                           (37, 1024, True), (5, 258, False)])
+def test_row_quant_kernel(dev, rows, n, static):
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = (torch.randn(rows, n, device=dev, generator=g) * 3).to(BF)
+    sc = torch.tensor([0.05], device=dev) if static else None
+    q, s = int8.row_quant(x, sc)
+    qr, sr = (int8.statquant(x, sc) if static else int8.rowquant(x))
+    assert torch.equal(s, sr.reshape(s.shape))
+    assert torch.equal(q, qr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,static,res", [
+    (1, 64, False, False), (37, 1024, False, True), (37, 1024, True, False),
+    (9, 2730, False, False), (9, 2730, True, True)])
+def test_layernorm_int8_kernel(dev, rows, n, static, res):
+    """The quantizing LayerNorm: the LN in f32 statistics may differ from
+    the plain version's in the last bit, which can flip a bf16 rounding and
+    with it an int8 step, so q may differ by one step in a few places."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = (torch.randn(rows, n, device=dev, generator=g) * 2).to(BF)
+    r = (torch.randn(rows, n, device=dev, generator=g)).to(BF) if res \
+        else None
+    wgt = 1 + 0.1 * torch.randn(n, device=dev, generator=g)
+    bias = 0.1 * torch.randn(n, device=dev, generator=g)
+    sc = torch.tensor([0.04], device=dev) if static else None
+    q, s = vit_block.layernorm_int8(x, wgt, bias, sc, r)
+    qr, sr = vit_block.layernorm_int8_plain(x, wgt, bias, sc, r)
+    torch.testing.assert_close(s, sr.reshape(s.shape), rtol=2 ** -7, atol=0)
+    d = (q.int() - qr.int()).abs()
+    assert d.max().item() <= 1 and d.float().mean().item() <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1, 64), (2, 37, 64), (1, 300, 256)])
+def test_int8_linear_kernel(dev, shape):
+    """The head decoder's int8 linear: row quantization, int8 GEMM, the
+    head's product order and bias rounding."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    cin = shape[-1]
+    x = torch.randn(*shape, device=dev, generator=g).to(BF)
+    p = quantize_linear(torch.randn(96, cin, device=dev, generator=g) * 0.05,
+                        torch.randn(96, device=dev, generator=g))
+    out = _counted(int8.int8_linear, x, p)
+    assert torch.equal(out, int8.int8_linear_plain(x, p))

@@ -8,11 +8,15 @@ the JAX converter's conventions (runtime/checkpoint.py:1-16): a Linear ``w``
 is (in, out) and becomes the torch (out, in) weight; a conv ``w`` is
 (kh, kw, in, out) and becomes (out, in, kh, kw); MHA q/k/v pack into
 in_proj_weight / in_proj_bias; the shared cls/reg branches go to index 0.
+Calibrated int8 activation scales (``img_backbone.act_scales``) become each
+block's ``act_scales`` entry.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .ops.cuda.int8 import SITES
 
 
 def _t(a):
@@ -84,6 +88,11 @@ def params_from_jax(params_np, cfg) -> dict:
     for i, blk in enumerate(bb["blocks"]):
         for k, v in block_state_from_jax(blk).items():
             o.sd[f"img_backbone.blocks.{i}.{k}"] = v
+    # calibrated int8 activation scales (ops/int8_calib.attach_act_scales):
+    # one (4,) f32 vector per block in SITES order
+    for i, s in enumerate(bb.get("act_scales", [])):
+        o.put(f"img_backbone.blocks.{i}.act_scales",
+              [np.asarray(s[k]).reshape(()) for k in SITES])
     for i, s in enumerate(bb.get("score_predictor", [])):
         pre = f"img_backbone.score_predictor.{i}."
         sm = s["score_mlp"]

@@ -1,38 +1,62 @@
-// Tiled bf16 x bf16 -> f32 GEMM with fused epilogues, shared by the patch
-// embedding (patch_embed.cu) and the ViT block kernels (vit_block.cu).
+// Tiled tensor-core GEMM with fused epilogues, shared by the patch embedding
+// (patch_embed.cu), the ViT block kernels and the int8 linears (vit_block.cu).
 //
 //   C[m, n] = epilogue( sum_k A[m, k] * B[n, k] )
 //
-// A is row-major (M, K) — or, with PATCH, the implicit im2col view of a
-// channel-last (img, H, W, 3) image, read straight from the image — and B is
-// a torch Linear weight (N, K), row-major, i.e. the "col" operand of the
-// tensor-core product. Tiles of 128 x 128 x 32 go through a 3-stage cp.async
-// ring in shared memory; 8 warps each own a 64 x 32 slice of the output,
-// fed by ldmatrix and multiplied with mma.sync m16n8k16 (f32 accumulators
-// in registers). The epilogue works on each thread's column pairs straight
-// from the accumulator registers:
-//   bias  : + bias[n] (f32)
+// The operand type T is bf16 (f32 accumulators, mma.sync m16n8k16) or int8
+// (int32 accumulators, mma.sync m16n8k32 s8.s8.s32). A is row-major (M, K) —
+// or, with PATCH (bf16 only), the implicit im2col view of a channel-last
+// (img, H, W, 3) image, read straight from the image — and B is a torch
+// Linear weight (N, K), row-major, i.e. the "col" operand of the tensor-core
+// product. Tiles of 128 x 128 x 64 bytes (32 bf16 or 64 int8 along K) go
+// through a 3-stage cp.async ring in shared memory; 8 warps each own a
+// 64 x 32 slice of the output, fed by ldmatrix. The two types share one
+// shared-memory layout in bytes: ldmatrix's 8x8 b16 tiles hold, lane for
+// lane, the fragments of m16n8k32 s8 as they hold those of m16n8k16 bf16.
+// The epilogue works on each thread's column pairs straight from the
+// accumulator registers:
+//   int8  : v = float(acc) * (xs[m] * ws[n])  (xs: the row's activation
+//           scale, or the one static scale; the product order of
+//           ops/pallas/vit_block.py _qmm); with head, (float(acc) * xs[m])
+//           * ws[n] (layers.py _int8_matmul)
+//   bias  : + bias[n] (f32); with head, bf16(bf16(v) + bf16(bias[n])), the
+//           linear's bias added after the cast to the activation dtype
 //   res   : t = bf16(acc + bias); out = bf16(t + res[m, n])   (residual add)
 //   gate  : columns come in interleaved pairs (2j, 2j+1) = (w1 row j, w2 row
 //           j); out[m, j] = bf16(bf16(silu(bf16(a))) * bf16(b)), width N/2
 //   out_f32: store acc + bias as f32 (no rounding)
-// Requirements (checked by the Python wrappers): K % 8 == 0, lda/ldb % 8 ==
-// 0, 16-byte aligned bases, N and ldc/ldr even.
+// Requirements (checked by the Python wrappers): K a multiple of one 16-byte
+// chunk (8 bf16, 16 int8), lda/ldb likewise, 16-byte aligned bases, N and
+// ldc/ldr even.
 #pragma once
 
 #include "common.cuh"
 
 namespace gemm {
 
-constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3, THREADS = 256;
-constexpr int LDS = BK + 8;  // bf16 elements per smem row (80 B, skewed)
-constexpr int PIPE_BYTES = STAGES * (BM + BN) * LDS * 2;
+constexpr int BM = 128, BN = 128, STAGES = 3, THREADS = 256;
+constexpr int BKB = 64;           // bytes of K per tile
+constexpr int LDSB = BKB + 16;    // bytes per smem row (80 B, skewed)
+constexpr int PIPE_BYTES = STAGES * (BM + BN) * LDSB;
 constexpr int SMEM_BYTES = PIPE_BYTES;
 
+template <typename T>
+struct Op;
+template <>
+struct Op<bf16> {
+  typedef float Acc;
+  static constexpr int EPC = 8;   // elements per 16-byte chunk
+};
+template <>
+struct Op<int8_t> {
+  typedef int Acc;
+  static constexpr int EPC = 16;
+};
+
 struct Args {
-  const bf16* A;
+  const void* A;
   long long lda;
-  const bf16* B;
+  const void* B;
   long long ldb;
   const float* bias;
   const bf16* res;
@@ -44,11 +68,18 @@ struct Args {
   int gate;
   // PATCH: the image is (nimg, pH, pW, 3); patch grid pgh x pgw; patch ps
   int pH, pW, pgh, pgw, ps;
+  // int8 dequantization: xs[xs_row ? m : 0] * ws[n]; head: product order
+  // and bias rounding of the head's int8 linears (see above)
+  const float* xs = nullptr;
+  int xs_row = 0;
+  const float* ws = nullptr;
+  int head = 0;
 };
 
-template <bool PATCH>
-__device__ __forceinline__ const bf16* a_ptr(const Args& a, int m, int k) {
-  if (!PATCH) return a.A + (long long)m * a.lda + k;
+template <bool PATCH, typename T>
+__device__ __forceinline__ const T* a_ptr(const Args& a, int m, int k) {
+  const T* A = static_cast<const T*>(a.A);
+  if (!PATCH) return A + (long long)m * a.lda + k;
   const int per = a.pgh * a.pgw;
   const int b = m / per;
   const int rem = m - b * per;
@@ -58,29 +89,33 @@ __device__ __forceinline__ const bf16* a_ptr(const Args& a, int m, int k) {
   const int r = k / rowlen;
   const int within = k - r * rowlen;
   const long long y = (long long)b * a.pH + (long long)i * a.ps + r;
-  return a.A + (y * a.pW + (long long)j * a.ps) * 3 + within;
+  return A + (y * a.pW + (long long)j * a.ps) * 3 + within;
 }
 
-template <bool PATCH>
-__device__ __forceinline__ void load_tile(const Args& a, bf16* As, bf16* Bs,
-                                          int m0, int n0, int k0, int tid) {
+template <bool PATCH, typename T>
+__device__ __forceinline__ void load_tile(const Args& a, unsigned char* As,
+                                          unsigned char* Bs, int m0, int n0,
+                                          int k0, int tid) {
+  constexpr int EPC = Op<T>::EPC;
+  constexpr int CPR = BKB / 16;      // 16-byte chunks per tile row
+  const T* B = static_cast<const T*>(a.B);
 #pragma unroll
-  for (int c = tid; c < BM * (BK / 8); c += THREADS) {
-    const int r = c / (BK / 8);
-    const int kc = (c % (BK / 8)) * 8;
+  for (int c = tid; c < BM * CPR; c += THREADS) {
+    const int r = c / CPR;
+    const int kc = (c % CPR) * EPC;
     const int m = m0 + r, k = k0 + kc;
     const bool ok = (m < a.M) && (k < a.K);
-    const bf16* src = ok ? a_ptr<PATCH>(a, m, k) : a.A;
-    cp_async16(As + r * LDS + kc, src, ok);
+    const T* src = ok ? a_ptr<PATCH, T>(a, m, k) : static_cast<const T*>(a.A);
+    cp_async16(As + r * LDSB + (c % CPR) * 16, src, ok);
   }
 #pragma unroll
-  for (int c = tid; c < BN * (BK / 8); c += THREADS) {
-    const int r = c / (BK / 8);
-    const int kc = (c % (BK / 8)) * 8;
+  for (int c = tid; c < BN * CPR; c += THREADS) {
+    const int r = c / CPR;
+    const int kc = (c % CPR) * EPC;
     const int n = n0 + r, k = k0 + kc;
     const bool ok = (n < a.N) && (k < a.K);
-    const bf16* src = ok ? a.B + (long long)n * a.ldb + k : a.B;
-    cp_async16(Bs + r * LDS + kc, src, ok);
+    const T* src = ok ? B + (long long)n * a.ldb + k : B;
+    cp_async16(Bs + r * LDSB + (c % CPR) * 16, src, ok);
   }
 }
 
@@ -93,8 +128,8 @@ __device__ __forceinline__ void ldmatrix_x4(unsigned* r, const void* smem) {
 }
 
 // D = A (16x16 bf16, row) * B (16x8 bf16, col) + D (16x8 f32)
-__device__ __forceinline__ void mma_16816(float* d, const unsigned* a,
-                                          const unsigned* b) {
+__device__ __forceinline__ void mma(float* d, const unsigned* a,
+                                    const unsigned* b) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
@@ -102,13 +137,38 @@ __device__ __forceinline__ void mma_16816(float* d, const unsigned* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// D = A (16x32 s8, row) * B (32x8 s8, col) + D (16x8 s32)
+__device__ __forceinline__ void mma(int* d, const unsigned* a,
+                                    const unsigned* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 // the accumulator pair (v0, v1) of row gm, columns gn and gn + 1 (gn even)
 __device__ __forceinline__ void epilogue2(const Args& a, int gm, int gn,
                                           float v0, float v1) {
   if (gm >= a.M || gn >= a.N) return;
+  if (a.ws) {
+    const float xm = a.xs[a.xs_row ? gm : 0];
+    if (a.head) {
+      v0 = __fmul_rn(__fmul_rn(v0, xm), a.ws[gn]);
+      v1 = __fmul_rn(__fmul_rn(v1, xm), a.ws[gn + 1]);
+    } else {
+      v0 = __fmul_rn(v0, __fmul_rn(xm, a.ws[gn]));
+      v1 = __fmul_rn(v1, __fmul_rn(xm, a.ws[gn + 1]));
+    }
+  }
   if (a.bias) {
-    v0 += a.bias[gn];
-    v1 += a.bias[gn + 1];
+    if (a.head) {
+      v0 = bfr(v0) + bfr(a.bias[gn]);
+      v1 = bfr(v1) + bfr(a.bias[gn + 1]);
+    } else {
+      v0 += a.bias[gn];
+      v1 += a.bias[gn + 1];
+    }
   }
   if (a.gate) {
     const float x1 = bfr(v0), x2 = bfr(v1);
@@ -133,61 +193,62 @@ __device__ __forceinline__ void epilogue2(const Args& a, int gm, int gn,
                             gn) = __floats2bfloat162_rn(v0, v1);
 }
 
-template <bool PATCH>
+template <bool PATCH, typename T>
 __global__ void __launch_bounds__(THREADS) gemm_kernel(Args a) {
+  typedef typename Op<T>::Acc Acc;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sm = reinterpret_cast<bf16*>(smem_raw);
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int wm = warp >> 2, wn = warp & 3;   // warp tile: 64 rows x 32 cols
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  constexpr int BK = BKB / sizeof(T);        // K elements per tile
 
-  float acc[4][4][4];
+  Acc acc[4][4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = Acc(0);
 
   const int kt_n = (a.K + BK - 1) / BK;
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < kt_n) {
-      bf16* As = sm + s * (BM + BN) * LDS;
-      load_tile<PATCH>(a, As, As + BM * LDS, m0, n0, s * BK, tid);
+      unsigned char* As = smem_raw + s * (BM + BN) * LDSB;
+      load_tile<PATCH, T>(a, As, As + BM * LDSB, m0, n0, s * BK, tid);
     }
     cp_async_commit();
   }
 
-  // ldmatrix lane addressing: A tiles as four 8x8 matrices (rows 0-7 /
-  // 8-15 x cols 0-7 / 8-15); B (stored n-major) the same on (n, k)
+  // ldmatrix lane addressing (bytes): A tiles as four 8x8 b16 matrices
+  // (rows 0-7 / 8-15 x 16-byte halves); B (stored n-major) the same on (n, k)
   const int a_row = (lane & 7) + 8 * ((lane >> 3) & 1);
-  const int a_col = 8 * (lane >> 4);
+  const int a_col = 16 * (lane >> 4);
   const int b_row = (lane & 7) + 8 * (lane >> 4);
-  const int b_col = 8 * ((lane >> 3) & 1);
+  const int b_col = 16 * ((lane >> 3) & 1);
 
   for (int kt = 0; kt < kt_n; ++kt) {
     cp_async_wait<STAGES - 2>();
     __syncthreads();
     const int nk = kt + STAGES - 1;
     if (nk < kt_n) {
-      bf16* As = sm + (nk % STAGES) * (BM + BN) * LDS;
-      load_tile<PATCH>(a, As, As + BM * LDS, m0, n0, nk * BK, tid);
+      unsigned char* As = smem_raw + (nk % STAGES) * (BM + BN) * LDSB;
+      load_tile<PATCH, T>(a, As, As + BM * LDSB, m0, n0, nk * BK, tid);
     }
     cp_async_commit();
-    const bf16* As = sm + (kt % STAGES) * (BM + BN) * LDS;
-    const bf16* Bs = As + BM * LDS;
+    const unsigned char* As = smem_raw + (kt % STAGES) * (BM + BN) * LDSB;
+    const unsigned char* Bs = As + BM * LDSB;
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
+    for (int kk = 0; kk < BKB; kk += 32) {   // one mma depth = 32 bytes
       unsigned af[4][4], bq[4][2];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        ldmatrix_x4(af[i], As + (wm * 64 + i * 16 + a_row) * LDS + kk + a_col);
+        ldmatrix_x4(af[i], As + (wm * 64 + i * 16 + a_row) * LDSB + kk + a_col);
 #pragma unroll
       for (int jj = 0; jj < 2; ++jj) {
         unsigned r[4];
-        ldmatrix_x4(r, Bs + (wn * 32 + jj * 16 + b_row) * LDS + kk + b_col);
+        ldmatrix_x4(r, Bs + (wn * 32 + jj * 16 + b_row) * LDSB + kk + b_col);
         bq[2 * jj][0] = r[0];
         bq[2 * jj][1] = r[1];
         bq[2 * jj + 1][0] = r[2];
@@ -196,7 +257,7 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(Args a) {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) mma_16816(acc[i][j], af[i], bq[j]);
+        for (int j = 0; j < 4; ++j) mma(acc[i][j], af[i], bq[j]);
     }
   }
   cp_async_wait<0>();
@@ -209,25 +270,25 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(Args a) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int gn = n0 + wn * 32 + j * 8 + 2 * t;
-      epilogue2(a, gm, gn, acc[i][j][0], acc[i][j][1]);
-      epilogue2(a, gm + 8, gn, acc[i][j][2], acc[i][j][3]);
+      epilogue2(a, gm, gn, float(acc[i][j][0]), float(acc[i][j][1]));
+      epilogue2(a, gm + 8, gn, float(acc[i][j][2]), float(acc[i][j][3]));
     }
   }
 }
 
-template <bool PATCH>
+template <bool PATCH, typename T = bf16>
 inline int launch(const Args& a, cudaStream_t stream) {
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        gemm_kernel<PATCH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        gemm_kernel<PATCH, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         SMEM_BYTES);
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set = true;
   }
   if (a.M <= 0 || a.N <= 0) return static_cast<int>(cudaGetLastError());
   dim3 grid((a.N + BN - 1) / BN, (a.M + BM - 1) / BM);
-  gemm_kernel<PATCH><<<grid, THREADS, SMEM_BYTES, stream>>>(a);
+  gemm_kernel<PATCH, T><<<grid, THREADS, SMEM_BYTES, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

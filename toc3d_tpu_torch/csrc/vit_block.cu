@@ -1,6 +1,7 @@
 // EVA-02 ViT block kernels: the full windowed block and the ToC3D
 // token-compressed block, each as a short chain of launches of the kernels
-// below (toc3d_tpu_torch/ops/cuda/vit_block.py drives the chain).
+// below (toc3d_tpu_torch/ops/cuda/vit_block.py drives the chain), in bf16
+// (kernels B, C) and with int8 weight matmuls (kernels B8, C8).
 //
 // Replaces:
 //   toc3d_tpu/ops/pallas/vit_block.py :: fused_full_block (pallas_call :639,
@@ -9,6 +10,8 @@
 //     :906, bodies _compressed_block_kernel :682 /
 //     _compressed_block_stripe_kernel :728, build_gather_matrix :795,
 //     _rope_rows :662)
+//   and their int8 bodies (quant=True in the same two pallas_calls:
+//     _actquant :271 over _rowquant :247 / _statquant :259, _qmm :277)
 //
 // Bound on the H100 at the main-path shape (ViT-L, C = 1024, hidden 2730,
 // 6 x 50 x 100 tokens): a full block is ~0.78 TFLOP of matmul per call
@@ -16,7 +19,9 @@
 // 989 TFLOP/s, against ~0.12 GB of compulsory traffic (x in and out plus
 // 25 MB of weights, ~0.04 ms): operations bound. The compressed blocks do
 // the same per kept row on (k+1)/n of the tokens and are operations bound
-// too (see chip_smoke.py for the per-call counts).
+// too (see chip_smoke.py for the per-call counts). With int8 weights the
+// seven weight matmuls run at twice the rate (1979 TOP/s) and the window
+// attention stays bf16, so B8 and C8 are still operations bound.
 //
 // Design: the TPU kernel keeps a whole window resident in VMEM and does
 // every matmul inside one grid step. On Hopper the per-token matmuls
@@ -26,7 +31,15 @@
 //   layernorm_kernel      LN with f32 two-pass statistics (optionally adds
 //                         a residual first and stores the sum); rows past
 //                         valid_rows read as zero, so LN(0) = beta is the
-//                         row of every zero-padded edge token
+//                         row of every zero-padded edge token. For int8 it
+//                         writes the bf16-rounded output quantized to int8
+//                         instead, with a per-row scale (dynamic) or the
+//                         calibrated scale of the site (static): the
+//                         attn_in, mlp_in and ffn_in sites
+//   rowquant_kernel       the same quantization of a bf16 matrix: the
+//                         proj_in site (the merged attention output, whole
+//                         only after every head has run) and the inputs of
+//                         the head decoder's int8 linears
 //   window_attention_kernel  one (window, head) per block: loads the
 //                         window's q/k/v rows (by window geometry, or dense
 //                         for compressed rows), applies pairwise RoPE in
@@ -42,6 +55,11 @@
 //                         becomes x + (raw1 + raw2) of the representative
 // Full blocks skip the zero-pad materialisation: the attention kernel reads
 // out-of-image tokens from one extra QKV row computed from LN(0).
+//
+// int8 quantization, exactly as the TPU kernel: dynamic rows are
+// round(x * (127 / a)) with a = max(amax, 1e-6) and scale a * (1/127);
+// static rows round(x * (1 / s)); both clipped to +-127, rounding half to
+// even (rintf). The divisions are IEEE (no fast math in NVCC_FLAGS).
 #include "gemm.cuh"
 
 // ---------------------------------------------------------------------------
@@ -63,12 +81,35 @@ __device__ __forceinline__ float2 ln_load(const bf16* x, long long ldx,
   return a;
 }
 
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ signed char quant8(float v) {
+  return static_cast<signed char>(
+      static_cast<int>(fminf(fmaxf(rintf(v), -127.f), 127.f)));
+}
+
+// the multiplier that quantizes a row: 1 / s for a static scale s, else
+// 127 / max(amax, 1e-6) (the row's scale a * (1/127) goes to *scale_out)
+__device__ __forceinline__ float quant_inv(const float* sscale, float amax,
+                                           float* scale_out, int lane) {
+  if (sscale) return 1.0f / sscale[0];
+  const float a = fmaxf(amax, 1e-6f);
+  if (lane == 0) *scale_out = a * (1.0f / 127.0f);
+  return 127.0f / a;
+}
+
 __global__ void layernorm_kernel(const bf16* x, long long ldx, const bf16* res,
                                  long long ldres, bf16* sum_out,
                                  long long ldsum, const float* gamma,
                                  const float* beta, bf16* y, long long ldy,
-                                 int rows, int valid_rows, int n, int npad,
-                                 float eps) {
+                                 signed char* yq, float* yscale,
+                                 const float* sscale, int rows,
+                                 int valid_rows, int n, int npad, float eps) {
   const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (warp >= rows) return;
@@ -87,35 +128,103 @@ __global__ void layernorm_kernel(const bf16* x, long long ldx, const bf16* res,
     q += dx * dx + dy * dy;
   }
   const float rstd = rsqrtf(warp_sum(q) / n + eps);
+  float inv = 0.f;
+  if (yq) {
+    // int8 output: quantize the LN output as rounded to bf16 (the TPU
+    // kernel quantizes the activation-dtype value), amax over those values
+    float amax = 0.f;
+    if (!sscale) {
+      for (int c = lane * 2; c < n; c += 64) {
+        float2 v = ln_load(x, ldx, res, ldres, row, c, valid);
+        amax = fmaxf(amax, fabsf(bfr((v.x - mu) * rstd * gamma[c] + beta[c])));
+        amax = fmaxf(amax, fabsf(bfr((v.y - mu) * rstd * gamma[c + 1] +
+                                     beta[c + 1])));
+      }
+      amax = warp_max(amax);
+    }
+    inv = quant_inv(sscale, amax, yscale ? yscale + row : nullptr, lane);
+  }
   for (int c = lane * 2; c < npad; c += 64) {
-    bf162 o;
+    float o0 = 0.f, o1 = 0.f;
     if (c < n) {
       float2 v = ln_load(x, ldx, res, ldres, row, c, valid);
       if (sum_out && valid)
         *reinterpret_cast<bf162*>(sum_out + row * ldsum + c) =
             __floats2bfloat162_rn(v.x, v.y);
-      o = __floats2bfloat162_rn((v.x - mu) * rstd * gamma[c] + beta[c],
-                                (v.y - mu) * rstd * gamma[c + 1] + beta[c + 1]);
-    } else {
-      o = __floats2bfloat162_rn(0.f, 0.f);
+      o0 = (v.x - mu) * rstd * gamma[c] + beta[c];
+      o1 = (v.y - mu) * rstd * gamma[c + 1] + beta[c + 1];
     }
-    *reinterpret_cast<bf162*>(y + row * ldy + c) = o;
+    if (yq) {
+      char2 o;
+      o.x = c < n ? quant8(bfr(o0) * inv) : 0;
+      o.y = c < n ? quant8(bfr(o1) * inv) : 0;
+      *reinterpret_cast<char2*>(yq + row * ldy + c) = o;
+    } else {
+      *reinterpret_cast<bf162*>(y + row * ldy + c) =
+          __floats2bfloat162_rn(o0, o1);
+    }
   }
 }
 
 TOC3D_EXPORT int toc3d_layernorm(const void* x, int ldx, const void* res,
                                  int ldres, void* sum_out, int ldsum,
                                  const void* gamma, const void* beta, void* y,
-                                 int ldy, int rows, int valid_rows, int n,
-                                 int npad, float eps, void* stream) {
+                                 int ldy, void* yq, void* yscale,
+                                 const void* sscale, int rows, int valid_rows,
+                                 int n, int npad, float eps, void* stream) {
   const int threads = 256;
   const int blocks = (rows + (threads / 32) - 1) / (threads / 32);
   if (blocks > 0)
     layernorm_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const bf16*>(x), ldx, static_cast<const bf16*>(res), ldres,
         static_cast<bf16*>(sum_out), ldsum, static_cast<const float*>(gamma),
-        static_cast<const float*>(beta), static_cast<bf16*>(y), ldy, rows,
-        valid_rows, n, npad, eps);
+        static_cast<const float*>(beta), static_cast<bf16*>(y), ldy,
+        static_cast<signed char*>(yq), static_cast<float*>(yscale),
+        static_cast<const float*>(sscale), rows, valid_rows, n, npad, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// row quantization (one warp per row)
+// ---------------------------------------------------------------------------
+
+__global__ void rowquant_kernel(const bf16* x, long long ldx, int rows, int n,
+                                const float* sscale, signed char* q,
+                                long long ldq, float* scale) {
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp >= rows) return;
+  const long long row = warp;
+  const bf16* xr = x + row * ldx;
+  float amax = 0.f;
+  if (!sscale) {
+    for (int c = lane * 2; c < n; c += 64) {
+      const float2 v = __bfloat1622float2(*reinterpret_cast<const bf162*>(xr + c));
+      amax = fmaxf(amax, fmaxf(fabsf(v.x), fabsf(v.y)));
+    }
+    amax = warp_max(amax);
+  }
+  const float inv = quant_inv(sscale, amax, scale ? scale + row : nullptr,
+                              lane);
+  for (int c = lane * 2; c < n; c += 64) {
+    const float2 v = __bfloat1622float2(*reinterpret_cast<const bf162*>(xr + c));
+    char2 o;
+    o.x = quant8(v.x * inv);
+    o.y = quant8(v.y * inv);
+    *reinterpret_cast<char2*>(q + row * ldq + c) = o;
+  }
+}
+
+TOC3D_EXPORT int toc3d_rowquant(const void* x, int ldx, int rows, int n,
+                                const void* sscale, void* q, int ldq,
+                                void* scale, void* stream) {
+  const int threads = 256;
+  const int blocks = (rows + (threads / 32) - 1) / (threads / 32);
+  if (blocks > 0)
+    rowquant_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const bf16*>(x), ldx, rows, n,
+        static_cast<const float*>(sscale), static_cast<signed char*>(q), ldq,
+        static_cast<float*>(scale));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -128,9 +237,9 @@ TOC3D_EXPORT int toc3d_gemm(const void* A, int lda, const void* B, int ldb,
                             void* C, int ldc, int M, int N, int K, int out_f32,
                             int gate, void* stream) {
   gemm::Args a;
-  a.A = static_cast<const bf16*>(A);
+  a.A = A;
   a.lda = lda;
-  a.B = static_cast<const bf16*>(B);
+  a.B = B;
   a.ldb = ldb;
   a.bias = static_cast<const float*>(bias);
   a.res = static_cast<const bf16*>(res);
@@ -144,6 +253,37 @@ TOC3D_EXPORT int toc3d_gemm(const void* A, int lda, const void* B, int ldb,
   a.gate = gate;
   a.pH = a.pW = a.pgh = a.pgw = a.ps = 0;
   return gemm::launch<false>(a, static_cast<cudaStream_t>(stream));
+}
+
+// int8 x int8 -> int32 GEMM, dequantized by xs (per row, or one static
+// scale when xs_row is 0) and ws (per output channel) before the epilogue
+TOC3D_EXPORT int toc3d_gemm_s8(const void* A, int lda, const void* xs,
+                               int xs_row, const void* B, int ldb,
+                               const void* ws, const void* bias,
+                               const void* res, int ldr, void* C, int ldc,
+                               int M, int N, int K, int out_f32, int gate,
+                               int head, void* stream) {
+  gemm::Args a;
+  a.A = A;
+  a.lda = lda;
+  a.B = B;
+  a.ldb = ldb;
+  a.bias = static_cast<const float*>(bias);
+  a.res = static_cast<const bf16*>(res);
+  a.ldr = ldr;
+  a.C = C;
+  a.ldc = ldc;
+  a.M = M;
+  a.N = N;
+  a.K = K;
+  a.out_f32 = out_f32;
+  a.gate = gate;
+  a.pH = a.pW = a.pgh = a.pgw = a.ps = 0;
+  a.xs = static_cast<const float*>(xs);
+  a.xs_row = xs_row;
+  a.ws = static_cast<const float*>(ws);
+  a.head = head;
+  return gemm::launch<false, int8_t>(a, static_cast<cudaStream_t>(stream));
 }
 
 // ---------------------------------------------------------------------------

@@ -6,6 +6,11 @@ Conventions, as in the JAX package:
   (layers.py:81-88). Weights are torch ``nn.Linear`` layout ``(out, in)``.
 * LayerNorm computes its statistics in float32 and casts back to the input
   dtype (layers.py:134-142).
+* int8 serving (layers.py:81-121): ``quantize_linear`` packs a weight per
+  output channel into a ``QuantLinear``; ``linear`` given such a pack takes
+  the int8 route (ops/cuda/int8.int8_linear: dynamic per-row activation
+  quantization and the int8 GEMM kernel on the card, its plain version on
+  the CPU).
 """
 from __future__ import annotations
 
@@ -15,14 +20,39 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .ops.cuda import cached_pack, param_key
+from .ops.cuda.int8 import QuantLinear, int8_linear, quantize_weight
+
 
 def linear(x, weight, bias=None):
-    """x @ weight.T + bias, with weight and bias cast to x's dtype."""
+    """x @ weight.T + bias, with weight and bias cast to x's dtype; or, when
+    ``weight`` is a QuantLinear (which carries its own bias), the int8
+    linear."""
+    if isinstance(weight, QuantLinear):
+        return int8_linear(x, weight)
     b = None if bias is None else bias.to(x.dtype)
     return F.linear(x, weight.to(x.dtype), b)
 
 
-def lin(mod: nn.Linear, x):
+def quantize_linear(weight, bias=None) -> QuantLinear:
+    """Symmetric per-output-channel int8 quantization of one linear
+    (layers.py:91-107): int8 (out, in) weight, f32 (out,) scale; the bias
+    stays f32."""
+    w, s = quantize_weight(weight)
+    return QuantLinear(w, s, None if bias is None
+                       else bias.detach().float().contiguous())
+
+
+def quantized(mod: nn.Linear) -> QuantLinear:
+    """The int8 pack of ``mod``, cached on the module until its parameters
+    change."""
+    return cached_pack(mod, "int8", param_key(mod),
+                       lambda: quantize_linear(mod.weight, mod.bias))
+
+
+def lin(mod: nn.Linear, x, quant: str = "none"):
+    if quant == "int8":
+        return linear(x, quantized(mod))
     return linear(x, mod.weight, mod.bias)
 
 

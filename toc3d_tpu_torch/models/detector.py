@@ -101,13 +101,19 @@ class ToC3DDetector(nn.Module):
         """Load a reference-named state dict (numpy arrays or tensors).
         Buffer keys (RoPE tables, code weights, ranges) and the aliased
         cls/reg branch copies 1..L-1 are dropped first, as the JAX
-        converter skips them; everything else must match exactly."""
+        converter skips them; everything else must match exactly. A block's
+        calibrated int8 activation scales (``img_backbone.blocks.{i}.
+        act_scales``, see convert.params_from_jax) are attached to that
+        block; a block without them in the dict loses any it had."""
+        from .eva_vit import set_act_scales
         sd = {}
         for k, v in state_dict.items():
             if _BUFFER_PAT.search(k):
                 continue
             sd[k] = v if isinstance(v, torch.Tensor) else torch.from_numpy(
                 np.ascontiguousarray(v))
+        for i, blk in enumerate(self.img_backbone.blocks):
+            set_act_scales(blk, sd.get(f"img_backbone.blocks.{i}.act_scales"))
         return super().load_state_dict(sd, strict=strict, assign=assign)
 
 
@@ -252,9 +258,13 @@ def _motion_ctx_from_memory(cfg: DetectorConfig, memory: MemoryBank, frame):
 
 
 def extract_img_feat(model: ToC3DDetector, img, memory: MemoryBank, frame,
-                     steady=None):
+                     steady=None, collect_block_outs: bool = False,
+                     quant=None):
     """img (B, N, H, W, 3) -> neck features (B, N, h, w, C) float32. A uint8
-    image is normalized here, on the device (detector.py:142-150)."""
+    image is normalized here, on the device (detector.py:142-150).
+    collect_block_outs: also return the backbone's per-block inputs,
+    outputs and scores (toc3d_vit_forward); quant overrides the backbone's
+    cfg.quant ('none': the float blocks, as calibration runs them)."""
     from ..configs.presets import IMG_NORM_MEAN, IMG_NORM_STD
     cfg = model.cfg
     b, n, h, w, c = img.shape
@@ -269,9 +279,14 @@ def extract_img_feat(model: ToC3DDetector, img, memory: MemoryBank, frame,
     x = x.to(dtype).contiguous()
     feats = toc3d_vit_forward(model.img_backbone, x,
                               _motion_ctx_from_memory(cfg, memory, frame),
-                              frame["prev_exists"], steady=steady)
+                              frame["prev_exists"], steady=steady,
+                              collect_block_outs=collect_block_outs,
+                              quant=quant)
+    if collect_block_outs:
+        feats, collected = feats
     f = cpfpn_forward(model.img_neck, feats, cfg.neck)[cfg.position_level]
-    return f.reshape(b, n, f.shape[1], f.shape[2], -1).float()
+    f = f.reshape(b, n, f.shape[1], f.shape[2], -1).float()
+    return (f, collected) if collect_block_outs else f
 
 
 def head_step(model: ToC3DDetector, state: DetectorState, feats, frame):
@@ -301,30 +316,52 @@ def infer_step(model: ToC3DDetector, state: DetectorState, frame):
 @torch.no_grad()
 def precast_backbone_(model: ToC3DDetector) -> None:
     """Cast the backbone's weight matrices to the compute dtype once
-    (detector.py:291-313). The blocks' and the patch embedding's matrices
+    (detector.py:291-340). The blocks' and the patch embedding's matrices
     go into the kernels' packed bf16 copies (pack_block_weights,
     pack_patch_weight), built here and kept on the modules; the score
     predictors' matrices are cast in place. Biases, LN parameters and
     pos_embed stay f32; the cast is the same rounding the per-call casts
-    would do."""
+    would do.
+
+    int8 serving (cfg.backbone.quant 'int8'): the blocks' int8 packs
+    instead (pack_block_weights_int8, static activation scales where
+    attach_act_scales put them, else dynamic); with cfg.head.decoder.quant
+    'int8' also the decoder linears' int8 packs (quantize_decoder_params).
+    The kernels take bf16 activations only, so int8 on the card needs
+    compute_dtype 'bfloat16'."""
     from ..ops.cuda.patch_embed import pack_patch_weight
-    from ..ops.cuda.vit_block import pack_block_weights
+    from ..ops.cuda.vit_block import (pack_block_weights,
+                                      pack_block_weights_int8)
+    from .petr_transformer import quantize_decoder_params
     cfg = model.cfg
-    if cfg.compute_dtype != "bfloat16":
-        return
     bb = model.img_backbone
-    pack_patch_weight(bb.patch_embed.proj, torch.bfloat16)
+    bf16 = cfg.compute_dtype == "bfloat16"
+    int8 = cfg.backbone.quant == "int8"
+    if int8 and not bf16 and bb.patch_embed.proj.weight.device.type != "cpu":
+        raise ValueError("int8 serving on the card needs compute_dtype "
+                         "'bfloat16' (the int8 kernels take bf16 "
+                         "activations)")
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    if bf16:
+        pack_patch_weight(bb.patch_embed.proj, dtype)
+        for p in bb.score_predictor.parameters():
+            if p.dim() >= 2 and p.dtype == torch.float32:
+                p.data = p.data.to(dtype)
     for blk in bb.blocks:
-        pack_block_weights(blk, cfg.backbone.num_heads, torch.bfloat16)
-    for p in bb.score_predictor.parameters():
-        if p.dim() >= 2 and p.dtype == torch.float32:
-            p.data = p.data.to(torch.bfloat16)
+        if int8:
+            pack_block_weights_int8(blk, cfg.backbone.num_heads, dtype)
+        elif bf16:
+            pack_block_weights(blk, cfg.backbone.num_heads, dtype)
+    if cfg.head.decoder.quant == "int8":
+        quantize_decoder_params(model.pts_bbox_head.transformer.decoder)
 
 
 def make_infer_fn(model: ToC3DDetector):
     """Streaming inference callable ``infer(state, frame) -> (state',
-    DecodedBoxes)`` (detector.py:369-406). Casts the backbone weights once
-    (precast_backbone_) before returning."""
+    DecodedBoxes)`` (detector.py:369-406). Casts (or, for int8 serving,
+    quantizes) the weights once (precast_backbone_) before returning; to
+    serve static int8, attach calibrated scales first
+    (ops/int8_calib.attach_act_scales)."""
     precast_backbone_(model)
 
     def infer(state: DetectorState, frame):

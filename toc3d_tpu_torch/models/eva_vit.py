@@ -3,7 +3,8 @@ reference eva_vit.py, eva_utils.py).
 
 Modules carry the reference (mmdet3d) parameter names, so a reference state
 dict loads into them directly. The block forward runs kernel B
-(ops/cuda/vit_block.fused_full_block) and the patch embedding kernel A
+(ops/cuda/vit_block.fused_full_block; B8, fused_full_block_int8, with
+quant='int8') and the patch embedding kernel A
 (ops/cuda/patch_embed.patchify_matmul).
 """
 from __future__ import annotations
@@ -15,7 +16,8 @@ import torch
 import torch.nn as nn
 
 from ..ops.cuda.patch_embed import pack_patch_weight, patchify_matmul
-from ..ops.cuda.vit_block import fused_full_block
+from ..ops.cuda.int8 import SITES
+from ..ops.cuda.vit_block import fused_full_block, fused_full_block_int8
 from ..ops.rope import build_rope_table
 
 LN_EPS = 1e-6
@@ -24,8 +26,11 @@ LN_EPS = 1e-6
 @dataclass(frozen=True)
 class EVAViTConfig:
     """Field names of toc3d_tpu/models/eva_vit.py:35-72 that inference reads.
-    Left out: fused_blocks (the port always runs its kernels on the card)
-    and quant (int8 serving is not ported yet)."""
+    Left out: fused_blocks (the port always runs its kernels on the card).
+    quant 'int8': serving int8 blocks (kernels B8 / C8), their weights
+    quantized once by detector.precast_backbone_; activations quantized per
+    row, or at static scales where calibrated ones are attached
+    (ops/int8_calib.attach_act_scales)."""
     img_size: int = 320
     patch_size: int = 16
     in_chans: int = 3
@@ -43,6 +48,7 @@ class EVAViTConfig:
     pretrain_img_size: int = 224
     pretrain_use_cls_token: bool = True
     drop_path_rate: float = 0.0   # training only; the eval path ignores it
+    quant: str = "none"
 
     @property
     def head_dim(self) -> int:
@@ -103,6 +109,20 @@ class Block(nn.Module):
         self.mlp = SwiGLU(c, int(c * cfg.mlp_ratio))
 
 
+def set_act_scales(blk: Block, scales) -> None:
+    """Attach to ``blk`` its four calibrated static activation scales (a
+    {site: scale} dict or a sequence in SITES order), as the persistent
+    buffer ``act_scales`` (4,) f32, or drop them with None. The int8 pack
+    (vit_block.pack_block_weights_int8) quantizes with them when present."""
+    if scales is None:
+        blk._buffers.pop("act_scales", None)
+        return
+    if isinstance(scales, dict):
+        scales = [scales[k] for k in SITES]
+    t = torch.as_tensor([float(v) for v in scales], dtype=torch.float32)
+    blk.register_buffer("act_scales", t.to(blk.norm1.weight.device))
+
+
 class PatchEmbed(nn.Module):
     def __init__(self, cfg: EVAViTConfig):
         super().__init__()
@@ -122,9 +142,11 @@ def patch_embed(pe: PatchEmbed, x, patch_size: int):
 
 def block_forward(blk: Block, x, cfg: EVAViTConfig, window_size: int,
                   rope_tables):
-    """Plain (non-compressed) EVA block, x: (B, H, W, C), through kernel B.
-    rope_tables: (cos, sin) tensors on x's device, or None."""
-    return fused_full_block(blk, x, cfg.num_heads, window_size, rope_tables)
+    """Plain (non-compressed) EVA block, x: (B, H, W, C), through kernel B
+    (B8 with cfg.quant 'int8'). rope_tables: (cos, sin) tensors on x's
+    device, or None."""
+    fn = fused_full_block_int8 if cfg.quant == "int8" else fused_full_block
+    return fn(blk, x, cfg.num_heads, window_size, rope_tables)
 
 
 def rope_tensors(tables, device):

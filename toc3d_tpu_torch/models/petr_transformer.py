@@ -13,8 +13,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..layers import lin, ln
-from ..ops.attention import MultiheadAttention, mha
+from ..layers import lin, ln, quantized
+from ..ops.attention import MultiheadAttention, mha, quantize_mha
 
 LN_EPS = 1e-5
 
@@ -22,13 +22,17 @@ LN_EPS = 1e-5
 @dataclass(frozen=True)
 class DecoderConfig:
     """Field names of petr_transformer.py:29-51 that inference reads
-    (dropout is training only; fused_attn and quant are not carried: the
-    attention core always runs the kernel on the card)."""
+    (dropout is training only; fused_attn is not carried: the attention
+    core always runs the kernel on the card). quant 'int8': serving int8
+    for the decoder layers' linears (q/k/v/out projections and the FFN),
+    quantized once by quantize_decoder_params (detector.precast_backbone_
+    calls it); the flash core, the LNs and the branches stay as they are."""
     embed_dims: int = 256
     num_heads: int = 8
     num_layers: int = 6
     feedforward_channels: int = 2048
     dropout: float = 0.1
+    quant: str = "none"
 
 
 class AttnWrapper(nn.Module):
@@ -69,9 +73,21 @@ class Transformer(nn.Module):
         self.decoder = Decoder(cfg)
 
 
-def ffn(f: FFN, x):
-    h = F.relu(lin(f.layers[0][0], x))
-    return x + lin(f.layers[1], h)
+def ffn(f: FFN, x, quant: str = "none"):
+    h = F.relu(lin(f.layers[0][0], x, quant))
+    return x + lin(f.layers[1], h, quant)
+
+
+def quantize_decoder_params(dec: Decoder) -> None:
+    """Per-output-channel int8 packs of every decoder layer's linears
+    (self/cross-attention q/k/v/out projections and the two FFN matmuls),
+    built once and cached on the modules (petr_transformer.py:100-122);
+    the LNs and the post-norm stay f32."""
+    for layer in dec.layers:
+        for a in layer.attentions:
+            quantize_mha(a.attn)
+        quantized(layer.ffns[0].layers[0][0])
+        quantized(layer.ffns[0].layers[1])
 
 
 def decoder_layer_forward(layer: DecoderLayer, cfg: DecoderConfig, query,
@@ -84,12 +100,12 @@ def decoder_layer_forward(layer: DecoderLayer, cfg: DecoderConfig, query,
     else:
         tk, tp = query, query_pos
     out = mha(layer.attentions[0].attn, query + query_pos, tk + tp, tk,
-              cfg.num_heads)
+              cfg.num_heads, cfg.quant)
     query = ln(layer.norms[0], query + out, LN_EPS)
     out = mha(layer.attentions[1].attn, query + query_pos, key + key_pos,
-              value, cfg.num_heads)
+              value, cfg.num_heads, cfg.quant)
     query = ln(layer.norms[1], query + out, LN_EPS)
-    query = ffn(layer.ffns[0], query)
+    query = ffn(layer.ffns[0], query, cfg.quant)
     return ln(layer.norms[2], query, LN_EPS)
 
 

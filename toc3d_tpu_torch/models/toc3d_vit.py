@@ -9,13 +9,14 @@ works on a fixed (k + 1)-row set per window.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Tuple
 
 import torch
 import torch.nn as nn
 
-from ..ops.cuda.vit_block import fused_compressed_block
+from ..ops.cuda.vit_block import (fused_compressed_block,
+                                  fused_compressed_block_int8)
 from ..ops.resize import resize_abs_pos
 from .eva_vit import (Block, EVAViTConfig, PatchEmbed, block_forward,
                       make_rope_tables, patch_embed, rope_tensors)
@@ -102,8 +103,11 @@ class ToC3DViT(nn.Module):
 def toc3d_block_forward(blk: Block, x, scores, cfg: ToC3DViTConfig,
                         window_size: int, ratio: float, rope_tables):
     """Slow/fast token routing inside one window-attention block through
-    kernel C. x (BN, H, W, C); scores (BN, H*W) (toc3d_vit.py:113-177)."""
-    return fused_compressed_block(
+    kernel C (C8 with cfg.quant 'int8'). x (BN, H, W, C); scores (BN, H*W)
+    (toc3d_vit.py:113-177)."""
+    fn = fused_compressed_block_int8 if cfg.quant == "int8" \
+        else fused_compressed_block
+    return fn(
         blk, x, scores, cfg.num_heads, window_size, ratio,
         rope_tables if cfg.rope else None,
         use_represent=cfg.use_represent_tokens, rope_acc=cfg.rope_acc,
@@ -111,12 +115,18 @@ def toc3d_block_forward(blk: Block, x, scores, cfg: ToC3DViTConfig,
 
 
 def toc3d_vit_forward(model: ToC3DViT, x, motion_ctx, prev_exists,
-                      steady=None):
+                      steady=None, collect_block_outs: bool = False,
+                      quant=None):
     """x (BN, H, W, 3) normalized images in the compute dtype -> features
     (BN, h, w, C) (toc3d_vit.py:196-369, eval path). motion_ctx: memory-bank
     views for the selectors; prev_exists (B,); steady: all(prev_exists > 0)
-    if the caller already knows it."""
+    if the caller already knows it. quant overrides cfg.quant ('none' runs
+    the float blocks, as calibration does). collect_block_outs: also return
+    {'inputs': [x_i], 'outputs': [y_i], 'scores': [scores or None]} per
+    block (toc3d_vit.py:361-362), what ops.int8_calib probes."""
     cfg = model.cfg
+    if quant is not None:
+        cfg = replace(cfg, quant=quant)
     rope_win, rope_glb = model.rope(x.device)
     x = patch_embed(model.patch_embed, x, cfg.patch_size)
     if cfg.use_abs_pos:
@@ -129,6 +139,7 @@ def toc3d_vit_forward(model: ToC3DViT, x, motion_ctx, prev_exists,
     scores = None
     ratio = None
     seg = 0
+    collected = {"inputs": [], "outputs": [], "scores": []}
     for i in range(cfg.depth):
         if i in cfg.pruning_loc:
             scfg = cfg.selector_config(seg)
@@ -141,9 +152,17 @@ def toc3d_vit_forward(model: ToC3DViT, x, motion_ctx, prev_exists,
         is_global = i in cfg.global_attn_indexes
         ws = cfg.global_window_size if is_global else cfg.window_size
         tables = rope_glb if is_global else rope_win
-        if cfg.block_is_accelerated(i):
+        accelerated = cfg.block_is_accelerated(i)
+        if collect_block_outs:
+            collected["inputs"].append(x)
+            collected["scores"].append(scores if accelerated else None)
+        if accelerated:
             x = toc3d_block_forward(model.blocks[i], x, scores, cfg, ws,
                                     ratio, tables)
         else:
             x = block_forward(model.blocks[i], x, cfg, ws, tables)
+        if collect_block_outs:
+            collected["outputs"].append(x)
+    if collect_block_outs:
+        return x, collected
     return x

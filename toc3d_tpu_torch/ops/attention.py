@@ -5,14 +5,16 @@ RoPE, optional index-gathered RoPE) as a plain path — the main path runs it
 inside the block kernels (ops/cuda/vit_block.py).
 mha: batch-first multi-head attention with torch nn.MultiheadAttention
 semantics and parameter layout; its softmax core is the flash kernel
-(ops/cuda/cross_attn.py), the projections are plain matmuls.
+(ops/cuda/cross_attn.py), the projections are plain matmuls, or int8 linears
+(quant='int8', attention.py:172-180 on quantize_decoder_params weights).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
 
-from ..layers import lin, linear
+from ..layers import lin, linear, quantize_linear
+from .cuda import cached_pack, param_key
 from .cuda.cross_attn import flash_attention_core
 from .rope import apply_rope, apply_rope_select
 
@@ -27,10 +29,10 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(b, n, h * d)
 
 
-def eva_attention(attn, x, num_heads: int, rope_tables=None, select_idx=None):
-    """x: (B, N, C); attn: models.eva_vit.Attention. rope_tables: (cos, sin)
-    tensors or None; select_idx: (B, N) table rows for the compressed path
-    (attention.py:81-126)."""
+def eva_attention_preproj(attn, x, num_heads: int, rope_tables=None,
+                          select_idx=None):
+    """eva_attention up to the merged attention output before the
+    O-projection (the int8 blocks' proj_in site, int8_calib.py:50-66)."""
     b, n, c = x.shape
     q = _split_heads(linear(x, attn.q_proj.weight, attn.q_bias), num_heads)
     k = _split_heads(linear(x, attn.k_proj.weight), num_heads)
@@ -46,7 +48,14 @@ def eva_attention(attn, x, num_heads: int, rope_tables=None, select_idx=None):
     scale = (c // num_heads) ** -0.5
     logits = (q * scale).float() @ k.float().transpose(-1, -2)
     w = torch.softmax(logits, dim=-1).to(x.dtype)
-    out = _merge_heads((w.float() @ v.float()).to(x.dtype))
+    return _merge_heads((w.float() @ v.float()).to(x.dtype))
+
+
+def eva_attention(attn, x, num_heads: int, rope_tables=None, select_idx=None):
+    """x: (B, N, C); attn: models.eva_vit.Attention. rope_tables: (cos, sin)
+    tensors or None; select_idx: (B, N) table rows for the compressed path
+    (attention.py:81-126)."""
+    out = eva_attention_preproj(attn, x, num_heads, rope_tables, select_idx)
     return lin(attn.proj, out)
 
 
@@ -66,16 +75,39 @@ class MultiheadAttention(nn.Module):
         return mha(self, query, key, value, self.num_heads)
 
 
-def mha(attn: MultiheadAttention, query, key, value, num_heads: int):
+def quantize_mha(attn: MultiheadAttention):
+    """The int8 packs (q, k, v, out) of one attention's projections
+    (petr_transformer.py:109-110), cached on the module until its parameters
+    change."""
+    def build():
+        w, b = attn.in_proj_weight, attn.in_proj_bias
+        c = w.shape[1]
+        return tuple(quantize_linear(w[i * c:(i + 1) * c],
+                                     b[i * c:(i + 1) * c])
+                     for i in range(3)) + (
+            quantize_linear(attn.out_proj.weight, attn.out_proj.bias),)
+    return cached_pack(attn, "int8", param_key(attn), build)
+
+
+def mha(attn: MultiheadAttention, query, key, value, num_heads: int,
+        quant: str = "none"):
     """query (B, Q, C), key/value (B, K, C) -> (B, Q, C). Eval decoder
-    attention: no mask, no dropout (attention.py:144-180, fused route)."""
+    attention: no mask, no dropout (attention.py:144-180, fused route).
+    quant 'int8': the four projections are int8 linears; the core stays
+    on the flash kernel."""
     c = query.shape[-1]
-    w, b = attn.in_proj_weight, attn.in_proj_bias
+    if quant == "int8":
+        pq, pk, pv, po = ((p, None) for p in quantize_mha(attn))
+    else:
+        w, b = attn.in_proj_weight, attn.in_proj_bias
+        pq, pk, pv = ((w[i * c:(i + 1) * c], b[i * c:(i + 1) * c])
+                      for i in range(3))
+        po = (attn.out_proj.weight, attn.out_proj.bias)
     scale = (c // num_heads) ** -0.5
-    q = linear(query, w[:c], b[:c]) * scale
-    k = linear(key, w[c:2 * c], b[c:2 * c])
-    v = linear(value, w[2 * c:], b[2 * c:])
+    q = linear(query, *pq) * scale
+    k = linear(key, *pk)
+    v = linear(value, *pv)
     out = flash_attention_core(q.to(v.dtype).contiguous(),
                                k.to(v.dtype).contiguous(), v.contiguous(),
                                num_heads)
-    return lin(attn.out_proj, out)
+    return linear(out, *po)

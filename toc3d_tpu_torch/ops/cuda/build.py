@@ -36,10 +36,13 @@ SIGNATURES = {
         "toc3d_patchify": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "vit_block": {
-        "toc3d_layernorm": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I,
-                            _I, _I, _F, _P],
+        "toc3d_layernorm": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _I, _P, _P,
+                            _P, _I, _I, _I, _I, _F, _P],
+        "toc3d_rowquant": [_P, _I, _I, _I, _P, _P, _I, _P, _P],
         "toc3d_gemm": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I,
                        _I, _P],
+        "toc3d_gemm_s8": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _I, _P, _I,
+                          _I, _I, _I, _I, _I, _I, _P],
         "toc3d_window_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _I, _I, _I, _I, _P],
         "toc3d_gather_merge": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

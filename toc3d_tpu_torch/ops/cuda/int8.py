@@ -1,0 +1,207 @@
+"""int8 quantization, the int8 GEMM and row quantization (kernels of
+csrc/vit_block.cu over csrc/gemm.cuh), shared by the int8 blocks B8 and C8
+(ops/cuda/vit_block.py) and the head decoder's int8 linears.
+
+Plain versions of toc3d_tpu/ops/pallas/vit_block.py :: quantize_block_params
+(:201, the weight half), _rowquant (:247), _statquant (:259) and _qmm
+(:277), and of toc3d_tpu/layers.py :: quantize_linear (:91) and
+_int8_matmul (:110), with the same f32 arithmetic:
+
+* weights: per output channel (dim 1 of a torch (out, in) weight), scale
+  max(|w|, 1e-8) / 127, wq = clip(round(w / s)) — a division;
+* dynamic activations, per row: a = max(amax, 1e-6), q = clip(round(x *
+  (127 / a))), scale a * (1/127) — a multiply by the reciprocal;
+* static activations: q = clip(round(x * (1 / s))) for the site's
+  calibrated scale s;
+* rounding half to even (torch.round), clipping to +-127;
+* the int8 products summed exactly (in float64, exact below 2^53; the ViT-L
+  sums reach 127^2 * 2736 = 4.4e7, past float32's 2^24) and rounded once to
+  f32, as the int32 accumulator converts;
+* dequantization float(acc) * (xs * ws) in the blocks, (float(acc) * xs) *
+  ws in the head (layers.py:120-121), whose linear then casts to the
+  activation dtype before it adds the bias (layers.py:83-87).
+
+Every division here goes through ``_div`` on two full tensors: torch's CUDA
+division by a scalar multiplies by the scalar's reciprocal, and ``c / t``
+for a Python number c is ``t.reciprocal() * c``; neither is the IEEE
+quotient that jnp computes.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from . import check_cuda
+from .build import call, stream_of
+
+# static activation-scale sites of a block, in the order of
+# toc3d_tpu/ops/pallas/vit_block.py _ACT_SITES
+SITES = ("attn_in", "proj_in", "mlp_in", "ffn_in")
+
+
+class QuantLinear(NamedTuple):
+    """An int8 linear: weight (out, in) int8, per-output-channel f32 scale
+    (out,), f32 bias (out,) or None."""
+    w: torch.Tensor
+    scale: torch.Tensor
+    bias: Optional[torch.Tensor]
+
+
+def _div(a, b):
+    """IEEE f32 quotient a / b elementwise, either side a tensor or a
+    number."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.full_like(b, a)
+    if not isinstance(b, torch.Tensor):
+        b = torch.full_like(a, b)
+    a, b = torch.broadcast_tensors(a, b)
+    return torch.div(a.contiguous(), b.contiguous())
+
+
+def quantize_weight(w, pre_scale: float = 1.0):
+    """(out, in) float weight -> (int8 (out, in), f32 (out,) scale)."""
+    w = w.detach().float()
+    if pre_scale != 1.0:
+        w = w * pre_scale
+    s = _div(w.abs().amax(dim=1).clamp_min(1e-8), 127.0)
+    q = torch.round(_div(w, s[:, None])).clamp(-127, 127).to(torch.int8)
+    return q.contiguous(), s.contiguous()
+
+
+def rowquant(x):
+    """Dynamic per-row quantization: x (..., K) -> (int8 (..., K), f32
+    (..., 1) scale)."""
+    x32 = x.float()
+    a = x32.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6)
+    q = torch.round(x32 * _div(127.0, a)).clamp(-127, 127).to(torch.int8)
+    return q, a * (1.0 / 127.0)
+
+
+def statquant(x, s):
+    """Static quantization at the calibrated scale s (a 1-element f32
+    tensor): -> (int8 like x, s)."""
+    s = s.float().reshape(1)
+    q = torch.round(x.float() * _div(1.0, s)).clamp(-127, 127)
+    return q.to(torch.int8), s
+
+
+def int8_dot(q, wq):
+    """int8 (..., K) @ int8 (N, K)^T summed exactly, rounded once to f32."""
+    return (q.double() @ wq.double().t()).float()
+
+
+def int8_matmul(x, wq, w_scale):
+    """layers.py _int8_matmul: (..., in) float @ int8 (out, in) -> f32,
+    dynamic per-row activation quantization, (y * xs) * w_scale."""
+    q, s = rowquant(x)
+    return int8_dot(q, wq) * s * w_scale
+
+
+def int8_linear_plain(x, p: QuantLinear):
+    """Plain version of ``int8_linear``: the head's int8 linear, cast to
+    x.dtype before the bias is added in x.dtype."""
+    y = int8_matmul(x, p.w, p.scale).to(x.dtype)
+    if p.bias is not None:
+        y = y + p.bias.to(x.dtype)
+    return y
+
+
+def gemm_s8_plain(aq, xs, wq, ws, bias=None, res=None, out_f32=False,
+                  gate=False, head=False, dtype=torch.bfloat16):
+    """Plain version of ``gemm_s8``: aq (M, K) int8, xs (M,) row scales or
+    a 1-element static scale, wq (N, K) int8, ws (N,); the epilogues of
+    csrc/gemm.cuh in the activation dtype ``dtype``."""
+    v = int8_dot(aq, wq)
+    xs = xs.float().reshape(-1, 1)
+    v = v * xs * ws if head else v * (xs * ws)
+    if bias is not None:
+        v = (v.to(dtype) + bias.to(dtype)).float() if head else v + bias
+    if gate:
+        a, b = v[:, 0::2].to(dtype), v[:, 1::2].to(dtype)
+        return (F.silu(a.float()).to(dtype).float() * b.float()).to(dtype)
+    if out_f32:
+        return v
+    if res is not None:
+        return (v.to(dtype).float() + res.float()).to(dtype)
+    return v.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers (CUDA tensors only)
+# ---------------------------------------------------------------------------
+
+def row_quant(x, static_scale=None):
+    """x (rows, n) bf16 on the card -> (int8 (rows, n), f32 scale): the
+    rows' scales (rows,), or ``static_scale`` (a 1-element f32 tensor on the
+    card) when given. On the CPU, the plain rowquant / statquant."""
+    if x.device.type == "cpu":
+        if static_scale is None:
+            q, s = rowquant(x)
+            return q, s.reshape(-1)
+        return statquant(x, static_scale)
+    check_cuda("row_quant", x, dtype=torch.bfloat16)
+    rows, n = x.shape
+    if n % 2:
+        raise ValueError(f"row_quant: width {n} must be even")
+    q = torch.empty(rows, n, dtype=torch.int8, device=x.device)
+    if static_scale is None:
+        s = torch.empty(rows, dtype=torch.float32, device=x.device)
+        sp, st = s.data_ptr(), None
+    else:
+        check_cuda("row_quant", static_scale, dtype=torch.float32,
+                   aligned=False)
+        s, sp, st = static_scale, None, static_scale.data_ptr()
+    call("vit_block", "toc3d_rowquant", x.data_ptr(), n, rows, n, st,
+         q.data_ptr(), n, sp, stream_of(x))
+    return q, s
+
+
+def gemm_s8(aq, xs, wq, ws, bias=None, res=None, out_f32=False, gate=False,
+            head=False, out=None):
+    """int8 GEMM on the card: aq (M, K) int8 @ wq (N, K)^T, dequantized by
+    xs (M,) row scales or a 1-element static scale and ws (N,) channel
+    scales, then the epilogue (bias, residual, SwiGLU gate or f32 out; head:
+    the head's product order and bias rounding). Returns ``out`` ((M, N)
+    bf16, (M, N) f32 with out_f32, (M, N/2) bf16 with gate)."""
+    check_cuda("gemm_s8", aq, wq, dtype=torch.int8)
+    check_cuda("gemm_s8", xs, ws, dtype=torch.float32, aligned=False)
+    m, k = aq.shape
+    n = wq.shape[0]
+    if wq.shape[1] != k or k % 16 or n % 2:
+        raise ValueError(f"gemm_s8: unsupported shapes {tuple(aq.shape)} x "
+                         f"{tuple(wq.shape)} (K % 16 == 0, N even)")
+    if out is None:
+        shape = (m, n // 2) if gate else (m, n)
+        out = torch.empty(shape, device=aq.device,
+                          dtype=torch.float32 if out_f32 else torch.bfloat16)
+    if bias is not None:
+        check_cuda("gemm_s8", bias, dtype=torch.float32, aligned=False)
+    if res is not None:
+        check_cuda("gemm_s8", res, dtype=torch.bfloat16)
+    call("vit_block", "toc3d_gemm_s8", aq.data_ptr(), k, xs.data_ptr(),
+         int(xs.numel() > 1), wq.data_ptr(), k, ws.data_ptr(),
+         None if bias is None else bias.data_ptr(),
+         None if res is None else res.data_ptr(),
+         0 if res is None else res.shape[-1], out.data_ptr(), out.shape[-1],
+         m, n, k, int(out_f32), int(gate), int(head), stream_of(aq))
+    return out
+
+
+def int8_linear(x, p: QuantLinear):
+    """The head decoder's int8 linear (layers.py:81-121): row quantization
+    and the int8 GEMM with the head's epilogue on a bf16 CUDA tensor x
+    (..., in) -> (..., out) bf16; the plain version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return int8_linear_plain(x, p)
+    check_cuda("int8_linear", p.w, dtype=torch.int8)
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    check_cuda("int8_linear", x2, dtype=torch.bfloat16)
+    q, s = row_quant(x2)
+    y = gemm_s8(q, s, p.w, p.scale, p.bias, head=True)
+    int8_linear.launches += 1
+    return y.reshape(*x.shape[:-1], p.w.shape[0])
+
+
+int8_linear.launches = 0

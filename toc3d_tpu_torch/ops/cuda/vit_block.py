@@ -1,4 +1,5 @@
-"""EVA-02 block kernels (kernels B and C; source csrc/vit_block.cu).
+"""EVA-02 block kernels (kernels B and C, and their int8 forms B8 and C8;
+source csrc/vit_block.cu).
 
 B replaces toc3d_tpu/ops/pallas/vit_block.py :: fused_full_block (:602) and
 C replaces :: fused_compressed_block (:819). Both TPU kernels compute one
@@ -7,13 +8,24 @@ launches (LayerNorm, tensor-core GEMM with fused epilogues, window
 attention, and for C the gather/merge and scatter/update kernels). See the
 note at the top of csrc/vit_block.cu for the bound and the design.
 
+B8 and C8 are the int8 bodies of the same two pallas_calls
+(quantize_block_params :201, _actquant :271, _qmm :277): the seven weight
+matmuls take int8 weights (per output channel) and int8 activations,
+quantized per row (dynamic) or at the block's four calibrated site scales
+(static, when the block carries ``act_scales``). The chain is B's and C's
+with an int8 GEMM, a quantizing LayerNorm for the attn_in / mlp_in /
+ffn_in sites and a row-quantization kernel for proj_in; window attention,
+gather/merge and scatter/update stay bf16, as JAX quantizes only the seven
+weight matmuls.
+
 The plain versions below restate the same function with the kernels'
 rounding points (bf16 activations between matmuls, f32 accumulation and
-statistics); on the CPU in f32 they are the JAX block math.
+statistics, and for an int8 pack the exact int8 product of ops/cuda/int8);
+on the CPU in f32 they are the JAX block math.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -24,6 +36,8 @@ from ..rope import rotate_half
 from ..window import pad_hw, window_partition, window_unpartition
 from . import cached_pack, check_cuda, param_key
 from .build import call, stream_of
+from .int8 import (gemm_s8, int8_dot, quantize_weight, row_quant, rowquant,
+                   statquant)
 
 LN_EPS = 1e-6
 
@@ -33,7 +47,10 @@ class BlockWeights(NamedTuple):
     d^-0.5, as the TPU kernel folds it, vit_block.py:287-322), k and v;
     w12 interleaves the SwiGLU w1/w2 rows (2j = w1[j], 2j+1 = w2[j]) and is
     zero-padded to 2 * hidden_pad rows; w3 is zero-padded to hidden_pad
-    columns. Matrices are in the activation dtype, vectors f32."""
+    columns. Matrices are in the activation dtype, or int8 in an int8 pack,
+    which adds the per-output-channel scales of each matrix, laid out like
+    its rows, and ``act``: the four static activation scales in SITES order
+    (None: dynamic per-row quantization). Vectors are f32."""
     ln1w: torch.Tensor
     ln1b: torch.Tensor
     wqkv: torch.Tensor
@@ -49,57 +66,147 @@ class BlockWeights(NamedTuple):
     w3: torch.Tensor
     b3: torch.Tensor
     hidden: int
+    sqkv: Optional[torch.Tensor] = None
+    so: Optional[torch.Tensor] = None
+    s12: Optional[torch.Tensor] = None
+    s3: Optional[torch.Tensor] = None
+    act: Optional[torch.Tensor] = None
+
+
+def is_quantized(wts: BlockWeights):
+    """False for a float pack; 'dynamic' for an int8 pack that quantizes
+    activations per row, 'static' for one with calibrated site scales
+    (is_quantized, vit_block.py:192)."""
+    if wts.sqkv is None:
+        return False
+    return "dynamic" if wts.act is None else "static"
 
 
 def _round_up(v: int, m: int) -> int:
     return (v + m - 1) // m * m
 
 
+def _vec(t):
+    return t.detach().float().contiguous()
+
+
+def _pack(blk, num_heads: int, mat) -> BlockWeights:
+    """Pack an models.eva_vit.Block; mat(linear, pre_scale) gives a
+    matrix and its channel scales (None unless int8)."""
+    a, m = blk.attn, blk.mlp
+    f32 = torch.float32
+    c = a.q_proj.weight.shape[0]
+    dev = a.q_proj.weight.device
+    scale = (c // num_heads) ** -0.5
+    (wq, sq), (wk, sk), (wv, sv) = (mat(a.q_proj, scale), mat(a.k_proj),
+                                    mat(a.v_proj))
+    wo, so = mat(a.proj)
+    (w1, s1), (w2, s2), (w3, s3) = mat(m.w1), mat(m.w2), mat(m.w3)
+    bqkv = torch.cat([a.q_bias.detach().float() * scale,
+                      torch.zeros(c, dtype=f32, device=dev),
+                      a.v_bias.detach().float()])
+    hid = w1.shape[0]
+    hp = _round_up(hid, 16)
+    w12 = w1.new_zeros(2 * hp, c)
+    w12[0:2 * hid:2] = w1
+    w12[1:2 * hid:2] = w2
+    b12 = torch.zeros(2 * hp, dtype=f32, device=dev)
+    b12[0:2 * hid:2] = m.w1.bias.detach().float()
+    b12[1:2 * hid:2] = m.w2.bias.detach().float()
+    w3p = w3.new_zeros(c, hp)
+    w3p[:, :hid] = w3
+    quant = {}
+    if sq is not None:
+        s12 = torch.zeros(2 * hp, dtype=f32, device=dev)
+        s12[0:2 * hid:2] = s1
+        s12[1:2 * hid:2] = s2
+        act = getattr(blk, "act_scales", None)
+        quant = dict(sqkv=torch.cat([sq, sk, sv]), so=so, s12=s12, s3=s3,
+                     act=None if act is None else _vec(act))
+
+    return BlockWeights(
+        _vec(blk.norm1.weight), _vec(blk.norm1.bias),
+        torch.cat([wq, wk, wv], 0).contiguous(), bqkv.contiguous(),
+        wo.contiguous(), _vec(a.proj.bias), _vec(blk.norm2.weight),
+        _vec(blk.norm2.bias), w12.contiguous(), b12.contiguous(),
+        _vec(m.ffn_ln.weight), _vec(m.ffn_ln.bias), w3p.contiguous(),
+        _vec(m.w3.bias), hid, **quant)
+
+
 def pack_block_weights(blk, num_heads: int, dtype) -> BlockWeights:
-    """Pack an models.eva_vit.Block for the kernels (cached on the module
-    until its parameters change)."""
-    def build():
-        a, m = blk.attn, blk.mlp
-        f32 = torch.float32
-        c = a.q_proj.weight.shape[0]
-        scale = (c // num_heads) ** -0.5
-        wq = a.q_proj.weight.detach().float() * scale
-        wqkv = torch.cat([wq.to(dtype), a.k_proj.weight.detach().to(dtype),
-                          a.v_proj.weight.detach().to(dtype)], 0)
-        bqkv = torch.cat([a.q_bias.detach().float() * scale,
-                          torch.zeros(c, dtype=f32, device=wq.device),
-                          a.v_bias.detach().float()])
-        hid = m.w1.weight.shape[0]
-        hp = _round_up(hid, 16)
-        w12 = torch.zeros(2 * hp, c, dtype=dtype, device=wq.device)
-        w12[0:2 * hid:2] = m.w1.weight.detach().to(dtype)
-        w12[1:2 * hid:2] = m.w2.weight.detach().to(dtype)
-        b12 = torch.zeros(2 * hp, dtype=f32, device=wq.device)
-        b12[0:2 * hid:2] = m.w1.bias.detach().float()
-        b12[1:2 * hid:2] = m.w2.bias.detach().float()
-        w3 = torch.zeros(c, hp, dtype=dtype, device=wq.device)
-        w3[:, :hid] = m.w3.weight.detach().to(dtype)
+    """Pack an models.eva_vit.Block for kernels B and C, matrices in
+    ``dtype`` (cached on the module until its parameters change)."""
+    def mat(lin, pre=1.0):
+        w = lin.weight.detach()
+        return (w.float() * pre).to(dtype) if pre != 1.0 else w.to(dtype), \
+            None
+    return cached_pack(blk, "block", param_key(blk, dtype, num_heads),
+                       lambda: _pack(blk, num_heads, mat))
 
-        def v(t):
-            return t.detach().float().contiguous()
 
-        return BlockWeights(
-            v(blk.norm1.weight), v(blk.norm1.bias), wqkv.contiguous(),
-            bqkv.contiguous(), a.proj.weight.detach().to(dtype).contiguous(),
-            v(a.proj.bias), v(blk.norm2.weight), v(blk.norm2.bias),
-            w12.contiguous(), b12.contiguous(), v(m.ffn_ln.weight),
-            v(m.ffn_ln.bias), w3.contiguous(), v(m.w3.bias), hid)
-    return cached_pack(blk, "block", param_key(blk, dtype, num_heads), build)
+def pack_block_weights_int8(blk, num_heads: int, dtype) -> BlockWeights:
+    """The int8 pack of kernels B8 and C8 (quantize_block_params,
+    vit_block.py:201-244): each of the seven matrices, first rounded to the
+    activation dtype ``dtype`` (the JAX precast casts the block weights to
+    the compute dtype before it quantizes them, detector.py:310-329), then
+    quantized per output channel, the d^-0.5 factor folded into q's weights
+    before quantizing; static activation scales when the block carries
+    ``act_scales`` (models.eva_vit.set_act_scales). Cached on the module
+    until its parameters or scales change."""
+    def mat(lin, pre=1.0):
+        return quantize_weight(lin.weight.detach().to(dtype), pre)
+    return cached_pack(blk, "block_int8",
+                       param_key(blk, "int8", dtype, num_heads),
+                       lambda: _pack(blk, num_heads, mat))
 
 
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
 
-def _mm(a, w, b=None):
-    """(rows, K) @ (N, K)^T with f32 accumulation (+ f32 bias)."""
-    y = a.float() @ w.float().t()
-    return y if b is None else y + b.float()
+_SITE = {"qkv": 0, "o": 1, "w12": 2, "w3": 3}   # the site feeding each matrix
+
+
+def _site_scale(wts: BlockWeights, which: str):
+    """The static scale (1 element) of matrix ``which``'s input site, or
+    None for dynamic quantization."""
+    if wts.act is None:
+        return None
+    i = _SITE[which]
+    return wts.act[i:i + 1]
+
+
+def _matrix(wts: BlockWeights, which: str):
+    """(matrix, channel scales or None, bias) of matrix ``which``."""
+    return {"qkv": (wts.wqkv, wts.sqkv, wts.bqkv),
+            "o": (wts.wo, wts.so, wts.bo),
+            "w12": (wts.w12, wts.s12, wts.b12),
+            "w3": (wts.w3, wts.s3, wts.b3)}[which]
+
+
+def _actquant(x, wts: BlockWeights, which: str):
+    """Quantize the (rows, K) input of matrix ``which``: at its site's
+    static scale when the pack has them, else per row (_actquant,
+    vit_block.py:271)."""
+    st = _site_scale(wts, which)
+    return rowquant(x) if st is None else statquant(x, st)
+
+
+def _qmm(q, xs, w, s):
+    """int8 x int8 -> exact sum -> f32, dequantized as (acc) * (xs * s)
+    (_qmm, vit_block.py:277-284)."""
+    return int8_dot(q, w) * (xs * s)
+
+
+def _mm(wts: BlockWeights, a, which: str):
+    """a (rows, K) @ matrix ``which`` of the pack + its bias, f32: the
+    product of a and the matrix in f32, or for an int8 pack the int8 product
+    of a quantized at its site."""
+    w, s, b = _matrix(wts, which)
+    w = w[:, :a.shape[-1]]
+    if s is None:
+        return a.float() @ w.float().t() + b.float()
+    return _qmm(*_actquant(a, wts, which), w, s) + b
 
 
 def _attention_plain(wts: BlockWeights, hid, num_heads: int, rope, pos):
@@ -110,8 +217,7 @@ def _attention_plain(wts: BlockWeights, hid, num_heads: int, rope, pos):
     nw, n, c = hid.shape
     d = c // num_heads
     dt = hid.dtype
-    qkv = _mm(hid.reshape(-1, c), wts.wqkv, wts.bqkv).reshape(
-        nw, n, 3, num_heads, d)
+    qkv = _mm(wts, hid.reshape(-1, c), "qkv").reshape(nw, n, 3, num_heads, d)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2].to(dt)
     if rope is not None:
         cos, sin = rope
@@ -128,7 +234,7 @@ def _attention_plain(wts: BlockWeights, hid, num_heads: int, rope, pos):
     l = p.sum(dim=-1, keepdim=True)
     o = ((p.to(dt).float() @ v.float()) / l).to(dt)
     o = o.transpose(1, 2).reshape(nw * n, c)
-    return _mm(o, wts.wo, wts.bo).to(dt).reshape(nw, n, c)
+    return _mm(wts, o, "o").to(dt).reshape(nw, n, c)
 
 
 def _swiglu_plain(wts: BlockWeights, x):
@@ -136,12 +242,12 @@ def _swiglu_plain(wts: BlockWeights, x):
     w3 + bias) in x.dtype."""
     dt = x.dtype
     h = wts.hidden
-    acc = _mm(layer_norm(x, wts.ln2w, wts.ln2b, LN_EPS), wts.w12, wts.b12)
+    acc = _mm(wts, layer_norm(x, wts.ln2w, wts.ln2b, LN_EPS), "w12")
     a = acc[:, 0::2][:, :h].to(dt)
     b = acc[:, 1::2][:, :h].to(dt)
     g = (F.silu(a.float()).to(dt).float() * b.float()).to(dt)
     g = layer_norm(g, wts.flw, wts.flb, LN_EPS)
-    return _mm(g, wts.w3[:, :h], wts.b3).to(dt)
+    return _mm(wts, g, "w3").to(dt)
 
 
 def _add(a, b):
@@ -249,13 +355,17 @@ def compressed_block_plain(wts: BlockWeights, x, plan: CompressPlan,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _ln(x, ld, wgt, bias, y, rows, valid_rows, n, npad, res=None,
-        sum_out=None):
+def _ln(x, ld, wgt, bias, rows, valid_rows, n, npad, y=None, res=None,
+        sum_out=None, yq=None, ys=None, sscale=None):
     call("vit_block", "toc3d_layernorm", x.data_ptr(), ld,
          None if res is None else res.data_ptr(), ld,
          None if sum_out is None else sum_out.data_ptr(), ld,
-         wgt.data_ptr(), bias.data_ptr(), y.data_ptr(), npad, rows,
-         valid_rows, n, npad, LN_EPS, stream_of(x))
+         wgt.data_ptr(), bias.data_ptr(),
+         None if y is None else y.data_ptr(), npad,
+         None if yq is None else yq.data_ptr(),
+         None if ys is None else ys.data_ptr(),
+         None if sscale is None else sscale.data_ptr(), rows, valid_rows, n,
+         npad, LN_EPS, stream_of(x))
 
 
 def _gemm(a, w, bias, out, m, n, k, res=None, out_f32=False, gate=False):
@@ -264,6 +374,80 @@ def _gemm(a, w, bias, out, m, n, k, res=None, out_f32=False, gate=False):
          None if res is None else res.data_ptr(),
          0 if res is None else res.shape[-1], out.data_ptr(), out.shape[-1],
          m, n, k, int(out_f32), int(gate), stream_of(a))
+
+
+def _ln_in(wts: BlockWeights, which: str, x, ld, wgt, bias, rows, valid_rows,
+           n, npad, res=None, sum_out=None, out=None):
+    """LayerNorm of the (rows, n) rows of x (row stride ld) as the input of
+    matrix ``which``: bf16 (rows, npad) (into ``out`` when given), or for
+    an int8 pack the (int8 (rows, npad), scales) pair the int8 GEMM takes,
+    quantized by the same kernel."""
+    dev = x.device
+    if not is_quantized(wts):
+        y = out if out is not None else torch.empty(rows, npad, dtype=x.dtype,
+                                                    device=dev)
+        _ln(x, ld, wgt, bias, rows, valid_rows, n, npad, y=y, res=res,
+            sum_out=sum_out)
+        return y
+    q = torch.empty(rows, npad, dtype=torch.int8, device=dev)
+    st = _site_scale(wts, which)
+    s = torch.empty(rows, dtype=torch.float32, device=dev) if st is None \
+        else st
+    _ln(x, ld, wgt, bias, rows, valid_rows, n, npad, res=res,
+        sum_out=sum_out, yq=q, ys=None if st is not None else s, sscale=st)
+    return q, s
+
+
+def layernorm_int8_plain(x, weight, bias, static_scale=None, res=None):
+    """Plain version of ``layernorm_int8``."""
+    if res is not None:
+        x = _add(x, res)
+    y = layer_norm(x, weight, bias, LN_EPS)
+    if static_scale is None:
+        q, s = rowquant(y)
+        return q, s.reshape(-1)
+    return statquant(y, static_scale)
+
+
+def layernorm_int8(x, weight, bias, static_scale=None, res=None):
+    """The quantizing LayerNorm alone (the attn_in / mlp_in / ffn_in sites
+    of B8 and C8): LN of the rows of x (rows, n) bf16 (of x + res, rounded
+    to bf16, when res is given) -> (int8 (rows, n), f32 scale: per row
+    (rows,), or ``static_scale``). Plain version on the CPU."""
+    if x.device.type == "cpu":
+        return layernorm_int8_plain(x, weight, bias, static_scale, res)
+    check_cuda("layernorm_int8", x, dtype=torch.bfloat16)
+    rows, n = x.shape
+    if n % 2:
+        raise ValueError(f"layernorm_int8: width {n} must be even")
+    q = torch.empty(rows, n, dtype=torch.int8, device=x.device)
+    s = torch.empty(rows, dtype=torch.float32, device=x.device) \
+        if static_scale is None else static_scale
+    _ln(x, n, weight.float().contiguous(), bias.float().contiguous(), rows,
+        rows, n, n, res=res, yq=q, ys=None if static_scale is not None else s,
+        sscale=static_scale)
+    return q, s
+
+
+def _o_in(wts: BlockWeights, attn):
+    """The O-projection's input: the merged attention output, row-quantized
+    for an int8 pack (the proj_in site)."""
+    return row_quant(attn, _site_scale(wts, "o")) if is_quantized(wts) \
+        else attn
+
+
+def _proj(wts: BlockWeights, inp, which: str, m: int, out, res=None,
+          out_f32=False, gate=False):
+    """out = epilogue(inp @ matrix ``which`` + bias) over m rows, by the
+    bf16 GEMM or, for an int8 pack, the int8 GEMM on inp = (int8, scales)."""
+    w, s, b = _matrix(wts, which)
+    if s is None:
+        _gemm(inp, w, b, out, m, w.shape[0], w.shape[1], res=res,
+              out_f32=out_f32, gate=gate)
+    else:
+        gemm_s8(inp[0], inp[1], w, s, b, res=res, out_f32=out_f32,
+                gate=gate, out=out)
+    return out
 
 
 def _rope_args(rope_tables, n: int, x):
@@ -276,32 +460,36 @@ def _rope_args(rope_tables, n: int, x):
 
 
 def _check_block(name, wts: BlockWeights, x, num_heads):
-    check_cuda(name, x, wts.wqkv, wts.wo, wts.w12, wts.w3,
-               dtype=torch.bfloat16)
+    check_cuda(name, x, dtype=torch.bfloat16)
+    check_cuda(name, wts.wqkv, wts.wo, wts.w12, wts.w3,
+               dtype=torch.int8 if is_quantized(wts) else torch.bfloat16)
     c = x.shape[-1]
     d = c // num_heads
-    if c % num_heads or d not in (32, 64) or c % 8:
+    align = 16 if is_quantized(wts) else 8
+    if c % num_heads or d not in (32, 64) or c % align:
         raise ValueError(f"{name}: unsupported width {c} / {num_heads} "
-                         "heads (head_dim 32 or 64, C % 8 == 0)")
+                         f"heads (head_dim 32 or 64, C % {align} == 0)")
     # the LayerNorm kernel reads bf16 pairs, so the sub-LN width must be even
     if wts.hidden % 2:
         raise ValueError(f"{name}: SwiGLU hidden width {wts.hidden} must be "
                          "even")
 
 
-def _mlp_chain(wts: BlockWeights, x1, m: int, c: int, res):
+def _mlp_chain(wts: BlockWeights, x, m: int, c: int, res=None, ln_res=None,
+               sum_out=None):
     """LN2 -> gate GEMM -> sub-LN -> w3 GEMM (+ residual ``res`` when
-    given). x1: (m, C) residual stream. Returns the (m, C) output."""
-    dev = x1.device
+    given). x: (m, C); with ln_res, LN2 reads x + ln_res and stores that sum
+    to sum_out in the same pass. Returns the (m, C) output."""
+    dev = x.device
     hp = wts.w3.shape[1]
-    h2 = torch.empty(m, c, dtype=x1.dtype, device=dev)
-    _ln(x1, c, wts.ln2w, wts.ln2b, h2, m, m, c, c)
-    g = torch.empty(m, hp, dtype=x1.dtype, device=dev)
-    _gemm(h2, wts.w12, wts.b12, g, m, 2 * hp, c, gate=True)
-    _ln(g, hp, wts.flw, wts.flb, g, m, m, wts.hidden, hp)
-    out = torch.empty(m, c, dtype=x1.dtype, device=dev)
-    _gemm(g, wts.w3, wts.b3, out, m, c, hp, res=res)
-    return out
+    h2 = _ln_in(wts, "w12", x, c, wts.ln2w, wts.ln2b, m, m, c, c, res=ln_res,
+                sum_out=sum_out)
+    g = torch.empty(m, hp, dtype=x.dtype, device=dev)
+    _proj(wts, h2, "w12", m, g, gate=True)
+    gin = _ln_in(wts, "w3", g, hp, wts.flw, wts.flb, m, m, wts.hidden, hp,
+                 out=g)
+    out = torch.empty(m, c, dtype=x.dtype, device=dev)
+    return _proj(wts, gin, "w3", m, out, res=res)
 
 
 def _full_attention(wts: BlockWeights, x, num_heads: int, ws: int,
@@ -314,12 +502,12 @@ def _full_attention(wts: BlockWeights, x, num_heads: int, ws: int,
     hp_, wp_ = pad_hw(h, w, ws)
     nw = b * (hp_ // ws) * (wp_ // ws)
     dev = x.device
-    # row m of hbuf/qkv is LN(0): the projection every zero-padded edge
-    # token reads (the TPU kernel zeroes out-of-image tokens before LN1)
-    hbuf = torch.empty(m + 1, c, dtype=x.dtype, device=dev)
-    _ln(x, c, wts.ln1w, wts.ln1b, hbuf, m + 1, m, c, c)
+    # row m of the LN output and of qkv is LN(0): the projection every
+    # zero-padded edge token reads (the TPU kernel zeroes out-of-image
+    # tokens before LN1)
+    hin = _ln_in(wts, "qkv", x, c, wts.ln1w, wts.ln1b, m + 1, m, c, c)
     qkv = torch.empty(m + 1, 3 * c, dtype=torch.float32, device=dev)
-    _gemm(hbuf, wts.wqkv, wts.bqkv, qkv, m + 1, 3 * c, c, out_f32=True)
+    _proj(wts, hin, "qkv", m + 1, qkv, out_f32=True)
     cos, sin = _rope_args(rope_tables, n, x)
     attn = torch.empty(m, c, dtype=x.dtype, device=dev)
     call("vit_block", "toc3d_window_attention", qkv.data_ptr(), None,
@@ -351,10 +539,9 @@ def _rows_attention(wts: BlockWeights, x, plan: CompressPlan, num_heads: int,
     call("vit_block", "toc3d_gather_merge", x.data_ptr(), slow32.data_ptr(),
          fast32.data_ptr(), fscore.data_ptr(), xs.data_ptr(), nw, h, w, c, ws,
          k, nf, hr, stream_of(x))
-    hbuf = torch.empty(rows, c, dtype=x.dtype, device=dev)
-    _ln(xs, c, wts.ln1w, wts.ln1b, hbuf, rows, rows, c, c)
+    hin = _ln_in(wts, "qkv", xs, c, wts.ln1w, wts.ln1b, rows, rows, c, c)
     qkv = torch.empty(rows, 3 * c, dtype=torch.float32, device=dev)
-    _gemm(hbuf, wts.wqkv, wts.bqkv, qkv, rows, 3 * c, c, out_f32=True)
+    _proj(wts, hin, "qkv", rows, qkv, out_f32=True)
     cos, sin = _rope_args(rope_tables, n, x)
     pos = None
     if cos is not None:
@@ -369,7 +556,7 @@ def _rows_attention(wts: BlockWeights, x, plan: CompressPlan, num_heads: int,
          None if sin is None else sin.data_ptr(), attn.data_ptr(), nw, kr,
          num_heads, c // num_heads, 0, b, h, w, ws, stream_of(x))
     raw1 = torch.empty(rows, c, dtype=x.dtype, device=dev)
-    _gemm(attn, wts.wo, wts.bo, raw1, rows, c, c)
+    _proj(wts, _o_in(wts, attn), "o", rows, raw1)
     return xs, raw1, slow32, fast32
 
 
@@ -384,14 +571,16 @@ def attention_delta_plain(wts: BlockWeights, x, num_heads: int,
 
 
 def attention_delta(blk, x, num_heads: int, window_size: int, rope_tables,
-                    plan=None):
+                    plan=None, int8: bool = False):
     """The attention delta (LN1 -> QKV -> RoPE -> window softmax -> O-proj
     + bias, no residual) that fused_full_block (plan None; a (B, H, W, C)
     map) or fused_compressed_block (the (W, kr, C) rows of ``plan``)
-    computes on the way, through the same kernels. The block output is
-    mostly residual and MLP, so this is what holds the window attention
-    against its plain version. Not counted as a block launch."""
-    wts = pack_block_weights(blk, num_heads, x.dtype)
+    computes on the way, or with int8 their B8 / C8 forms, through the same
+    kernels. The block output is mostly residual and MLP, so this is what
+    holds the window attention against its plain version. Not counted as a
+    block launch."""
+    wts = pack_block_weights_int8(blk, num_heads, x.dtype) if int8 else \
+        pack_block_weights(blk, num_heads, x.dtype)
     if x.device.type == "cpu":
         return attention_delta_plain(wts, x, num_heads, window_size,
                                      rope_tables, plan)
@@ -401,11 +590,24 @@ def attention_delta(blk, x, num_heads: int, window_size: int, rope_tables,
     if plan is None:
         attn = _full_attention(wts, x, num_heads, window_size, rope_tables)
         raw1 = torch.empty_like(attn)
-        _gemm(attn, wts.wo, wts.bo, raw1, b * h * w, c, c)
+        _proj(wts, _o_in(wts, attn), "o", b * h * w, raw1)
         return raw1.reshape(b, h, w, c)
     _, raw1, _, _ = _rows_attention(wts, x, plan, num_heads, window_size,
                                     rope_tables)
     return raw1.reshape(plan.slow_idx.shape[0], -1, c)
+
+
+def _full_block(name, wts: BlockWeights, x, num_heads: int, ws: int,
+                rope_tables):
+    """The full block's chain of launches on a CUDA map x."""
+    x = x.contiguous()
+    _check_block(name, wts, x, num_heads)
+    b, h, w, c = x.shape
+    m = b * h * w
+    attn = _full_attention(wts, x, num_heads, ws, rope_tables)
+    x1 = torch.empty(m, c, dtype=x.dtype, device=x.device)
+    _proj(wts, _o_in(wts, attn), "o", m, x1, res=x.reshape(m, c))
+    return _mlp_chain(wts, x1, m, c, res=x1).reshape(b, h, w, c)
 
 
 def fused_full_block(blk, x, num_heads: int, window_size: int, rope_tables):
@@ -415,16 +617,44 @@ def fused_full_block(blk, x, num_heads: int, window_size: int, rope_tables):
     wts = pack_block_weights(blk, num_heads, x.dtype)
     if x.device.type == "cpu":
         return full_block_plain(wts, x, num_heads, window_size, rope_tables)
-    x = x.contiguous()
-    _check_block("fused_full_block", wts, x, num_heads)
-    b, h, w, c = x.shape
-    m = b * h * w
-    attn = _full_attention(wts, x, num_heads, window_size, rope_tables)
-    x1 = torch.empty(m, c, dtype=x.dtype, device=x.device)
-    _gemm(attn, wts.wo, wts.bo, x1, m, c, c, res=x.reshape(m, c))
-    out = _mlp_chain(wts, x1, m, c, res=x1)
+    out = _full_block("fused_full_block", wts, x, num_heads, window_size,
+                      rope_tables)
     fused_full_block.launches += 1
-    return out.reshape(b, h, w, c)
+    return out
+
+
+def fused_full_block_int8(blk, x, num_heads: int, window_size: int,
+                          rope_tables):
+    """Kernel B8: fused_full_block with the int8 pack
+    (pack_block_weights_int8): dynamic per-row activation quantization, or
+    static when the block carries calibrated ``act_scales``."""
+    wts = pack_block_weights_int8(blk, num_heads, x.dtype)
+    if x.device.type == "cpu":
+        return full_block_plain(wts, x, num_heads, window_size, rope_tables)
+    out = _full_block("fused_full_block_int8", wts, x, num_heads, window_size,
+                      rope_tables)
+    fused_full_block_int8.launches += 1
+    return out
+
+
+def _compressed_block(name, wts: BlockWeights, x, plan: CompressPlan,
+                      num_heads: int, ws: int, rope_tables):
+    """The compressed block's chain of launches on a CUDA map x."""
+    x = x.contiguous()
+    _check_block(name, wts, x, num_heads)
+    b, h, w, c = x.shape
+    xs, raw1, slow32, fast32 = _rows_attention(wts, x, plan, num_heads, ws,
+                                               rope_tables)
+    rows = xs.shape[0]
+    # one LN2 pass stores s1 = xs + raw1 and normalizes it
+    s1 = torch.empty(rows, c, dtype=x.dtype, device=x.device)
+    raw2 = _mlp_chain(wts, raw1, rows, c, ln_res=xs, sum_out=s1)
+    out = torch.empty_like(x)
+    call("vit_block", "toc3d_scatter_update", x.data_ptr(), s1.data_ptr(),
+         raw1.data_ptr(), raw2.data_ptr(), slow32.data_ptr(),
+         fast32.data_ptr(), out.data_ptr(), plan.slow_idx.shape[0], h, w, c,
+         ws, plan.k, plan.fast_idx.shape[1], int(plan.has_rep), stream_of(x))
+    return out
 
 
 def fused_compressed_block(blk, x, scores, num_heads: int, window_size: int,
@@ -440,32 +670,33 @@ def fused_compressed_block(blk, x, scores, num_heads: int, window_size: int,
     if x.device.type == "cpu":
         return compressed_block_plain(wts, x, plan, num_heads, window_size,
                                       rope)
-    x = x.contiguous()
-    _check_block("fused_compressed_block", wts, x, num_heads)
-    xs, raw1, slow32, fast32 = _rows_attention(wts, x, plan, num_heads,
-                                               window_size, rope)
-    rows = xs.shape[0]
-    dev = x.device
-    s1 = torch.empty(rows, c, dtype=x.dtype, device=dev)
-    hbuf2 = torch.empty(rows, c, dtype=x.dtype, device=dev)
-    # one pass stores s1 = xs + raw1 and writes LN2(s1)
-    _ln(raw1, c, wts.ln2w, wts.ln2b, hbuf2, rows, rows, c, c, res=xs,
-        sum_out=s1)
-    hp = wts.w3.shape[1]
-    g = torch.empty(rows, hp, dtype=x.dtype, device=dev)
-    _gemm(hbuf2, wts.w12, wts.b12, g, rows, 2 * hp, c, gate=True)
-    _ln(g, hp, wts.flw, wts.flb, g, rows, rows, wts.hidden, hp)
-    raw2 = torch.empty(rows, c, dtype=x.dtype, device=dev)
-    _gemm(g, wts.w3, wts.b3, raw2, rows, c, hp)
-    out = torch.empty_like(x)
-    call("vit_block", "toc3d_scatter_update", x.data_ptr(), s1.data_ptr(),
-         raw1.data_ptr(), raw2.data_ptr(), slow32.data_ptr(),
-         fast32.data_ptr(), out.data_ptr(), plan.slow_idx.shape[0], h, w, c,
-         window_size, plan.k, plan.fast_idx.shape[1], int(plan.has_rep),
-         stream_of(x))
+    out = _compressed_block("fused_compressed_block", wts, x, plan,
+                            num_heads, window_size, rope)
     fused_compressed_block.launches += 1
+    return out
+
+
+def fused_compressed_block_int8(blk, x, scores, num_heads: int,
+                                window_size: int, ratio: float, rope_tables,
+                                use_represent: bool, rope_acc: bool,
+                                align_k: bool):
+    """Kernel C8: fused_compressed_block with the int8 pack, dynamic or
+    static as for fused_full_block_int8."""
+    b, h, w, c = x.shape
+    wts = pack_block_weights_int8(blk, num_heads, x.dtype)
+    plan = compress_plan(scores, b, h, w, window_size, ratio, use_represent,
+                         align_k)
+    rope = rope_tables if rope_acc else None
+    if x.device.type == "cpu":
+        return compressed_block_plain(wts, x, plan, num_heads, window_size,
+                                      rope)
+    out = _compressed_block("fused_compressed_block_int8", wts, x, plan,
+                            num_heads, window_size, rope)
+    fused_compressed_block_int8.launches += 1
     return out
 
 
 fused_full_block.launches = 0
 fused_compressed_block.launches = 0
+fused_full_block_int8.launches = 0
+fused_compressed_block_int8.launches = 0

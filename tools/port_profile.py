@@ -1,9 +1,13 @@
 """Device-time breakdown of the PyTorch port's main path on one GPU.
 
-    python3 tools/port_profile.py [--frames 2] [--warmup 3]
+    python3 tools/port_profile.py [--frames 2] [--warmup 3] [--int8
+                                  [--int8-calib N]]
 
 Builds ToC3D_faster_1600 with seeded random weights (6 views, 1600x800,
-batch 1, uint8 frames), streams ``warmup`` frames, then records ``frames``
+batch 1, uint8 frames; with --int8 the backbone and decoder quant 'int8',
+dynamic, or static with scales calibrated on N synthetic frames as
+bench.py --int8 --int8-calib N does), streams ``warmup`` frames, then
+records ``frames``
 steady frames under torch.profiler and prints: the card's nvidia-smi name
 and power limit, the wall time per frame, the summed device time per CUDA
 kernel (top entries), the device time of the port's own kernels grouped by
@@ -18,12 +22,14 @@ import subprocess
 import sys
 import time
 from collections import defaultdict
+from dataclasses import replace
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-FAMILIES = (("gemm_kernel", "GEMM (blocks A-C)"),
+FAMILIES = (("gemm_kernel", "GEMM (A-C, B8, C8, H8)"),
+            ("rowquant_kernel", "row quantization (B8, C8, H8)"),
             ("window_attention_kernel", "window attention (B, C)"),
-            ("layernorm_kernel", "LayerNorm (B, C)"),
+            ("layernorm_kernel", "LayerNorm (B, C, B8, C8)"),
             ("gather_merge_kernel", "gather/merge (C)"),
             ("scatter_update_kernel", "scatter/update (C)"),
             ("flash_kernel", "flash attention (D)"))
@@ -35,6 +41,8 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=2)
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--int8", action="store_true")
+    ap.add_argument("--int8-calib", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("port_profile: no CUDA device", file=sys.stderr)
@@ -44,15 +52,26 @@ def main() -> int:
                                                  make_infer_fn,
                                                  synthetic_frame)
     from toc3d_tpu_torch.ops.cuda import build
+    from toc3d_tpu_torch.ops.int8_calib import (attach_act_scales,
+                                                calibrate_act_scales)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     build.build_all()
-    model = build_detector(get_config("ToC3D_faster_1600"), device="cuda",
-                           seed=0)
-    infer = make_infer_fn(model)
+    cfg = get_config("ToC3D_faster_1600")
+    if args.int8:
+        cfg = replace(cfg, backbone=replace(cfg.backbone, quant="int8"),
+                      head=replace(cfg.head, decoder=replace(
+                          cfg.head.decoder, quant="int8")))
+    model = build_detector(cfg, device="cuda", seed=0)
     g = torch.Generator(device="cuda").manual_seed(2)
+    if args.int8_calib:
+        with torch.no_grad():
+            attach_act_scales(model, calibrate_act_scales(
+                model, [synthetic_frame(g, t)
+                        for t in range(args.int8_calib)]))
+    infer = make_infer_fn(model)
     state = init_state(1, model.cfg, device="cuda")
     with torch.no_grad():
         for t in range(args.warmup):
@@ -74,7 +93,9 @@ def main() -> int:
             per_kernel[ev.name] += ev.time_range.elapsed_us() / 1e3
     total = sum(per_kernel.values())
     n = args.frames
-    print(f"wall {wall / n:.3f} ms/frame; device kernel time "
+    mode = ("bf16" if not args.int8 else "int8 static" if args.int8_calib
+            else "int8 dynamic")
+    print(f"{mode}: wall {wall / n:.3f} ms/frame; device kernel time "
           f"{total / n:.3f} ms/frame; device idle share "
           f"{max(0.0, 1 - total / wall):.3f}")
     fam = defaultdict(float)
