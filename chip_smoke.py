@@ -6,18 +6,20 @@ Phases, each fatal on failure (exit code != 0):
   1. device: needs torch.cuda; prints the nvidia-smi name / power limit line;
   2. build: compiles every kernel of the main path from toc3d_tpu_torch/csrc
      (one nvcc per source, in parallel) into build/kernels/;
-  3. check: each kernel (A patch embed, B full block, C compressed block,
-     D flash attention) on the card at the main-path shapes of
-     ToC3D_faster_1600, in bf16, against its plain PyTorch version;
+  3. check: each kernel (A patch embed, B full block, C compressed block at
+     its six main-path shapes, D split-K flash attention) on the card at
+     the main-path shapes of ToC3D_faster_1600, in bf16, against its plain
+     PyTorch version, and the attention deltas of B and C alone;
   4. time: each kernel, its plain version and a PyTorch yardstick
-     (library_ms) with CUDA events, beside the bound for the same work;
+     (library_ms) with CUDA events, beside the bound for the same work (C
+     and its yardstick both route the tokens inside the timed call);
   5. main path: ToC3D_faster_1600 at full width (6 views, 1600x800, batch 1,
      uint8 frames, seeded random weights) streamed for 6 frames with
      prev_exists 0, 1, 1, 1, 1, 1 through make_infer_fn; checks finite
      outputs and that every kernel launched its per-frame count (A 1, B 6,
      C 18, D 12, int8 kernels 0); then the `tiny` preset in bf16 against the
      plain path on the CPU as a small-input agreement check;
-  6. int8: the int8 blocks B8 (ws 16, 20) and C8 (the four main-path
+  6. int8: the int8 blocks B8 (ws 16, 20) and C8 (the six main-path
      shapes), dynamic and with static scales, and the head's int8 linear
      H8, checked and timed as in 3-4; the int8 main path (backbone and
      decoder quant 'int8') streamed for 6 frames with per-row (dynamic)
@@ -41,6 +43,10 @@ import time
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 PEAK_INT8_OPS = 1979e12      # H100 SXM dense int8 tensor-core peak
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
+
+# the main path's compressed blocks (block, ratio): each ratio segment at
+# ws 16 and at ws 20 (the global layers)
+C_SHAPES = ((6, 0.5), (8, 0.5), (12, 0.4), (14, 0.4), (18, 0.3), (20, 0.3))
 
 # kernel tolerance on the card, bf16 kernel vs its plain version on the same
 # inputs: max |err| <= 2^-5 * max |plain| and mean |err| <= 2^-6 * mean
@@ -287,8 +293,17 @@ def phase_build():
         logf = build.BUILD_DIR / f"{name}.log"
         if logf.exists():
             for line in logf.read_text().splitlines():
-                if "registers" in line or "spill" in line:
+                if ("registers" in line or "spill" in line
+                        or "Compiling entry" in line):
                     log(f"  ptxas {name}: {line.strip()}")
+    # window attention at d = 64 for every window size of the main path
+    # (B: 256, 400 rows; C: kr = k + 1 at ratios .5 / .4 / .3)
+    occ = {n: build.occupancy("vit_block", "toc3d_window_attention_occupancy",
+                              n, 64)
+           for n in (256, 400, 128, 103, 77, 201, 161, 121)}
+    log(f"resident blocks per SM: window attention (d 64) by rows {occ}; "
+        f"flash partial (d 32) "
+        f"{build.occupancy('cross_attn', 'toc3d_flash_occupancy', 32)}")
 
 
 def phase_kernels(model, results):
@@ -375,16 +390,17 @@ def phase_kernels(model, results):
         del out, ref
     results["B"]["max_abs_err"] = b_err
 
-    # C: compressed blocks, one per ratio segment, at both window sizes
+    # C: compressed blocks, every ratio segment at both window sizes
     scores = torch.randn(6, 5000, device=dev, generator=g).to(bf)
     c_err = 0.0
-    for blk_i, ratio in ((6, 0.5), (8, 0.5), (12, 0.4), (20, 0.3)):
+    for blk_i, ratio in C_SHAPES:
         blk = model.img_backbone.blocks[blk_i]
         ws = cfg.global_window_size if blk_i in cfg.global_attn_indexes \
             else cfg.window_size
         wts = vit_block.pack_block_weights(blk, heads, bf)
-        plan = vit_block.compress_plan(scores, 6, 50, 100, ws, ratio, True,
-                                       cfg.mxu_align_k)
+        make_plan = lambda: vit_block.compress_plan(
+            scores, 6, 50, 100, ws, ratio, True, cfg.mxu_align_k)
+        plan = make_plan()
         out = vit_block.fused_compressed_block(
             blk, x, scores, heads, ws, ratio, rope[ws], True, True,
             cfg.mxu_align_k)
@@ -403,6 +419,9 @@ def phase_kernels(model, results):
         flops, nbytes = compressed_block_work(6, 50, 100, c, hid, ws, plan.k,
                                               plan.has_rep)
         b_ms, b_by = bound(flops, nbytes)
+        # kernel and yardstick both route the tokens (compress_plan) inside
+        # the timed call; the plan's own time and the yardstick with the
+        # plan made beforehand are logged beside
         entry = dict(
             shape=f"x (6,50,100,1024) bf16, ws {ws}, ratio {ratio}, "
                   f"k {plan.k}",
@@ -412,7 +431,10 @@ def phase_kernels(model, results):
             plain_ms=cuda_time(lambda: vit_block.compressed_block_plain(
                 wts, x, plan, heads, ws, rope[ws]), 3),
             library_ms=cuda_time(lambda: lib_compressed_block(
+                wts, x, make_plan(), heads, ws, rope[ws]), 10),
+            library_ms_plan_outside=cuda_time(lambda: lib_compressed_block(
                 wts, x, plan, heads, ws, rope[ws]), 10),
+            plan_ms=cuda_time(make_plan, 10),
             bound_ms=b_ms, bound_by=b_by)
         log(f"time C ws{ws} r{ratio}: {json.dumps(entry)}")
         if "C" not in results:
@@ -427,6 +449,7 @@ def phase_kernels(model, results):
     # D: decoder cross-attention (K = 30000) and self-attention (K = 1668)
     d_err = 0.0
     hd = 8
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for kv in (30000, 1668):
         q = (torch.randn(1, 900, 256, device=dev, generator=g)
              * (3 * 32 ** -0.5)).to(bf)
@@ -434,8 +457,11 @@ def phase_kernels(model, results):
         v = torch.randn(1, kv, 256, device=dev, generator=g).to(bf)
         out = cross_attn.flash_attention_core(q, k, v, hd)
         ref = cross_attn.flash_attention_plain(q, k, v, hd)
-        ok, err = compare(f"D flash q (1,900,256) k/v (1,{kv},256)", out,
-                          ref)
+        splits, per = cross_attn.flash_splits(900, kv, hd, 1, sms)
+        blocks = -(-900 // cross_attn.QUERY_TILE) * hd * splits
+        ok, err = compare(f"D flash q (1,900,256) k/v (1,{kv},256), "
+                          f"{splits} splits of {per} key tiles, {blocks} "
+                          f"blocks on {sms} SMs", out, ref)
         ok_all &= ok
         d_err = max(d_err, err)
         sh = lambda t: t.reshape(1, -1, hd, 32).transpose(1, 2)
@@ -483,14 +509,15 @@ def phase_kernels_int8(model, results):
     x = (torch.randn(6, 50, 100, c, device=dev, generator=g) * 0.5).to(bf)
     scores = torch.randn(6, 5000, device=dev, generator=g).to(bf)
     ok_all = True
-    shapes = [(0, None), (2, None), (6, 0.5), (8, 0.5), (12, 0.4), (20, 0.3)]
+    shapes = [(0, None), (2, None)] + list(C_SHAPES)
     for blk_i, ratio in shapes:
         blk = model.img_backbone.blocks[blk_i]
         ws = cfg.global_window_size if blk_i in cfg.global_attn_indexes \
             else cfg.window_size
         key = "B8" if ratio is None else "C8"
-        plan = None if ratio is None else vit_block.compress_plan(
+        make_plan = lambda: vit_block.compress_plan(
             scores, 6, 50, 100, ws, ratio, True, cfg.mxu_align_k)
+        plan = None if ratio is None else make_plan()
         for mode in ("dynamic", "static"):
             if mode == "static":
                 amax = (int8_calib.full_block_site_amax(
@@ -518,7 +545,8 @@ def phase_kernels_int8(model, results):
                 plain = lambda: vit_block.compressed_block_plain(
                     wts, x, plan, heads, ws, rope[ws])
                 lib = lambda: lib_compressed_block(
-                    wts, x, plan, heads, ws, rope[ws], _lib_rows_block_int8)
+                    wts, x, make_plan(), heads, ws, rope[ws],
+                    _lib_rows_block_int8)
                 ops8, flops, nbytes = compressed_block_work_int8(
                     6, 50, 100, c, hid, ws, plan.k, plan.has_rep)
                 shape = (f"x (6,50,100,1024) bf16, ws {ws}, ratio {ratio}, "

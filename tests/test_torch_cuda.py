@@ -3,7 +3,11 @@ PyTorch versions on the card, at small shapes that reach the edge cases the
 main path of chip_smoke.py does not: ragged maps with zero-padded edge
 windows, compressed blocks with and without the representative token and
 with RoPE off, ws 16 with and without mxu_align_k, head dims 32 and 64, and
-key counts that are not a multiple of the flash kernel's key tile. The int8
+key counts that are not a multiple of the flash kernel's key tile, key
+counts that span several splits of the split-K flash kernel with a ragged
+last split or fall short of one tile, ws 20 windows (full blocks, and
+compressed ones with kr = 201 at ratio .5 and ratio .3), and the window
+attention of kr = 201 rows on its own. The int8
 forms B8 / C8 (dynamic and static) and their parts: the int8 GEMM with
 every epilogue (K not a multiple of the 64-deep tile, M = 1), the
 quantizing LayerNorm and row quantization, and the head's int8 linear.
@@ -89,6 +93,8 @@ def test_patchify_kernel(dev, b, h, w, c):
     ((2, 7, 11), 64, 2, 170, 4, True),       # ragged map, edge pads
     ((2, 7, 11), 64, 2, 170, 4, False),
     ((1, 20, 20), 128, 2, 256, 16, True),    # head_dim 64, ws 16
+    ((1, 40, 40), 128, 2, 256, 20, True),    # ws 20: 400 keys, 25 q tiles
+    ((1, 30, 50), 128, 2, 256, 20, True),    # ws 20 with edge pads
 ])
 def test_full_block_kernel(dev, shape, c, heads, hidden, ws, rope):
     blk = _block(c, heads, hidden, 1, dev)
@@ -110,6 +116,23 @@ def test_full_block_kernel(dev, shape, c, heads, hidden, ws, rope):
 ])
 def test_compressed_block_kernel(dev, shape, c, heads, hidden, ws, use_rep,
                                  rope_acc, align):
+    _compressed_case(dev, shape, c, heads, hidden, ws, 0.5, use_rep,
+                     rope_acc, align)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ratio,use_rep", [(0.5, True), (0.5, False),
+                                           (0.3, True), (0.3, False)])
+def test_compressed_block_kernel_ws20(dev, ratio, use_rep):
+    """ws 20 windows as on the main path's global layers: kr = 201 rows at
+    ratio .5 (13 query tiles), 121 at ratio .3, with and without the
+    representative row."""
+    _compressed_case(dev, (1, 40, 60), 128, 2, 256, 20, ratio, use_rep,
+                     True, True)
+
+
+def _compressed_case(dev, shape, c, heads, hidden, ws, ratio, use_rep,
+                     rope_acc, align):
     blk = _block(c, heads, hidden, 2, dev)
     g = torch.Generator(device=dev).manual_seed(2)
     b, h, w = shape
@@ -117,8 +140,8 @@ def test_compressed_block_kernel(dev, shape, c, heads, hidden, ws, use_rep,
     scores = torch.randn(b, h * w, device=dev, generator=g).to(BF)
     tables = _rope(c, heads, ws, dev)
     out = _counted(vit_block.fused_compressed_block, blk, x, scores, heads,
-                   ws, 0.5, tables, use_rep, rope_acc, align)
-    plan = vit_block.compress_plan(scores, b, h, w, ws, 0.5, use_rep, align)
+                   ws, ratio, tables, use_rep, rope_acc, align)
+    plan = vit_block.compress_plan(scores, b, h, w, ws, ratio, use_rep, align)
     wts = vit_block.pack_block_weights(blk, heads, BF)
     ref = vit_block.compressed_block_plain(wts, x, plan, heads, ws,
                                            tables if rope_acc else None)
@@ -131,6 +154,7 @@ def test_compressed_block_kernel(dev, shape, c, heads, hidden, ws, use_rep,
     ((1, 40, 40), 128, 2, 256, 20, True, False),  # full block, ws 20
     ((2, 7, 10), 64, 2, 170, 4, True, True),      # rows + representative
     ((1, 20, 20), 128, 2, 256, 16, False, True),  # k = 127, no rep
+    ((1, 40, 60), 128, 2, 256, 20, True, True),   # kr = 201, ws 20
 ])
 def test_attention_delta_kernel(dev, shape, c, heads, hidden, ws, use_rep,
                                 compressed):
@@ -159,6 +183,10 @@ def test_attention_delta_kernel(dev, shape, c, heads, hidden, ws, use_rep,
     (2, 37, 130, 64, 2),      # head_dim 32, ragged Q and K
     (1, 70, 300, 128, 2),     # head_dim 64
     (1, 64, 128, 256, 8),     # tile-aligned
+    (1, 900, 5000, 256, 8),   # 5 splits, ragged last split, ragged q tile
+    (1, 900, 1668, 256, 8),   # the decoder's self-attention: 4 splits
+    (1, 200, 3000, 128, 2),   # head_dim 64, 6 splits
+    (2, 5, 40, 64, 2),        # fewer keys than one tile
 ])
 def test_flash_kernel(dev, b, q, kv, c, heads):
     g = torch.Generator(device=dev).manual_seed(3)

@@ -8,14 +8,11 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
+#include <math.h>
 #include <stdint.h>
 
 typedef __nv_bfloat16 bf16;
 typedef __nv_bfloat162 bf162;
-namespace wmma = nvcuda::wmma;
-
-#define TOC3D_NEG_INF (-1e30f)
 
 // round an f32 value to the nearest bf16 and back (the rounding points of
 // the TPU kernels, which keep activations in bf16 between matmuls)
@@ -46,6 +43,66 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ---------------------------------------------------------------------------
+// register-resident attention (flash attention, window attention): mma.sync
+// m16n8k16 on ldmatrix fragments
+// ---------------------------------------------------------------------------
+
+// ldmatrix lane addressing of a 16x16 bf16 tile: as the A operand (and as V
+// under .trans) lane L supplies row a_row(L), 8-column half a_half(L); as
+// the B operand from an n-major tile, row b_row(L), half b_half(L)
+__device__ __forceinline__ int ldsm_a_row(int lane) {
+  return (lane & 7) + 8 * ((lane >> 3) & 1);
+}
+__device__ __forceinline__ int ldsm_a_half(int lane) { return lane >> 4; }
+__device__ __forceinline__ int ldsm_b_row(int lane) {
+  return (lane & 7) + 8 * (lane >> 4);
+}
+__device__ __forceinline__ int ldsm_b_half(int lane) {
+  return (lane >> 3) & 1;
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned* r, const void* smem) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned* r, const void* smem) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// D (16x8 f32) += A (16x16 bf16, row) * B (16x8 bf16, col)
+__device__ __forceinline__ void mma16816(float* d, const unsigned* a,
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  bf162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// the bf16 A operand (16 rows x 16 keys) of P.V for key chunk kc of a
+// 64-key tile: P's accumulator layout is the A operand layout
+__device__ __forceinline__ void p_fragment(unsigned* pa, float (&s)[8][4],
+                                           int kc) {
+  pa[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
+  pa[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
+  pa[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
+  pa[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
 }
 
 #define TOC3D_EXPORT extern "C" __attribute__((visibility("default")))

@@ -40,19 +40,22 @@
 //                         proj_in site (the merged attention output, whole
 //                         only after every head has run) and the inputs of
 //                         the head decoder's int8 linears
-//   window_attention_kernel  one (window, head) per block: loads the
-//                         window's q/k/v rows (by window geometry, or dense
-//                         for compressed rows), applies pairwise RoPE in
-//                         f32, then softmax(q k^T) v with WMMA in two passes
-//                         (row max, then exp/sum and P.V) so P is
-//                         exp(s - max) exactly as the TPU kernel forms it
+//   window_attention_kernel  one (window, head) per block: stages the
+//                         window's k/v rows (by window geometry, or dense
+//                         for compressed rows) in shared memory with
+//                         pairwise RoPE in f32, then softmax(q k^T) v in
+//                         two passes over 64-key tiles (row max, then P =
+//                         exp(s - max) and P.V) with S, P and o in
+//                         registers (note below)
 //   gather_merge_kernel   compressed rows: slow tokens by index plus the
 //                         representative row = score-weighted mean of the
 //                         fast tokens (weights score / sum(score), pads of
 //                         -1e6 included, rounded to bf16 like the TPU
-//                         kernel's gather matrix)
+//                         kernel's gather matrix); a grid over rows and
+//                         (window, channel chunk), 16-byte accesses
 //   scatter_update_kernel slow rows back to their tokens; every fast token
-//                         becomes x + (raw1 + raw2) of the representative
+//                         becomes x + (raw1 + raw2) of the representative;
+//                         one warp per token, 16-byte accesses
 // Full blocks skip the zero-pad materialisation: the attention kernel reads
 // out-of-image tokens from one extra QKV row computed from LN(0).
 //
@@ -313,142 +316,273 @@ __device__ __forceinline__ long long attn_row(const WinGeom& g, int w, int n,
   return r < 0 ? g.pad_row : r;
 }
 
+// element offset of 16-byte chunk ch of row r in a (rows, D) bf16 tile whose
+// chunks are XOR-swizzled by row: the 8 rows that one ldmatrix phase reads
+// land on 8 distinct 16-byte bank groups, with no padding
 template <int D>
-__global__ void __launch_bounds__(256) window_attention_kernel(
+__device__ __forceinline__ int swz(int r, int ch) {
+  constexpr int CH = D / 8;   // chunks per row: 4 (two rows per 128 B) or 8
+  return r * D + ((ch ^ ((CH == 8 ? r : r >> 1) & (CH - 1))) << 3);
+}
+
+// pairwise rotate-half RoPE of one pair (a, b) -> (-b, a), in f32
+__device__ __forceinline__ void rope2(float& a, float& b, float c0, float c1,
+                                      float s0, float s1) {
+  const float na = a * c0 + (-b) * s0;
+  const float nb = b * c1 + a * s1;
+  a = na;
+  b = nb;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ uint4 pack8(const float4& a, const float4& b) {
+  return make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w),
+                    pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
+}
+
+// Window attention of one (head, window) per block, softmax(q k^T) v over
+// the window's n tokens (or a compressed window's kr rows).
+//
+// Bound: operations. At ws 16 (B) it is 4 n^2 C = 45 GFLOP a call over the
+// 168 windows (~45 us at 989 TFLOP/s) and 176 M exponentials (~50 us on
+// the SFUs), against the 369 MB f32 qkv read once (~110 us at 3.35 TB/s):
+// the read of qkv bounds it at the main-path shapes.
+//
+// Design (FlashAttention's register-resident tiles, on a window that fits
+// on chip): the block stages the window's K and V once, as bf16 in shared
+// memory: 16-byte chunks of 8 values, read as two float4 loads of the f32
+// qkv rows, K rotated (RoPE) in f32 on the way; rows are XOR-swizzled, not
+// padded, so K/V of a ws 20 window at d = 64 take 100 KB and two blocks fit
+// on an SM. Each warp then owns 16 query rows at a time: it builds its q
+// fragments straight from the f32 rows (RoPE in f32; a quad of lanes reads
+// 32 contiguous bytes of a row, whole sectors, and the tables in float2
+// pairs) and walks the keys in 64-key
+// tiles: S = q k^T and o += bf16(P) v are mma.sync m16n8k16 products on
+// ldmatrix fragments (V transposed on the load), and S, P, o and the row
+// statistics stay in registers, never in shared memory. The block has
+// ceil(tiles / rounds) warps for rounds = ceil(tiles / 8), so 13 query
+// tiles (kr = 201) run as 7 + 6 on 7 warps and 25 (n = 400) as 7 + 7 + 7
+// + 4. Rows past n are zero in shared memory and their logits -inf.
+//
+// Two passes over the keys, not one: pass 1 takes each row's max, pass 2
+// forms P = exp(s - max) with expf, at the plain version's rounding points.
+// A one-pass online softmax (running max, as flash_partial_kernel) stayed
+// inside the attention-delta bound at every main-path shape, but rounds P
+// at the running max, so most attention outputs moved by a last bf16 bit;
+// B8 and C8 quantize that output (proj_in) and the MLP's inputs to int8,
+// where a last-bit move flips whole int8 steps, and their block outputs
+// then exceeded the 2^-6 mean bound (B8 ws 16 static on an H100: 0.0179
+// against 0.0131). The second pass recomputes q k^T (one more mma.sync
+// per P.V one) and keeps S in registers all the same.
+//
+// Image mode reads the rows of each window by geometry and points
+// out-of-image tokens at the LN(0) row (pad_row); their outputs are not
+// stored.
+
+// S = q k^T for 16 query rows x the 64 keys from key0, logits of keys past
+// n at -inf (keys past npad are not read)
+template <int D>
+__device__ __forceinline__ void window_scores(float (&s)[8][4],
+                                              unsigned (&qf)[D / 16][4],
+                                              const bf16* Ks, int key0, int n,
+                                              int npad, int lane) {
+  const int b_row = ldsm_b_row(lane), b_half = ldsm_b_half(lane);
+  const int t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      if (key0 + jj * 16 < npad) {
+        unsigned r[4];
+        ldsm_x4(r, Ks + swz<D>(key0 + jj * 16 + b_row, kk * 2 + b_half));
+        mma16816(s[2 * jj], qf[kk], r[0], r[1]);
+        mma16816(s[2 * jj + 1], qf[kk], r[2], r[3]);
+      }
+    }
+  if (key0 + 64 > n) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int key = key0 + j * 8 + 2 * t;
+      if (key >= n) s[j][0] = s[j][2] = -INFINITY;
+      if (key + 1 >= n) s[j][1] = s[j][3] = -INFINITY;
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(256, 2) window_attention_kernel(
     const float* qkv, const int* pos, const float* cosT, const float* sinT,
     bf16* out, int n, int npad, int heads, WinGeom g) {
-  constexpr int LDS = D + 8;
+  constexpr int CH = D / 8;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int C = heads * D;
   const int h = blockIdx.x, w = blockIdx.y;
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + npad * LDS;
-  bf16* Vs = Ks + npad * LDS;
-  float* Sall = reinterpret_cast<float*>(smem_raw + 3 * npad * LDS * 2);
-  bf16* Pall = reinterpret_cast<bf16*>(Sall + 8 * 256);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* S = Sall + warp * 256;
-  bf16* P = Pall + warp * 256;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, nwarps = nthreads >> 5;
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + npad * D;
+  int* rowid = reinterpret_cast<int*>(Vs + npad * D);   // qkv row, -1 past n
+  int* prow = rowid + npad;                            // RoPE table row
 
-  for (int idx = threadIdx.x; idx < npad * (D / 2); idx += blockDim.x) {
-    const int t = idx / (D / 2);
-    const int p2 = (idx - t * (D / 2)) * 2;
-    float q0 = 0.f, q1 = 0.f, k0 = 0.f, k1 = 0.f, v0 = 0.f, v1 = 0.f;
-    if (t < n) {
-      const long long row = attn_row(g, w, n, t);
-      const float* base = qkv + row * 3 * C + h * D + p2;
-      q0 = base[0];
-      q1 = base[1];
-      k0 = base[C];
-      k1 = base[C + 1];
-      v0 = base[2 * C];
-      v1 = base[2 * C + 1];
+  for (int r = tid; r < npad; r += nthreads) {
+    rowid[r] = r < n ? static_cast<int>(attn_row(g, w, n, r)) : -1;
+    prow[r] = (r < n && pos) ? pos[(long long)w * n + r] : r;
+  }
+  __syncthreads();
+  for (int idx = tid; idx < npad * CH; idx += nthreads) {
+    const int r = idx / CH, ch = idx - r * CH;
+    const int R = rowid[r];
+    uint4 kq = make_uint4(0u, 0u, 0u, 0u), vq = kq;
+    if (R >= 0) {
+      const float* base = qkv + (long long)R * 3 * C + C + h * D + ch * 8;
+      float4 k0 = ld4(base), k1 = ld4(base + 4);
       if (cosT) {
-        const int ps = pos ? pos[(long long)w * n + t] : t;
-        const float* cr = cosT + (long long)ps * D + p2;
-        const float* sr = sinT + (long long)ps * D + p2;
-        // pairwise rotate-half: (a, b) -> (-b, a)
-        const float nq0 = q0 * cr[0] + (-q1) * sr[0];
-        const float nq1 = q1 * cr[1] + q0 * sr[1];
-        const float nk0 = k0 * cr[0] + (-k1) * sr[0];
-        const float nk1 = k1 * cr[1] + k0 * sr[1];
-        q0 = nq0;
-        q1 = nq1;
-        k0 = nk0;
-        k1 = nk1;
+        const long long tr = (long long)prow[r] * D + ch * 8;
+        const float4 c0 = ld4(cosT + tr), c1 = ld4(cosT + tr + 4);
+        const float4 s0 = ld4(sinT + tr), s1 = ld4(sinT + tr + 4);
+        rope2(k0.x, k0.y, c0.x, c0.y, s0.x, s0.y);
+        rope2(k0.z, k0.w, c0.z, c0.w, s0.z, s0.w);
+        rope2(k1.x, k1.y, c1.x, c1.y, s1.x, s1.y);
+        rope2(k1.z, k1.w, c1.z, c1.w, s1.z, s1.w);
       }
+      kq = pack8(k0, k1);
+      vq = pack8(ld4(base + C), ld4(base + C + 4));
     }
-    *reinterpret_cast<bf162*>(Qs + t * LDS + p2) = __floats2bfloat162_rn(q0, q1);
-    *reinterpret_cast<bf162*>(Ks + t * LDS + p2) = __floats2bfloat162_rn(k0, k1);
-    *reinterpret_cast<bf162*>(Vs + t * LDS + p2) = __floats2bfloat162_rn(v0, v1);
+    *reinterpret_cast<uint4*>(Ks + swz<D>(r, ch)) = kq;
+    *reinterpret_cast<uint4*>(Vs + swz<D>(r, ch)) = vq;
   }
   __syncthreads();
 
-  const int nt = npad / 16;
-  const int r = lane >> 1, half = lane & 1;
-  for (int qt = warp; qt < nt; qt += 8) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qf[D / 16];
+  const int a_row = ldsm_a_row(lane), a_half = ldsm_a_half(lane);
+  const int gq = lane >> 2, t = lane & 3;
+  const int nqt = npad / 16, nkt = (npad + 63) / 64;
+  for (int qt = warp; qt < nqt; qt += nwarps) {
+    // q fragments: rows gq and gq + 8, columns (2t, 2t + 1) and
+    // (2t + 8, 2t + 9) of each 16-column chunk (the m16n8k16 A layout)
+    unsigned qf[D / 16][4];
 #pragma unroll
-    for (int dd = 0; dd < D / 16; ++dd)
-      wmma::load_matrix_sync(qf[dd], Qs + qt * 16 * LDS + dd * 16, LDS);
-
-    // pass 1: row max over the valid keys
-    float m = TOC3D_NEG_INF;
-    for (int kt = 0; kt < nt; ++kt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
-      wmma::fill_fragment(s, 0.f);
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = qt * 16 + gq + 8 * rr;
+      const int R = rowid[r];
 #pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-        wmma::load_matrix_sync(kf, Ks + kt * 16 * LDS + dd * 16, LDS);
-        wmma::mma_sync(s, qf[dd], kf, s);
-      }
-      wmma::store_matrix_sync(S, s, 16, wmma::mem_row_major);
-      __syncwarp();
+      for (int kk = 0; kk < D / 16; ++kk)
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int key = kt * 16 + half * 8 + e;
-        if (key < n) m = fmaxf(m, S[r * 16 + half * 8 + e]);
-      }
-      __syncwarp();
+        for (int hf = 0; hf < 2; ++hf) {
+          const int col = kk * 16 + hf * 8 + 2 * t;
+          float2 x = make_float2(0.f, 0.f);
+          if (R >= 0) {
+            x = *reinterpret_cast<const float2*>(qkv + (long long)R * 3 * C +
+                                                 h * D + col);
+            if (cosT) {
+              const long long tr = (long long)prow[r] * D + col;
+              const float2 c = *reinterpret_cast<const float2*>(cosT + tr);
+              const float2 sn = *reinterpret_cast<const float2*>(sinT + tr);
+              rope2(x.x, x.y, c.x, c.y, sn.x, sn.y);
+            }
+          }
+          qf[kk][rr + 2 * hf] = pack_bf16(x.x, x.y);
+        }
     }
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
 
-    // pass 2: p = exp(s - m), l = sum p (f32), o = bf16(p) . v
-    float l = 0.f;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[D / 16];
+    // pass 1: the row maxima over all keys
+    float m0 = -INFINITY, m1 = -INFINITY;
+    for (int kt = 0; kt < nkt; ++kt) {
+      float s[8][4];
+      window_scores<D>(s, qf, Ks, kt * 64, n, npad, lane);
 #pragma unroll
-    for (int dd = 0; dd < D / 16; ++dd) wmma::fill_fragment(o[dd], 0.f);
-    for (int kt = 0; kt < nt; ++kt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
-      wmma::fill_fragment(s, 0.f);
-#pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-        wmma::load_matrix_sync(kf, Ks + kt * 16 * LDS + dd * 16, LDS);
-        wmma::mma_sync(s, qf[dd], kf, s);
+      for (int j = 0; j < 8; ++j) {
+        m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
+        m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
       }
-      wmma::store_matrix_sync(S, s, 16, wmma::mem_row_major);
-      __syncwarp();
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int key = kt * 16 + half * 8 + e;
-        const float p = key < n ? expf(S[r * 16 + half * 8 + e] - m) : 0.f;
-        l += p;
-        P[r * 16 + half * 8 + e] = __float2bfloat16(p);
-      }
-      __syncwarp();
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf;
-      wmma::load_matrix_sync(pf, P, 16);
-#pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-        wmma::load_matrix_sync(vf, Vs + kt * 16 * LDS + dd * 16, LDS);
-        wmma::mma_sync(o[dd], pf, vf, o[dd]);
-      }
-      __syncwarp();
-    }
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-
-    const int t = qt * 16 + r;
-    long long row = -1;
-    if (t < n) {
-      row = attn_row(g, w, n, t);
-      if (g.image && row == g.pad_row) row = -1;
     }
 #pragma unroll
-    for (int dd = 0; dd < D / 16; ++dd) {
-      wmma::store_matrix_sync(S, o[dd], 16, wmma::mem_row_major);
-      __syncwarp();
-      if (row >= 0) {
-        bf16* dst = out + row * C + h * D + dd * 16 + half * 8;
+    for (int off = 1; off < 4; off <<= 1) {
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+    }
+    // pass 2: p = exp(s - max) in f32, l = sum p, o += bf16(p) v
+    float o[D / 8][4];
 #pragma unroll
-        for (int e = 0; e < 8; ++e)
-          dst[e] = __float2bfloat16(S[r * 16 + half * 8 + e] / l);
+    for (int nn = 0; nn < D / 8; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nn][e] = 0.f;
+    float l0 = 0.f, l1 = 0.f;
+    for (int kt = 0; kt < nkt; ++kt) {
+      const int key0 = kt * 64;
+      float s[8][4];
+      window_scores<D>(s, qf, Ks, key0, n, npad, lane);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[j][0] = expf(s[j][0] - m0);
+        s[j][1] = expf(s[j][1] - m0);
+        s[j][2] = expf(s[j][2] - m1);
+        s[j][3] = expf(s[j][3] - m1);
+        l0 += s[j][0] + s[j][1];
+        l1 += s[j][2] + s[j][3];
       }
-      __syncwarp();
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        if (key0 + kc * 16 < npad) {
+          unsigned pa[4];
+          p_fragment(pa, s, kc);
+#pragma unroll
+          for (int dd = 0; dd < D / 16; ++dd) {
+            unsigned r[4];
+            ldsm_x4_trans(r, Vs + swz<D>(key0 + kc * 16 + a_row,
+                                         dd * 2 + a_half));
+            mma16816(o[2 * dd], pa, r[0], r[1]);
+            mma16816(o[2 * dd + 1], pa, r[2], r[3]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = qt * 16 + gq + 8 * rr;
+      const int R = rowid[r];
+      if (R < 0 || (g.image && R == g.pad_row)) continue;
+      const float l = rr ? l1 : l0;
+      bf16* dst = out + (long long)R * C + h * D + 2 * t;
+#pragma unroll
+      for (int nn = 0; nn < D / 8; ++nn)
+        *reinterpret_cast<bf162*>(dst + nn * 8) = __floats2bfloat162_rn(
+            o[nn][2 * rr] / l, o[nn][2 * rr + 1] / l);
     }
   }
+}
+
+// the launch shape of a window of n rows: threads, dynamic shared bytes
+template <int D>
+static void window_attention_shape(int n, int* threads, int* smem) {
+  const int npad = (n + 15) / 16 * 16;
+  const int tiles = npad / 16;
+  const int rounds = (tiles + 7) / 8;
+  *threads = 32 * ((tiles + rounds - 1) / rounds);
+  *smem = npad * (4 * D + 8);   // K, V bf16; row and RoPE indices
+}
+
+template <int D>
+static int set_window_attention_smem() {
+  static bool attr_set = false;
+  if (attr_set) return 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      window_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      227 * 1024);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  attr_set = true;
+  return 0;
 }
 
 template <int D>
@@ -456,16 +590,13 @@ static int launch_window_attention(const float* qkv, const int* pos,
                                    const float* cosT, const float* sinT,
                                    bf16* out, int nw, int n, int heads,
                                    const WinGeom& g, cudaStream_t stream) {
-  const int npad = (n + 15) / 16 * 16;
-  const int smem = 3 * npad * (D + 8) * 2 + 8 * 256 * 4 + 8 * 256 * 2;
-  cudaError_t e = cudaFuncSetAttribute(
-      window_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (nw <= 0) return static_cast<int>(cudaGetLastError());
+  if (int e = set_window_attention_smem<D>()) return e;
+  if (nw <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
+  int threads, smem;
+  window_attention_shape<D>(n, &threads, &smem);
   dim3 grid(heads, nw);
-  window_attention_kernel<D><<<grid, 256, smem, stream>>>(
-      qkv, pos, cosT, sinT, out, n, npad, heads, g);
+  window_attention_kernel<D><<<grid, threads, smem, stream>>>(
+      qkv, pos, cosT, sinT, out, n, (n + 15) / 16 * 16, heads, g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -495,87 +626,187 @@ TOC3D_EXPORT int toc3d_window_attention(const void* qkv, const void* pos,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <int D>
+static int window_attention_occupancy(int n) {
+  if (int e = set_window_attention_smem<D>()) return -e;
+  int threads, smem, nb = 0;
+  window_attention_shape<D>(n, &threads, &smem);
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &nb, window_attention_kernel<D>, threads, smem);
+  return e == cudaSuccess ? nb : -static_cast<int>(e);
+}
+
+// resident blocks per SM of the window attention for windows of n rows (for
+// the record), or -(CUDA error)
+TOC3D_EXPORT int toc3d_window_attention_occupancy(int n, int head_dim) {
+  if (head_dim == 64) return window_attention_occupancy<64>(n);
+  if (head_dim == 32) return window_attention_occupancy<32>(n);
+  return -static_cast<int>(cudaErrorInvalidValue);
+}
+
 // ---------------------------------------------------------------------------
 // compressed-block gather / merge and scatter / update
 // ---------------------------------------------------------------------------
+//
+// Bound: bytes. At ws 16, ratio .5 the gather reads the 61 MB map (slow rows
+// and, for the representative rows, the fast ones) and writes the 44 MB of
+// gathered rows; the scatter reads ~120 MB (s1, raw2, the fast tokens of x)
+// and writes the 61 MB map: ~0.03 and ~0.05 ms at 3.35 TB/s.
+//
+// Design: a grid over rows, not windows. One warp per row turns the
+// window-local index into a token row once (the window geometry's integer
+// divisions, once per row, not per element) and moves the row in 16-byte
+// chunks, 8 bf16 per lane. The representative row of a window is reduced
+// by blocks over (window, 64-channel chunk): the block forms the weights
+// bf16(score / bf16(sum score)) of the window's fast tokens once (the -1e6
+// pads included, the f32 sum rounded to bf16 as gather.py:40-47 and
+// _gather_rows_plain do) and their token rows in shared memory, then its 32
+// x 8 threads split the fast tokens 32 ways and the channels 8 ways (16
+// bytes each) and sum the 32 partial rows in shared memory.
 
-__global__ void gather_merge_kernel(const bf16* x, const int* slow_idx,
-                                    const int* fast_idx,
-                                    const float* fast_score, bf16* xs, int H,
-                                    int W, int C, int ws, int nwh, int nww,
-                                    int k, int nf, int has_rep) {
-  const int w = blockIdx.x;
-  const int kr = k + has_rep;
-  const int c2n = C / 2;
-  for (int idx = threadIdx.x; idx < k * c2n; idx += blockDim.x) {
-    const int i = idx / c2n;
-    const int c = (idx - i * c2n) * 2;
-    const long long src =
-        token_row(w, slow_idx[(long long)w * k + i], H, W, ws, nwh, nww);
-    bf162 v = __floats2bfloat162_rn(0.f, 0.f);
-    if (src >= 0) v = *reinterpret_cast<const bf162*>(x + src * C + c);
-    *reinterpret_cast<bf162*>(xs + ((long long)w * kr + i) * C + c) = v;
-  }
-  if (!has_rep) return;
-  // every thread forms the same denominator in the same order
-  float denom = 0.f;
-  for (int j = 0; j < nf; ++j) denom += fast_score[(long long)w * nf + j];
-  denom = bfr(denom);
-  for (int c = threadIdx.x * 2; c < C; c += blockDim.x * 2) {
-    float a0 = 0.f, a1 = 0.f;
-    for (int j = 0; j < nf; ++j) {
-      const long long src =
-          token_row(w, fast_idx[(long long)w * nf + j], H, W, ws, nwh, nww);
-      if (src < 0) continue;
-      const float wg = bfr(fast_score[(long long)w * nf + j] / denom);
-      const float2 v = __bfloat1622float2(
-          *reinterpret_cast<const bf162*>(x + src * C + c));
-      a0 += wg * v.x;
-      a1 += wg * v.y;
-    }
-    *reinterpret_cast<bf162*>(xs + ((long long)w * kr + k) * C + c) =
-        __floats2bfloat162_rn(a0, a1);
+__device__ __forceinline__ void bf16x8(uint4 v, float* f) {
+  const bf162* p = reinterpret_cast<const bf162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(p[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
   }
 }
 
-__global__ void scatter_update_kernel(const bf16* x, const bf16* s1,
-                                      const bf16* raw1, const bf16* raw2,
-                                      const int* slow_idx, const int* fast_idx,
-                                      bf16* out, int H, int W, int C, int ws,
-                                      int nwh, int nww, int k, int nf,
-                                      int has_rep) {
-  const int w = blockIdx.x;
-  const int kr = k + has_rep;
-  const int c2n = C / 2;
-  for (int idx = threadIdx.x; idx < k * c2n; idx += blockDim.x) {
-    const int i = idx / c2n;
-    const int c = (idx - i * c2n) * 2;
-    const long long dst =
-        token_row(w, slow_idx[(long long)w * k + i], H, W, ws, nwh, nww);
-    if (dst < 0) continue;
-    const long long srow = ((long long)w * kr + i) * C + c;
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const bf162*>(s1 + srow));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const bf162*>(raw2 + srow));
-    *reinterpret_cast<bf162*>(out + dst * C + c) =
-        __floats2bfloat162_rn(a.x + b.x, a.y + b.y);
+__device__ __forceinline__ uint4 to_bf16x8(const float* f) {
+  return make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
+                    pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
+}
+
+constexpr int REP_CH = 64;   // channels per representative-row block
+
+__global__ void __launch_bounds__(256) gather_merge_kernel(
+    const bf16* x, const int* slow_idx, const int* fast_idx,
+    const float* fast_score, bf16* xs, int H, int W, int C, int ws, int nwh,
+    int nww, int nw, int k, int nf, int has_rep, int slow_blocks) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int kr = k + has_rep, nch = C / 8;
+  if (static_cast<int>(blockIdx.x) < slow_blocks) {
+    // slow rows: row = w * k + i
+    const long long row = (long long)blockIdx.x * 8 + warp;
+    if (row >= (long long)nw * k) return;
+    const int w = static_cast<int>(row / k);
+    const int i = static_cast<int>(row - (long long)w * k);
+    const long long src = token_row(w, slow_idx[row], H, W, ws, nwh, nww);
+    uint4* dst = reinterpret_cast<uint4*>(xs + ((long long)w * kr + i) * C);
+    const uint4* s = reinterpret_cast<const uint4*>(x + src * C);
+    for (int c = lane; c < nch; c += 32)
+      dst[c] = src >= 0 ? s[c] : make_uint4(0u, 0u, 0u, 0u);
+    return;
   }
-  for (int idx = threadIdx.x; idx < nf * c2n; idx += blockDim.x) {
-    const int j = idx / c2n;
-    const int c = (idx - j * c2n) * 2;
-    const long long dst =
-        token_row(w, fast_idx[(long long)w * nf + j], H, W, ws, nwh, nww);
-    if (dst < 0) continue;
-    float d0 = 0.f, d1 = 0.f;
-    if (has_rep) {
-      const long long rrow = ((long long)w * kr + k) * C + c;
-      const float2 a = __bfloat1622float2(*reinterpret_cast<const bf162*>(raw1 + rrow));
-      const float2 b = __bfloat1622float2(*reinterpret_cast<const bf162*>(raw2 + rrow));
-      d0 = bfr(a.x + b.x);
-      d1 = bfr(a.y + b.y);
+  // representative row of window w, channels [c0, c0 + REP_CH)
+  extern __shared__ __align__(16) float rep_smem[];
+  float* red = rep_smem;                         // 32 x REP_CH partial sums
+  float* wgt = red + 32 * REP_CH;                // nf weights
+  int* src = reinterpret_cast<int*>(wgt + nf);   // nf token rows (-1: pad)
+  __shared__ float part[8];
+  __shared__ __align__(16) bf16 row_out[REP_CH];
+  const int chunks = (C + REP_CH - 1) / REP_CH;
+  const int rb = blockIdx.x - slow_blocks;
+  const int w = rb / chunks, c0 = (rb - w * chunks) * REP_CH;
+  const float* fs = fast_score + (long long)w * nf;
+  float d = 0.f;
+  for (int j = tid; j < nf; j += 256) d += fs[j];
+  d = warp_sum(d);
+  if (lane == 0) part[warp] = d;
+  __syncthreads();
+  float denom = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) denom += part[i];
+  denom = bfr(denom);
+  for (int j = tid; j < nf; j += 256) {
+    wgt[j] = bfr(fs[j] / denom);
+    src[j] = static_cast<int>(token_row(w, fast_idx[(long long)w * nf + j],
+                                        H, W, ws, nwh, nww));
+  }
+  __syncthreads();
+  const int cg = tid & 7, jl = tid >> 3;
+  const int c = c0 + cg * 8;
+  float acc[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) acc[e] = 0.f;
+  if (c < C) {
+    for (int j = jl; j < nf; j += 32) {
+      const int sr = src[j];
+      if (sr < 0) continue;
+      float v[8];
+      bf16x8(*reinterpret_cast<const uint4*>(x + (long long)sr * C + c), v);
+      const float wj = wgt[j];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[e] += wj * v[e];
     }
-    const float2 v = __bfloat1622float2(*reinterpret_cast<const bf162*>(x + dst * C + c));
-    *reinterpret_cast<bf162*>(out + dst * C + c) =
-        __floats2bfloat162_rn(v.x + d0, v.y + d1);
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) red[jl * REP_CH + cg * 8 + e] = acc[e];
+  __syncthreads();
+  if (tid < REP_CH) {
+    float sum = 0.f;
+    for (int j = 0; j < 32; ++j) sum += red[j * REP_CH + tid];
+    row_out[tid] = __float2bfloat16(sum);
+  }
+  __syncthreads();
+  if (tid < REP_CH / 8 && c0 + tid * 8 < C)
+    *reinterpret_cast<uint4*>(xs + ((long long)w * kr + k) * C + c0 +
+                              tid * 8) =
+        reinterpret_cast<const uint4*>(row_out)[tid];
+}
+
+// one warp per window token (row = w * n + t): t < k is slow row t, the rest
+// fast token t - k
+__global__ void __launch_bounds__(256) scatter_update_kernel(
+    const bf16* x, const bf16* s1, const bf16* raw1, const bf16* raw2,
+    const int* slow_idx, const int* fast_idx, bf16* out, int H, int W, int C,
+    int ws, int nwh, int nww, int nw, int k, int nf, int has_rep) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n = k + nf, kr = k + has_rep, nch = C / 8;
+  const long long row = (long long)blockIdx.x * 8 + warp;
+  if (row >= (long long)nw * n) return;
+  const int w = static_cast<int>(row / n);
+  const int t = static_cast<int>(row - (long long)w * n);
+  const bool slow = t < k;
+  const int local = slow ? slow_idx[(long long)w * k + t]
+                         : fast_idx[(long long)w * nf + (t - k)];
+  const long long dst = token_row(w, local, H, W, ws, nwh, nww);
+  if (dst < 0) return;
+  uint4* o = reinterpret_cast<uint4*>(out + dst * C);
+  if (slow) {
+    // y = bf16(s1 + raw2)
+    const long long sr = ((long long)w * kr + t) * C;
+    const uint4* a = reinterpret_cast<const uint4*>(s1 + sr);
+    const uint4* b = reinterpret_cast<const uint4*>(raw2 + sr);
+    for (int c = lane; c < nch; c += 32) {
+      float fa[8], fb[8];
+      bf16x8(a[c], fa);
+      bf16x8(b[c], fb);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) fa[e] += fb[e];
+      o[c] = to_bf16x8(fa);
+    }
+    return;
+  }
+  // x + bf16(raw1 + raw2) of the representative row, or x unchanged
+  const uint4* xv = reinterpret_cast<const uint4*>(x + dst * C);
+  const long long rr = ((long long)w * kr + k) * C;
+  const uint4* a = reinterpret_cast<const uint4*>(raw1 + rr);
+  const uint4* b = reinterpret_cast<const uint4*>(raw2 + rr);
+  for (int c = lane; c < nch; c += 32) {
+    if (!has_rep) {
+      o[c] = xv[c];
+      continue;
+    }
+    float fx[8], fa[8], fb[8];
+    bf16x8(xv[c], fx);
+    bf16x8(a[c], fa);
+    bf16x8(b[c], fb);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) fx[e] += bfr(fa[e] + fb[e]);
+    o[c] = to_bf16x8(fx);
   }
 }
 
@@ -585,12 +816,18 @@ TOC3D_EXPORT int toc3d_gather_merge(const void* x, const void* slow_idx,
                                     int H, int W, int C, int ws, int k, int nf,
                                     int has_rep, void* stream) {
   const int nwh = (H + ws - 1) / ws, nww = (W + ws - 1) / ws;
-  if (nw > 0)
-    gather_merge_kernel<<<nw, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (C % 8) return static_cast<int>(cudaErrorInvalidValue);
+  const long long slow_blocks = ((long long)nw * k + 7) / 8;
+  const long long rep_blocks =
+      has_rep ? (long long)nw * ((C + REP_CH - 1) / REP_CH) : 0;
+  const int smem = has_rep ? (32 * REP_CH + 2 * nf) * 4 : 0;
+  if (slow_blocks + rep_blocks > 0)
+    gather_merge_kernel<<<static_cast<unsigned>(slow_blocks + rep_blocks), 256,
+                          smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const bf16*>(x), static_cast<const int*>(slow_idx),
         static_cast<const int*>(fast_idx),
         static_cast<const float*>(fast_score), static_cast<bf16*>(xs), H, W, C,
-        ws, nwh, nww, k, nf, has_rep);
+        ws, nwh, nww, nw, k, nf, has_rep, static_cast<int>(slow_blocks));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -601,11 +838,14 @@ TOC3D_EXPORT int toc3d_scatter_update(const void* x, const void* s1,
                                       int H, int W, int C, int ws, int k,
                                       int nf, int has_rep, void* stream) {
   const int nwh = (H + ws - 1) / ws, nww = (W + ws - 1) / ws;
-  if (nw > 0)
-    scatter_update_kernel<<<nw, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (C % 8) return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = ((long long)nw * (k + nf) + 7) / 8;
+  if (blocks > 0)
+    scatter_update_kernel<<<static_cast<unsigned>(blocks), 256, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
         static_cast<const bf16*>(x), static_cast<const bf16*>(s1),
         static_cast<const bf16*>(raw1), static_cast<const bf16*>(raw2),
         static_cast<const int*>(slow_idx), static_cast<const int*>(fast_idx),
-        static_cast<bf16*>(out), H, W, C, ws, nwh, nww, k, nf, has_rep);
+        static_cast<bf16*>(out), H, W, C, ws, nwh, nww, nw, k, nf, has_rep);
   return static_cast<int>(cudaGetLastError());
 }

@@ -51,8 +51,16 @@ SIGNATURES = {
                                  _I, _I, _I, _I, _P],
     },
     "cross_attn": {
-        "toc3d_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "toc3d_flash_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _I, _P],
     },
+}
+
+# entry points that return a count (>= 0) or -(CUDA error), not an error
+# code; they launch nothing and take no stream (see ``occupancy``)
+QUERIES = {
+    "vit_block": {"toc3d_window_attention_occupancy": [_I, _I]},
+    "cross_attn": {"toc3d_flash_occupancy": [_I]},
 }
 
 _LIBS: dict = {}
@@ -124,7 +132,7 @@ def load(name: str) -> ctypes.CDLL:
     if not path.exists():
         build_all([name])
     lib = ctypes.CDLL(str(path))
-    for fn, argtypes in SIGNATURES[name].items():
+    for fn, argtypes in {**SIGNATURES[name], **QUERIES.get(name, {})}.items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
         f.restype = ctypes.c_int
@@ -142,6 +150,17 @@ def call(name: str, fn: str, *args) -> None:
     if rc != 0:
         msg = lib.toc3d_error_string(rc).decode()
         raise RuntimeError(f"{fn}: CUDA error {rc} ({msg})")
+
+
+def occupancy(name: str, fn: str, *args) -> int:
+    """Resident blocks per SM that query ``fn`` of library ``name``
+    reports for a kernel; raises on a CUDA error."""
+    lib = load(name)
+    n = getattr(lib, fn)(*args)
+    if n < 0:
+        raise RuntimeError(f"{fn}: CUDA error {-n} "
+                           f"({lib.toc3d_error_string(-n).decode()})")
+    return n
 
 
 def stream_of(t) -> int:

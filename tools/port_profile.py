@@ -32,7 +32,8 @@ FAMILIES = (("gemm_kernel", "GEMM (A-C, B8, C8, H8)"),
             ("layernorm_kernel", "LayerNorm (B, C, B8, C8)"),
             ("gather_merge_kernel", "gather/merge (C)"),
             ("scatter_update_kernel", "scatter/update (C)"),
-            ("flash_kernel", "flash attention (D)"))
+            ("flash_partial_kernel", "flash attention (D), partial"),
+            ("flash_combine_kernel", "flash attention (D), combine"))
 
 
 def main() -> int:
