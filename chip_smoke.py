@@ -7,26 +7,30 @@ Phases, each fatal on failure (exit code != 0):
   2. build: compiles every kernel of the main path from toc3d_tpu_torch/csrc
      (one nvcc per source, in parallel) into build/kernels/;
   3. check: each kernel (A patch embed, B full block, C compressed block at
-     its six main-path shapes, D split-K flash attention) on the card at
-     the main-path shapes of ToC3D_faster_1600, in bf16, against its plain
-     PyTorch version, and the attention deltas of B and C alone;
+     its six main-path shapes, D split-K flash attention, G the bf16 TMA +
+     wgmma GEMM of B and C alone at its four GEMMs for B's 30001 rows and
+     C's largest row count, 21504) on the card at the main-path shapes of
+     ToC3D_faster_1600, in bf16, against its plain PyTorch version, and the
+     attention deltas of B and C alone;
   4. time: each kernel, its plain version and a PyTorch yardstick
      (library_ms) with CUDA events, beside the bound for the same work (C
-     and its yardstick both route the tokens inside the timed call);
+     and its yardstick both route the tokens inside the timed call; G's
+     yardstick is F.linear, the bare cuBLAS product);
   5. main path: ToC3D_faster_1600 at full width (6 views, 1600x800, batch 1,
      uint8 frames, seeded random weights) streamed for 6 frames with
      prev_exists 0, 1, 1, 1, 1, 1 through make_infer_fn; checks finite
      outputs and that every kernel launched its per-frame count (A 1, B 6,
-     C 18, D 12, int8 kernels 0); then the `tiny` preset in bf16 against the
-     plain path on the CPU as a small-input agreement check;
+     C 18, D 12, G 96 = 4 per block, int8 kernels 0); then the `tiny`
+     preset in bf16 against the plain path on the CPU as a small-input
+     agreement check;
   6. int8: the int8 blocks B8 (ws 16, 20) and C8 (the six main-path
      shapes), dynamic and with static scales, and the head's int8 linear
      H8, checked and timed as in 3-4; the int8 main path (backbone and
      decoder quant 'int8') streamed for 6 frames with per-row (dynamic)
      activation scales, then calibrated on 2 frames and streamed again
      with static scales, each checking A 1, B8 6, C8 18, D 12, H8 60 and
-     bf16 B / C 0 per frame; the tiny int8 small-input agreement, dynamic
-     and static;
+     bf16 B / C / G 0 per frame; the tiny int8 small-input agreement,
+     dynamic and static;
   7. report: a {"kernels": [...]} JSON line, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 The kernels' plain versions compute in f32 (TF32 off for matmuls and
@@ -54,6 +58,12 @@ C_SHAPES = ((6, 0.5), (8, 0.5), (12, 0.4), (14, 0.4), (18, 0.3), (20, 0.3))
 # intermediate bf16 activations, and a flip can pass through LN / softmax)
 TOL_MAX_REL = 2.0 ** -5
 TOL_MEAN_REL = 2.0 ** -6
+# kernel G's f32 output against its plain version: the sums' order only
+TOL_F32_REL = 1e-5
+
+# kernel G's four GEMMs of a ViT-L block: (N, K, epilogue)
+G_SHAPES = {"qkv": (3072, 1024, "f32"), "o": (1024, 1024, "res"),
+            "gate": (5472, 1024, "gate"), "w3": (1024, 2736, "res")}
 
 
 def log(*a):
@@ -483,6 +493,88 @@ def phase_kernels(model, results):
                 source="toc3d_tpu_torch/csrc/cross_attn.cu",
                 replaces="toc3d_tpu/ops/pallas/cross_attn.py:118", **entry)
     results["D"]["max_abs_err"] = d_err
+    return phase_gemm(results, g) and ok_all
+
+
+def phase_gemm(results, g):
+    """Kernel G alone: the four GEMMs of a block at B's 30001 rows and C's
+    largest row count (21504, ws 16 ratio .5) against gemm_bf16_plain,
+    timed beside F.linear on the same operands."""
+    import torch
+    import torch.nn.functional as F
+    from toc3d_tpu_torch.ops.cuda import vit_block
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ok_all, g_err = True, 0.0
+    for m in (30001, 21504):
+        for name, (n, k, epi) in G_SHAPES.items():
+            a = torch.randn(m, k, device=dev, generator=g).to(bf)
+            w = (torch.randn(n, k, device=dev, generator=g)
+                 * k ** -0.5).to(bf)
+            res = (torch.randn(m, n, device=dev, generator=g).to(bf)
+                   if epi == "res" else None)
+            kw = dict(bias=torch.randn(n, device=dev, generator=g) * 0.1,
+                      res=res, out_f32=epi == "f32", gate=epi == "gate")
+            out = vit_block.gemm_bf16(a, w, **kw)
+            ref = vit_block.gemm_bf16_plain(a, w, **kw)
+            # the persistent grid: min(tiles, SMs) blocks of 128 x 256 tiles
+            tiles = -(-m // 128) * -(-n // 256)
+            grid = min(tiles, sms)
+            tag = (f"G {name} ({m},{k}) x ({n},{k}) {epi}, {grid} blocks x "
+                   f"{-(-tiles // grid)} tiles")
+            if epi == "f32":
+                err = (out - ref).abs().max().item()
+                tol = TOL_F32_REL * ref.abs().max().item()
+                ok = math.isfinite(err) and err <= tol
+                log(f"check {tag}: max_abs {err:.6g} (tol {tol:.6g}) "
+                    f"{'ok' if ok else 'FAIL'}")
+            else:
+                ok, err = compare(tag, out, ref)
+            ok_all &= ok
+            g_err = max(g_err, err)
+            out_bytes = m * (n // 2 * 2 if epi == "gate" else
+                             n * (4 if epi == "f32" else 2))
+            b_ms, b_by = bound(2 * m * n * k,
+                               (m + n) * k * 2 + n * 4 + out_bytes
+                               + (m * n * 2 if res is not None else 0))
+            entry = dict(
+                shape=f"{name}: a ({m},{k}) bf16, w ({n},{k}), {epi}",
+                max_abs_err=err,
+                ms=cuda_time(lambda: vit_block.gemm_bf16(a, w, out=out,
+                                                         **kw), 20),
+                plain_ms=cuda_time(lambda: vit_block.gemm_bf16_plain(
+                    a, w, **kw), 3),
+                library_ms=cuda_time(lambda: F.linear(a, w), 20),
+                bound_ms=b_ms, bound_by=b_by)
+            log(f"time G {name} m{m}: {json.dumps(entry)}")
+            if name == "gate" and m == 30001:
+                results["G"] = dict(
+                    name="gemm_bf16", route="cuda",
+                    source="toc3d_tpu_torch/csrc/gemm_sm90.cuh",
+                    replaces="toc3d_tpu/ops/pallas/vit_block.py:163",
+                    stands_in_for="toc3d_tpu/ops/pallas/vit_block.py:113-116"
+                                  ", 150, 163-164, 176 (the bf16 jnp.dot "
+                                  "products of _attention and _swiglu in "
+                                  "_full_block_kernel and "
+                                  "_compressed_block_kernel)", **entry)
+            del a, w, res, out, ref
+    results["G"]["max_abs_err"] = g_err
+    # the host's share of a call (checks, three tensor-map encodes, the
+    # launch): wall time per call of a GEMM too small to keep the card busy
+    a = torch.randn(128, 64, device=dev, generator=g).to(bf)
+    w = torch.randn(256, 64, device=dev, generator=g).to(bf)
+    bias = torch.zeros(256, device=dev)
+    out = torch.empty(128, 256, device=dev, dtype=bf)
+    for _ in range(20):
+        vit_block.gemm_bf16(a, w, bias, out=out)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(500):
+        vit_block.gemm_bf16(a, w, bias, out=out)
+    torch.cuda.synchronize()
+    log(f"G host cost: {(time.perf_counter() - t0) / 500 * 1e6:.2f} us per "
+        f"call (a (128,64) x w (256,64), 500 calls)")
     return ok_all
 
 
@@ -604,22 +696,24 @@ def phase_kernels_int8(model, results):
     return ok_all
 
 
-KERNELS = ("A", "B", "C", "D", "B8", "C8", "H8")
+KERNELS = ("A", "B", "C", "D", "B8", "C8", "H8", "G")
 
 
 def counters():
-    """The launch-counting wrapper of each kernel, in KERNELS order."""
+    """The launch-counting wrapper of each kernel, in KERNELS order (G:
+    vit_block._gemm, under gemm_bf16 and every bf16 matmul of B and C)."""
     from toc3d_tpu_torch.ops.cuda import (cross_attn, int8, patch_embed,
                                           vit_block)
     return [patch_embed.patchify_matmul, vit_block.fused_full_block,
             vit_block.fused_compressed_block, cross_attn.flash_attention_core,
             vit_block.fused_full_block_int8,
-            vit_block.fused_compressed_block_int8, int8.int8_linear]
+            vit_block.fused_compressed_block_int8, int8.int8_linear,
+            vit_block._gemm]
 
 
 def phase_main_path(model, results, label="bf16",
-                    per_frame=(1, 6, 18, 12, 0, 0, 0),
-                    record=("A", "B", "C", "D")):
+                    per_frame=(1, 6, 18, 12, 0, 0, 0, 96),
+                    record=("A", "B", "C", "D", "G")):
     """Stream 6 full-size frames through make_infer_fn(model) with every
     launch count set to 0 just before; per_frame: the launches each frame
     must make of each kernel, in KERNELS order; record: the kernels whose
@@ -702,7 +796,7 @@ def phase_main_path_int8(results, bf16_dets):
                   head=replace(cfg.head, decoder=replace(cfg.head.decoder,
                                                          quant="int8")))
     model = build_detector(cfg, device="cuda", seed=0)
-    per_frame = (1, 0, 0, 12, 6, 18, 60)
+    per_frame = (1, 0, 0, 12, 6, 18, 60, 0)
     ok, dets = phase_main_path(model, results, "int8 dynamic", per_frame,
                                ("B8", "C8", "H8"))
     _against_bf16("int8 dynamic", dets, bf16_dets)

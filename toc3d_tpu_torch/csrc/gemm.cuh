@@ -1,11 +1,13 @@
-// Tiled tensor-core GEMM with fused epilogues, shared by the patch embedding
-// (patch_embed.cu), the ViT block kernels and the int8 linears (vit_block.cu).
+// Tiled tensor-core GEMM with fused epilogues, behind the patch embedding
+// (patch_embed.cu, bf16 with PATCH) and the int8 GEMM of the int8 blocks and
+// linears (vit_block.cu). The bf16 block matmuls run on gemm_sm90.cuh's TMA +
+// wgmma kernel, whose epilogues keep epilogue2's rounding points.
 //
 //   C[m, n] = epilogue( sum_k A[m, k] * B[n, k] )
 //
 // The operand type T is bf16 (f32 accumulators, mma.sync m16n8k16) or int8
-// (int32 accumulators, mma.sync m16n8k32 s8.s8.s32). A is row-major (M, K) —
-// or, with PATCH (bf16 only), the implicit im2col view of a channel-last
+// (int32 accumulators, mma.sync m16n8k32 s8.s8.s32). A is row-major (M, K)
+// (int8) or, with PATCH (bf16), the implicit im2col view of a channel-last
 // (img, H, W, 3) image, read straight from the image — and B is a torch
 // Linear weight (N, K), row-major, i.e. the "col" operand of the tensor-core
 // product. Tiles of 128 x 128 x 64 bytes (32 bf16 or 64 int8 along K) go

@@ -1,0 +1,587 @@
+// Hopper bf16 GEMM (kernel G) behind the bf16 matmuls of the ViT block
+// kernels B and C (vit_block.cu :: toc3d_gemm):
+//
+//   C[m, n] = epilogue( sum_k A[m, k] * W[n, k] )
+//
+// A is row-major (M, K) bf16 and W a torch Linear weight (N, K) bf16, both
+// K-major; the sum is f32 and the epilogues are those of gemm.cuh's
+// epilogue2 (bias, residual, SwiGLU gate, f32 out) at the same rounding
+// points.
+//
+// Replaces the bf16 jnp.dot(..., preferred_element_type=f32) products inside
+// the TPU block kernels, toc3d_tpu/ops/pallas/vit_block.py:
+//   _full_block_kernel via _attention (QKV :113-116, O :150) and _swiglu
+//   (w1 / w2 :163-164, w3 :176); _compressed_block_kernel (:682) through the
+//   same two helpers on its compressed rows (:706, :708; the stripe forms
+//   through _attention_grouped :428-431 and _swiglu, :513, :765-768).
+//
+// Bound on the H100 at the main-path shapes: operations. One block row costs
+// 2 * (3C*C + C*C + 2hp*C + hp*C) = 25.2 MFLOP at C 1024, hp 2736, so B's
+// 30001 rows are 0.756 TFLOP (0.76 ms at 989 TFLOP/s) against ~0.26 GB of
+// operands and outputs (~0.08 ms at 3.35 TB/s); the whole frame's block
+// GEMMs are 1.17e13 flop, 11.9 ms at peak.
+//
+// Design (Hopper's TMA + wgmma, warp-specialised, persistent):
+//   * one TMA descriptor per operand (128-byte swizzle, boxes of 64 K x
+//     rows), encoded on the host (memoised by base, shape and stride) and
+//     passed as __grid_constant__ parameters; a K tile of 64 bf16 is
+//     exactly one 128-byte swizzle row,
+//     and TMA zero-fills the box past K, M and N, so the K tail (2736 = 42.75
+//     tiles) needs no masking;
+//   * a ring of 4 shared-memory stages (1024-byte aligned, as the
+//     swizzle requires), each an A tile (128 x 64) and a W tile (256 x 64),
+//     with a full and an empty mbarrier per stage;
+//   * warpgroup 0 is the producer: it gives up registers (setmaxnreg 40)
+//     and one thread issues the two TMA loads of each stage; warpgroups 1
+//     and 2 are consumers (setmaxnreg 232), each owns 64 rows of the 128 x
+//     256 output tile and issues wgmma.mma_async m64n256k16 straight from the
+//     swizzled stage (4 per stage), keeping one commit group in flight and
+//     releasing a stage when the group that read it has retired;
+//   * a persistent grid of min(tiles, SMs) blocks walks the tiles in row-
+//     major order (n fastest): the blocks in flight share a few 128-row
+//     panels of A, and every weight matrix (at most 11 MB) stays in the
+//     50 MB L2, so A is read from memory about once;
+//   * the epilogue works on the accumulator registers: wgmma's f32
+//     fragment gives each thread the column pairs (2t, 2t + 1) of rows g
+//     and g + 8 in every 8-column group, as mma.sync m16n8 does, so
+//     epilogue2's arithmetic carries over pair by pair (the gate's silu on
+//     the SFU) and the gate's interleaved (w1 row j, w2 row j) pair lands
+//     in one thread. The bias
+//     and residual of a chunk are loaded while the previous chunk (or, for
+//     the first, the main loop) runs; the results go through swizzled
+//     staging buffers to TMA stores, which clip rows and columns past M and
+//     N and drain while the next tile's main loop runs, so the tensor cores
+//     do not wait for the output's memory traffic.
+// The s8 GEMM of B8, C8 and H8 and the PATCH form of A stay on gemm.cuh's
+// mma.sync tile.
+#pragma once
+
+#include <cuda.h>   // CUtensorMap and its enums (the encoder is fetched at
+                    // run time through the runtime's driver entry point)
+#include <string.h>
+
+#include <mutex>
+#include <unordered_map>
+
+#include "gemm.cuh"
+
+namespace gemm90 {
+
+constexpr int BM = 128;        // rows per tile: two consumer warpgroups x 64
+constexpr int BN = 256;        // columns per tile: one m64n256 wgmma
+constexpr int BK = 64;         // K per stage: one 128-byte swizzle row
+constexpr int THREADS = 384;   // producer warpgroup + two consumer warpgroups
+constexpr int STAGES = 4;
+constexpr int A_BYTES = BM * BK * 2;
+constexpr int STAGE_BYTES = A_BYTES + BN * BK * 2;
+// the ring, four 8 KB output staging buffers (two per consumer warpgroup),
+// the barriers, and slack to align the ring to 1024 bytes
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 4 * 64 * 128
+                           + 2 * STAGES * 8 + 1024;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` of the barrier has completed; a
+// wait of more than 2^35 clocks (~20 s) traps, so a broken pipeline fails
+// the launch instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  long long t0 = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (!t0)
+      t0 = clock64();
+    else if (clock64() - t0 > (1ll << 35))
+      __trap();
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// TMA: the box at (k, row) of the tensor map into dst, completing on bar
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int k, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(k),
+      "r"(row)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major operand in 128-byte swizzle:
+// start address >> 4, LBO 1 (unused for swizzled K-major), SBO 1024 bytes
+// (the next group of 8 rows), layout type 1 (128B swizzle). Advancing K by
+// 16 bf16 inside the 64-wide swizzle row adds 32 bytes to the start.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma (it sees the registers as written by each issue)
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define G90_D8(i)                                                         \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x 256 f32 fragment) (+)= A (64 x 16, smem) * W (256 x 16, smem)^T
+__device__ __forceinline__ void wgmma(float (&d)[BN / 2], uint64_t da,
+                                      uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : G90_D8(0), G90_D8(8), G90_D8(16), G90_D8(24), G90_D8(32),
+        G90_D8(40), G90_D8(48), G90_D8(56), G90_D8(64), G90_D8(72),
+        G90_D8(80), G90_D8(88), G90_D8(96), G90_D8(104), G90_D8(112),
+        G90_D8(120)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+#undef G90_D8
+
+// The epilogue of a launch is fixed at compile time: the fragment's
+// epilogue is unrolled (128 column pairs a thread), and with every
+// branch of every epilogue in each copy it outgrows the instruction cache.
+enum Mode { OUT_BF16 = 0, OUT_F32 = 1, OUT_RES = 2, OUT_GATE = 3 };
+
+// The output goes out in chunks of 128 bytes a row: each consumer
+// warpgroup writes its 64 rows of a chunk to one of its two 8 KB staging
+// buffers (128-byte swizzled, as the output's tensor map reads them) and one
+// thread hands the chunk to a TMA store, which clips rows and columns past M
+// and N and drains while the next tile's main loop runs.
+template <int MODE>
+struct Out {
+  // accumulator columns a chunk holds: 32 f32, 64 bf16, or 128 gated into
+  // 64 bf16
+  static constexpr int ACC_COLS = MODE == OUT_F32 ? 32
+                                  : MODE == OUT_GATE ? 128 : 64;
+  static constexpr int J = ACC_COLS / 8;   // 8-column groups per chunk
+};
+constexpr int OUT_BYTES = 64 * 128;        // one staging buffer
+
+__device__ __forceinline__ void wg_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// the bias of the thread's column pairs of one chunk (acc columns c0 + 8j +
+// 2t) and, for OUT_RES, the residual of its rows gm and gm + 8 (kept as
+// bf16 pairs, one register each); predicated, with no branch between the
+// loads, so their latencies overlap. The bias pairs are 8-byte loads: the
+// wrapper checks that the bias lies on an 8-byte boundary
+template <int MODE>
+__device__ __forceinline__ void load_chunk(const gemm::Args& a, int gm,
+                                           int c0, int t,
+                                           float2 (&b)[Out<MODE>::J],
+                                           bf162 (&r)[2][Out<MODE>::J]) {
+#pragma unroll
+  for (int j = 0; j < Out<MODE>::J; ++j) {
+    const int c = c0 + 8 * j + 2 * t;
+    const bool col_ok = c < a.N;
+    b[j] = a.bias && col_ok ? *reinterpret_cast<const float2*>(a.bias + c)
+                            : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      r[h][j] = MODE == OUT_RES && col_ok && gm + 8 * h < a.M
+                    ? *reinterpret_cast<const bf162*>(
+                          a.res + (long long)(gm + 8 * h) * a.ldr + c)
+                    : __float2bfloat162_rn(0.f);
+  }
+}
+
+// epilogue2's rounding points (and its arithmetic, but for the gate's fast
+// silu) for chunk ch of the thread's fragment, written to the staging
+// buffer sb: the fragment of m64n256 holds, in register 4j + e, row 16 *
+// warp + g (+ 8 for e >= 2) and column 8j + 2t + (e & 1), so the gate's
+// (w1 row j, w2 row j) pair is one thread's
+template <int MODE>
+__device__ __forceinline__ void stage_chunk(
+    const gemm::Args& a, const float (&acc)[BN / 2], int ch, int warp,
+    int g, int t, const float2 (&b)[Out<MODE>::J],
+    const bf162 (&r)[2][Out<MODE>::J], unsigned char* sb) {
+  constexpr int J = Out<MODE>::J;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v0 = acc[4 * (ch * J + j) + 2 * h];
+      float v1 = acc[4 * (ch * J + j) + 2 * h + 1];
+      if (a.bias) {
+        v0 += b[j].x;
+        v1 += b[j].y;
+      }
+      const int row = 16 * warp + g + 8 * h;
+      unsigned char* line = sb + row * 128;
+      const int sw = row & 7;   // 128-byte swizzle: 16-byte chunk ^ row
+      if (MODE == OUT_F32) {
+        const int q = 2 * j + (t >> 1);
+        *reinterpret_cast<float2*>(line + ((q ^ sw) << 4) + 8 * (t & 1)) =
+            make_float2(v0, v1);
+      } else if (MODE == OUT_GATE) {
+        // silu by the SFU's exponential and reciprocal, a few f32 ulps from
+        // epilogue2's expf and IEEE division (both slow, and paid on every
+        // gate output) before the same rounding to bf16
+        const float x1 = bfr(v0), x2 = bfr(v1);
+        const float s = bfr(__fdividef(x1, 1.f + __expf(-x1)));
+        *reinterpret_cast<bf16*>(line + (((j >> 1) ^ sw) << 4) +
+                                 8 * (j & 1) + 2 * t) =
+            __float2bfloat16(s * x2);
+      } else {
+        if (MODE == OUT_RES) {
+          const float2 rs = __bfloat1622float2(r[h][j]);
+          v0 = bfr(v0) + rs.x;
+          v1 = bfr(v1) + rs.y;
+        }
+        *reinterpret_cast<bf162*>(line + ((j ^ sw) << 4) + 4 * t) =
+            __floats2bfloat162_rn(v0, v1);
+      }
+    }
+  }
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(THREADS, 1)
+    gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
+                     const __grid_constant__ CUtensorMap map_w,
+                     const __grid_constant__ CUtensorMap map_c,
+                     const gemm::Args a) {
+  typedef Out<MODE> O;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* ring =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* staging = ring + STAGES * STAGE_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + 4 * OUT_BYTES);
+  uint64_t* empty = full + STAGES;
+  const int tiles_n = (a.N + BN - 1) / BN;
+  const int tiles = (a.M + BM - 1) / BM * tiles_n;
+  const int ktiles = (a.K + BK - 1) / BK;
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);    // the producer's expect_tx arrival
+      mbar_init(&empty[s], 8);   // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: one thread keeps the ring full, the warpgroup's other
+    // threads leave
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int stage = 0, phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
+        for (int kt = 0; kt < ktiles; ++kt) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* st = ring + stage * STAGE_BYTES;
+          mbar_expect_tx(&full[stage], STAGE_BYTES);
+          tma_load(st, &map_a, &full[stage], kt * BK, m0);
+          tma_load(st + A_BYTES, &map_w, &full[stage], kt * BK, n0);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int cw = wg - 1;                       // rows cw * 64 of the tile
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const bool leader = (threadIdx.x & 127) == 0;
+    unsigned char* bufs = staging + cw * 2 * OUT_BYTES;
+    const int n_out = MODE == OUT_GATE ? a.N / 2 : a.N;
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    int stage = 0, phase = 0, nchunk = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
+      const int gm = m0 + cw * 64 + warp * 16 + g;
+      // the first chunk's bias and residual load during the main loop
+      float2 b[O::J];
+      bf162 r[2][O::J];
+      load_chunk<MODE>(a, gm, n0, t, b, r);
+      int prev = 0;
+      for (int kt = 0; kt < ktiles; ++kt) {
+        mbar_wait(&full[stage], phase);
+        const unsigned char* st = ring + stage * STAGE_BYTES;
+        const unsigned char* as = st + cw * 64 * 128;
+        const unsigned char* ws = st + A_BYTES;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma(acc, sw128_desc(as + kk * 32), sw128_desc(ws + kk * 32),
+                (kt > 0 || kk > 0) ? 1 : 0);
+        wgmma_commit();
+        // the group before this one has retired: its stage is free
+        wgmma_wait<1>();
+        if (kt > 0 && lane == 0) mbar_arrive(&empty[prev]);
+        prev = stage;
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (lane == 0) mbar_arrive(&empty[prev]);
+      // the gate holds the bias of 16 column groups a chunk: too many
+      // registers to load the next chunk's ahead, so it loads at the chunk
+      constexpr bool ahead = MODE != OUT_GATE;
+#pragma unroll
+      for (int ch = 0; ch < BN / O::ACC_COLS; ++ch) {
+        float2 bn[O::J];
+        bf162 rn[2][O::J];
+        if (ahead && ch + 1 < BN / O::ACC_COLS)
+          load_chunk<MODE>(a, gm, n0 + (ch + 1) * O::ACC_COLS, t, bn, rn);
+        if (!ahead && ch > 0)
+          load_chunk<MODE>(a, gm, n0 + ch * O::ACC_COLS, t, b, r);
+        const int col = (MODE == OUT_GATE ? n0 / 2 : n0) +
+                        ch * (MODE == OUT_F32 ? 32 : 64);
+        // a chunk wholly past N, or a warpgroup's rows wholly past M, has
+        // nothing to store (the same for the whole warpgroup)
+        if (col < n_out && m0 + cw * 64 < a.M) {
+          unsigned char* sb = bufs + (nchunk & 1) * OUT_BYTES;
+          // the store that last read this buffer (two chunks ago) is done
+          if (leader)
+            asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+          wg_sync(1 + cw);
+          stage_chunk<MODE>(a, acc, ch, warp, g, t, b, r, sb);
+          // the generic-proxy writes, visible to the TMA store
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          wg_sync(1 + cw);
+          if (leader) {
+            asm volatile(
+                "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+                " [%0, {%2, %3}], [%1];\n" ::"l"(
+                    reinterpret_cast<uint64_t>(&map_c)),
+                "r"(smem_u32(sb)), "r"(col), "r"(m0 + cw * 64)
+                : "memory");
+            asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+          }
+          ++nchunk;
+        }
+        if (ahead) {
+#pragma unroll
+          for (int j = 0; j < O::J; ++j) {
+            b[j] = bn[j];
+            r[0][j] = rn[0][j];
+            r[1][j] = rn[1][j];
+          }
+        }
+      }
+    }
+    // the last stores have read shared memory and written their rows
+    if (leader) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
+}
+
+// cuTensorMapEncodeTiled, fetched once through the runtime (no -lcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn) return fn;
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+  cudaError_t e = cudaGetDriverEntryPointByVersion(
+      "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+  cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                          cudaEnableDefault, &q);
+#endif
+  if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+    fn = reinterpret_cast<EncodeTiled>(p);
+  return fn;
+}
+
+// what a tensor map of a row-major (rows, cols) matrix of 2- or 4-byte
+// elements with row stride ld elements, read or written in 128-byte
+// swizzled boxes of box_cols x box_rows (box_cols * elsize = 128 bytes, one
+// swizzle row), depends on; 40 bytes, no padding
+struct MapKey {
+  const void* base;
+  long long ld;
+  int type, elsize, rows, cols, box_cols, box_rows;
+  bool operator==(const MapKey& o) const {
+    return memcmp(this, &o, sizeof(MapKey)) == 0;
+  }
+};
+
+struct MapKeyHash {
+  size_t operator()(const MapKey& k) const {
+    const unsigned char* p = reinterpret_cast<const unsigned char*>(&k);
+    size_t h = 1469598103934665603ull;   // FNV-1a
+    for (size_t i = 0; i < sizeof(MapKey); ++i)
+      h = (h ^ p[i]) * 1099511628211ull;
+    return h;
+  }
+};
+
+inline int encode(CUtensorMap* map, const MapKey& k) {
+  EncodeTiled enc = encoder();
+  if (!enc) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(k.cols),
+                              static_cast<cuuint64_t>(k.rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(k.ld) * k.elsize};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(k.box_cols),
+                             static_cast<cuuint32_t>(k.box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  CUresult r = enc(map, static_cast<CUtensorMapDataType>(k.type), 2,
+                   const_cast<void*>(k.base), dims, strides, box, unit,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// encode, memoised: a map is a pure function of its key, and the same
+// weights and (through PyTorch's caching allocator) mostly the same
+// activation buffers come back every frame, so most calls skip the driver's
+// encoder. Bounded: the memo starts over past 4096 maps.
+inline int cached_map(CUtensorMap* map, const MapKey& k) {
+  static std::mutex mu;
+  static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> memo;
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = memo.find(k);
+  if (it != memo.end()) {
+    *map = it->second;
+    return 0;
+  }
+  if (int e = encode(map, k)) return e;
+  if (memo.size() >= 4096) memo.clear();
+  memo.emplace(k, *map);
+  return 0;
+}
+
+inline int sm_count() {
+  static int n = 0;
+  if (!n) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 0;
+  }
+  return n;
+}
+
+// one launch of epilogue MODE (a.A, a.B bf16; the wrapper checks 16-byte
+// aligned bases, row strides a multiple of 8 and an 8-byte aligned bias)
+template <int MODE>
+inline int launch_mode(const gemm::Args& a, cudaStream_t stream) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        gemm_sm90_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SMEM_BYTES);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr_set = true;
+  }
+  if (a.M <= 0 || a.N <= 0) return static_cast<int>(cudaGetLastError());
+  const int bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap ma, mw, mc;
+  if (int e = cached_map(&ma, {a.A, a.lda, bf, 2, a.M, a.K, BK, BM}))
+    return e;
+  if (int e = cached_map(&mw, {a.B, a.ldb, bf, 2, a.N, a.K, BK, BN}))
+    return e;
+  // the output: (M, N) f32 or bf16, or (M, N / 2) bf16 for the gate, in
+  // the staging chunks of 64 rows x 128 bytes
+  if (int e = cached_map(
+          &mc, MODE == OUT_F32
+                   ? MapKey{a.C, a.ldc, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                            a.M, a.N, 32, 64}
+                   : MapKey{a.C, a.ldc, bf, 2, a.M,
+                            MODE == OUT_GATE ? a.N / 2 : a.N, 64, 64}))
+    return e;
+  const int sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const long long tiles =
+      (long long)((a.M + BM - 1) / BM) * ((a.N + BN - 1) / BN);
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  gemm_sm90_kernel<MODE><<<grid, THREADS, SMEM_BYTES, stream>>>(ma, mw, mc, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 A (M, K) x W (N, K)^T with gemm.cuh's bf16 epilogues (gate first, as
+// epilogue2 takes it, then f32 out, then the residual)
+inline int launch(const gemm::Args& a, cudaStream_t stream) {
+  if (a.gate) return launch_mode<OUT_GATE>(a, stream);
+  if (a.out_f32) return launch_mode<OUT_F32>(a, stream);
+  if (a.res) return launch_mode<OUT_RES>(a, stream);
+  return launch_mode<OUT_BF16>(a, stream);
+}
+
+}  // namespace gemm90

@@ -26,8 +26,9 @@
 // Design: the TPU kernel keeps a whole window resident in VMEM and does
 // every matmul inside one grid step. On Hopper the per-token matmuls
 // (QKV, O-proj, SwiGLU) are batched over ALL tokens of the map in a tiled
-// tensor-core GEMM (gemm.cuh) whose epilogue fuses bias, residual and the
-// SwiGLU gate, and only the softmax attention works per (window, head):
+// tensor-core GEMM whose epilogue fuses bias, residual and the SwiGLU gate
+// (bf16: the TMA + wgmma kernel of gemm_sm90.cuh; int8: gemm.cuh's s8
+// mma.sync tile), and only the softmax attention works per (window, head):
 //   layernorm_kernel      LN with f32 two-pass statistics (optionally adds
 //                         a residual first and stores the sum); rows past
 //                         valid_rows read as zero, so LN(0) = beta is the
@@ -64,6 +65,7 @@
 // static rows round(x * (1 / s)); both clipped to +-127, rounding half to
 // even (rintf). The divisions are IEEE (no fast math in NVCC_FLAGS).
 #include "gemm.cuh"
+#include "gemm_sm90.cuh"
 
 // ---------------------------------------------------------------------------
 // LayerNorm
@@ -232,9 +234,10 @@ TOC3D_EXPORT int toc3d_rowquant(const void* x, int ldx, int rows, int n,
 }
 
 // ---------------------------------------------------------------------------
-// GEMM (see gemm.cuh)
+// GEMM (bf16: gemm_sm90.cuh; int8: gemm.cuh)
 // ---------------------------------------------------------------------------
 
+// bf16 x bf16 -> f32 GEMM on the TMA + wgmma kernel
 TOC3D_EXPORT int toc3d_gemm(const void* A, int lda, const void* B, int ldb,
                             const void* bias, const void* res, int ldr,
                             void* C, int ldc, int M, int N, int K, int out_f32,
@@ -255,7 +258,7 @@ TOC3D_EXPORT int toc3d_gemm(const void* A, int lda, const void* B, int ldb,
   a.out_f32 = out_f32;
   a.gate = gate;
   a.pH = a.pW = a.pgh = a.pgw = a.ps = 0;
-  return gemm::launch<false>(a, static_cast<cudaStream_t>(stream));
+  return gemm90::launch(a, static_cast<cudaStream_t>(stream));
 }
 
 // int8 x int8 -> int32 GEMM, dequantized by xs (per row, or one static

@@ -23,10 +23,14 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-HEADERS = ("common.cuh", "gemm.cuh")
+HEADERS = ("common.cuh", "gemm.cuh", "gemm_sm90.cuh")
+# -fvisibility=hidden: only the TOC3D_EXPORT entry points leave a library, so
+# two libraries that instantiate the same launch template keep their own
+# function-local statics (the once-per-kernel shared-memory attribute)
+# instead of sharing one through the dynamic linker
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              "-lineinfo")
+              "-shared", "-Xcompiler", "-fPIC", "-Xcompiler",
+              "-fvisibility=hidden", "-Xptxas", "-v", "-lineinfo")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -164,5 +168,8 @@ def occupancy(name: str, fn: str, *args) -> int:
 
 
 def stream_of(t) -> int:
+    """PyTorch's current stream on t's device, as the raw cudaStream_t the C
+    entry points launch on (the internal getter: current_stream(device)
+    builds a Stream object and costs a few microseconds a launch)."""
     import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

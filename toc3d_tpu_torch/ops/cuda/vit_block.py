@@ -8,6 +8,13 @@ launches (LayerNorm, tensor-core GEMM with fused epilogues, window
 attention, and for C the gather/merge and scatter/update kernels). See the
 note at the top of csrc/vit_block.cu for the bound and the design.
 
+Their bf16 matmuls all go through one GEMM, kernel G (``gemm_bf16``, source
+csrc/gemm_sm90.cuh): TMA loads into a shared-memory ring, wgmma from shared
+memory, a producer warpgroup and two consumer warpgroups, a persistent grid.
+It stands in for the bf16 jnp.dot products of _attention and _swiglu
+(vit_block.py:113-116, 150, 163-164, 176) inside _full_block_kernel and
+_compressed_block_kernel.
+
 B8 and C8 are the int8 bodies of the same two pallas_calls
 (quantize_block_params :201, _actquant :271, _qmm :277): the seven weight
 matmuls take int8 weights (per output channel) and int8 activations,
@@ -368,12 +375,85 @@ def _ln(x, ld, wgt, bias, rows, valid_rows, n, npad, y=None, res=None,
          npad, LN_EPS, stream_of(x))
 
 
+def gemm_bf16_plain(a, w, bias=None, res=None, out_f32=False, gate=False):
+    """Plain version of ``gemm_bf16``: the f32 product of a (M, K) and w
+    (N, K)^T plus the f32 bias, then the epilogue at the kernel's rounding
+    points in a.dtype: f32 out as is; gate: columns (2j, 2j + 1) rounded,
+    silu of the first rounded, times the second, (M, N/2); residual:
+    bf16(bf16(v) + res); else bf16(v)."""
+    dt = a.dtype
+    v = a.float() @ w.float().t()
+    if bias is not None:
+        v = v + bias.float()
+    if gate:
+        x1, x2 = v[:, 0::2].to(dt), v[:, 1::2].to(dt)
+        return (F.silu(x1.float()).to(dt).float() * x2.float()).to(dt)
+    if out_f32:
+        return v
+    return v.to(dt) if res is None else _add(res, v.to(dt))
+
+
 def _gemm(a, w, bias, out, m, n, k, res=None, out_f32=False, gate=False):
-    call("vit_block", "toc3d_gemm", a.data_ptr(), a.shape[-1], w.data_ptr(),
-         w.shape[-1], bias.data_ptr(),
+    """Launch kernel G: out = epilogue(a[:m, :k] @ w^T + bias) with w (n,
+    k). TMA reads a and w and writes out, so each needs a 16-byte aligned
+    base and a row stride of a multiple of 16 bytes (out may be a column
+    slice of a wider matrix); the epilogue works on column pairs, reading
+    the f32 bias 8 bytes at a time, so the bias needs an 8-byte aligned
+    base."""
+    check_cuda("gemm_bf16", a, w, dtype=torch.bfloat16)
+    odt = torch.float32 if out_f32 else torch.bfloat16
+    if not out.is_cuda or out.dtype != odt:
+        raise ValueError(f"gemm_bf16: out must be a CUDA {odt} tensor")
+    width = n // 2 if gate else n
+    if (a.dim() != 2 or w.dim() != 2 or out.dim() != 2
+            or tuple(w.shape) != (n, k) or a.shape[0] < m
+            or a.shape[1] < k or a.shape[1] % 8 or k % 8 or n % 2
+            or out.shape[0] < m or out.shape[1] < width
+            or out.stride(1) != 1 or out.data_ptr() % 16
+            or out.stride(0) * out.element_size() % 16):
+        raise ValueError(
+            f"gemm_bf16: unsupported shapes a {tuple(a.shape)}, w "
+            f"{tuple(w.shape)}, out {tuple(out.shape)} (row stride "
+            f"{out.stride(0)}) for m {m}, n {n}, k {k} (16-byte rows and "
+            "bases, K a multiple of 8, N even)")
+    if bias is not None:
+        check_cuda("gemm_bf16", bias, dtype=torch.float32, aligned=False)
+        if bias.numel() < n or bias.data_ptr() % 8:
+            raise ValueError(f"gemm_bf16: bias of {bias.numel()} for {n} "
+                             "columns, or not on an 8-byte boundary")
+    if res is not None:
+        check_cuda("gemm_bf16", res, dtype=torch.bfloat16)
+        if res.dim() != 2 or res.shape[0] < m or res.shape[1] < n \
+                or res.shape[1] % 2:
+            raise ValueError(f"gemm_bf16: residual {tuple(res.shape)} for "
+                             f"({m}, {n})")
+    call("vit_block", "toc3d_gemm", a.data_ptr(), a.shape[1], w.data_ptr(),
+         k, None if bias is None else bias.data_ptr(),
          None if res is None else res.data_ptr(),
-         0 if res is None else res.shape[-1], out.data_ptr(), out.shape[-1],
+         0 if res is None else res.shape[1], out.data_ptr(), out.stride(0),
          m, n, k, int(out_f32), int(gate), stream_of(a))
+    _gemm.launches += 1
+
+
+def gemm_bf16(a, w, bias=None, res=None, out_f32=False, gate=False,
+              out=None):
+    """Kernel G alone: a (M, K) bf16 @ w (N, K)^T bf16 + bias (N,) f32,
+    then the epilogue: ``out_f32`` (M, N) f32; ``gate`` (M, N/2) bf16 from
+    the interleaved SwiGLU pairs; else (M, N) bf16, plus ``res`` (M, N)
+    bf16 when given. On a CPU tensor, the plain version."""
+    if a.device.type == "cpu":
+        return gemm_bf16_plain(a, w, bias, res, out_f32, gate)
+    m, k = a.shape
+    n = w.shape[0]
+    if out is None:
+        # rows padded to 16 bytes for the TMA store, the result a view
+        width = n // 2 if gate else n
+        step = 4 if out_f32 else 8
+        out = torch.empty(m, -(-width // step) * step, device=a.device,
+                          dtype=torch.float32 if out_f32 else a.dtype)
+        out = out[:, :width]
+    _gemm(a, w, bias, out, m, n, k, res=res, out_f32=out_f32, gate=gate)
+    return out
 
 
 def _ln_in(wts: BlockWeights, which: str, x, ld, wgt, bias, rows, valid_rows,
@@ -700,3 +780,4 @@ fused_full_block.launches = 0
 fused_compressed_block.launches = 0
 fused_full_block_int8.launches = 0
 fused_compressed_block_int8.launches = 0
+_gemm.launches = 0

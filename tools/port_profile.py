@@ -26,7 +26,11 @@ from dataclasses import replace
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-FAMILIES = (("gemm_kernel", "GEMM (A-C, B8, C8, H8)"),
+# kernel-name substring -> family, first match wins: kernel G
+# (gemm90::gemm_sm90_kernel) carries every bf16 matmul of B and C, gemm.cuh's
+# mma.sync tile (gemm::gemm_kernel) the patch embedding and the int8 GEMMs
+FAMILIES = (("gemm_sm90_kernel", "GEMM bf16 wgmma (B, C)"),
+            ("gemm_kernel", "GEMM mma.sync (A, B8, C8, H8)"),
             ("rowquant_kernel", "row quantization (B8, C8, H8)"),
             ("window_attention_kernel", "window attention (B, C)"),
             ("layernorm_kernel", "LayerNorm (B, C, B8, C8)"),
@@ -105,7 +109,7 @@ def main() -> int:
                    "other (PyTorch glue)")
         fam[key] += ms
     for key, ms in sorted(fam.items(), key=lambda kv: -kv[1]):
-        print(f"  {key:28s} {ms / n:9.3f} ms/frame  {ms / total:6.1%}")
+        print(f"  {key:30s} {ms / n:9.3f} ms/frame  {ms / total:6.1%}")
     print("top kernels (ms/frame):")
     for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[
             :args.top]:
