@@ -11,16 +11,20 @@ Phases, each fatal on failure (exit code != 0):
      wgmma GEMM of B and C alone at its four GEMMs for B's 30001 rows and
      C's largest row count, 21504) on the card at the main-path shapes of
      ToC3D_faster_1600, in bf16, against its plain PyTorch version, and the
-     attention deltas of B and C alone;
+     attention deltas of B and C alone; G8, G's int8 form behind B8 and
+     C8, at the same eight shapes with dynamic and static scales, bit for
+     bit against the mma.sync s8 tile at all four epilogues and against
+     its plain version;
   4. time: each kernel, its plain version and a PyTorch yardstick
      (library_ms) with CUDA events, beside the bound for the same work (C
      and its yardstick both route the tokens inside the timed call; G's
-     yardstick is F.linear, the bare cuBLAS product);
+     yardstick is F.linear, the bare cuBLAS product, G8's torch._int_mm;
+     G8 is timed beside the mma.sync s8 tile too);
   5. main path: ToC3D_faster_1600 at full width (6 views, 1600x800, batch 1,
      uint8 frames, seeded random weights) streamed for 6 frames with
      prev_exists 0, 1, 1, 1, 1, 1 through make_infer_fn; checks finite
      outputs and that every kernel launched its per-frame count (A 1, B 6,
-     C 18, D 12, G 96 = 4 per block, int8 kernels 0); then the `tiny`
+     C 18, D 12, G 96 = 4 per block, int8 kernels and G8 0); then the `tiny`
      preset in bf16 against the plain path on the CPU as a small-input
      agreement check;
   6. int8: the int8 blocks B8 (ws 16, 20) and C8 (the six main-path
@@ -28,8 +32,8 @@ Phases, each fatal on failure (exit code != 0):
      H8, checked and timed as in 3-4; the int8 main path (backbone and
      decoder quant 'int8') streamed for 6 frames with per-row (dynamic)
      activation scales, then calibrated on 2 frames and streamed again
-     with static scales, each checking A 1, B8 6, C8 18, D 12, H8 60 and
-     bf16 B / C / G 0 per frame; the tiny int8 small-input agreement,
+     with static scales, each checking A 1, B8 6, C8 18, D 12, H8 60, G8
+     96 and bf16 B / C / G 0 per frame; the tiny int8 small-input agreement,
      dynamic and static;
   7. report: a {"kernels": [...]} JSON line, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
@@ -90,6 +94,20 @@ def cuda_time(fn, reps: int, warmup: int = 2) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def host_us(fn, calls: int = 500) -> float:
+    """Wall microseconds per call of fn, a launch too small to keep the
+    card busy: the host's share of a call (checks, tensor maps, launch)."""
+    import torch
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
 
 
 def bound(flops: float, nbytes: float):
@@ -493,7 +511,9 @@ def phase_kernels(model, results):
                 source="toc3d_tpu_torch/csrc/cross_attn.cu",
                 replaces="toc3d_tpu/ops/pallas/cross_attn.py:118", **entry)
     results["D"]["max_abs_err"] = d_err
-    return phase_gemm(results, g) and ok_all
+    ok_g = phase_gemm(results, g)
+    ok_g8 = phase_gemm_s8(results, g)
+    return ok_g and ok_g8 and ok_all
 
 
 def phase_gemm(results, g):
@@ -566,15 +586,131 @@ def phase_gemm(results, g):
     w = torch.randn(256, 64, device=dev, generator=g).to(bf)
     bias = torch.zeros(256, device=dev)
     out = torch.empty(128, 256, device=dev, dtype=bf)
-    for _ in range(20):
-        vit_block.gemm_bf16(a, w, bias, out=out)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(500):
-        vit_block.gemm_bf16(a, w, bias, out=out)
-    torch.cuda.synchronize()
-    log(f"G host cost: {(time.perf_counter() - t0) / 500 * 1e6:.2f} us per "
-        f"call (a (128,64) x w (256,64), 500 calls)")
+    us = host_us(lambda: vit_block.gemm_bf16(a, w, bias, out=out))
+    log(f"G host cost: {us:.2f} us per call (a (128,64) x w (256,64), 500 "
+        f"calls)")
+    return ok_all
+
+
+def phase_gemm_s8(results, g):
+    """Kernel G8 alone: the four GEMMs of a block at 30001 and 21504 rows,
+    with per-row (dynamic) and one static activation scale, on int8
+    operands over their whole range. At every shape and scale kind each of
+    the four epilogues must equal the mma.sync s8 tile's (gemm_s8) bit for
+    bit, and the shape's own epilogue its plain version (f32 exactly, bf16
+    within the kernel bounds); timed beside the mma.sync tile, the plain
+    version and torch._int_mm on the same operands (the bare product). Then
+    the main loop's rate, G8's beside G's, and G8's host cost per call."""
+    import torch
+    from toc3d_tpu_torch.ops.cuda import int8, vit_block
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    ok_all, g_err = True, 0.0
+    epilogues = {"f32": dict(out_f32=True), "res": {}, "gate": dict(gate=True),
+                 "bf16": {}}
+    for m in (30001, 21504):
+        for name, (n, k, epi) in G_SHAPES.items():
+            aq = torch.randint(-127, 128, (m, k), device=dev, generator=g,
+                               dtype=torch.int8)
+            wq = torch.randint(-127, 128, (n, k), device=dev, generator=g,
+                               dtype=torch.int8)
+            ws = torch.rand(n, device=dev, generator=g) * 1e-4 + 1e-5
+            bias = torch.randn(n, device=dev, generator=g) * 0.1
+            res = torch.randn(m, n, device=dev, generator=g).to(bf)
+            for mode in ("dynamic", "static"):
+                xs = (torch.rand(m if mode == "dynamic" else 1, device=dev,
+                                 generator=g) * 0.01 + 1e-3)
+                same = []
+                for e, kw in epilogues.items():
+                    kw = dict(kw, res=res if e == "res" else None)
+                    out = int8.gemm_s8_sm90(aq, xs, wq, ws, bias, **kw)
+                    same.append(torch.equal(
+                        out, int8.gemm_s8(aq, xs, wq, ws, bias, **kw)))
+                    del out
+                kw = dict(epilogues[epi], res=res if epi == "res" else None)
+                out = int8.gemm_s8_sm90(aq, xs, wq, ws, bias, **kw)
+                ref = int8.gemm_s8_plain(aq, xs, wq, ws, bias, **kw)
+                tiles = -(-m // 128) * -(-n // 256)
+                tag = (f"G8 {name} ({m},{k}) x ({n},{k}) {epi} {mode}, "
+                       f"bit-equal to mma.sync at f32/res/gate/bf16 {same}")
+                if epi == "f32":
+                    err = (out - ref).abs().max().item()
+                    ok = torch.equal(out, ref)
+                    log(f"check {tag}: max_abs {err:.6g} (equal to plain: "
+                        f"{ok}) {'ok' if ok and all(same) else 'FAIL'}")
+                else:
+                    ok, err = compare(tag, out, ref)
+                ok_all &= ok and all(same)
+                g_err = max(g_err, err)
+                out_bytes = m * (n // 2 * 2 if epi == "gate" else
+                                 n * (4 if epi == "f32" else 2))
+                b_ms, b_by = bound_int8(
+                    2 * m * n * k, 0,
+                    (m + n) * k + n * 8 + xs.numel() * 4 + out_bytes
+                    + (m * n * 2 if epi == "res" else 0))
+                entry = dict(
+                    shape=f"{name}: a ({m},{k}) int8, w ({n},{k}), {epi}, "
+                          f"{mode}",
+                    max_abs_err=err,
+                    ms=cuda_time(lambda: int8.gemm_s8_sm90(
+                        aq, xs, wq, ws, bias, out=out, **kw), 20),
+                    mma_sync_ms=cuda_time(lambda: int8.gemm_s8(
+                        aq, xs, wq, ws, bias, out=out, **kw), 20),
+                    plain_ms=cuda_time(lambda: int8.gemm_s8_plain(
+                        aq, xs, wq, ws, bias, **kw), 3),
+                    library_ms=cuda_time(lambda: torch._int_mm(aq, wq.t()),
+                                         20),
+                    bound_ms=b_ms, bound_by=b_by, tiles=tiles)
+                log(f"time G8 {name} m{m} {mode}: {json.dumps(entry)}")
+                if name == "gate" and m == 30001 and mode == "dynamic":
+                    results["G8"] = dict(
+                        name="gemm_s8_sm90", route="cuda",
+                        source="toc3d_tpu_torch/csrc/gemm_sm90.cuh",
+                        replaces="toc3d_tpu/ops/pallas/vit_block.py:277",
+                        stands_in_for="toc3d_tpu/ops/pallas/vit_block.py:"
+                                      "277-284 (_qmm, fed by _actquant :271, "
+                                      "in the int8 bodies of the "
+                                      "pallas_calls :639 and :906)", **entry)
+                del out, ref
+            del aq, wq, res
+    results["G8"]["max_abs_err"] = g_err
+    # the main loop's rate without the epilogue: the K slope of a bf16-out
+    # GEMM of 30001 x 5472 from K 1024 to 3072, G8 beside G (a stage is the
+    # same 48 KB in both: if the main loop waited on L2, not on the tensor
+    # cores, G8's rate would be G's in operations per second, not twice it)
+    rate = {}
+    for key in ("G8", "G"):
+        t = []
+        for k in (1024, 3072):
+            if key == "G8":
+                aq = torch.randint(-127, 128, (30001, k), device=dev,
+                                   generator=g, dtype=torch.int8)
+                wq = torch.randint(-127, 128, (5472, k), device=dev,
+                                   generator=g, dtype=torch.int8)
+                xs = torch.rand(30001, device=dev, generator=g) * 0.01
+                ws = torch.rand(5472, device=dev, generator=g) * 1e-4
+                t.append(cuda_time(lambda: int8.gemm_s8_sm90(aq, xs, wq, ws),
+                                   20))
+            else:
+                a = torch.randn(30001, k, device=dev, generator=g).to(bf)
+                w = (torch.randn(5472, k, device=dev, generator=g)
+                     * 0.03).to(bf)
+                t.append(cuda_time(lambda: vit_block.gemm_bf16(a, w), 20))
+        rate[key] = 2 * 30001 * 5472 * 2048 / ((t[1] - t[0]) * 1e-3)
+        peak = PEAK_INT8_OPS if key == "G8" else PEAK_BF16_FLOPS
+        log(f"{key} main loop (K slope, 30001 x 5472, bf16 out): "
+            f"{t[0]:.5f} ms at K 1024, {t[1]:.5f} at K 3072: "
+            f"{rate[key] / 1e12:.1f} T op/s, {rate[key] / peak:.1%} of its "
+            f"peak")
+    # the host's share of a call, as for G
+    aq = torch.zeros(128, 128, device=dev, dtype=torch.int8)
+    wq = torch.zeros(256, 128, device=dev, dtype=torch.int8)
+    xs, ws = torch.ones(128, device=dev), torch.ones(256, device=dev)
+    bias = torch.zeros(256, device=dev)
+    out = torch.empty(128, 256, device=dev, dtype=bf)
+    us = host_us(lambda: int8.gemm_s8_sm90(aq, xs, wq, ws, bias, out=out))
+    log(f"G8 host cost: {us:.2f} us per call (a (128,128) x w (256,128) "
+        f"int8, 500 calls)")
     return ok_all
 
 
@@ -696,23 +832,24 @@ def phase_kernels_int8(model, results):
     return ok_all
 
 
-KERNELS = ("A", "B", "C", "D", "B8", "C8", "H8", "G")
+KERNELS = ("A", "B", "C", "D", "B8", "C8", "H8", "G", "G8")
 
 
 def counters():
     """The launch-counting wrapper of each kernel, in KERNELS order (G:
-    vit_block._gemm, under gemm_bf16 and every bf16 matmul of B and C)."""
+    vit_block._gemm, under gemm_bf16 and every bf16 matmul of B and C; G8:
+    int8.gemm_s8_sm90, every weight matmul of B8 and C8)."""
     from toc3d_tpu_torch.ops.cuda import (cross_attn, int8, patch_embed,
                                           vit_block)
     return [patch_embed.patchify_matmul, vit_block.fused_full_block,
             vit_block.fused_compressed_block, cross_attn.flash_attention_core,
             vit_block.fused_full_block_int8,
             vit_block.fused_compressed_block_int8, int8.int8_linear,
-            vit_block._gemm]
+            vit_block._gemm, int8.gemm_s8_sm90]
 
 
 def phase_main_path(model, results, label="bf16",
-                    per_frame=(1, 6, 18, 12, 0, 0, 0, 96),
+                    per_frame=(1, 6, 18, 12, 0, 0, 0, 96, 0),
                     record=("A", "B", "C", "D", "G")):
     """Stream 6 full-size frames through make_infer_fn(model) with every
     launch count set to 0 just before; per_frame: the launches each frame
@@ -796,9 +933,9 @@ def phase_main_path_int8(results, bf16_dets):
                   head=replace(cfg.head, decoder=replace(cfg.head.decoder,
                                                          quant="int8")))
     model = build_detector(cfg, device="cuda", seed=0)
-    per_frame = (1, 0, 0, 12, 6, 18, 60, 0)
+    per_frame = (1, 0, 0, 12, 6, 18, 60, 0, 96)
     ok, dets = phase_main_path(model, results, "int8 dynamic", per_frame,
-                               ("B8", "C8", "H8"))
+                               ("B8", "C8", "H8", "G8"))
     _against_bf16("int8 dynamic", dets, bf16_dets)
     g = torch.Generator(device="cuda").manual_seed(7)
     cal = [synthetic_frame(g, t) for t in range(2)]

@@ -10,9 +10,12 @@ compressed ones with kr = 201 at ratio .5 and ratio .3), and the window
 attention of kr = 201 rows on its own. Kernel G, the bf16 TMA + wgmma GEMM
 of B and C, alone with every epilogue, ragged M, N and K (K tails that TMA
 zero-fills), and the operands it refuses. The int8
-forms B8 / C8 (dynamic and static) and their parts: the int8 GEMM with
-every epilogue (K not a multiple of the 64-deep tile, M = 1), the
-quantizing LayerNorm and row quantization, and the head's int8 linear.
+forms B8 / C8 (dynamic and static) and their parts: the mma.sync int8 GEMM
+with every epilogue (K not a multiple of the 64-deep tile, M = 1); kernel
+G8, the int8 TMA + wgmma GEMM of B8 and C8, bit for bit that GEMM at every
+block epilogue and both scale kinds (ragged M and N, K tails, K 2736), and
+the operands it refuses; the quantizing LayerNorm and row quantization, and
+the head's int8 linear.
 
 Every test needs a CUDA card and skips without one. This file imports no
 JAX, so a GPU host without JAX runs it (the tests' conftest.py imports JAX,
@@ -374,6 +377,75 @@ def test_int8_gemm_kernel(dev, m, n, k, epi):
         assert torch.equal(out, ref.to(out.dtype))
     else:
         _close(out, ref)
+
+
+def _s8_operands(dev, m, n, k, static, seed):
+    """int8 operands over their whole range, row (or one static) and
+    channel scales, an f32 bias and a bf16 residual."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    aq = torch.randint(-127, 128, (m, k), device=dev, generator=g,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, k), device=dev, generator=g,
+                       dtype=torch.int8)
+    xs = torch.rand(1 if static else m, device=dev, generator=g) * 0.01 \
+        + 1e-3
+    ws = torch.rand(n, device=dev, generator=g) * 1e-3 + 1e-4
+    bias = torch.randn(n, device=dev, generator=g)
+    res = torch.randn(m, n, device=dev, generator=g).to(BF)
+    return aq, xs, wq, ws, bias, res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("epi", ["f32", "bias", "res", "gate", "plain"])
+@pytest.mark.parametrize("m,n,k", [
+    (1, 64, 48),          # one row, one K tile of 128 mostly zero-filled
+    (130, 96, 80),        # M past one 128-row tile
+    (257, 272, 1040),     # ragged N past one 256-column tile, K tail 16
+    (30001, 136, 1024),   # the main path's rows, ragged N
+    (300, 1024, 2736),    # w3's K: 21.375 tiles of 128
+])
+def test_gemm_s8_sm90_kernel(dev, m, n, k, epi, static):
+    """Kernel G8 against the mma.sync tile (gemm_s8) on the same operands:
+    the int32 sums are exact in both and every epilogue keeps epilogue2's
+    rounding points (the gate its expf and IEEE division), so the outputs
+    are equal bit for bit; the f32 output also equals gemm_s8_plain."""
+    aq, xs, wq, ws, bias, res = _s8_operands(dev, m, n, k, static, m + n + k)
+    kw = dict(bias=None if epi == "plain" else bias,
+              res=res if epi == "res" else None, out_f32=epi == "f32",
+              gate=epi == "gate")
+    out = _counted(int8.gemm_s8_sm90, aq, xs, wq, ws, **kw)
+    assert out.shape == ((m, n // 2) if epi == "gate" else (m, n))
+    assert torch.equal(out, int8.gemm_s8(aq, xs, wq, ws, **kw))
+    if epi == "f32":
+        assert torch.equal(out, int8.gemm_s8_plain(aq, xs, wq, ws, **kw))
+
+
+@pytest.mark.cuda
+def test_gemm_s8_sm90_refuses_what_tma_cannot_read(dev):
+    """K must be a multiple of 16 (16-byte rows), N even, the operands
+    int8, and the f32 bias and channel scales on an 8-byte boundary (the
+    epilogue reads them in pairs); the wrapper raises rather than
+    launching, and never falls back to the mma.sync tile."""
+    aq, xs, wq, ws, bias, _ = _s8_operands(dev, 8, 18, 64, False, 1)
+    before = (int8.gemm_s8_sm90.launches, int8.int8_linear.launches)
+    with pytest.raises(ValueError):          # K 40
+        int8.gemm_s8_sm90(aq[:, :40].contiguous(), xs,
+                          wq[:, :40].contiguous(), ws)
+    with pytest.raises(ValueError):          # N 17
+        int8.gemm_s8_sm90(aq, xs, wq[:17], ws)
+    with pytest.raises(ValueError):          # bf16 operands
+        int8.gemm_s8_sm90(aq.to(BF), xs, wq.to(BF), ws)
+    with pytest.raises(ValueError):          # channel scales off 8 bytes
+        int8.gemm_s8_sm90(aq, xs, wq[:16], ws[1:17])
+    with pytest.raises(ValueError):          # bias off 8 bytes
+        int8.gemm_s8_sm90(aq, xs, wq[:16], ws[:16], bias[1:17])
+    assert (int8.gemm_s8_sm90.launches, int8.int8_linear.launches) == before
+    # the aligned views of the same storage launch, and the context lives
+    out = int8.gemm_s8_sm90(aq, xs, wq[:16], ws[2:18], bias[2:18],
+                            out_f32=True)
+    assert torch.equal(out, int8.gemm_s8_plain(aq, xs, wq[:16], ws[2:18],
+                                               bias[2:18], out_f32=True))
 
 
 @pytest.mark.cuda

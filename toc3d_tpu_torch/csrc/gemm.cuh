@@ -1,7 +1,9 @@
 // Tiled tensor-core GEMM with fused epilogues, behind the patch embedding
-// (patch_embed.cu, bf16 with PATCH) and the int8 GEMM of the int8 blocks and
-// linears (vit_block.cu). The bf16 block matmuls run on gemm_sm90.cuh's TMA +
-// wgmma kernel, whose epilogues keep epilogue2's rounding points.
+// (patch_embed.cu, bf16 with PATCH) and the head's int8 linears
+// (vit_block.cu, int8 with head). The block matmuls, bf16 and int8, run on
+// gemm_sm90.cuh's TMA + wgmma kernel, whose epilogues keep epilogue2's
+// rounding points; the card tests hold its int8 form to this tile bit for
+// bit.
 //
 //   C[m, n] = epilogue( sum_k A[m, k] * B[n, k] )
 //

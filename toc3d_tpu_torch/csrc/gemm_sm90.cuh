@@ -1,58 +1,73 @@
-// Hopper bf16 GEMM (kernel G) behind the bf16 matmuls of the ViT block
-// kernels B and C (vit_block.cu :: toc3d_gemm):
+// Hopper GEMM behind the weight matmuls of the ViT block kernels: kernel G
+// (bf16, B and C; vit_block.cu :: toc3d_gemm) and kernel G8 (int8, B8 and
+// C8; vit_block.cu :: toc3d_gemm_s8_sm90), one kernel body generic over the
+// operand type:
 //
 //   C[m, n] = epilogue( sum_k A[m, k] * W[n, k] )
 //
-// A is row-major (M, K) bf16 and W a torch Linear weight (N, K) bf16, both
-// K-major; the sum is f32 and the epilogues are those of gemm.cuh's
-// epilogue2 (bias, residual, SwiGLU gate, f32 out) at the same rounding
-// points.
+// A is row-major (M, K) and W a torch Linear weight (N, K), both K-major,
+// both bf16 (f32 sums) or both int8 (exact s32 sums); the epilogues are
+// those of gemm.cuh's epilogue2 (int8 dequantization, bias, residual, SwiGLU
+// gate, f32 out) at the same rounding points.
 //
-// Replaces the bf16 jnp.dot(..., preferred_element_type=f32) products inside
-// the TPU block kernels, toc3d_tpu/ops/pallas/vit_block.py:
-//   _full_block_kernel via _attention (QKV :113-116, O :150) and _swiglu
-//   (w1 / w2 :163-164, w3 :176); _compressed_block_kernel (:682) through the
-//   same two helpers on its compressed rows (:706, :708; the stripe forms
-//   through _attention_grouped :428-431 and _swiglu, :513, :765-768).
+// Replaces the weight products inside the TPU block kernels,
+// toc3d_tpu/ops/pallas/vit_block.py:
+//   bf16: the jnp.dot(..., preferred_element_type=f32) of _full_block_kernel
+//   via _attention (QKV :113-116, O :150) and _swiglu (w1 / w2 :163-164, w3
+//   :176); _compressed_block_kernel (:682) through the same two helpers on
+//   its compressed rows (:706, :708; the stripe forms through
+//   _attention_grouped :428-431 and _swiglu, :513, :765-768);
+//   int8: _qmm (:277-284, the int32 dot dequantized by xs * w_scale), fed by
+//   _actquant (:271), in the same helpers of the same two pallas_calls
+//   (:639, :906).
 //
-// Bound on the H100 at the main-path shapes: operations. One block row costs
-// 2 * (3C*C + C*C + 2hp*C + hp*C) = 25.2 MFLOP at C 1024, hp 2736, so B's
-// 30001 rows are 0.756 TFLOP (0.76 ms at 989 TFLOP/s) against ~0.26 GB of
+// Bound on the H100 at the main-path shapes: operations, but for the int8
+// QKV GEMM. One block row costs 2 * (3C*C + C*C + 2hp*C + hp*C) = 25.2 MFLOP
+// at C 1024, hp 2736, so B's 30001 rows are 0.756 TFLOP (0.76 ms at 989
+// TFLOP/s in bf16, 0.38 ms at 1979 TOP/s in int8) against ~0.26 GB of
 // operands and outputs (~0.08 ms at 3.35 TB/s); the whole frame's block
-// GEMMs are 1.17e13 flop, 11.9 ms at peak.
+// GEMMs are 1.17e13 operations, 11.9 ms at the bf16 peak, 5.9 at the int8
+// one. The int8 QKV GEMM writes 369 MB of f32 at 30001 rows: 0.11 ms of
+// bytes against 0.1 ms of operations.
 //
 // Design (Hopper's TMA + wgmma, warp-specialised, persistent):
-//   * one TMA descriptor per operand (128-byte swizzle, boxes of 64 K x
-//     rows), encoded on the host (memoised by base, shape and stride) and
-//     passed as __grid_constant__ parameters; a K tile of 64 bf16 is
-//     exactly one 128-byte swizzle row,
-//     and TMA zero-fills the box past K, M and N, so the K tail (2736 = 42.75
-//     tiles) needs no masking;
+//   * one TMA descriptor per operand (128-byte swizzle, boxes of one
+//     128-byte row of K x rows: 64 bf16 or 128 int8), encoded on the host
+//     (memoised by base, shape and stride) and passed as __grid_constant__
+//     parameters; a K tile is exactly one 128-byte swizzle row in either
+//     type, so the ring, the boxes and the wgmma descriptors are the same in
+//     bytes, and TMA zero-fills the box past K, M and N, so the K tail (2736
+//     = 42.75 bf16 or 21.375 int8 tiles) needs no masking;
 //   * a ring of 4 shared-memory stages (1024-byte aligned, as the
-//     swizzle requires), each an A tile (128 x 64) and a W tile (256 x 64),
-//     with a full and an empty mbarrier per stage;
+//     swizzle requires), each an A tile (128 rows) and a W tile (256 rows)
+//     of 128 bytes of K, with a full and an empty mbarrier per stage;
 //   * warpgroup 0 is the producer: it gives up registers (setmaxnreg 40)
 //     and one thread issues the two TMA loads of each stage; warpgroups 1
 //     and 2 are consumers (setmaxnreg 232), each owns 64 rows of the 128 x
-//     256 output tile and issues wgmma.mma_async m64n256k16 straight from the
-//     swizzled stage (4 per stage), keeping one commit group in flight and
+//     256 output tile and issues wgmma.mma_async straight from the swizzled
+//     stage, four 32-byte k steps a stage (m64n256k16 f32.bf16.bf16, or
+//     m64n256k32 s32.s8.s8), keeping one commit group in flight and
 //     releasing a stage when the group that read it has retired;
 //   * a persistent grid of min(tiles, SMs) blocks walks the tiles in row-
 //     major order (n fastest): the blocks in flight share a few 128-row
 //     panels of A, and every weight matrix (at most 11 MB) stays in the
 //     50 MB L2, so A is read from memory about once;
-//   * the epilogue works on the accumulator registers: wgmma's f32
+//   * the epilogue works on the accumulator registers: wgmma's f32 or s32
 //     fragment gives each thread the column pairs (2t, 2t + 1) of rows g
 //     and g + 8 in every 8-column group, as mma.sync m16n8 does, so
-//     epilogue2's arithmetic carries over pair by pair (the gate's silu on
-//     the SFU) and the gate's interleaved (w1 row j, w2 row j) pair lands
-//     in one thread. The bias
-//     and residual of a chunk are loaded while the previous chunk (or, for
-//     the first, the main loop) runs; the results go through swizzled
+//     epilogue2's arithmetic carries over pair by pair and the gate's
+//     interleaved (w1 row j, w2 row j) pair lands in one thread. int8
+//     dequantizes first, as epilogue2 does: float(acc) * (xs[row] *
+//     ws[col]), the rows' scales read once a tile and the channel scales in
+//     pairs beside the bias. The bias, channel scales and residual of a
+//     chunk are loaded while the previous chunk (or, for the first, the
+//     main loop) runs, but for the bias and scales of the gate and of the
+//     int8 residual epilogue, loaded at their chunk (beside the next
+//     chunk's they do not fit in registers); the results go through swizzled
 //     staging buffers to TMA stores, which clip rows and columns past M and
 //     N and drain while the next tile's main loop runs, so the tensor cores
 //     do not wait for the output's memory traffic.
-// The s8 GEMM of B8, C8 and H8 and the PATCH form of A stay on gemm.cuh's
+// The head's int8 linears (H8) and the PATCH form of A stay on gemm.cuh's
 // mma.sync tile.
 #pragma once
 
@@ -61,6 +76,7 @@
 #include <string.h>
 
 #include <mutex>
+#include <type_traits>
 #include <unordered_map>
 
 #include "gemm.cuh"
@@ -69,7 +85,8 @@ namespace gemm90 {
 
 constexpr int BM = 128;        // rows per tile: two consumer warpgroups x 64
 constexpr int BN = 256;        // columns per tile: one m64n256 wgmma
-constexpr int BK = 64;         // K per stage: one 128-byte swizzle row
+constexpr int BK = 64;         // bf16 K per stage: one 128-byte swizzle row
+constexpr int BK_S8 = 128;     // int8 K per stage: the same 128 bytes
 constexpr int THREADS = 384;   // producer warpgroup + two consumer warpgroups
 constexpr int STAGES = 4;
 constexpr int A_BYTES = BM * BK * 2;
@@ -78,6 +95,21 @@ constexpr int STAGE_BYTES = A_BYTES + BN * BK * 2;
 // the barriers, and slack to align the ring to 1024 bytes
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 4 * 64 * 128
                            + 2 * STAGES * 8 + 1024;
+
+// what the operand type changes: the accumulator and the K of a stage (one
+// 128-byte swizzle row either way)
+template <typename T>
+struct Operand;
+template <>
+struct Operand<bf16> {
+  typedef float Acc;
+  static constexpr int K = BK;
+};
+template <>
+struct Operand<int8_t> {
+  typedef int Acc;
+  static constexpr int K = BK_S8;
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -140,7 +172,8 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
 // wgmma shared-memory descriptor of a K-major operand in 128-byte swizzle:
 // start address >> 4, LBO 1 (unused for swizzled K-major), SBO 1024 bytes
 // (the next group of 8 rows), layout type 1 (128B swizzle). Advancing K by
-// 16 bf16 inside the 64-wide swizzle row adds 32 bytes to the start.
+// one k step (16 bf16 or 32 int8) inside the swizzle row adds 32 bytes to
+// the start.
 __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
   const uint64_t a = smem_u32(p);
   return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
@@ -164,42 +197,66 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int R>
+__device__ __forceinline__ void fence_acc(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
-#define G90_D8(i)                                                         \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+// the 128 accumulator registers of an m64n256 fragment
+#define G90_DREGS                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "                                     \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "                                \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "                              \
+  "%24, %25, %26, %27, %28, %29, %30, %31, "                              \
+  "%32, %33, %34, %35, %36, %37, %38, %39, "                              \
+  "%40, %41, %42, %43, %44, %45, %46, %47, "                              \
+  "%48, %49, %50, %51, %52, %53, %54, %55, "                              \
+  "%56, %57, %58, %59, %60, %61, %62, %63, "                              \
+  "%64, %65, %66, %67, %68, %69, %70, %71, "                              \
+  "%72, %73, %74, %75, %76, %77, %78, %79, "                              \
+  "%80, %81, %82, %83, %84, %85, %86, %87, "                              \
+  "%88, %89, %90, %91, %92, %93, %94, %95, "                              \
+  "%96, %97, %98, %99, %100, %101, %102, %103, "                          \
+  "%104, %105, %106, %107, %108, %109, %110, %111, "                      \
+  "%112, %113, %114, %115, %116, %117, %118, %119, "                      \
+  "%120, %121, %122, %123, %124, %125, %126, %127}"
+#define G90_D8(c, i)                                                      \
+  c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3]), c(d[i + 4]),            \
+      c(d[i + 5]), c(d[i + 6]), c(d[i + 7])
+#define G90_D128(c)                                                       \
+  G90_D8(c, 0), G90_D8(c, 8), G90_D8(c, 16), G90_D8(c, 24),               \
+      G90_D8(c, 32), G90_D8(c, 40), G90_D8(c, 48), G90_D8(c, 56),         \
+      G90_D8(c, 64), G90_D8(c, 72), G90_D8(c, 80), G90_D8(c, 88),         \
+      G90_D8(c, 96), G90_D8(c, 104), G90_D8(c, 112), G90_D8(c, 120)
 
-// d (64 x 256 f32 fragment) (+)= A (64 x 16, smem) * W (256 x 16, smem)^T
+// d (64 x 256 f32 fragment) (+)= A (64 x 16 bf16, smem) * W (256 x 16,
+// smem)^T
 __device__ __forceinline__ void wgmma(float (&d)[BN / 2], uint64_t da,
                                       uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
-      : G90_D8(0), G90_D8(8), G90_D8(16), G90_D8(24), G90_D8(32),
-        G90_D8(40), G90_D8(48), G90_D8(56), G90_D8(64), G90_D8(72),
-        G90_D8(80), G90_D8(88), G90_D8(96), G90_D8(104), G90_D8(112),
-        G90_D8(120)
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " G90_DREGS
+      ", %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : G90_D128("+f")
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d (64 x 256 s32 fragment) (+)= A (64 x 32 s8, smem) * W (256 x 32,
+// smem)^T; the integer form takes no scale or transpose immediates
+__device__ __forceinline__ void wgmma(int (&d)[BN / 2], uint64_t da,
+                                      uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " G90_DREGS
+      ", %128, %129, p;\n}\n"
+      : G90_D128("+r")
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+#undef G90_D128
 #undef G90_D8
+#undef G90_DREGS
 
 // The epilogue of a launch is fixed at compile time: the fragment's
 // epilogue is unrolled (128 column pairs a thread), and with every
@@ -225,48 +282,67 @@ __device__ __forceinline__ void wg_sync(int id) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
 }
 
-// the bias of the thread's column pairs of one chunk (acc columns c0 + 8j +
-// 2t) and, for OUT_RES, the residual of its rows gm and gm + 8 (kept as
-// bf16 pairs, one register each); predicated, with no branch between the
-// loads, so their latencies overlap. The bias pairs are 8-byte loads: the
-// wrapper checks that the bias lies on an 8-byte boundary
-template <int MODE>
-__device__ __forceinline__ void load_chunk(const gemm::Args& a, int gm,
-                                           int c0, int t,
-                                           float2 (&b)[Out<MODE>::J],
-                                           bf162 (&r)[2][Out<MODE>::J]) {
+// the f32 pairs of vector v (the bias, or the int8 channel scales) at the
+// thread's column pairs of one chunk (acc columns c0 + 8j + 2t), zero past
+// n or for a null v; 8-byte loads: the wrappers check that both vectors
+// lie on an 8-byte boundary
+template <int J>
+__device__ __forceinline__ void load_pairs(const float* v, int n, int c0,
+                                           int t, float2 (&p)[J]) {
 #pragma unroll
-  for (int j = 0; j < Out<MODE>::J; ++j) {
+  for (int j = 0; j < J; ++j) {
     const int c = c0 + 8 * j + 2 * t;
-    const bool col_ok = c < a.N;
-    b[j] = a.bias && col_ok ? *reinterpret_cast<const float2*>(a.bias + c)
-                            : make_float2(0.f, 0.f);
+    p[j] = v && c < n ? *reinterpret_cast<const float2*>(v + c)
+                      : make_float2(0.f, 0.f);
+  }
+}
+
+// the residual of the same column pairs in the thread's rows gm and gm + 8,
+// kept as bf16 pairs (one register each)
+template <int J>
+__device__ __forceinline__ void load_res(const gemm::Args& a, int gm, int c0,
+                                         int t, bf162 (&r)[2][J]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int c = c0 + 8 * j + 2 * t;
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-      r[h][j] = MODE == OUT_RES && col_ok && gm + 8 * h < a.M
+      r[h][j] = c < a.N && gm + 8 * h < a.M
                     ? *reinterpret_cast<const bf162*>(
                           a.res + (long long)(gm + 8 * h) * a.ldr + c)
                     : __float2bfloat162_rn(0.f);
   }
 }
 
-// epilogue2's rounding points (and its arithmetic, but for the gate's fast
-// silu) for chunk ch of the thread's fragment, written to the staging
+// epilogue2's rounding points (and its arithmetic, but for the bf16 gate's
+// fast silu) for chunk ch of the thread's fragment, written to the staging
 // buffer sb: the fragment of m64n256 holds, in register 4j + e, row 16 *
 // warp + g (+ 8 for e >= 2) and column 8j + 2t + (e & 1), so the gate's
-// (w1 row j, w2 row j) pair is one thread's
-template <int MODE>
+// (w1 row j, w2 row j) pair is one thread's. xs: the int8 scales of rows g
+// and g + 8
+template <int MODE, typename Acc>
 __device__ __forceinline__ void stage_chunk(
-    const gemm::Args& a, const float (&acc)[BN / 2], int ch, int warp,
-    int g, int t, const float2 (&b)[Out<MODE>::J],
-    const bf162 (&r)[2][Out<MODE>::J], unsigned char* sb) {
+    const gemm::Args& a, const Acc (&acc)[BN / 2], int ch, int warp, int g,
+    int t, const float2 (&b)[Out<MODE>::J], const float2 (&s)[Out<MODE>::J],
+    const float (&xs)[2], const bf162 (&r)[2][Out<MODE>::J],
+    unsigned char* sb) {
   constexpr int J = Out<MODE>::J;
+  constexpr bool S8 = std::is_same<Acc, int>::value;
 #pragma unroll
   for (int j = 0; j < J; ++j) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      float v0 = acc[4 * (ch * J + j) + 2 * h];
-      float v1 = acc[4 * (ch * J + j) + 2 * h + 1];
+      const int i = 4 * (ch * J + j) + 2 * h;
+      float v0, v1;
+      if constexpr (S8) {
+        // float(acc) * (xs * ws), each product rounded on its own (no FMA
+        // with the bias add below), as epilogue2 and _qmm
+        v0 = __fmul_rn(__int2float_rn(acc[i]), __fmul_rn(xs[h], s[j].x));
+        v1 = __fmul_rn(__int2float_rn(acc[i + 1]), __fmul_rn(xs[h], s[j].y));
+      } else {
+        v0 = acc[i];
+        v1 = acc[i + 1];
+      }
       if (a.bias) {
         v0 += b[j].x;
         v1 += b[j].y;
@@ -279,14 +355,22 @@ __device__ __forceinline__ void stage_chunk(
         *reinterpret_cast<float2*>(line + ((q ^ sw) << 4) + 8 * (t & 1)) =
             make_float2(v0, v1);
       } else if (MODE == OUT_GATE) {
-        // silu by the SFU's exponential and reciprocal, a few f32 ulps from
-        // epilogue2's expf and IEEE division (both slow, and paid on every
-        // gate output) before the same rounding to bf16
         const float x1 = bfr(v0), x2 = bfr(v1);
-        const float s = bfr(__fdividef(x1, 1.f + __expf(-x1)));
+        float sl;
+        if constexpr (S8) {
+          // epilogue2's expf and IEEE division, so that the output equals
+          // the mma.sync tile's bit for bit: it is quantized at the ffn_in
+          // site, where one flipped bf16 bit moves a whole int8 step
+          sl = bfr(x1 / (1.f + expf(-x1)));
+        } else {
+          // the SFU's exponential and reciprocal, a few f32 ulps from
+          // epilogue2's expf and IEEE division (both slow, and paid on
+          // every gate output) before the same rounding to bf16
+          sl = bfr(__fdividef(x1, 1.f + __expf(-x1)));
+        }
         *reinterpret_cast<bf16*>(line + (((j >> 1) ^ sw) << 4) +
                                  8 * (j & 1) + 2 * t) =
-            __float2bfloat16(s * x2);
+            __float2bfloat16(sl * x2);
       } else {
         if (MODE == OUT_RES) {
           const float2 rs = __bfloat1622float2(r[h][j]);
@@ -300,13 +384,16 @@ __device__ __forceinline__ void stage_chunk(
   }
 }
 
-template <int MODE>
-__global__ void __launch_bounds__(THREADS, 1)
-    gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
-                     const __grid_constant__ CUtensorMap map_w,
-                     const __grid_constant__ CUtensorMap map_c,
-                     const gemm::Args a) {
+// the kernel body of operand type T (bf16 or int8_t), epilogue MODE
+template <int MODE, typename T>
+__device__ __forceinline__ void gemm_sm90(const CUtensorMap& map_a,
+                                          const CUtensorMap& map_w,
+                                          const CUtensorMap& map_c,
+                                          const gemm::Args& a) {
   typedef Out<MODE> O;
+  typedef typename Operand<T>::Acc Acc;
+  constexpr bool S8 = std::is_same<T, int8_t>::value;
+  constexpr int KT = Operand<T>::K;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* ring =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -315,7 +402,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   uint64_t* empty = full + STAGES;
   const int tiles_n = (a.N + BN - 1) / BN;
   const int tiles = (a.M + BM - 1) / BM * tiles_n;
-  const int ktiles = (a.K + BK - 1) / BK;
+  const int ktiles = (a.K + KT - 1) / KT;
   const int wg = threadIdx.x >> 7;
 
   if (threadIdx.x == 0) {
@@ -339,8 +426,8 @@ __global__ void __launch_bounds__(THREADS, 1)
           mbar_wait(&empty[stage], phase ^ 1);
           unsigned char* st = ring + stage * STAGE_BYTES;
           mbar_expect_tx(&full[stage], STAGE_BYTES);
-          tma_load(st, &map_a, &full[stage], kt * BK, m0);
-          tma_load(st + A_BYTES, &map_w, &full[stage], kt * BK, n0);
+          tma_load(st, &map_a, &full[stage], kt * KT, m0);
+          tma_load(st + A_BYTES, &map_w, &full[stage], kt * KT, n0);
           if (++stage == STAGES) {
             stage = 0;
             phase ^= 1;
@@ -356,17 +443,26 @@ __global__ void __launch_bounds__(THREADS, 1)
     const bool leader = (threadIdx.x & 127) == 0;
     unsigned char* bufs = staging + cw * 2 * OUT_BYTES;
     const int n_out = MODE == OUT_GATE ? a.N / 2 : a.N;
-    float acc[BN / 2];
+    Acc acc[BN / 2];
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < BN / 2; ++i) acc[i] = Acc(0);
     int stage = 0, phase = 0, nchunk = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
       const int gm = m0 + cw * 64 + warp * 16 + g;
-      // the first chunk's bias and residual load during the main loop
-      float2 b[O::J];
+      // the first chunk's bias, scales and residual, and the rows' int8
+      // scales, load during the main loop
+      float2 b[O::J], s[O::J];
       bf162 r[2][O::J];
-      load_chunk<MODE>(a, gm, n0, t, b, r);
+      float xs[2] = {0.f, 0.f};
+      load_pairs(a.bias, a.N, n0, t, b);
+      if (S8) load_pairs(a.ws, a.N, n0, t, s);
+      if (MODE == OUT_RES) load_res(a, gm, n0, t, r);
+      if (S8) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          xs[h] = gm + 8 * h < a.M ? a.xs[a.xs_row ? gm + 8 * h : 0] : 0.f;
+      }
       int prev = 0;
       for (int kt = 0; kt < ktiles; ++kt) {
         mbar_wait(&full[stage], phase);
@@ -374,8 +470,9 @@ __global__ void __launch_bounds__(THREADS, 1)
         const unsigned char* as = st + cw * 64 * 128;
         const unsigned char* ws = st + A_BYTES;
         wgmma_fence();
+        // four k steps of 32 bytes (16 bf16 or 32 int8) per 128-byte row
 #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk)
+        for (int kk = 0; kk < 4; ++kk)
           wgmma(acc, sw128_desc(as + kk * 32), sw128_desc(ws + kk * 32),
                 (kt > 0 || kk > 0) ? 1 : 0);
         wgmma_commit();
@@ -391,17 +488,27 @@ __global__ void __launch_bounds__(THREADS, 1)
       wgmma_wait<0>();
       fence_acc(acc);
       if (lane == 0) mbar_arrive(&empty[prev]);
-      // the gate holds the bias of 16 column groups a chunk: too many
-      // registers to load the next chunk's ahead, so it loads at the chunk
-      constexpr bool ahead = MODE != OUT_GATE;
+      // the next chunk's residual loads while this one is staged, and its
+      // bias and channel scales too but for the gate (16 column groups a
+      // chunk) and the int8 residual epilogue: beside the next chunk's those
+      // do not fit in registers (ptxas spilled), so they load at their chunk
+      constexpr int CHUNKS = BN / O::ACC_COLS;
+      constexpr bool vec_ahead =
+          MODE != OUT_GATE && !(S8 && MODE == OUT_RES);
 #pragma unroll
-      for (int ch = 0; ch < BN / O::ACC_COLS; ++ch) {
-        float2 bn[O::J];
+      for (int ch = 0; ch < CHUNKS; ++ch) {
+        float2 bn[O::J], sn[O::J];
         bf162 rn[2][O::J];
-        if (ahead && ch + 1 < BN / O::ACC_COLS)
-          load_chunk<MODE>(a, gm, n0 + (ch + 1) * O::ACC_COLS, t, bn, rn);
-        if (!ahead && ch > 0)
-          load_chunk<MODE>(a, gm, n0 + ch * O::ACC_COLS, t, b, r);
+        const int c_next = n0 + (ch + 1) * O::ACC_COLS;
+        if (MODE == OUT_RES && ch + 1 < CHUNKS) load_res(a, gm, c_next, t, rn);
+        if (vec_ahead && ch + 1 < CHUNKS) {
+          load_pairs(a.bias, a.N, c_next, t, bn);
+          if (S8) load_pairs(a.ws, a.N, c_next, t, sn);
+        }
+        if (!vec_ahead && ch > 0) {
+          load_pairs(a.bias, a.N, n0 + ch * O::ACC_COLS, t, b);
+          if (S8) load_pairs(a.ws, a.N, n0 + ch * O::ACC_COLS, t, s);
+        }
         const int col = (MODE == OUT_GATE ? n0 / 2 : n0) +
                         ch * (MODE == OUT_F32 ? 32 : 64);
         // a chunk wholly past N, or a warpgroup's rows wholly past M, has
@@ -412,7 +519,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           if (leader)
             asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
           wg_sync(1 + cw);
-          stage_chunk<MODE>(a, acc, ch, warp, g, t, b, r, sb);
+          stage_chunk<MODE>(a, acc, ch, warp, g, t, b, s, xs, r, sb);
           // the generic-proxy writes, visible to the TMA store
           asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
           wg_sync(1 + cw);
@@ -427,10 +534,13 @@ __global__ void __launch_bounds__(THREADS, 1)
           }
           ++nchunk;
         }
-        if (ahead) {
 #pragma unroll
-          for (int j = 0; j < O::J; ++j) {
+        for (int j = 0; j < O::J; ++j) {
+          if (vec_ahead) {
             b[j] = bn[j];
+            s[j] = sn[j];
+          }
+          if (MODE == OUT_RES) {
             r[0][j] = rn[0][j];
             r[1][j] = rn[1][j];
           }
@@ -440,6 +550,26 @@ __global__ void __launch_bounds__(THREADS, 1)
     // the last stores have read shared memory and written their rows
     if (leader) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
   }
+}
+
+// kernel G (bf16) and kernel G8 (int8): the one body under two names, so
+// that a profile tells them apart
+template <int MODE>
+__global__ void __launch_bounds__(THREADS, 1)
+    gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
+                     const __grid_constant__ CUtensorMap map_w,
+                     const __grid_constant__ CUtensorMap map_c,
+                     const __grid_constant__ gemm::Args a) {
+  gemm_sm90<MODE, bf16>(map_a, map_w, map_c, a);
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(THREADS, 1)
+    gemm_s8_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
+                        const __grid_constant__ CUtensorMap map_w,
+                        const __grid_constant__ CUtensorMap map_c,
+                        const __grid_constant__ gemm::Args a) {
+  gemm_sm90<MODE, int8_t>(map_a, map_w, map_c, a);
 }
 
 // cuTensorMapEncodeTiled, fetched once through the runtime (no -lcuda)
@@ -467,7 +597,7 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// what a tensor map of a row-major (rows, cols) matrix of 2- or 4-byte
+// what a tensor map of a row-major (rows, cols) matrix of 1-, 2- or 4-byte
 // elements with row stride ld elements, read or written in 128-byte
 // swizzled boxes of box_cols x box_rows (box_cols * elsize = 128 bytes, one
 // swizzle row), depends on; 40 bytes, no padding
@@ -538,24 +668,29 @@ inline int sm_count() {
   return n;
 }
 
-// one launch of epilogue MODE (a.A, a.B bf16; the wrapper checks 16-byte
-// aligned bases, row strides a multiple of 8 and an 8-byte aligned bias)
-template <int MODE>
+// one launch of epilogue MODE on operands of type T (a.A, a.B bf16 or
+// int8_t; the wrappers check 16-byte aligned bases, row strides a multiple
+// of 16 bytes and an 8-byte aligned bias and channel scales)
+template <int MODE, typename T>
 inline int launch_mode(const gemm::Args& a, cudaStream_t stream) {
+  constexpr bool S8 = std::is_same<T, int8_t>::value;
+  void (*kernel)(CUtensorMap, CUtensorMap, CUtensorMap, gemm::Args) =
+      S8 ? gemm_s8_sm90_kernel<MODE> : gemm_sm90_kernel<MODE>;
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        gemm_sm90_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SMEM_BYTES);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set = true;
   }
   if (a.M <= 0 || a.N <= 0) return static_cast<int>(cudaGetLastError());
   const int bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const int in = S8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : bf;
+  const int es = sizeof(T), kt = Operand<T>::K;
   CUtensorMap ma, mw, mc;
-  if (int e = cached_map(&ma, {a.A, a.lda, bf, 2, a.M, a.K, BK, BM}))
+  if (int e = cached_map(&ma, {a.A, a.lda, in, es, a.M, a.K, kt, BM}))
     return e;
-  if (int e = cached_map(&mw, {a.B, a.ldb, bf, 2, a.N, a.K, BK, BN}))
+  if (int e = cached_map(&mw, {a.B, a.ldb, in, es, a.N, a.K, kt, BN}))
     return e;
   // the output: (M, N) f32 or bf16, or (M, N / 2) bf16 for the gate, in
   // the staging chunks of 64 rows x 128 bytes
@@ -571,17 +706,19 @@ inline int launch_mode(const gemm::Args& a, cudaStream_t stream) {
   const long long tiles =
       (long long)((a.M + BM - 1) / BM) * ((a.N + BN - 1) / BN);
   const int grid = static_cast<int>(tiles < sms ? tiles : sms);
-  gemm_sm90_kernel<MODE><<<grid, THREADS, SMEM_BYTES, stream>>>(ma, mw, mc, a);
+  kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(ma, mw, mc, a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 A (M, K) x W (N, K)^T with gemm.cuh's bf16 epilogues (gate first, as
-// epilogue2 takes it, then f32 out, then the residual)
+// A (M, K) x W (N, K)^T of type T with gemm.cuh's epilogues (gate first, as
+// epilogue2 takes it, then f32 out, then the residual); for int8 the
+// dequantization by a.xs and a.ws comes first
+template <typename T>
 inline int launch(const gemm::Args& a, cudaStream_t stream) {
-  if (a.gate) return launch_mode<OUT_GATE>(a, stream);
-  if (a.out_f32) return launch_mode<OUT_F32>(a, stream);
-  if (a.res) return launch_mode<OUT_RES>(a, stream);
-  return launch_mode<OUT_BF16>(a, stream);
+  if (a.gate) return launch_mode<OUT_GATE, T>(a, stream);
+  if (a.out_f32) return launch_mode<OUT_F32, T>(a, stream);
+  if (a.res) return launch_mode<OUT_RES, T>(a, stream);
+  return launch_mode<OUT_BF16, T>(a, stream);
 }
 
 }  // namespace gemm90

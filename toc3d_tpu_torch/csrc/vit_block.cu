@@ -27,8 +27,8 @@
 // every matmul inside one grid step. On Hopper the per-token matmuls
 // (QKV, O-proj, SwiGLU) are batched over ALL tokens of the map in a tiled
 // tensor-core GEMM whose epilogue fuses bias, residual and the SwiGLU gate
-// (bf16: the TMA + wgmma kernel of gemm_sm90.cuh; int8: gemm.cuh's s8
-// mma.sync tile), and only the softmax attention works per (window, head):
+// (the TMA + wgmma kernel of gemm_sm90.cuh: kernel G in bf16, kernel G8 in
+// int8), and only the softmax attention works per (window, head):
 //   layernorm_kernel      LN with f32 two-pass statistics (optionally adds
 //                         a residual first and stores the sum); rows past
 //                         valid_rows read as zero, so LN(0) = beta is the
@@ -234,10 +234,10 @@ TOC3D_EXPORT int toc3d_rowquant(const void* x, int ldx, int rows, int n,
 }
 
 // ---------------------------------------------------------------------------
-// GEMM (bf16: gemm_sm90.cuh; int8: gemm.cuh)
+// GEMM (gemm_sm90.cuh: G bf16, G8 int8; gemm.cuh: the head's int8 linears)
 // ---------------------------------------------------------------------------
 
-// bf16 x bf16 -> f32 GEMM on the TMA + wgmma kernel
+// bf16 x bf16 -> f32 GEMM on the TMA + wgmma kernel (kernel G)
 TOC3D_EXPORT int toc3d_gemm(const void* A, int lda, const void* B, int ldb,
                             const void* bias, const void* res, int ldr,
                             void* C, int ldc, int M, int N, int K, int out_f32,
@@ -258,17 +258,14 @@ TOC3D_EXPORT int toc3d_gemm(const void* A, int lda, const void* B, int ldb,
   a.out_f32 = out_f32;
   a.gate = gate;
   a.pH = a.pW = a.pgh = a.pgw = a.ps = 0;
-  return gemm90::launch(a, static_cast<cudaStream_t>(stream));
+  return gemm90::launch<bf16>(a, static_cast<cudaStream_t>(stream));
 }
 
-// int8 x int8 -> int32 GEMM, dequantized by xs (per row, or one static
-// scale when xs_row is 0) and ws (per output channel) before the epilogue
-TOC3D_EXPORT int toc3d_gemm_s8(const void* A, int lda, const void* xs,
-                               int xs_row, const void* B, int ldb,
-                               const void* ws, const void* bias,
-                               const void* res, int ldr, void* C, int ldc,
-                               int M, int N, int K, int out_f32, int gate,
-                               int head, void* stream) {
+static gemm::Args s8_args(const void* A, int lda, const void* xs, int xs_row,
+                          const void* B, int ldb, const void* ws,
+                          const void* bias, const void* res, int ldr, void* C,
+                          int ldc, int M, int N, int K, int out_f32, int gate,
+                          int head) {
   gemm::Args a;
   a.A = A;
   a.lda = lda;
@@ -289,7 +286,37 @@ TOC3D_EXPORT int toc3d_gemm_s8(const void* A, int lda, const void* xs,
   a.xs_row = xs_row;
   a.ws = static_cast<const float*>(ws);
   a.head = head;
-  return gemm::launch<false, int8_t>(a, static_cast<cudaStream_t>(stream));
+  return a;
+}
+
+// int8 x int8 -> int32 GEMM on gemm.cuh's mma.sync tile (the head's int8
+// linears, H8), dequantized by xs (per row, or one static scale when xs_row
+// is 0) and ws (per output channel) before the epilogue
+TOC3D_EXPORT int toc3d_gemm_s8(const void* A, int lda, const void* xs,
+                               int xs_row, const void* B, int ldb,
+                               const void* ws, const void* bias,
+                               const void* res, int ldr, void* C, int ldc,
+                               int M, int N, int K, int out_f32, int gate,
+                               int head, void* stream) {
+  return gemm::launch<false, int8_t>(
+      s8_args(A, lda, xs, xs_row, B, ldb, ws, bias, res, ldr, C, ldc, M, N, K,
+              out_f32, gate, head),
+      static_cast<cudaStream_t>(stream));
+}
+
+// the same GEMM on the TMA + wgmma kernel (kernel G8, the weight matmuls of
+// B8 and C8), with the blocks' epilogues (no head form); ldc is the output's
+// row stride in elements
+TOC3D_EXPORT int toc3d_gemm_s8_sm90(const void* A, int lda, const void* xs,
+                                    int xs_row, const void* B, int ldb,
+                                    const void* ws, const void* bias,
+                                    const void* res, int ldr, void* C,
+                                    int ldc, int M, int N, int K, int out_f32,
+                                    int gate, void* stream) {
+  return gemm90::launch<int8_t>(
+      s8_args(A, lda, xs, xs_row, B, ldb, ws, bias, res, ldr, C, ldc, M, N, K,
+              out_f32, gate, 0),
+      static_cast<cudaStream_t>(stream));
 }
 
 // ---------------------------------------------------------------------------

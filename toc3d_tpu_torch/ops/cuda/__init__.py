@@ -28,6 +28,49 @@ def check_cuda(name: str, *tensors, dtype=None, aligned: bool = True) -> None:
                              "16-byte boundary")
 
 
+def tma_out(name: str, out, rows: int, width: int, dtype, device):
+    """The (rows, width) output matrix that a GEMM's TMA stores write:
+    ``out`` when given (a column slice of a wider matrix will do), else a new
+    one whose rows are padded to 16 bytes, returned as a view. Raises unless
+    it is a CUDA matrix of ``dtype`` with a 16-byte aligned base and a row
+    stride of a multiple of 16 bytes, as TMA needs."""
+    import torch
+    if out is None:
+        step = 16 // torch.empty(0, dtype=dtype).element_size()
+        out = torch.empty(rows, -(-width // step) * step, dtype=dtype,
+                          device=device)[:, :width]
+    if (not out.is_cuda or out.dtype != dtype or out.dim() != 2
+            or out.shape[0] < rows or out.shape[1] < width
+            or out.stride(1) != 1 or out.data_ptr() % 16
+            or out.stride(0) * out.element_size() % 16):
+        raise ValueError(f"{name}: out must be a CUDA {dtype} matrix of at "
+                         f"least ({rows}, {width}) with a 16-byte aligned "
+                         "base and rows")
+    return out
+
+
+def check_pairs(name: str, v, n: int) -> None:
+    """Raise unless v, an f32 vector that a GEMM epilogue reads in pairs
+    (8-byte loads: the bias, the int8 channel scales), is a contiguous CUDA
+    tensor of at least n elements on an 8-byte boundary."""
+    import torch
+    check_cuda(name, v, dtype=torch.float32, aligned=False)
+    if v.numel() < n or v.data_ptr() % 8:
+        raise ValueError(f"{name}: a vector of {v.numel()} for {n} columns, "
+                         "or not on an 8-byte boundary")
+
+
+def check_res(name: str, res, rows: int, n: int) -> None:
+    """Raise unless res, the bf16 residual a GEMM epilogue adds, is a
+    contiguous CUDA matrix of at least (rows, n), read in column pairs."""
+    import torch
+    check_cuda(name, res, dtype=torch.bfloat16)
+    if res.dim() != 2 or res.shape[0] < rows or res.shape[1] < n \
+            or res.shape[1] % 2:
+        raise ValueError(f"{name}: residual {tuple(res.shape)} for "
+                         f"({rows}, {n})")
+
+
 def cached_pack(module, name: str, key, build):
     """Per-module cache of kernel-ready weights, rebuilt when ``key``
     changes. Callers key on the parameters' storage and version counters,

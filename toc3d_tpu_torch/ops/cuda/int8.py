@@ -1,6 +1,8 @@
-"""int8 quantization, the int8 GEMM and row quantization (kernels of
-csrc/vit_block.cu over csrc/gemm.cuh), shared by the int8 blocks B8 and C8
-(ops/cuda/vit_block.py) and the head decoder's int8 linears.
+"""int8 quantization, the int8 GEMMs and row quantization (kernels of
+csrc/vit_block.cu): kernel G8 (``gemm_s8_sm90``, the TMA + wgmma GEMM of
+csrc/gemm_sm90.cuh) behind the weight matmuls of the int8 blocks B8 and C8
+(ops/cuda/vit_block.py), and ``gemm_s8`` (csrc/gemm.cuh's mma.sync tile)
+behind the head decoder's int8 linears (H8); row quantization serves both.
 
 Plain versions of toc3d_tpu/ops/pallas/vit_block.py :: quantize_block_params
 (:201, the weight half), _rowquant (:247), _statquant (:259) and _qmm
@@ -33,7 +35,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from . import check_cuda
+from . import check_cuda, check_pairs, check_res, tma_out
 from .build import call, stream_of
 
 # static activation-scale sites of a block, in the order of
@@ -110,9 +112,10 @@ def int8_linear_plain(x, p: QuantLinear):
 
 def gemm_s8_plain(aq, xs, wq, ws, bias=None, res=None, out_f32=False,
                   gate=False, head=False, dtype=torch.bfloat16):
-    """Plain version of ``gemm_s8``: aq (M, K) int8, xs (M,) row scales or
-    a 1-element static scale, wq (N, K) int8, ws (N,); the epilogues of
-    csrc/gemm.cuh in the activation dtype ``dtype``."""
+    """Plain version of ``gemm_s8`` and ``gemm_s8_sm90``: aq (M, K) int8,
+    xs (M,) row scales or a 1-element static scale, wq (N, K) int8, ws
+    (N,); the epilogues of csrc/gemm.cuh in the activation dtype
+    ``dtype``."""
     v = int8_dot(aq, wq)
     xs = xs.float().reshape(-1, 1)
     v = v * xs * ws if head else v * (xs * ws)
@@ -160,11 +163,15 @@ def row_quant(x, static_scale=None):
 
 def gemm_s8(aq, xs, wq, ws, bias=None, res=None, out_f32=False, gate=False,
             head=False, out=None):
-    """int8 GEMM on the card: aq (M, K) int8 @ wq (N, K)^T, dequantized by
-    xs (M,) row scales or a 1-element static scale and ws (N,) channel
-    scales, then the epilogue (bias, residual, SwiGLU gate or f32 out; head:
-    the head's product order and bias rounding). Returns ``out`` ((M, N)
-    bf16, (M, N) f32 with out_f32, (M, N/2) bf16 with gate)."""
+    """The int8 GEMM of the head's int8 linears (H8, ``int8_linear``) on
+    csrc/gemm.cuh's mma.sync tile, the only caller on the main path: aq (M,
+    K) int8 @ wq (N, K)^T, dequantized by xs (M,) row scales or a
+    1-element static scale and ws (N,) channel scales, then the epilogue
+    (head: the head's product order and bias rounding; or bias, residual,
+    SwiGLU gate or f32 out, the blocks' epilogues that kernel G8 computes
+    bit for bit the same, and against which the card tests hold it).
+    Returns ``out`` ((M, N) bf16, (M, N) f32 with out_f32, (M, N/2) bf16
+    with gate). The weight matmuls of B8 and C8 run on ``gemm_s8_sm90``."""
     check_cuda("gemm_s8", aq, wq, dtype=torch.int8)
     check_cuda("gemm_s8", xs, ws, dtype=torch.float32, aligned=False)
     m, k = aq.shape
@@ -189,6 +196,51 @@ def gemm_s8(aq, xs, wq, ws, bias=None, res=None, out_f32=False, gate=False,
     return out
 
 
+def gemm_s8_sm90(aq, xs, wq, ws, bias=None, res=None, out_f32=False,
+                 gate=False, out=None):
+    """Kernel G8, the int8 form of kernel G (csrc/gemm_sm90.cuh: TMA loads
+    into a shared-memory ring, wgmma m64n256k32 s32.s8.s8, a producer and
+    two consumer warpgroups, a persistent grid) behind every weight matmul
+    of B8 and C8: aq (M, K) int8 @ wq (N, K)^T, dequantized by xs (M,) row
+    scales or a 1-element static scale and ws (N,) channel scales, then the
+    epilogue (bias, residual, SwiGLU gate or f32 out) at ``gemm_s8``'s
+    rounding points. Returns ``out`` ((M, N) bf16, (M, N) f32 with
+    out_f32, (M, N/2) bf16 with gate; out may be a column slice of a wider
+    matrix). On a CPU tensor, the plain version.
+
+    TMA reads aq and wq and writes out, so each needs a 16-byte aligned
+    base and a row stride of a multiple of 16 bytes (K a multiple of 16);
+    the epilogue works on column pairs (N even), reading the f32 bias and
+    channel scales 8 bytes at a time, so both need an 8-byte aligned base.
+    Anything else raises ValueError."""
+    if aq.device.type == "cpu":
+        return gemm_s8_plain(aq, xs, wq, ws, bias, res, out_f32, gate)
+    name = "gemm_s8_sm90"
+    check_cuda(name, aq, wq, dtype=torch.int8)
+    check_cuda(name, xs, dtype=torch.float32, aligned=False)
+    m, k, n = aq.shape[0], aq.shape[-1], wq.shape[0]
+    if (aq.dim() != 2 or wq.dim() != 2 or wq.shape[1] != k or k % 16
+            or n % 2 or xs.numel() not in (1, m)):
+        raise ValueError(f"{name}: unsupported shapes {tuple(aq.shape)} x "
+                         f"{tuple(wq.shape)} with {xs.numel()} row scales "
+                         "(K a multiple of 16, N even)")
+    check_pairs(name, ws, n)
+    out = tma_out(name, out, m, n // 2 if gate else n,
+                  torch.float32 if out_f32 else torch.bfloat16, aq.device)
+    if bias is not None:
+        check_pairs(name, bias, n)
+    if res is not None:
+        check_res(name, res, m, n)
+    call("vit_block", "toc3d_gemm_s8_sm90", aq.data_ptr(), k, xs.data_ptr(),
+         int(xs.numel() > 1), wq.data_ptr(), k, ws.data_ptr(),
+         None if bias is None else bias.data_ptr(),
+         None if res is None else res.data_ptr(),
+         0 if res is None else res.shape[1], out.data_ptr(), out.stride(0),
+         m, n, k, int(out_f32), int(gate), stream_of(aq))
+    gemm_s8_sm90.launches += 1
+    return out
+
+
 def int8_linear(x, p: QuantLinear):
     """The head decoder's int8 linear (layers.py:81-121): row quantization
     and the int8 GEMM with the head's epilogue on a bf16 CUDA tensor x
@@ -205,3 +257,4 @@ def int8_linear(x, p: QuantLinear):
 
 
 int8_linear.launches = 0
+gemm_s8_sm90.launches = 0

@@ -20,10 +20,11 @@ B8 and C8 are the int8 bodies of the same two pallas_calls
 matmuls take int8 weights (per output channel) and int8 activations,
 quantized per row (dynamic) or at the block's four calibrated site scales
 (static, when the block carries ``act_scales``). The chain is B's and C's
-with an int8 GEMM, a quantizing LayerNorm for the attn_in / mlp_in /
-ffn_in sites and a row-quantization kernel for proj_in; window attention,
-gather/merge and scatter/update stay bf16, as JAX quantizes only the seven
-weight matmuls.
+with kernel G8 (``int8.gemm_s8_sm90``, G's int8 form: wgmma s32.s8.s8 on
+the same pipeline) for the GEMM, a quantizing LayerNorm for the attn_in /
+mlp_in / ffn_in sites and a row-quantization kernel for proj_in; window
+attention, gather/merge and scatter/update stay bf16, as JAX quantizes only
+the seven weight matmuls.
 
 The plain versions below restate the same function with the kernels'
 rounding points (bf16 activations between matmuls, f32 accumulation and
@@ -41,10 +42,11 @@ from ...layers import layer_norm
 from ..gather import batch_index_fill, batch_index_select
 from ..rope import rotate_half
 from ..window import pad_hw, window_partition, window_unpartition
-from . import cached_pack, check_cuda, param_key
+from . import (cached_pack, check_cuda, check_pairs, check_res, param_key,
+               tma_out)
 from .build import call, stream_of
-from .int8 import (gemm_s8, int8_dot, quantize_weight, row_quant, rowquant,
-                   statquant)
+from .int8 import (gemm_s8_sm90, int8_dot, quantize_weight, row_quant,
+                   rowquant, statquant)
 
 LN_EPS = 1e-6
 
@@ -397,42 +399,30 @@ def _gemm(a, w, bias, out, m, n, k, res=None, out_f32=False, gate=False):
     """Launch kernel G: out = epilogue(a[:m, :k] @ w^T + bias) with w (n,
     k). TMA reads a and w and writes out, so each needs a 16-byte aligned
     base and a row stride of a multiple of 16 bytes (out may be a column
-    slice of a wider matrix); the epilogue works on column pairs, reading
-    the f32 bias 8 bytes at a time, so the bias needs an 8-byte aligned
-    base."""
+    slice of a wider matrix; None allocates it); the epilogue works on
+    column pairs, reading the f32 bias 8 bytes at a time, so the bias needs
+    an 8-byte aligned base. Returns out."""
     check_cuda("gemm_bf16", a, w, dtype=torch.bfloat16)
-    odt = torch.float32 if out_f32 else torch.bfloat16
-    if not out.is_cuda or out.dtype != odt:
-        raise ValueError(f"gemm_bf16: out must be a CUDA {odt} tensor")
-    width = n // 2 if gate else n
-    if (a.dim() != 2 or w.dim() != 2 or out.dim() != 2
-            or tuple(w.shape) != (n, k) or a.shape[0] < m
-            or a.shape[1] < k or a.shape[1] % 8 or k % 8 or n % 2
-            or out.shape[0] < m or out.shape[1] < width
-            or out.stride(1) != 1 or out.data_ptr() % 16
-            or out.stride(0) * out.element_size() % 16):
+    if (a.dim() != 2 or w.dim() != 2 or tuple(w.shape) != (n, k)
+            or a.shape[0] < m or a.shape[1] < k or a.shape[1] % 8 or k % 8
+            or n % 2):
         raise ValueError(
             f"gemm_bf16: unsupported shapes a {tuple(a.shape)}, w "
-            f"{tuple(w.shape)}, out {tuple(out.shape)} (row stride "
-            f"{out.stride(0)}) for m {m}, n {n}, k {k} (16-byte rows and "
-            "bases, K a multiple of 8, N even)")
+            f"{tuple(w.shape)} for m {m}, n {n}, k {k} (16-byte rows, K a "
+            "multiple of 8, N even)")
+    out = tma_out("gemm_bf16", out, m, n // 2 if gate else n,
+                  torch.float32 if out_f32 else torch.bfloat16, a.device)
     if bias is not None:
-        check_cuda("gemm_bf16", bias, dtype=torch.float32, aligned=False)
-        if bias.numel() < n or bias.data_ptr() % 8:
-            raise ValueError(f"gemm_bf16: bias of {bias.numel()} for {n} "
-                             "columns, or not on an 8-byte boundary")
+        check_pairs("gemm_bf16", bias, n)
     if res is not None:
-        check_cuda("gemm_bf16", res, dtype=torch.bfloat16)
-        if res.dim() != 2 or res.shape[0] < m or res.shape[1] < n \
-                or res.shape[1] % 2:
-            raise ValueError(f"gemm_bf16: residual {tuple(res.shape)} for "
-                             f"({m}, {n})")
+        check_res("gemm_bf16", res, m, n)
     call("vit_block", "toc3d_gemm", a.data_ptr(), a.shape[1], w.data_ptr(),
          k, None if bias is None else bias.data_ptr(),
          None if res is None else res.data_ptr(),
          0 if res is None else res.shape[1], out.data_ptr(), out.stride(0),
          m, n, k, int(out_f32), int(gate), stream_of(a))
     _gemm.launches += 1
+    return out
 
 
 def gemm_bf16(a, w, bias=None, res=None, out_f32=False, gate=False,
@@ -443,17 +433,8 @@ def gemm_bf16(a, w, bias=None, res=None, out_f32=False, gate=False,
     bf16 when given. On a CPU tensor, the plain version."""
     if a.device.type == "cpu":
         return gemm_bf16_plain(a, w, bias, res, out_f32, gate)
-    m, k = a.shape
-    n = w.shape[0]
-    if out is None:
-        # rows padded to 16 bytes for the TMA store, the result a view
-        width = n // 2 if gate else n
-        step = 4 if out_f32 else 8
-        out = torch.empty(m, -(-width // step) * step, device=a.device,
-                          dtype=torch.float32 if out_f32 else a.dtype)
-        out = out[:, :width]
-    _gemm(a, w, bias, out, m, n, k, res=res, out_f32=out_f32, gate=gate)
-    return out
+    return _gemm(a, w, bias, out, a.shape[0], w.shape[0], a.shape[1],
+                 res=res, out_f32=out_f32, gate=gate)
 
 
 def _ln_in(wts: BlockWeights, which: str, x, ld, wgt, bias, rows, valid_rows,
@@ -518,15 +499,15 @@ def _o_in(wts: BlockWeights, attn):
 
 def _proj(wts: BlockWeights, inp, which: str, m: int, out, res=None,
           out_f32=False, gate=False):
-    """out = epilogue(inp @ matrix ``which`` + bias) over m rows, by the
-    bf16 GEMM or, for an int8 pack, the int8 GEMM on inp = (int8, scales)."""
+    """out = epilogue(inp @ matrix ``which`` + bias) over m rows, by kernel
+    G or, for an int8 pack, kernel G8 on inp = (int8, scales)."""
     w, s, b = _matrix(wts, which)
     if s is None:
         _gemm(inp, w, b, out, m, w.shape[0], w.shape[1], res=res,
               out_f32=out_f32, gate=gate)
     else:
-        gemm_s8(inp[0], inp[1], w, s, b, res=res, out_f32=out_f32,
-                gate=gate, out=out)
+        gemm_s8_sm90(inp[0], inp[1], w, s, b, res=res, out_f32=out_f32,
+                     gate=gate, out=out)
     return out
 
 
