@@ -6,7 +6,8 @@ Phases, each fatal on failure (exit code != 0):
   1. device: needs torch.cuda; prints the nvidia-smi name / power limit line;
   2. build: compiles every kernel of the main path from toc3d_tpu_torch/csrc
      (one nvcc per source, in parallel) into build/kernels/;
-  3. check: each kernel (A patch embed, B full block, C compressed block at
+  3. check: each kernel (A patch embed: im2col and kernel G's product, B
+     full block, C compressed block at
      its six main-path shapes, D split-K flash attention, G the bf16 TMA +
      wgmma GEMM of B and C alone at its four GEMMs for B's 30001 rows and
      C's largest row count, 21504) on the card at the main-path shapes of
@@ -14,17 +15,25 @@ Phases, each fatal on failure (exit code != 0):
      attention deltas of B and C alone; G8, G's int8 form behind B8 and
      C8, at the same eight shapes with dynamic and static scales, bit for
      bit against the mma.sync s8 tile at all four epilogues and against
-     its plain version;
+     its plain version; the LayerNorm of B, C, B8 and C8 alone at each call
+     site (LN1, LN2, the SwiGLU sub-LN; B's and C's row counts) in bf16,
+     int8 dynamic and int8 static, and the window attention and row
+     quantization alone;
   4. time: each kernel, its plain version and a PyTorch yardstick
      (library_ms) with CUDA events, beside the bound for the same work (C
      and its yardstick both route the tokens inside the timed call; G's
      yardstick is F.linear, the bare cuBLAS product, G8's torch._int_mm;
-     G8 is timed beside the mma.sync s8 tile too);
+     G8 is timed beside the mma.sync s8 tile too; A's two launches are
+     also timed apart; the LayerNorm's yardstick is F.layer_norm where one
+     call computes the site, the window attention's SDPA on windowed
+     q / k / v; per-frame bounds of the LayerNorm, window attention and
+     row quantization families);
   5. main path: ToC3D_faster_1600 at full width (6 views, 1600x800, batch 1,
      uint8 frames, seeded random weights) streamed for 6 frames with
      prev_exists 0, 1, 1, 1, 1, 1 through make_infer_fn; checks finite
      outputs and that every kernel launched its per-frame count (A 1, B 6,
-     C 18, D 12, G 96 = 4 per block, int8 kernels and G8 0); then the `tiny`
+     C 18, D 12, G 96 = 4 per block, LN 72 = 3 per block, int8 kernels
+     and G8 0); then the `tiny`
      preset in bf16 against the plain path on the CPU as a small-input
      agreement check;
   6. int8: the int8 blocks B8 (ws 16, 20) and C8 (the six main-path
@@ -33,7 +42,7 @@ Phases, each fatal on failure (exit code != 0):
      decoder quant 'int8') streamed for 6 frames with per-row (dynamic)
      activation scales, then calibrated on 2 frames and streamed again
      with static scales, each checking A 1, B8 6, C8 18, D 12, H8 60, G8
-     96 and bf16 B / C / G 0 per frame; the tiny int8 small-input agreement,
+     96, LN 72 and bf16 B / C / G 0 per frame; the tiny int8 small-input agreement,
      dynamic and static;
   7. report: a {"kernels": [...]} JSON line, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
@@ -377,8 +386,21 @@ def phase_kernels(model, results):
         library_ms=cuda_time(lambda: torch.nn.functional.conv2d(
             xin, wconv, bconv, stride=16), 20),
         bound_ms=b_ms, bound_by=b_by)
+    # its two launches apart: the im2col copy (its plain version is the
+    # patch matrix exactly), and kernel G's product on that matrix (the
+    # same kernel body, from the block kernels' library)
+    cols = patch_embed.patch_im2col(x_img, 16)
+    same = torch.equal(cols, patch_embed.patch_im2col_plain(x_img, 16))
+    ok_all &= same
+    out2 = out.view(m, c)
+    results["A"].update(
+        im2col_ms=cuda_time(lambda: patch_embed.patch_im2col(x_img, 16), 20),
+        im2col_bound_ms=2 * cols.numel() * 2 / PEAK_BYTES * 1e3,
+        gemm_ms=cuda_time(lambda: vit_block.gemm_bf16(cols, wmat, bias,
+                                                      out=out2), 20),
+        im2col_equal_to_plain=same)
     log(f"time A: {json.dumps(results['A'])}")
-    del x_img, xin, out, ref
+    del x_img, xin, out, ref, cols, out2
 
     # B: full block at ws 16 (blocks 0, 1, 3, 4) and ws 20 (blocks 2, 5)
     x = (torch.randn(6, 50, 100, c, device=dev, generator=g) * 0.5).to(bf)
@@ -513,7 +535,8 @@ def phase_kernels(model, results):
     results["D"]["max_abs_err"] = d_err
     ok_g = phase_gemm(results, g)
     ok_g8 = phase_gemm_s8(results, g)
-    return ok_g and ok_g8 and ok_all
+    ok_r = phase_rows(model, results)
+    return ok_g and ok_g8 and ok_r and ok_all
 
 
 def phase_gemm(results, g):
@@ -714,6 +737,237 @@ def phase_gemm_s8(results, g):
     return ok_all
 
 
+def frame_blocks(cfg):
+    """(window size, token ratio or None for a full block) of each block of
+    the backbone, in order."""
+    out, ratio = [], None
+    for i in range(cfg.depth):
+        if i in cfg.pruning_loc:
+            ratio = cfg.token_ratio[cfg.pruning_loc.index(i)]
+        ws = cfg.global_window_size if i in cfg.global_attn_indexes \
+            else cfg.window_size
+        out.append((ws, ratio))
+    return out
+
+
+def block_rows(cfg, ws, ratio, b=6, h=50, w=100):
+    """(windows, rows a window, rows of the block's matmuls) on the main
+    path's (6, 50, 100) map: B's tokens, or C's k kept rows plus the
+    representative row a window."""
+    from toc3d_tpu_torch.models.token_select import keep_count
+    nw = b * -(-h // ws) * -(-w // ws)
+    if ratio is None:
+        return nw, ws * ws, b * h * w
+    kr = keep_count(ws * ws, ratio, n_rep=1, mxu_align=cfg.mxu_align_k) + 1
+    return nw, kr, nw * kr
+
+
+def ln_bytes(xr, rows, n, npad, res, mode):
+    """The bytes a LayerNorm call must move: x's xr rows (and the residual's,
+    and the stored sum) over n columns, the weight and bias, and the
+    (rows, npad) output: bf16, or int8 with the rows' f32 scales (dynamic)
+    or not (static)."""
+    nbytes = xr * n * 2 * (3 if res else 1) + n * 8
+    per_row = {"bf16": npad * 2, "dynamic": npad + 4, "static": npad}[mode]
+    return nbytes + rows * per_row
+
+
+def phase_rows(model, results):
+    """The row kernels alone at the main path's shapes. The LayerNorm of B,
+    C, B8 and C8 at each call site (LN1 of B with its LN(0) row, LN1 of C,
+    LN2 of B, LN2 of C that adds the attention delta and stores the sum,
+    the SwiGLU sub-LN in place on the gate output's 2736 columns, 2730 of
+    them the hidden width; C at its largest row count, ws 16 ratio .5) in
+    bf16 against its plain version (the kernel bounds), and quantizing,
+    dynamic and static, within one int8 step (mean <= 1e-2, scales within
+    2^-7); each timed beside its bound, its plain version and, for a site
+    that one call computes, F.layer_norm. Then the window attention of B
+    and C and the row quantization of B8 / C8's proj_in site and of H8,
+    timed beside their bounds (SDPA on windowed q / k / v for the
+    attention), and the per-frame bounds of the three families."""
+    import torch
+    import torch.nn.functional as F
+    from toc3d_tpu_torch.models.eva_vit import make_rope_tables, rope_tensors
+    from toc3d_tpu_torch.ops.cuda import int8, vit_block
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    cfg = model.cfg.backbone
+    c, heads = cfg.embed_dim, cfg.num_heads
+    hid = int(c * cfg.mlp_ratio)
+    hp = -(-hid // 16) * 16
+    bf = torch.bfloat16
+    ok_all = True
+    _, _, rows_c = block_rows(cfg, cfg.window_size, cfg.token_ratio[0])
+    sites = {"LN1 B": (30000, 30001, c, c, False),
+             "LN1 C": (rows_c, rows_c, c, c, False),
+             "LN2 B": (30000, 30000, c, c, False),
+             "LN2 C": (rows_c, rows_c, c, c, True),
+             "sub-LN B": (30000, 30000, hid, hp, False),
+             "sub-LN C": (rows_c, rows_c, hid, hp, False)}
+    ln_err = 0.0
+    for site, (xr, rows, n, npad, res) in sites.items():
+        x = (torch.randn(xr, npad, device=dev, generator=g) * 0.7
+             + 0.1).to(bf)
+        x[:, n:] = 0
+        r = (torch.randn(xr, npad, device=dev, generator=g) * 0.3).to(bf) \
+            if res else None
+        wgt = 1 + 0.1 * torch.randn(n, device=dev, generator=g)
+        bias = 0.1 * torch.randn(n, device=dev, generator=g)
+        in_place = site.startswith("sub-LN")
+        ref = vit_block.layernorm_plain(x, wgt, bias, r, rows, n)
+        scale = (ref.float().abs().max() / 127.0).reshape(1)
+        for mode in ("bf16", "dynamic", "static"):
+            tag = f"LN {site} ({xr} -> {rows} rows, {n} of {npad}) {mode}"
+            if mode == "bf16":
+                xt = x.clone()
+                s = torch.empty_like(x) if res else None
+                out = vit_block.layernorm(xt, wgt, bias, r, rows, n, s,
+                                          xt if in_place else None)
+                ok, err = compare(tag + (" in place" if in_place else ""),
+                                  out, ref)
+                if res:
+                    same = torch.equal(s, (x.float() + r.float()).to(bf))
+                    log(f"check {tag}: stored sum equal to the bf16 sum "
+                        f"{same}")
+                    ok &= same
+                ln_err = max(ln_err, err)
+                run = lambda: vit_block.layernorm(
+                    xt, wgt, bias, r, rows, n, s, xt if in_place else None)
+                plain = lambda: vit_block.layernorm_plain(x, wgt, bias, r,
+                                                          rows, n)
+                lib = None
+                if not res:
+                    xl = x[:, :n].contiguous()
+                    wl, bl = wgt.to(bf), bias.to(bf)
+                    lib = lambda: F.layer_norm(xl, (n,), wl, bl, 1e-6)
+            else:
+                sc = None if mode == "dynamic" else scale
+                q, qs = vit_block.layernorm_int8(x, wgt, bias, sc, r, rows, n)
+                qr, qsr = vit_block.layernorm_int8_plain(x, wgt, bias, sc, r,
+                                                         rows, n)
+                d = (q.int() - qr.int()).abs()
+                err = d.max().item()
+                srel = ((qs - qsr.reshape(qs.shape)).abs()
+                        / qsr.reshape(qs.shape).abs()).max().item()
+                ok = err <= 1 and d.float().mean().item() <= 1e-2 \
+                    and srel <= 2 ** -7
+                log(f"check {tag}: max step {err} mean step "
+                    f"{d.float().mean().item():.6g} (tol 1, 1e-2) scales "
+                    f"rel {srel:.6g} (tol 2^-7) {'ok' if ok else 'FAIL'}")
+                run = lambda: vit_block.layernorm_int8(x, wgt, bias, sc, r,
+                                                       rows, n)
+                plain = lambda: vit_block.layernorm_int8_plain(
+                    x, wgt, bias, sc, r, rows, n)
+                lib = None
+            ok_all &= ok
+            b_ms, b_by = bound(0, ln_bytes(xr, rows, n, npad, res, mode))
+            entry = dict(shape=f"{site}: x ({xr},{npad}) bf16 -> {rows} "
+                               f"rows, {n} columns, {mode}",
+                         max_abs_err=err, ms=cuda_time(run, 50),
+                         plain_ms=cuda_time(plain, 3),
+                         library_ms=None if lib is None else cuda_time(lib,
+                                                                       50),
+                         bound_ms=b_ms, bound_by=b_by)
+            log(f"time {tag}: {json.dumps(entry)}")
+            if site == "sub-LN B" and mode == "bf16":
+                results["LN"] = dict(
+                    name="layernorm", route="cuda",
+                    source="toc3d_tpu_torch/csrc/vit_block.cu",
+                    replaces="toc3d_tpu/ops/pallas/vit_block.py:63", **entry)
+    results["LN"]["max_abs_err"] = ln_err
+
+    # per-frame bounds: three LayerNorms a block, one window attention, and
+    # in int8 one row quantization (proj_in) a block
+    blocks = [block_rows(cfg, ws, r) + (ws, r) for ws, r in
+              frame_blocks(cfg)]
+    for mode in ("bf16", "dynamic", "static"):
+        total = 0.0
+        for nw, n, rows, ws, r in blocks:
+            full = r is None
+            total += (ln_bytes(rows, rows + full, c, c, False, mode)
+                      + ln_bytes(rows, rows, c, c, not full, mode)
+                      + ln_bytes(rows, rows, hid, hp, False, mode))
+        log(f"LayerNorm family bound per frame, {mode}: "
+            f"{total / PEAK_BYTES * 1e3:.5f} ms ({total / 1e9:.4f} GB, "
+            f"{3 * len(blocks)} launches)")
+    wa_ms = {"bytes": 0.0, "operations": 0.0}
+    rq_ms = 0.0
+    for nw, n, rows, ws, r in blocks:
+        wa_ms["bytes"] += ((rows + (r is None)) * 3 * c * 4 + rows * c * 2
+                           + ws * ws * (c // heads) * 8) / PEAK_BYTES * 1e3
+        wa_ms["operations"] += 4 * nw * n * n * c / PEAK_BF16_FLOPS * 1e3
+        rq_ms += rows * (c * 3 + 4) / PEAK_BYTES * 1e3
+    log(f"window attention family bound per frame: bytes "
+        f"{wa_ms['bytes']:.5f} ms, operations {wa_ms['operations']:.5f} ms "
+        f"(24 launches); row quantization of the blocks' proj_in sites per "
+        f"int8 frame: {rq_ms:.5f} ms (24 launches, dynamic)")
+
+    # window attention alone: B at ws 16 / 20, C at ws 16 / 20 ratio .5
+    win, glb = make_rope_tables(cfg)
+    rope = {cfg.window_size: rope_tensors(win, dev),
+            cfg.global_window_size: rope_tensors(glb, dev)}
+    d = c // heads
+    scores = torch.randn(6, 5000, device=dev, generator=g).to(bf)
+    for ws, ratio in ((cfg.window_size, None), (cfg.global_window_size, None),
+                      (cfg.window_size, cfg.token_ratio[0]),
+                      (cfg.global_window_size, cfg.token_ratio[0])):
+        nw, n, rows = block_rows(cfg, ws, ratio)
+        image = ratio is None
+        qkv = torch.randn(rows + image, 3 * c, device=dev, generator=g) * 0.3
+        out = torch.empty(rows, c, dtype=bf, device=dev)
+        cos, sin = (t[:ws * ws].float().contiguous() for t in rope[ws])
+        pos = None
+        if not image:
+            plan = vit_block.compress_plan(scores, 6, 50, 100, ws, ratio,
+                                           True, cfg.mxu_align_k)
+            pos = torch.cat([plan.slow_idx, torch.full_like(
+                plan.slow_idx[:, :1], plan.k)], 1).to(torch.int32)
+            pos = pos.contiguous()
+        run = lambda: vit_block.window_attention_launch(
+            qkv, out, (6, 50, 100), ws, nw, n, heads, image, pos, cos, sin)
+        qs, ks, vs = (torch.randn(nw, heads, n, d, device=dev,
+                                  generator=g).to(bf) for _ in range(3))
+        b_ms, b_by = bound(4 * nw * n * n * c,
+                           (rows + image) * 3 * c * 4 + rows * c * 2
+                           + ws * ws * d * 4 * 2)
+        entry = dict(shape=f"{'B' if image else 'C'} ws {ws}"
+                           f"{'' if image else f', ratio {ratio}'}: {nw} "
+                           f"windows x {n} rows, qkv ({rows + image},"
+                           f"{3 * c}) f32 -> ({rows},{c}) bf16",
+                     ms=cuda_time(run, 20),
+                     library_ms=cuda_time(
+                         lambda: F.scaled_dot_product_attention(
+                             qs, ks, vs, scale=1.0), 20),
+                     bound_ms=b_ms, bound_by=b_by)
+        log(f"time window attention: {json.dumps(entry)}")
+        del qkv, out, qs, ks, vs
+
+    # row quantization alone: the proj_in site of B8 / C8 and H8's largest
+    # input (the decoder's 30000 image tokens of width 256)
+    for rows, n in ((30000, c), (rows_c, c), (30000, 256)):
+        x = torch.randn(rows, n, device=dev, generator=g).to(bf)
+        for mode in ("dynamic", "static"):
+            sc = None if mode == "dynamic" else torch.full(
+                (1,), 0.03, device=dev)
+            q, qs = int8.row_quant(x, sc)
+            qr, qsr = (int8.rowquant(x) if sc is None
+                       else int8.statquant(x, sc))
+            ok = torch.equal(q, qr) and torch.equal(qs.reshape(-1),
+                                                    qsr.reshape(-1))
+            ok_all &= ok
+            b_ms, b_by = bound(0, rows * n * 3 + (rows * 4 if sc is None
+                                                  else 4))
+            entry = dict(shape=f"x ({rows},{n}) bf16 -> int8, {mode}",
+                         ms=cuda_time(lambda: int8.row_quant(x, sc), 50),
+                         plain_ms=cuda_time(
+                             lambda: int8.rowquant(x) if sc is None
+                             else int8.statquant(x, sc), 3),
+                         library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                         equal_to_plain=ok)
+            log(f"time row quantization: {json.dumps(entry)}")
+    return ok_all
+
+
 def phase_kernels_int8(model, results):
     """Check and time B8 and C8 at every main-path shape, with per-row
     (dynamic) activation scales and with static site scales (calibrated on
@@ -832,25 +1086,27 @@ def phase_kernels_int8(model, results):
     return ok_all
 
 
-KERNELS = ("A", "B", "C", "D", "B8", "C8", "H8", "G", "G8")
+KERNELS = ("A", "B", "C", "D", "B8", "C8", "H8", "G", "G8", "LN")
 
 
 def counters():
     """The launch-counting wrapper of each kernel, in KERNELS order (G:
-    vit_block._gemm, under gemm_bf16 and every bf16 matmul of B and C; G8:
-    int8.gemm_s8_sm90, every weight matmul of B8 and C8)."""
+    vit_block._gemm, under gemm_bf16 and every bf16 matmul of B and C, not
+    A's product; G8: int8.gemm_s8_sm90, every weight matmul of B8 and C8;
+    LN: vit_block.layernorm, every launch of the LayerNorm kernel, three a
+    block)."""
     from toc3d_tpu_torch.ops.cuda import (cross_attn, int8, patch_embed,
                                           vit_block)
     return [patch_embed.patchify_matmul, vit_block.fused_full_block,
             vit_block.fused_compressed_block, cross_attn.flash_attention_core,
             vit_block.fused_full_block_int8,
             vit_block.fused_compressed_block_int8, int8.int8_linear,
-            vit_block._gemm, int8.gemm_s8_sm90]
+            vit_block._gemm, int8.gemm_s8_sm90, vit_block.layernorm]
 
 
 def phase_main_path(model, results, label="bf16",
-                    per_frame=(1, 6, 18, 12, 0, 0, 0, 96, 0),
-                    record=("A", "B", "C", "D", "G")):
+                    per_frame=(1, 6, 18, 12, 0, 0, 0, 96, 0, 72),
+                    record=("A", "B", "C", "D", "G", "LN")):
     """Stream 6 full-size frames through make_infer_fn(model) with every
     launch count set to 0 just before; per_frame: the launches each frame
     must make of each kernel, in KERNELS order; record: the kernels whose
@@ -933,7 +1189,7 @@ def phase_main_path_int8(results, bf16_dets):
                   head=replace(cfg.head, decoder=replace(cfg.head.decoder,
                                                          quant="int8")))
     model = build_detector(cfg, device="cuda", seed=0)
-    per_frame = (1, 0, 0, 12, 6, 18, 60, 0, 96)
+    per_frame = (1, 0, 0, 12, 6, 18, 60, 0, 96, 72)
     ok, dets = phase_main_path(model, results, "int8 dynamic", per_frame,
                                ("B8", "C8", "H8", "G8"))
     _against_bf16("int8 dynamic", dets, bf16_dets)

@@ -15,7 +15,12 @@ with every epilogue (K not a multiple of the 64-deep tile, M = 1); kernel
 G8, the int8 TMA + wgmma GEMM of B8 and C8, bit for bit that GEMM at every
 block epilogue and both scale kinds (ragged M and N, K tails, K 2736), and
 the operands it refuses; the quantizing LayerNorm and row quantization, and
-the head's int8 linear.
+the head's int8 linear. The patch embedding A (im2col, then kernel G's
+product) at small maps and at the main path's (6, 800, 1600), and what it
+refuses; the bf16 and quantizing LayerNorm at each call site's width (LN1
+with its LN(0) row, LN2 with the residual and the stored sum, the sub-LN's
+2730 of 2736 columns in place, and small generic widths), on rows off a
+16-byte boundary (the kernel's 4-byte accesses), and what it refuses.
 
 Every test needs a CUDA card and skips without one. This file imports no
 JAX, so a GPU host without JAX runs it (the tests' conftest.py imports JAX,
@@ -83,14 +88,141 @@ def _counted(fn, *args, **kw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,w,c", [(2, 64, 128, 64), (1, 48, 80, 128)])
+@pytest.mark.parametrize("b,h,w,c", [(2, 64, 128, 64), (1, 48, 80, 128),
+                                     (6, 800, 1600, 1024)])
 def test_patchify_kernel(dev, b, h, w, c):
+    """Kernel A, im2col and kernel G's product, at small maps and at the
+    main path's (6, 800, 1600) -> (6, 50, 100, 1024); its im2col launch
+    alone is the plain patch matrix exactly. A's product does not count as
+    a launch of kernel G."""
     g = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn(b, h, w, 3, device=dev, generator=g).to(BF)
     wmat = (torch.randn(c, 768, device=dev, generator=g) * 0.05).to(BF)
     bias = torch.randn(c, device=dev, generator=g)
+    g_before = vit_block._gemm.launches
     out = _counted(patch_embed.patchify_matmul, x, wmat, bias, 16)
+    assert vit_block._gemm.launches == g_before
     _close(out, patch_embed.patchify_plain(x, wmat, bias, 16))
+    assert torch.equal(patch_embed.patch_im2col(x, 16),
+                       patch_embed.patch_im2col_plain(x, 16))
+
+
+@pytest.mark.cuda
+def test_patchify_refuses_what_it_cannot_take(dev):
+    x = torch.randn(1, 32, 48, 3, device=dev).to(BF)
+    wmat = torch.randn(64, 768, device=dev).to(BF)
+    bias = torch.zeros(66, device=dev)
+    before = patch_embed.patchify_matmul.launches
+    with pytest.raises(ValueError):          # f32 image
+        patch_embed.patchify_matmul(x.float(), wmat, bias[:64], 16)
+    with pytest.raises(ValueError):          # W not a multiple of 8
+        patch_embed.patchify_matmul(
+            torch.randn(1, 32, 36, 3, device=dev).to(BF), wmat, bias[:64], 12)
+    with pytest.raises(ValueError):          # C not a multiple of 8
+        patch_embed.patchify_matmul(x, wmat[:60], bias[:60], 16)
+    with pytest.raises(ValueError):          # bias off 8 bytes
+        patch_embed.patchify_matmul(x, wmat, bias[1:65], 16)
+    with pytest.raises(ValueError):          # K of another patch size
+        patch_embed.patchify_matmul(x, wmat[:, :192], bias[:64], 16)
+    assert patch_embed.patchify_matmul.launches == before
+
+
+# the LayerNorm call sites of B, C, B8 and C8 at small row counts: (x rows,
+# output rows, n, npad, res); LN1 of B has one output row more (LN(0)), LN2
+# of C adds a residual and stores the sum, the sub-LN runs in place on the
+# gate output's 2736 columns of which 2730 are the hidden width; 64 and 258
+# take the generic instances
+LN_SITES = {"ln1_full": (37, 38, 1024, 1024, False),
+            "ln1_rows": (129, 129, 1024, 1024, False),
+            "ln2_rows": (41, 41, 1024, 1024, True),
+            "sub_ln": (33, 33, 2730, 2736, False),
+            "tiny": (5, 6, 64, 64, True),
+            "odd_pairs": (7, 7, 258, 258, True)}
+
+
+def _ln_inputs(dev, xr, n, npad, res, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(xr, npad, device=dev, generator=g) * 2 + 0.5).to(BF)
+    x[:, n:] = 0
+    r = (torch.randn(xr, npad, device=dev, generator=g).to(BF) if res
+         else None)
+    wgt = 1 + 0.1 * torch.randn(n, device=dev, generator=g)
+    bias = 0.1 * torch.randn(n, device=dev, generator=g)
+    return x, r, wgt, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", list(LN_SITES))
+@pytest.mark.parametrize("mode", ["out", "in_place", "misaligned"])
+def test_layernorm_kernel(dev, site, mode):
+    """The bf16 LayerNorm at each call site's width: a new output, in place
+    (y == x; the sub-LN's form), and on rows whose base is 4 bytes off a
+    16-byte boundary (the kernel's 4-byte accesses). With a residual the
+    stored sum is the bf16 sum exactly."""
+    xr, rows, n, npad, res = LN_SITES[site]
+    if mode == "in_place":
+        rows = xr
+    x, r, wgt, bias = _ln_inputs(dev, xr, n, npad, res, 11)
+    if mode == "misaligned":
+        buf = torch.empty(xr * npad + 2, dtype=BF, device=dev)
+        x = buf[2:].view(xr, npad).copy_(x)
+        assert vit_block.ln_access(npad, npad, x.data_ptr()) == 2
+    ref = vit_block.layernorm_plain(x, wgt, bias, r, rows, n)
+    want_sum = (x.float() + r.float()).to(BF) if res else None
+    s = torch.empty_like(x) if res else None
+    out = _counted(vit_block.layernorm, x, wgt, bias, r, rows, n, s,
+                   x if mode == "in_place" else None)
+    if mode == "in_place":
+        assert out.data_ptr() == x.data_ptr()
+    _close(out, ref)
+    assert torch.equal(out[:, n:], torch.zeros_like(out[:, n:]))
+    if res:
+        assert torch.equal(s, want_sum)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", ["ln1_full", "ln2_rows", "sub_ln"])
+@pytest.mark.parametrize("static", [False, True])
+def test_layernorm_int8_kernel_at_call_sites(dev, site, static):
+    """The quantizing LayerNorm at the main path's widths, the LN(0) row
+    and the sub-LN's six zero columns included: one int8 step at most, in
+    few places, and the rows' scales within 2^-7."""
+    xr, rows, n, npad, res = LN_SITES[site]
+    x, r, wgt, bias = _ln_inputs(dev, xr, n, npad, res, 12)
+    sc = torch.tensor([0.04], device=dev) if static else None
+    q, s = vit_block.layernorm_int8(x, wgt, bias, sc, r, rows, n)
+    qr, sr = vit_block.layernorm_int8_plain(x, wgt, bias, sc, r, rows, n)
+    assert q.shape == (rows, npad) and torch.equal(q[:, n:],
+                                                   torch.zeros_like(q[:, n:]))
+    torch.testing.assert_close(s, sr.reshape(s.shape), rtol=2 ** -7, atol=0)
+    d = (q.int() - qr.int()).abs()
+    assert d.max().item() <= 1 and d.float().mean().item() <= 1e-2
+
+
+@pytest.mark.cuda
+def test_layernorm_refuses_what_it_cannot_take(dev):
+    x, _, wgt, bias = _ln_inputs(dev, 4, 64, 64, False, 13)
+    before = vit_block.layernorm.launches
+    with pytest.raises(ValueError):          # f32 rows
+        vit_block.layernorm(x.float(), wgt, bias)
+    with pytest.raises(ValueError):          # odd width
+        vit_block.layernorm(x, wgt, bias, n=63)
+    with pytest.raises(ValueError):          # wider than the registers hold
+        vit_block.layernorm(torch.zeros(2, 4098, dtype=BF, device=dev),
+                            torch.ones(4098, device=dev),
+                            torch.zeros(4098, device=dev))
+    with pytest.raises(ValueError):          # fewer output rows than x's
+        vit_block.layernorm(x, wgt, bias, rows=3)
+    with pytest.raises(ValueError):          # residual of another shape
+        vit_block.layernorm(x, wgt, bias, res=x[:2])
+    with pytest.raises(ValueError):          # weight shorter than the width
+        vit_block.layernorm(x, wgt[:32], bias[:32])
+    with pytest.raises(ValueError):          # rows off a 4-byte boundary
+        buf = torch.zeros(4 * 64 + 1, dtype=BF, device=dev)
+        vit_block.layernorm(buf[1:].view(4, 64), wgt, bias)
+    with pytest.raises(ValueError):
+        vit_block.layernorm_int8(x, wgt, bias, n=65)
+    assert vit_block.layernorm.launches == before
 
 
 @pytest.mark.cuda

@@ -1,5 +1,6 @@
 // Hopper GEMM behind the weight matmuls of the ViT block kernels: kernel G
-// (bf16, B and C; vit_block.cu :: toc3d_gemm) and kernel G8 (int8, B8 and
+// (bf16, B and C; vit_block.cu :: toc3d_gemm, and the patch embedding A's
+// product, patch_embed.cu :: toc3d_patchify) and kernel G8 (int8, B8 and
 // C8; vit_block.cu :: toc3d_gemm_s8_sm90), one kernel body generic over the
 // operand type:
 //
@@ -67,8 +68,7 @@
 //     staging buffers to TMA stores, which clip rows and columns past M and
 //     N and drain while the next tile's main loop runs, so the tensor cores
 //     do not wait for the output's memory traffic.
-// The head's int8 linears (H8) and the PATCH form of A stay on gemm.cuh's
-// mma.sync tile.
+// The head's int8 linears (H8) stay on gemm.cuh's mma.sync tile.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums (the encoder is fetched at

@@ -29,14 +29,16 @@
 // tensor-core GEMM whose epilogue fuses bias, residual and the SwiGLU gate
 // (the TMA + wgmma kernel of gemm_sm90.cuh: kernel G in bf16, kernel G8 in
 // int8), and only the softmax attention works per (window, head):
-//   layernorm_kernel      LN with f32 two-pass statistics (optionally adds
-//                         a residual first and stores the sum); rows past
-//                         valid_rows read as zero, so LN(0) = beta is the
-//                         row of every zero-padded edge token. For int8 it
-//                         writes the bf16-rounded output quantized to int8
-//                         instead, with a per-row scale (dynamic) or the
-//                         calibrated scale of the site (static): the
-//                         attn_in, mlp_in and ffn_in sites
+//   layernorm_kernel      LN with f32 two-pass statistics over a row held
+//                         in registers (one or four warps a row, 16-byte
+//                         accesses; optionally adds a residual first and
+//                         stores the sum); rows past valid_rows read as
+//                         zero, so LN(0) = beta is the row of every
+//                         zero-padded edge token. For int8 it writes the
+//                         bf16-rounded output quantized to int8 instead,
+//                         with a per-row scale (dynamic) or the calibrated
+//                         scale of the site (static): the attn_in, mlp_in
+//                         and ffn_in sites
 //   rowquant_kernel       the same quantization of a bf16 matrix: the
 //                         proj_in site (the merged attention output, whole
 //                         only after every head has run) and the inputs of
@@ -70,20 +72,113 @@
 // ---------------------------------------------------------------------------
 // LayerNorm
 // ---------------------------------------------------------------------------
+//
+// Replaces _ln (toc3d_tpu/ops/pallas/vit_block.py:63) at the LN1, LN2 and
+// SwiGLU sub-LN sites of the block bodies, and with an int8 output the
+// _actquant (:271) of the attn_in, mlp_in and ffn_in sites that follows it.
+//
+// Bound: bytes. A row is read once and written once (2 + 2 bytes an element
+// in bf16, 2 + 1 and a 4-byte scale in int8; with a residual, the residual
+// is read and the sum stored too) against ~10 f32 operations an element, so
+// at the main path's 30001 x 1024 LN1 the call cannot take less than 0.0367
+// ms at 3.35 TB/s.
+//
+// Design: the row resident in registers, one warp a row up to 1024 columns
+// and four warps a row above (WPR). Thread t of a row holds accesses j = 0 ..
+// CH - 1 of VEC bf16 at columns (32 WPR j + t) * VEC, as packed bf16 pairs:
+// all of a thread's loads are issued before the first reduction, and
+// neighbouring threads read neighbouring 16-byte chunks (VEC 8), or 4-byte
+// pairs (VEC 2) where a base or a row stride is not on 16 bytes (the wrapper
+// picks VEC). With a residual, bfr(x + res) is made once, in the registers,
+// and stored to sum_out from them. The mean, then the centred sum of squares
+// (two passes over the registers, as the plain version's two-pass
+// statistics), then the output, which replaces the row in the registers as
+// bf16: the int8 forms take amax over those bf16 values and quantize them.
+// A row's totals are warp shuffles and, across its warps, shared memory
+// behind a barrier of the row's threads. Every column below npad is stored
+// once, by the thread that loaded it, after the row's reductions (and their
+// barriers), so the in-place sub-LN (y == x) reads its whole row first. The
+// tail of a width that is not a multiple of VEC (2730 of the sub-LN) is read
+// pair by pair below n and zero-filled, so nothing past n is read. The
+// instances are compile-time (CH, VEC, WPR): (4, 8, 1) for the main path's
+// 1024 columns and (3, 8, 4) for the sub-LN's 2736, measured against one
+// warp holding 11 accesses (which spilled, or with 198 registers left one
+// block an SM) and two or eight warps a row; (4, 8, 4) and, for 4-byte
+// access, (4, 2, 4) and (8, 2, 8) for any other even width up to
+// LN_MAX_WIDTH.
 
-__device__ __forceinline__ float2 ln_load(const bf16* x, long long ldx,
-                                          const bf16* res, long long ldres,
-                                          long long row, int c, bool valid) {
-  if (!valid) return make_float2(0.f, 0.f);
-  float2 a = __bfloat1622float2(
-      *reinterpret_cast<const bf162*>(x + row * ldx + c));
-  if (res) {
-    float2 r = __bfloat1622float2(
-        *reinterpret_cast<const bf162*>(res + row * ldres + c));
-    a.x = bfr(a.x + r.x);
-    a.y = bfr(a.y + r.y);
+struct LnArgs {
+  const bf16* x;
+  long long ldx;
+  const bf16* res;
+  long long ldres;
+  bf16* sum_out;
+  long long ldsum;
+  const float* gamma;
+  const float* beta;
+  bf16* y;             // bf16 output (rows, npad), row stride ldy
+  signed char* yq;     // or the int8 output, same stride
+  long long ldy;
+  float* yscale;       // int8 dynamic: the rows' scales
+  const float* sscale; // int8 static: the site's scale
+  int rows, valid_rows, n, npad;
+  float eps;
+};
+
+constexpr int LN_THREADS = 256;   // 8 rows a block
+
+// resident blocks an instance asks ptxas for, from the registers its data
+// takes (32-bit registers a thread holds, x and the residual): left free,
+// ptxas hoists every access's gamma and beta loads above the reductions
+// and uses up to 255 registers, so fewer blocks fit on an SM
+constexpr int ln_min_blocks(int data) {
+  return data <= 16 ? 4 : data <= 32 ? 3 : 2;
+}
+
+// bf16 pair (element c in the low half, c + 1 in the high) <-> f32 pair
+__device__ __forceinline__ float2 unpack_bf16(unsigned u) {
+  return make_float2(__uint_as_float(u << 16),
+                     __uint_as_float(u & 0xffff0000u));
+}
+
+// VEC bf16 (VEC / 2 pairs) of row p from column c: one access of 2 * VEC
+// bytes where the access lies below n, else pair by pair below n, zero past
+// n or for a row past valid_rows
+template <int VEC>
+__device__ __forceinline__ void ln_load(unsigned (&d)[VEC / 2], const bf16* p,
+                                        int c, int n, bool valid) {
+  if (valid && c + VEC <= n) {
+    if constexpr (VEC == 8) {
+      const uint4 u = *reinterpret_cast<const uint4*>(p);
+      d[0] = u.x;
+      d[1] = u.y;
+      d[2] = u.z;
+      d[3] = u.w;
+    } else {
+      d[0] = *reinterpret_cast<const unsigned*>(p);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC / 2; ++i)
+      d[i] = valid && c + 2 * i < n
+                 ? *reinterpret_cast<const unsigned*>(p + 2 * i) : 0u;
   }
-  return a;
+}
+
+// store the VEC bf16 of d to row p from column c, up to column end
+template <int VEC>
+__device__ __forceinline__ void ln_store(bf16* p, const unsigned (&d)[VEC / 2],
+                                         int c, int end) {
+  if (c + VEC <= end) {
+    if constexpr (VEC == 8)
+      *reinterpret_cast<uint4*>(p) = make_uint4(d[0], d[1], d[2], d[3]);
+    else
+      *reinterpret_cast<unsigned*>(p) = d[0];
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC / 2; ++i)
+      if (c + 2 * i < end) *reinterpret_cast<unsigned*>(p + 2 * i) = d[i];
+  }
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -98,95 +193,252 @@ __device__ __forceinline__ signed char quant8(float v) {
       static_cast<int>(fminf(fmaxf(rintf(v), -127.f), 127.f)));
 }
 
+// the two int8 values of a bf16 pair, as the 2 bytes of a char2 store
+__device__ __forceinline__ unsigned quant8x2(unsigned pair, float inv) {
+  const float2 f = unpack_bf16(pair);
+  return static_cast<unsigned char>(quant8(f.x * inv)) |
+         static_cast<unsigned>(static_cast<unsigned char>(quant8(f.y * inv)))
+             << 8;
+}
+
 // the multiplier that quantizes a row: 1 / s for a static scale s, else
-// 127 / max(amax, 1e-6) (the row's scale a * (1/127) goes to *scale_out)
+// 127 / max(amax, 1e-6) (the row's scale a * (1/127) goes to *scale_out,
+// written by the row's thread 0)
 __device__ __forceinline__ float quant_inv(const float* sscale, float amax,
-                                           float* scale_out, int lane) {
+                                           float* scale_out, int t) {
   if (sscale) return 1.0f / sscale[0];
   const float a = fmaxf(amax, 1e-6f);
-  if (lane == 0) *scale_out = a * (1.0f / 127.0f);
+  if (t == 0) *scale_out = a * (1.0f / 127.0f);
   return 127.0f / a;
 }
 
-__global__ void layernorm_kernel(const bf16* x, long long ldx, const bf16* res,
-                                 long long ldres, bf16* sum_out,
-                                 long long ldsum, const float* gamma,
-                                 const float* beta, bf16* y, long long ldy,
-                                 signed char* yq, float* yscale,
-                                 const float* sscale, int rows,
-                                 int valid_rows, int n, int npad, float eps) {
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+// the total of v over the row's WPR warps (a sum, or with MAX a max): a
+// warp shuffle, then across the warps through the row's shared-memory slots
+// and a barrier of the row's 32 * WPR threads (barrier 1 + the row's index
+// in the block)
+template <int WPR, bool MAX>
+__device__ __forceinline__ float row_total(float v, float* slot, int sub,
+                                           int lane, int bar) {
+  v = MAX ? warp_max(v) : warp_sum(v);
+  if constexpr (WPR > 1) {
+    if (lane == 0) slot[sub] = v;
+    asm volatile("bar.sync %0, %1;\n" ::"r"(bar), "r"(32 * WPR) : "memory");
+    v = slot[0];
+#pragma unroll
+    for (int w = 1; w < WPR; ++w) v = MAX ? fmaxf(v, slot[w]) : v + slot[w];
+  }
+  return v;
+}
+
+// CH accesses of VEC bf16 a thread, WPR warps a row
+template <int CH, int VEC, bool RES, int WPR>
+__global__ void __launch_bounds__(
+    LN_THREADS, ln_min_blocks(CH * VEC / 2 * (RES ? 2 : 1)))
+    layernorm_kernel(const LnArgs a) {
+  constexpr int P = VEC / 2;          // bf16 pairs an access
+  constexpr int TR = 32 * WPR;        // threads a row
+  __shared__ float red[3][LN_THREADS / 32];   // sum, squares, amax
+  const int warp = (blockIdx.x * LN_THREADS + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
-  if (warp >= rows) return;
-  const long long row = warp;
-  const bool valid = row < valid_rows;
-  float s = 0.f;
-  for (int c = lane * 2; c < n; c += 64) {
-    float2 v = ln_load(x, ldx, res, ldres, row, c, valid);
-    s += v.x + v.y;
+  const int sub = warp % WPR;         // the warp's place in its row
+  const int t = sub * 32 + lane;      // the thread's place in its row
+  const int rib = (threadIdx.x >> 5) / WPR;   // the row's place in the block
+  const long long row = warp / WPR;
+  if (row >= a.rows) return;          // the row's warps return together
+  const bool valid = row < a.valid_rows;
+  const int n = a.n;
+  unsigned v[CH][P];
+#pragma unroll
+  for (int j = 0; j < CH; ++j) {
+    const int c = (TR * j + t) * VEC;
+    ln_load<VEC>(v[j], a.x + row * a.ldx + c, c, n, valid);
   }
-  const float mu = warp_sum(s) / n;
-  float q = 0.f;
-  for (int c = lane * 2; c < n; c += 64) {
-    float2 v = ln_load(x, ldx, res, ldres, row, c, valid);
-    const float dx = v.x - mu, dy = v.y - mu;
-    q += dx * dx + dy * dy;
-  }
-  const float rstd = rsqrtf(warp_sum(q) / n + eps);
-  float inv = 0.f;
-  if (yq) {
-    // int8 output: quantize the LN output as rounded to bf16 (the TPU
-    // kernel quantizes the activation-dtype value), amax over those values
-    float amax = 0.f;
-    if (!sscale) {
-      for (int c = lane * 2; c < n; c += 64) {
-        float2 v = ln_load(x, ldx, res, ldres, row, c, valid);
-        amax = fmaxf(amax, fabsf(bfr((v.x - mu) * rstd * gamma[c] + beta[c])));
-        amax = fmaxf(amax, fabsf(bfr((v.y - mu) * rstd * gamma[c + 1] +
-                                     beta[c + 1])));
+  if constexpr (RES) {
+    unsigned r[CH][P];
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      const int c = (TR * j + t) * VEC;
+      ln_load<VEC>(r[j], a.res + row * a.ldres + c, c, n, valid);
+    }
+#pragma unroll
+    for (int j = 0; j < CH; ++j)
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+        const float2 f = unpack_bf16(v[j][i]), g = unpack_bf16(r[j][i]);
+        v[j][i] = pack_bf16(f.x + g.x, f.y + g.y);   // bfr(x + res)
       }
-      amax = warp_max(amax);
-    }
-    inv = quant_inv(sscale, amax, yscale ? yscale + row : nullptr, lane);
   }
-  for (int c = lane * 2; c < npad; c += 64) {
-    float o0 = 0.f, o1 = 0.f;
-    if (c < n) {
-      float2 v = ln_load(x, ldx, res, ldres, row, c, valid);
-      if (sum_out && valid)
-        *reinterpret_cast<bf162*>(sum_out + row * ldsum + c) =
-            __floats2bfloat162_rn(v.x, v.y);
-      o0 = (v.x - mu) * rstd * gamma[c] + beta[c];
-      o1 = (v.y - mu) * rstd * gamma[c + 1] + beta[c + 1];
+  if (a.sum_out && valid) {
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      const int c = (TR * j + t) * VEC;
+      if (c < n) ln_store<VEC>(a.sum_out + row * a.ldsum + c, v[j], c, n);
     }
-    if (yq) {
-      char2 o;
-      o.x = c < n ? quant8(bfr(o0) * inv) : 0;
-      o.y = c < n ? quant8(bfr(o1) * inv) : 0;
-      *reinterpret_cast<char2*>(yq + row * ldy + c) = o;
+  }
+  // f32 statistics, two passes over the registers (zeros past n add
+  // nothing to the sum and are left out of the squares)
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < CH; ++j)
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      const float2 f = unpack_bf16(v[j][i]);
+      s += f.x + f.y;
+    }
+  const float mu =
+      row_total<WPR, false>(s, red[0] + rib * WPR, sub, lane, 1 + rib) / n;
+  float q = 0.f;
+#pragma unroll
+  for (int j = 0; j < CH; ++j)
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      const float2 f = unpack_bf16(v[j][i]);
+      const float dx = f.x - mu, dy = f.y - mu;
+      if ((TR * j + t) * VEC + 2 * i < n) q += dx * dx + dy * dy;
+    }
+  const float rstd = rsqrtf(
+      row_total<WPR, false>(q, red[1] + rib * WPR, sub, lane, 1 + rib) / n +
+      a.eps);
+  // the output, rounded to bf16, in place of the row (zero past n)
+#pragma unroll
+  for (int j = 0; j < CH; ++j) {
+    const int c = (TR * j + t) * VEC;
+    if (VEC == 8 && c + VEC <= n) {
+      const float4* g4 = reinterpret_cast<const float4*>(a.gamma + c);
+      const float4* b4 = reinterpret_cast<const float4*>(a.beta + c);
+      const float4 g[2] = {__ldg(g4), __ldg(g4 + 1)};
+      const float4 b[2] = {__ldg(b4), __ldg(b4 + 1)};
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+        const float2 f = unpack_bf16(v[j][i]);
+        const float2 gi = i & 1 ? make_float2(g[i >> 1].z, g[i >> 1].w)
+                                : make_float2(g[i >> 1].x, g[i >> 1].y);
+        const float2 bi = i & 1 ? make_float2(b[i >> 1].z, b[i >> 1].w)
+                                : make_float2(b[i >> 1].x, b[i >> 1].y);
+        v[j][i] = pack_bf16((f.x - mu) * rstd * gi.x + bi.x,
+                            (f.y - mu) * rstd * gi.y + bi.y);
+      }
     } else {
-      *reinterpret_cast<bf162*>(y + row * ldy + c) =
-          __floats2bfloat162_rn(o0, o1);
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+        const int ci = c + 2 * i;
+        if (ci < n) {
+          const float2 f = unpack_bf16(v[j][i]);
+          v[j][i] = pack_bf16(
+              (f.x - mu) * rstd * __ldg(a.gamma + ci) + __ldg(a.beta + ci),
+              (f.y - mu) * rstd * __ldg(a.gamma + ci + 1) +
+                  __ldg(a.beta + ci + 1));
+        } else {
+          v[j][i] = 0u;
+        }
+      }
+    }
+  }
+  const int npad = a.npad;
+  if (a.yq) {
+    // int8: quantize the bf16-rounded output (the TPU kernel quantizes the
+    // activation-dtype value), amax over the same values
+    float amax = 0.f;
+    if (!a.sscale) {
+#pragma unroll
+      for (int j = 0; j < CH; ++j)
+#pragma unroll
+        for (int i = 0; i < P; ++i) {
+          const float2 f = unpack_bf16(v[j][i]);
+          amax = fmaxf(amax, fmaxf(fabsf(f.x), fabsf(f.y)));
+        }
+      amax = row_total<WPR, true>(amax, red[2] + rib * WPR, sub, lane,
+                                  1 + rib);
+    }
+    const float inv = quant_inv(a.sscale, amax,
+                                a.yscale ? a.yscale + row : nullptr, t);
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      const int c = (TR * j + t) * VEC;
+      if (c >= npad) continue;
+      signed char* p = a.yq + row * a.ldy + c;
+      if (VEC == 8 && c + VEC <= npad) {
+        const unsigned w0 = quant8x2(v[j][0], inv) |
+                            quant8x2(v[j][1 % P], inv) << 16;
+        const unsigned w1 = quant8x2(v[j][2 % P], inv) |
+                            quant8x2(v[j][3 % P], inv) << 16;
+        *reinterpret_cast<uint2*>(p) = make_uint2(w0, w1);
+      } else {
+#pragma unroll
+        for (int i = 0; i < P; ++i)
+          if (c + 2 * i < npad)
+            *reinterpret_cast<unsigned short*>(p + 2 * i) =
+                static_cast<unsigned short>(quant8x2(v[j][i], inv));
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      const int c = (TR * j + t) * VEC;
+      if (c < npad) ln_store<VEC>(a.y + row * a.ldy + c, v[j], c, npad);
     }
   }
 }
 
+template <int CH, int VEC, int WPR = 1>
+static int ln_launch(const LnArgs& a, cudaStream_t stream) {
+  constexpr int rpb = LN_THREADS / (32 * WPR);   // rows a block
+  const int blocks = (a.rows + rpb - 1) / rpb;
+  if (blocks > 0) {
+    if (a.res)
+      layernorm_kernel<CH, VEC, true, WPR>
+          <<<blocks, LN_THREADS, 0, stream>>>(a);
+    else
+      layernorm_kernel<CH, VEC, false, WPR>
+          <<<blocks, LN_THREADS, 0, stream>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// LayerNorm of rows x rows (row stride ldx; rows past valid_rows read as
+// zero) over n columns, + res first when given (stored to sum_out when
+// given), into y (bf16) or yq (int8, with the rows' scales yscale, or the
+// static scale sscale), rows of npad columns (zero past n), row stride ldy;
+// vec: 8 (16-byte accesses; every base 16-byte aligned and every row stride
+// a multiple of 8 elements) or 2 (4-byte accesses)
 TOC3D_EXPORT int toc3d_layernorm(const void* x, int ldx, const void* res,
                                  int ldres, void* sum_out, int ldsum,
                                  const void* gamma, const void* beta, void* y,
                                  int ldy, void* yq, void* yscale,
                                  const void* sscale, int rows, int valid_rows,
-                                 int n, int npad, float eps, void* stream) {
-  const int threads = 256;
-  const int blocks = (rows + (threads / 32) - 1) / (threads / 32);
-  if (blocks > 0)
-    layernorm_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const bf16*>(x), ldx, static_cast<const bf16*>(res), ldres,
-        static_cast<bf16*>(sum_out), ldsum, static_cast<const float*>(gamma),
-        static_cast<const float*>(beta), static_cast<bf16*>(y), ldy,
-        static_cast<signed char*>(yq), static_cast<float*>(yscale),
-        static_cast<const float*>(sscale), rows, valid_rows, n, npad, eps);
-  return static_cast<int>(cudaGetLastError());
+                                 int n, int npad, float eps, int vec,
+                                 void* stream) {
+  LnArgs a;
+  a.x = static_cast<const bf16*>(x);
+  a.ldx = ldx;
+  a.res = static_cast<const bf16*>(res);
+  a.ldres = ldres;
+  a.sum_out = static_cast<bf16*>(sum_out);
+  a.ldsum = ldsum;
+  a.gamma = static_cast<const float*>(gamma);
+  a.beta = static_cast<const float*>(beta);
+  a.y = static_cast<bf16*>(y);
+  a.yq = static_cast<signed char*>(yq);
+  a.ldy = ldy;
+  a.yscale = static_cast<float*>(yscale);
+  a.sscale = static_cast<const float*>(sscale);
+  a.rows = rows;
+  a.valid_rows = valid_rows;
+  a.n = n;
+  a.npad = npad;
+  a.eps = eps;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the instance for npad columns: <accesses a thread, elements an access,
+  // warps a row>, covering CH * 32 * WPR * VEC columns
+  if (vec == 8) {
+    if (npad <= 1024) return ln_launch<4, 8, 1>(a, s);
+    if (npad <= 3072) return ln_launch<3, 8, 4>(a, s);
+    if (npad <= 4096) return ln_launch<4, 8, 4>(a, s);
+  } else if (vec == 2) {
+    if (npad <= 1024) return ln_launch<4, 2, 4>(a, s);
+    if (npad <= 4096) return ln_launch<8, 2, 8>(a, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // ---------------------------------------------------------------------------
@@ -257,7 +509,6 @@ TOC3D_EXPORT int toc3d_gemm(const void* A, int lda, const void* B, int ldb,
   a.K = K;
   a.out_f32 = out_f32;
   a.gate = gate;
-  a.pH = a.pW = a.pgh = a.pgw = a.ps = 0;
   return gemm90::launch<bf16>(a, static_cast<cudaStream_t>(stream));
 }
 
@@ -281,7 +532,6 @@ static gemm::Args s8_args(const void* A, int lda, const void* xs, int xs_row,
   a.K = K;
   a.out_f32 = out_f32;
   a.gate = gate;
-  a.pH = a.pW = a.pgh = a.pgw = a.ps = 0;
   a.xs = static_cast<const float*>(xs);
   a.xs_row = xs_row;
   a.ws = static_cast<const float*>(ws);
@@ -298,7 +548,7 @@ TOC3D_EXPORT int toc3d_gemm_s8(const void* A, int lda, const void* xs,
                                const void* res, int ldr, void* C, int ldc,
                                int M, int N, int K, int out_f32, int gate,
                                int head, void* stream) {
-  return gemm::launch<false, int8_t>(
+  return gemm::launch(
       s8_args(A, lda, xs, xs_row, B, ldb, ws, bias, res, ldr, C, ldc, M, N, K,
               out_f32, gate, head),
       static_cast<cudaStream_t>(stream));

@@ -37,11 +37,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # library -> {C function: argtypes}; the last argument is always the stream
 SIGNATURES = {
     "patch_embed": {
-        "toc3d_patchify": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "toc3d_patchify": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "toc3d_patch_im2col": [_P, _P, _I, _I, _I, _I, _P],
     },
     "vit_block": {
         "toc3d_layernorm": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _I, _P, _P,
-                            _P, _I, _I, _I, _I, _F, _P],
+                            _P, _I, _I, _I, _I, _F, _I, _P],
         "toc3d_rowquant": [_P, _I, _I, _I, _P, _P, _I, _P, _P],
         "toc3d_gemm": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I,
                        _I, _P],

@@ -1,16 +1,18 @@
 """Patch embedding kernel (kernel A; source csrc/patch_embed.cu).
 
 Replaces toc3d_tpu/ops/pallas/patch_embed.py :: patchify_matmul (:60). The
-16x16 stride-16 3->C convolution is one tensor-core GEMM whose A operand is
-read straight from the channel-last image (implicit im2col); see the note in
-csrc/patch_embed.cu for the bound and the design.
+16x16 stride-16 3->C convolution is two launches behind one C entry point:
+an im2col copy of the channel-last image into the (B*h*w, ps*ps*3) patch
+matrix, then kernel G's TMA + wgmma GEMM (csrc/gemm_sm90.cuh) with the bias
+epilogue; see the note in csrc/patch_embed.cu for the bound and the design.
 """
 from __future__ import annotations
 
 import torch
 
-from . import cached_pack, check_cuda, param_key
+from . import cached_pack, check_cuda, check_pairs, param_key
 from .build import call, stream_of
+from .vit_block import gemm_bf16_plain
 
 
 def pack_patch_weight(conv, dtype):
@@ -23,38 +25,78 @@ def pack_patch_weight(conv, dtype):
     return cached_pack(conv, "patchify", param_key(conv, dtype), build)
 
 
-def patchify_plain(x, wmat, bias, patch_size: int):
-    """Plain version: explicit patches, f32 accumulation, cast to x.dtype."""
+def patch_im2col_plain(x, patch_size: int):
+    """Plain version of ``patch_im2col``: x (B, H, W, c) -> the patch
+    matrix (B*h*w, ps*ps*c), row (b, i, j), K in (row, col, channel)
+    order."""
     b, hh, ww, c = x.shape
     ps = patch_size
     h, w = hh // ps, ww // ps
     p = x.reshape(b, h, ps, w, ps, c).permute(0, 1, 3, 2, 4, 5)
-    p = p.reshape(b * h * w, ps * ps * c)
-    y = p.float() @ wmat.float().t() + bias.float()
-    return y.to(x.dtype).reshape(b, h, w, -1)
+    return p.reshape(b * h * w, ps * ps * c)
+
+
+def patchify_plain(x, wmat, bias, patch_size: int):
+    """Plain version: the patch matrix, then kernel G's plain product (f32
+    accumulation, + bias, cast to x.dtype)."""
+    b, hh, ww, _ = x.shape
+    ps = patch_size
+    y = gemm_bf16_plain(patch_im2col_plain(x, ps), wmat, bias)
+    return y.reshape(b, hh // ps, ww // ps, -1)
+
+
+def _check_image(name, x, ps):
+    b, hh, ww, cin = x.shape
+    if cin != 3 or hh % ps or ww % ps:
+        raise ValueError(f"{name}: image {tuple(x.shape)} must be (B, H, W, "
+                         f"3) with H, W multiples of {ps}")
+    if x.device.type == "cpu":
+        return
+    check_cuda(name, x, dtype=torch.bfloat16)
+    if ww % 8 or (ps * 3) % 8:
+        raise ValueError(f"{name} needs W % 8 == 0 and ps*3 % 8 == 0 "
+                         "(16-byte image rows and patch runs)")
+
+
+def patch_im2col(x, patch_size: int):
+    """The first of kernel A's two launches alone: x (B, H, W, 3) -> the
+    (B*h*w, ps*ps*3) patch matrix. Not counted as a launch of A."""
+    ps = patch_size
+    _check_image("patch_im2col", x, ps)
+    if x.device.type == "cpu":
+        return patch_im2col_plain(x, ps)
+    b, hh, ww, _ = x.shape
+    cols = torch.empty(b * (hh // ps) * (ww // ps), ps * ps * 3,
+                       dtype=x.dtype, device=x.device)
+    call("patch_embed", "toc3d_patch_im2col", x.data_ptr(), cols.data_ptr(),
+         b, hh, ww, ps, stream_of(x))
+    return cols
 
 
 def patchify_matmul(x, wmat, bias, patch_size: int):
     """x: (B, H, W, 3) normalized image; wmat: (C, ps*ps*3) from
     ``pack_patch_weight``; bias: (C,) f32. Returns (B, H/ps, W/ps, C) in
-    x.dtype."""
-    b, hh, ww, cin = x.shape
+    x.dtype. On the card: the im2col launch, then kernel G's GEMM into the
+    output (C a multiple of 8, for the output's 16-byte TMA rows; the bias
+    on 8 bytes, read in pairs); counted once in ``launches``."""
     ps = patch_size
-    if cin != 3 or hh % ps or ww % ps:
-        raise ValueError(f"image {tuple(x.shape)} must be (B, H, W, 3) with "
-                         f"H, W multiples of {ps}")
+    _check_image("patchify_matmul", x, ps)
     if x.device.type == "cpu":
         return patchify_plain(x, wmat, bias, ps)
-    check_cuda("patchify_matmul", x, wmat, dtype=torch.bfloat16)
-    check_cuda("patchify_matmul", bias, dtype=torch.float32)
-    if ww % 8 or (ps * 3) % 8:
-        raise ValueError("patchify_matmul needs W % 8 == 0 and ps*3 % 8 == 0 "
-                         "(16-byte image rows)")
-    c = wmat.shape[0]
+    b, hh, ww, _ = x.shape
+    c, k = wmat.shape
+    check_cuda("patchify_matmul", wmat, dtype=torch.bfloat16)
+    check_pairs("patchify_matmul", bias, c)
+    if k != ps * ps * 3 or c % 8:
+        raise ValueError(f"patchify_matmul: weight {tuple(wmat.shape)} must "
+                         f"be (C, {ps * ps * 3}) with C % 8 == 0")
+    m = b * (hh // ps) * (ww // ps)
+    cols = torch.empty(m, k, dtype=x.dtype, device=x.device)
     out = torch.empty(b, hh // ps, ww // ps, c, dtype=x.dtype,
                       device=x.device)
     call("patch_embed", "toc3d_patchify", x.data_ptr(), wmat.data_ptr(),
-         bias.data_ptr(), out.data_ptr(), b, hh, ww, ps, c, stream_of(x))
+         bias.data_ptr(), cols.data_ptr(), out.data_ptr(), b, hh, ww, ps, c,
+         stream_of(x))
     patchify_matmul.launches += 1
     return out
 

@@ -364,8 +364,31 @@ def compressed_block_plain(wts: BlockWeights, x, plan: CompressPlan,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+# the widest row the LayerNorm kernel's instances hold in registers (four
+# warps of four accesses of 8 bf16 a thread, or eight warps of eight of 2;
+# csrc/vit_block.cu toc3d_layernorm)
+LN_MAX_WIDTH = 4096
+
+
+def ln_access(ld: int, npad: int, *ptrs) -> int:
+    """Elements per access of the LayerNorm kernel: 8 (16 bytes) when every
+    row stride (ld for x, res and sum_out, npad for the output) is a
+    multiple of 8 elements and every base pointer (0 for an absent one) lies
+    on 16 bytes, else 2 (4-byte pairs)."""
+    if ld % 8 or npad % 8 or any(p % 16 for p in ptrs):
+        return 2
+    return 8
+
+
 def _ln(x, ld, wgt, bias, rows, valid_rows, n, npad, y=None, res=None,
         sum_out=None, yq=None, ys=None, sscale=None):
+    """Launch the LayerNorm kernel: rows of x (row stride ld; rows past
+    valid_rows read as zero) over n columns, + res first, into y or yq
+    (rows of npad columns, zero past n)."""
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    out = y if y is not None else yq
+    vec = ln_access(ld, npad, x.data_ptr(), ptr(res), ptr(sum_out),
+                    out.data_ptr(), wgt.data_ptr(), bias.data_ptr())
     call("vit_block", "toc3d_layernorm", x.data_ptr(), ld,
          None if res is None else res.data_ptr(), ld,
          None if sum_out is None else sum_out.data_ptr(), ld,
@@ -374,7 +397,8 @@ def _ln(x, ld, wgt, bias, rows, valid_rows, n, npad, y=None, res=None,
          None if yq is None else yq.data_ptr(),
          None if ys is None else ys.data_ptr(),
          None if sscale is None else sscale.data_ptr(), rows, valid_rows, n,
-         npad, LN_EPS, stream_of(x))
+         npad, LN_EPS, vec, stream_of(x))
+    layernorm.launches += 1
 
 
 def gemm_bf16_plain(a, w, bias=None, res=None, out_f32=False, gate=False):
@@ -459,34 +483,110 @@ def _ln_in(wts: BlockWeights, which: str, x, ld, wgt, bias, rows, valid_rows,
     return q, s
 
 
-def layernorm_int8_plain(x, weight, bias, static_scale=None, res=None):
-    """Plain version of ``layernorm_int8``."""
+def layernorm_plain(x, weight, bias, res=None, rows=None, n=None):
+    """Plain version of ``layernorm``: layers.layer_norm of the first n
+    columns of x (+ res, rounded to x.dtype), rows past x's own as zero,
+    columns n.. of the output zero."""
     if res is not None:
         x = _add(x, res)
-    y = layer_norm(x, weight, bias, LN_EPS)
+    npad = x.shape[1]
+    n = npad if n is None else n
+    rows = x.shape[0] if rows is None else rows
+    x = F.pad(x[:, :n], (0, 0, 0, rows - x.shape[0]))
+    y = layer_norm(x, weight[:n], bias[:n], LN_EPS)
+    return F.pad(y, (0, npad - n))
+
+
+def _ln_check(name, x, weight, bias, res, rows, n, sum_out):
+    """The (rows, n) of a standalone LayerNorm call on the card; raises on
+    what the kernel does not take."""
+    check_cuda(name, x, dtype=torch.bfloat16, aligned=False)
+    if x.dim() != 2 or x.data_ptr() % 4:
+        raise ValueError(f"{name}: x must be a (rows, width) matrix on a "
+                         "4-byte boundary")
+    npad = x.shape[1]
+    n = npad if n is None else n
+    rows = x.shape[0] if rows is None else rows
+    if n % 2 or npad % 2 or not 0 < n <= npad or npad > LN_MAX_WIDTH \
+            or rows < x.shape[0]:
+        raise ValueError(f"{name}: width {n} of {npad} columns for {rows} "
+                         f"rows (even widths up to {LN_MAX_WIDTH}, at least "
+                         "x's rows)")
+    for t in (res, sum_out):
+        if t is not None:
+            check_cuda(name, t, dtype=torch.bfloat16, aligned=False)
+            if t.shape != x.shape or t.data_ptr() % 4:
+                raise ValueError(f"{name}: {tuple(t.shape)} beside x "
+                                 f"{tuple(x.shape)}")
+    w = weight.float().contiguous()
+    b = bias.float().contiguous()
+    check_cuda(name, w, b, dtype=torch.float32, aligned=False)
+    if w.numel() < n or b.numel() < n:
+        raise ValueError(f"{name}: weight / bias of {w.numel()} / "
+                         f"{b.numel()} for width {n}")
+    return rows, n, w, b
+
+
+def layernorm(x, weight, bias, res=None, rows=None, n=None, sum_out=None,
+              out=None):
+    """The LayerNorm of B, C, B8 and C8 alone in bf16 (LN1, LN2 and the
+    SwiGLU sub-LN): LN of the first n columns (default all) of x (R, npad)
+    bf16, of x + res rounded to bf16 when res is given (stored to
+    ``sum_out`` when given), for ``rows`` >= R output rows (rows past R
+    read as zero, so they are LN(0) = bias) -> (rows, npad) bf16 with zero
+    columns past n, into ``out`` when given (``out`` may be x itself:
+    in place). Plain version on the CPU. ``layernorm.launches`` counts
+    every launch of the LayerNorm kernel, the blocks' own included."""
+    if x.device.type == "cpu":
+        y = layernorm_plain(x, weight, bias, res, rows, n)
+        if sum_out is not None:
+            sum_out.copy_(x if res is None else _add(x, res))
+        return y if out is None else out.copy_(y)
+    rows, n, w, b = _ln_check("layernorm", x, weight, bias, res, rows, n,
+                              sum_out)
+    npad = x.shape[1]
+    if out is None:
+        out = torch.empty(rows, npad, dtype=x.dtype, device=x.device)
+    elif (out.shape != (rows, npad) or out.dtype != x.dtype
+          or not out.is_contiguous() or out.data_ptr() % 4):
+        raise ValueError(f"layernorm: out must be a contiguous ({rows}, "
+                         f"{npad}) {x.dtype} matrix")
+    _ln(x, npad, w, b, rows, x.shape[0], n, npad, y=out, res=res,
+        sum_out=sum_out)
+    return out
+
+
+def layernorm_int8_plain(x, weight, bias, static_scale=None, res=None,
+                         rows=None, n=None):
+    """Plain version of ``layernorm_int8``."""
+    y = layernorm_plain(x, weight, bias, res, rows, n)
     if static_scale is None:
         q, s = rowquant(y)
         return q, s.reshape(-1)
     return statquant(y, static_scale)
 
 
-def layernorm_int8(x, weight, bias, static_scale=None, res=None):
+def layernorm_int8(x, weight, bias, static_scale=None, res=None, rows=None,
+                   n=None):
     """The quantizing LayerNorm alone (the attn_in / mlp_in / ffn_in sites
-    of B8 and C8): LN of the rows of x (rows, n) bf16 (of x + res, rounded
-    to bf16, when res is given) -> (int8 (rows, n), f32 scale: per row
-    (rows,), or ``static_scale``). Plain version on the CPU."""
+    of B8 and C8): ``layernorm``'s output, as rounded to bf16, quantized
+    -> (int8 (rows, npad), f32 scale: per row (rows,), or
+    ``static_scale``). Plain version on the CPU."""
     if x.device.type == "cpu":
-        return layernorm_int8_plain(x, weight, bias, static_scale, res)
-    check_cuda("layernorm_int8", x, dtype=torch.bfloat16)
-    rows, n = x.shape
-    if n % 2:
-        raise ValueError(f"layernorm_int8: width {n} must be even")
-    q = torch.empty(rows, n, dtype=torch.int8, device=x.device)
-    s = torch.empty(rows, dtype=torch.float32, device=x.device) \
-        if static_scale is None else static_scale
-    _ln(x, n, weight.float().contiguous(), bias.float().contiguous(), rows,
-        rows, n, n, res=res, yq=q, ys=None if static_scale is not None else s,
-        sscale=static_scale)
+        return layernorm_int8_plain(x, weight, bias, static_scale, res, rows,
+                                    n)
+    rows, n, w, b = _ln_check("layernorm_int8", x, weight, bias, res, rows,
+                              n, None)
+    npad = x.shape[1]
+    q = torch.empty(rows, npad, dtype=torch.int8, device=x.device)
+    if static_scale is None:
+        s = torch.empty(rows, dtype=torch.float32, device=x.device)
+    else:
+        check_cuda("layernorm_int8", static_scale, dtype=torch.float32,
+                   aligned=False)
+        s = static_scale
+    _ln(x, npad, w, b, rows, x.shape[0], n, npad, res=res, yq=q,
+        ys=None if static_scale is not None else s, sscale=static_scale)
     return q, s
 
 
@@ -553,6 +653,25 @@ def _mlp_chain(wts: BlockWeights, x, m: int, c: int, res=None, ln_res=None,
     return _proj(wts, gin, "w3", m, out, res=res)
 
 
+def window_attention_launch(qkv, out, map_shape, ws: int, nw: int, n: int,
+                            num_heads: int, image: bool, pos=None, cos=None,
+                            sin=None):
+    """Launch the window attention kernel of B, C, B8 and C8 on the f32
+    (rows, 3C) qkv of an attention chain into the bf16 (rows, C) ``out``:
+    nw windows of n rows of the (B, H, W) map ``map_shape``, by window
+    geometry (``image``; qkv's last row is LN(0)'s projection) or as dense
+    rows at RoPE positions ``pos``; cos / sin the f32 RoPE tables or None.
+    Returns out."""
+    b, h, w = map_shape
+    c = out.shape[1]
+    call("vit_block", "toc3d_window_attention", qkv.data_ptr(),
+         None if pos is None else pos.data_ptr(),
+         None if cos is None else cos.data_ptr(),
+         None if sin is None else sin.data_ptr(), out.data_ptr(), nw, n,
+         num_heads, c // num_heads, int(image), b, h, w, ws, stream_of(qkv))
+    return out
+
+
 def _full_attention(wts: BlockWeights, x, num_heads: int, ws: int,
                     rope_tables):
     """LN1 -> QKV -> window attention of the full block on the contiguous
@@ -571,11 +690,8 @@ def _full_attention(wts: BlockWeights, x, num_heads: int, ws: int,
     _proj(wts, hin, "qkv", m + 1, qkv, out_f32=True)
     cos, sin = _rope_args(rope_tables, n, x)
     attn = torch.empty(m, c, dtype=x.dtype, device=dev)
-    call("vit_block", "toc3d_window_attention", qkv.data_ptr(), None,
-         None if cos is None else cos.data_ptr(),
-         None if sin is None else sin.data_ptr(), attn.data_ptr(), nw, n,
-         num_heads, c // num_heads, 1, b, h, w, ws, stream_of(x))
-    return attn
+    return window_attention_launch(qkv, attn, (b, h, w), ws, nw, n,
+                                   num_heads, True, cos=cos, sin=sin)
 
 
 def _rows_attention(wts: BlockWeights, x, plan: CompressPlan, num_heads: int,
@@ -611,11 +727,8 @@ def _rows_attention(wts: BlockWeights, x, plan: CompressPlan, num_heads: int,
             pos = torch.cat([slow32, torch.full_like(slow32[:, :1], k)], 1)
         pos = pos.contiguous()
     attn = torch.empty(rows, c, dtype=x.dtype, device=dev)
-    call("vit_block", "toc3d_window_attention", qkv.data_ptr(),
-         None if pos is None else pos.data_ptr(),
-         None if cos is None else cos.data_ptr(),
-         None if sin is None else sin.data_ptr(), attn.data_ptr(), nw, kr,
-         num_heads, c // num_heads, 0, b, h, w, ws, stream_of(x))
+    window_attention_launch(qkv, attn, (b, h, w), ws, nw, kr, num_heads,
+                            False, pos, cos, sin)
     raw1 = torch.empty(rows, c, dtype=x.dtype, device=dev)
     _proj(wts, _o_in(wts, attn), "o", rows, raw1)
     return xs, raw1, slow32, fast32
@@ -762,3 +875,4 @@ fused_compressed_block.launches = 0
 fused_full_block_int8.launches = 0
 fused_compressed_block_int8.launches = 0
 _gemm.launches = 0
+layernorm.launches = 0

@@ -27,13 +27,14 @@ from dataclasses import replace
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 # kernel-name substring -> family, first match wins: kernel G
-# (gemm90::gemm_sm90_kernel) carries every bf16 matmul of B and C, kernel G8
-# (gemm90::gemm_s8_sm90_kernel) every int8 matmul of B8 and C8, gemm.cuh's
-# mma.sync tile (gemm::gemm_kernel) the patch embedding and the head's int8
-# linears
+# (gemm90::gemm_sm90_kernel) carries every bf16 matmul of B and C and the
+# patch embedding A's product, kernel G8 (gemm90::gemm_s8_sm90_kernel) every
+# int8 matmul of B8 and C8, gemm.cuh's mma.sync tile (gemm::gemm_kernel) the
+# head's int8 linears; A's other launch is its im2col copy
 FAMILIES = (("gemm_s8_sm90_kernel", "GEMM s8 wgmma G8 (B8, C8)"),
-            ("gemm_sm90_kernel", "GEMM bf16 wgmma (B, C)"),
-            ("gemm_kernel", "GEMM mma.sync (A, H8)"),
+            ("gemm_sm90_kernel", "GEMM bf16 wgmma (A, B, C)"),
+            ("gemm_kernel", "GEMM mma.sync (H8)"),
+            ("patch_im2col_kernel", "patch im2col (A)"),
             ("rowquant_kernel", "row quantization (B8, C8, H8)"),
             ("window_attention_kernel", "window attention (B, C)"),
             ("layernorm_kernel", "LayerNorm (B, C, B8, C8)"),
