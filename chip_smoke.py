@@ -29,21 +29,26 @@ Phases, each fatal on failure (exit code != 0):
      q / k / v; per-frame bounds of the LayerNorm, window attention and
      row quantization families);
   5. main path: ToC3D_faster_1600 at full width (6 views, 1600x800, batch 1,
-     uint8 frames, seeded random weights) streamed for 6 frames with
-     prev_exists 0, 1, 1, 1, 1, 1 through make_infer_fn; checks finite
-     outputs and that every kernel launched its per-frame count (A 1, B 6,
-     C 18, D 12, G 96 = 4 per block, LN 72 = 3 per block, int8 kernels
-     and G8 0); then the `tiny`
-     preset in bf16 against the plain path on the CPU as a small-input
-     agreement check;
+     uint8 frames built on the host in pinned memory, seeded random
+     weights) streamed for 6 frames with prev_exists 0, 1, 1, 1, 1, 1
+     through make_infer_fn, the frame as captured CUDA graphs; checks
+     finite outputs and that every kernel launched its per-frame count (A
+     1, B 6, C 18, D 12, G 96 = 4 per block, LN 72 = 3 per block, int8
+     kernels and G8 0, replays included); the same frames streamed
+     eagerly (infer_step) must give the same boxes, scores, labels,
+     validity and bank bit for bit, frame by frame; prints both streams'
+     steady ms/frame, peak memory and the host's synchronisations and
+     copies in a steady frame (torch.profiler), and the weight-key check's
+     host cost; then the `tiny` preset in bf16 against the plain path on
+     the CPU as a small-input agreement check;
   6. int8: the int8 blocks B8 (ws 16, 20) and C8 (the six main-path
      shapes), dynamic and with static scales, and the head's int8 linear
      H8, checked and timed as in 3-4; the int8 main path (backbone and
      decoder quant 'int8') streamed for 6 frames with per-row (dynamic)
      activation scales, then calibrated on 2 frames and streamed again
-     with static scales, each checking A 1, B8 6, C8 18, D 12, H8 60, G8
-     96, LN 72 and bf16 B / C / G 0 per frame; the tiny int8 small-input agreement,
-     dynamic and static;
+     with static scales, each captured and eager as in 5 and checking A 1,
+     B8 6, C8 18, D 12, H8 60, G8 96, LN 72 and bf16 B / C / G 0 per
+     frame; the tiny int8 small-input agreement, dynamic and static;
   7. report: a {"kernels": [...]} JSON line, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 The kernels' plain versions compute in f32 (TF32 off for matmuls and
@@ -1095,43 +1100,97 @@ def counters():
     A's product; G8: int8.gemm_s8_sm90, every weight matmul of B8 and C8;
     LN: vit_block.layernorm, every launch of the LayerNorm kernel, three a
     block)."""
-    from toc3d_tpu_torch.ops.cuda import (cross_attn, int8, patch_embed,
-                                          vit_block)
-    return [patch_embed.patchify_matmul, vit_block.fused_full_block,
-            vit_block.fused_compressed_block, cross_attn.flash_attention_core,
-            vit_block.fused_full_block_int8,
-            vit_block.fused_compressed_block_int8, int8.int8_linear,
-            vit_block._gemm, int8.gemm_s8_sm90, vit_block.layernorm]
+    from toc3d_tpu_torch.ops.cuda import counted_wrappers
+    return counted_wrappers()
 
 
-def phase_main_path(model, results, label="bf16",
-                    per_frame=(1, 6, 18, 12, 0, 0, 0, 96, 0, 72),
-                    record=("A", "B", "C", "D", "G", "LN")):
-    """Stream 6 full-size frames through make_infer_fn(model) with every
-    launch count set to 0 just before; per_frame: the launches each frame
-    must make of each kernel, in KERNELS order; record: the kernels whose
-    launch counts this run reports. Returns (ok, decoded per frame)."""
+def host_frames(seed: int, n: int = 6):
+    """n full-size frames of the synthetic stream (prev_exists 0, then 1)
+    built on the host and held in pinned memory, as a server holds them."""
     import torch
-    from toc3d_tpu_torch.models.detector import (init_state, make_infer_fn,
-                                                 synthetic_frame)
-    dev = torch.device("cuda")
-    infer = make_infer_fn(model)
-    g = torch.Generator(device=dev).manual_seed(2)
-    frames = [synthetic_frame(g, t) for t in range(6)]
-    state = init_state(1, model.cfg, device=dev)
+    from toc3d_tpu_torch.models.detector import synthetic_frame
+    g = torch.Generator().manual_seed(seed)
+    return [{k: v.pin_memory() for k, v in
+             synthetic_frame(g, t, device="cpu").items()} for t in range(n)]
+
+
+def host_calls(fn) -> dict:
+    """Run fn once under torch.profiler; count the host's stream, event and
+    device synchronisations inside it (CUDA runtime calls) and the copies
+    to and from the host it queued (device memcpy records)."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    for f in counters():
-        f.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    times, dets = [], []
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function("frame"):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    win = next(e.time_range for e in events if e.name == "frame")
+    counts = {"syncs": 0, "DtoH": 0, "HtoD pageable": 0, "HtoD pinned": 0,
+              "pageable from": sorted({e.name for e in events if any(
+                  "Pageable" in k.name for k in e.kernels)})}
+    for ev in events:
+        name = ev.name
+        if name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                    "cudaEventSynchronize"):
+            counts["syncs"] += win.start <= ev.time_range.start <= win.end
+        elif "DtoH" in name:
+            counts["DtoH"] += 1
+        elif "HtoD" in name:
+            counts["HtoD pinned" if "Pinned" in name
+                   else "HtoD pageable"] += 1
+    return counts
+
+
+def _stream(infer, state, frames):
+    """Each frame through infer, timed on the host clock up to a
+    synchronisation; returns (state, per-frame outputs, frame ms)."""
+    import torch
+    times, outs = [], []
     for frame in frames:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, det = infer(state, frame)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        dets.append(det)
+        outs.append((state, det))
+    return state, outs, times
+
+
+def phase_main_path(model, results, label="bf16",
+                    per_frame=(1, 6, 18, 12, 0, 0, 0, 96, 0, 72),
+                    record=("A", "B", "C", "D", "G", "LN")):
+    """Stream 6 full-size host frames (pinned) eagerly through infer_step,
+    then with every launch count set to 0 just before, through
+    make_infer_fn(model), the captured frame (the main path); per_frame:
+    the launches each frame must make of each kernel, in KERNELS order;
+    record: the kernels whose launch counts this run reports. The captured
+    frame's outputs (boxes, scores, labels, validity, the bank) must equal
+    eager's bit for bit, frame by frame. Prints for both: the frame times,
+    steady ms/frame, peak memory, and the host's synchronisations and
+    copies in one more steady frame. Returns (ok, decoded per frame)."""
+    import torch
+    from toc3d_tpu_torch.models.detector import (infer_step, init_state,
+                                                 make_infer_fn)
+    from toc3d_tpu_torch.ops.cuda import param_key
+    dev = torch.device("cuda")
+    frames = host_frames(2)
+    infer = make_infer_fn(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eager_state, eager, eager_ms = _stream(
+        lambda s, f: infer_step(model, s, f),
+        init_state(1, model.cfg, device=dev), frames)
+    eager_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    for f in counters():
+        f.launches = 0
+    state, graph, graph_ms = _stream(infer, init_state(1, model.cfg,
+                                                       device=dev), frames)
     launches = [f.launches for f in counters()]
+    graph_peak = torch.cuda.max_memory_allocated() / 2**30
     ok = True
     for key, got, want in zip(KERNELS, launches, per_frame):
         if key in record:
@@ -1140,19 +1199,34 @@ def phase_main_path(model, results, label="bf16",
             log(f"main path {label}: kernel {key} launched {got} times, "
                 f"expected {want * len(frames)}")
             ok = False
+    equal = [all(torch.equal(a, b) for a, b in zip(
+        tuple(gs.memory) + tuple(gd), tuple(es.memory) + tuple(ed)))
+        for (gs, gd), (es, ed) in zip(graph, eager)]
+    ok &= all(equal)
+    dets = [d for _, d in graph]
+    det = dets[-1]
     finite = all(bool(torch.isfinite(t).all()) for t in
                  (det.bboxes, det.scores, state.memory.embedding,
                   state.memory.reference_point))
     shapes = (tuple(det.bboxes.shape) == (1, 300, 9)
               and tuple(det.scores.shape) == (1, 300))
     ok &= finite and shapes
-    steady = times[2:]
-    log(f"main path ToC3D_faster_1600 {label}, 6 x 1600x800 uint8, batch 1: "
-        f"frame ms {[round(t, 3) for t in times]}; steady mean "
-        f"{sum(steady) / len(steady):.3f} ms/frame over frames 2-5; peak "
-        f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
-        f"launches {'/'.join(KERNELS)} {launches}; finite {finite} shapes "
-        f"{shapes}")
+    steady = frames[-1]
+    calls_g = host_calls(lambda: infer(state, steady))
+    calls_e = host_calls(lambda: infer_step(model, eager_state, steady))
+    key_us = host_us(lambda: param_key(model), calls=200)
+    for name, ms, peak, calls in (("eager infer_step", eager_ms, eager_peak,
+                                   calls_e),
+                                  ("captured make_infer_fn", graph_ms,
+                                   graph_peak, calls_g)):
+        log(f"main path ToC3D_faster_1600 {label}, {name}, 6 x 1600x800 "
+            f"uint8 host frames, batch 1: frame ms "
+            f"{[round(t, 3) for t in ms]}; steady mean "
+            f"{sum(ms[2:]) / len(ms[2:]):.3f} ms/frame over frames 2-5; "
+            f"peak memory {peak:.3f} GiB; one more steady frame: {calls}")
+    log(f"main path {label}: launches {'/'.join(KERNELS)} {launches}; "
+        f"captured equals eager per frame {equal}; finite {finite} shapes "
+        f"{shapes}; weight-key check {key_us:.1f} us a call")
     return ok, dets
 
 

@@ -627,3 +627,179 @@ def test_int8_linear_kernel(dev, shape):
                         torch.randn(96, device=dev, generator=g))
     out = _counted(int8.int8_linear, x, p)
     assert torch.equal(out, int8.int8_linear_plain(x, p))
+
+
+# ---------------------------------------------------------------------------
+# the captured frame (make_infer_fn on the card) against eager infer_step
+# ---------------------------------------------------------------------------
+
+RESET_STREAM = (0.0, 1.0, 1.0, 0.0, 1.0)
+
+
+def _serving_model(quant, seed=3):
+    """The tiny preset in bf16 on the card; quant 'static': backbone and
+    decoder int8 with scales calibrated on 2 frames."""
+    from dataclasses import replace
+    from toc3d_tpu_torch.configs import get_config
+    from toc3d_tpu_torch.models.detector import build_detector, synthetic_frame
+    from toc3d_tpu_torch.ops.int8_calib import (attach_act_scales,
+                                                calibrate_act_scales)
+    cfg = get_config("tiny", compute_dtype="bfloat16")
+    cfg = replace(cfg, head=replace(cfg.head, compute_dtype="bfloat16"))
+    if quant != "none":
+        cfg = replace(cfg, backbone=replace(cfg.backbone, quant="int8"),
+                      head=replace(cfg.head, decoder=replace(
+                          cfg.head.decoder, quant="int8")))
+    model = build_detector(cfg, device="cuda", seed=seed)
+    if quant == "static":
+        g = torch.Generator(device="cuda").manual_seed(5)
+        with torch.no_grad():
+            attach_act_scales(model, calibrate_act_scales(model, [
+                synthetic_frame(g, t, views=2, height=64, width=128,
+                                device="cuda") for t in range(2)]))
+    return model
+
+
+def _host_stream(prev=RESET_STREAM, seed=4):
+    """Frames on the host in pinned memory, prev_exists as given."""
+    from toc3d_tpu_torch.models.detector import synthetic_frame
+    g = torch.Generator().manual_seed(seed)
+    frames = []
+    for t, pe in enumerate(prev):
+        f = synthetic_frame(g, t, views=2, height=64, width=128,
+                            device="cpu")
+        f["prev_exists"] = torch.full((1,), pe)
+        frames.append({k: v.pin_memory() for k, v in f.items()})
+    return frames
+
+
+def _outputs(out):
+    state, det = out
+    return tuple(state.memory) + tuple(det)
+
+
+def _eager_stream(model, frames):
+    from toc3d_tpu_torch.models.detector import infer_step, init_state
+    state = init_state(1, model.cfg, device="cuda")
+    outs = []
+    for f in frames:
+        state, det = infer_step(model, state, f)
+        outs.append(_outputs((state, det)))
+    return outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["none", "static"])
+def test_captured_frame_equals_eager(dev, quant):
+    """make_infer_fn captures each program once, at its first use, and
+    replays it from then on (frames 2-4: the backbone graphs of both steady
+    values and the head graph), computing bit for bit what infer_step
+    computes eagerly: the same kernels on the same inputs, no atomics, a
+    stable sort. A frame's results are fresh tensors: replaying the next
+    frame leaves them as they were."""
+    from toc3d_tpu_torch.models.detector import init_state, make_infer_fn
+    model = _serving_model(quant)
+    frames = _host_stream()
+    infer = make_infer_fn(model)
+    state = init_state(1, model.cfg, device="cuda")
+    got, held, captured = [], [], {}
+    for t, f in enumerate(frames):
+        state, det = infer(state, f)
+        for name, prog in infer._programs.items():
+            assert captured.setdefault(name, prog) is prog, (t, name)
+        outs = _outputs((state, det))
+        torch.cuda.synchronize()
+        for prev, copy in held:         # frame t-1's results, unchanged
+            for a, b in zip(prev, copy):
+                assert torch.equal(a, b), f"frame {t - 1} changed"
+        held = [(outs, tuple(x.clone() for x in outs))]
+        got.append(outs)
+    assert sorted(map(str, infer._programs)) == sorted(
+        map(str, [("backbone+neck", False), ("backbone+neck", True),
+                  "head+decode"]))
+    for t, (a, b) in enumerate(zip(got, _eager_stream(model, frames))):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y), f"frame {t}"
+
+
+@pytest.mark.cuda
+def test_captured_frame_counts_launches_per_replay(dev):
+    """A replayed frame adds to each wrapper's count what an eager frame
+    launches."""
+    from toc3d_tpu_torch.models.detector import (infer_step, init_state,
+                                                 make_infer_fn)
+    from toc3d_tpu_torch.ops.cuda import counted_wrappers
+    model = _serving_model("none")
+    frames = _host_stream((0.0, 1.0, 1.0, 1.0))
+    infer = make_infer_fn(model)
+    state = init_state(1, model.cfg, device="cuda")
+    for f in frames[:3]:
+        state, _ = infer(state, f)
+    counters = counted_wrappers()
+    before = [c.launches for c in counters]
+    state, _ = infer(state, frames[3])
+    replayed = [c.launches - n for c, n in zip(counters, before)]
+    before = [c.launches for c in counters]
+    infer_step(model, state, frames[3])
+    eager = [c.launches - n for c, n in zip(counters, before)]
+    assert replayed == eager
+    assert min(replayed[:4]) > 0     # A, B, C and D
+
+
+@pytest.mark.cuda
+def test_captured_frame_recaptures_after_load_state_dict(dev):
+    """New weights change the weight key: the programs are packed and
+    captured again, and then equal eager infer_step under the new
+    weights."""
+    from toc3d_tpu_torch.models.detector import init_state, make_infer_fn
+    model = _serving_model("none")
+    frames = _host_stream()
+    infer = make_infer_fn(model)
+    state = init_state(1, model.cfg, device="cuda")
+    for f in frames[:3]:
+        state, _ = infer(state, f)
+    old = infer._programs["head+decode"]
+    model.load_state_dict(_serving_model("none", seed=8).state_dict())
+    state = init_state(1, model.cfg, device="cuda")
+    got = []
+    for f in frames:
+        state, det = infer(state, f)
+        got.append(_outputs((state, det)))
+    assert infer._programs["head+decode"] is not old
+    for t, (a, b) in enumerate(zip(got, _eager_stream(model, frames))):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y), f"frame {t}"
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises(dev):
+    """A capture that fails (here: a device synchronisation on the path)
+    raises; make_infer_fn never carries on eagerly. Run in a process of its
+    own, so the failed capture touches no other test."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    code = (
+        "import sys, torch\n"
+        "sys.path.insert(0, 'tests')\n"
+        "from test_torch_cuda import _serving_model, _host_stream\n"
+        "from toc3d_tpu_torch.models import detector as td\n"
+        "decode = td.nms_free_decode\n"
+        "def syncing(*a, **kw):\n"
+        "    torch.cuda.synchronize()\n"
+        "    return decode(*a, **kw)\n"
+        "td.nms_free_decode = syncing\n"
+        "model = _serving_model('none')\n"
+        "infer = td.make_infer_fn(model)\n"
+        "state = td.init_state(1, model.cfg, device='cuda')\n"
+        "try:\n"
+        "    infer(state, _host_stream()[0])\n"
+        "except RuntimeError as e:\n"
+        "    print('raised', type(e).__name__)\n"
+        "    sys.exit(0)\n"
+        "sys.exit('no error: the capture was not made to fail')\n")
+    root = Path(__file__).resolve().parents[1]
+    r = subprocess.run([sys.executable, "-c", code], cwd=root,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "raised" in r.stdout

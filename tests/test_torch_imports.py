@@ -20,7 +20,8 @@ def _modules():
 
 def test_port_imports_no_jax():
     names = _modules()
-    for mod in ("ops.cuda.vit_block", "ops.cuda.int8", "ops.int8_calib"):
+    for mod in ("ops.cuda.vit_block", "ops.cuda.int8", "ops.int8_calib",
+                "bench", "runtime.graphs", "runtime.timer", "ops.consts"):
         assert f"toc3d_tpu_torch.{mod}" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"

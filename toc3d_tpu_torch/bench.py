@@ -1,0 +1,231 @@
+"""Streaming inference benchmark of the PyTorch port on one GPU (the
+inference protocol of bench.py:249-390, ported; training, the sweep and the
+view and attention chunking are not).
+
+    python3 -m toc3d_tpu_torch.bench [--config ToC3D_faster_1600]
+        [--warmup 200] [--frames 100] [--batch 1] [--int8 [--int8-calib N]]
+        [--eager] [--device cuda]
+
+The protocol (reference README.md:113-123, gpu_timer.py:29): seeded random
+weights; 6 camera views at the preset's pad shape; 4 image contents built on
+the host from a seeded numpy generator (as bench.py's make_frame, with uint8
+images that the model normalises on the device), each with prev_exists 0 and
+1, held in pinned memory; frame i takes content i % 4, and prev_exists 0 on
+every SCENE_LEN-th frame (a nuScenes scene is ~40 frames), so the first-frame
+branch is paid at the val set's rate. ``warmup`` frames, then ``frames``
+timed ones; frame t-1's boxes are fetched to the host while frame t is
+queued. On the card the frame runs through the captured ``make_infer_fn``
+(``--eager``: through ``infer_step``, for comparison); ``--device cpu``
+runs it eagerly (a check of the protocol, not a measurement of a device).
+
+Prints the nvidia-smi name and power limit, the peak device memory, the wall
+ms/frame, the per-stage device time from CUDA events (runtime/timer.py;
+bench.py has no split, the JAX package's GlobalTimer gives one) and, last,
+one JSON line {"metric", "value", "unit", "vs_baseline"}: frames/s against
+the paper's A100 whole-pipeline latency.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from dataclasses import replace
+
+import numpy as np
+import torch
+
+# A100 whole-pipeline latency (ms) per config, BASELINE.md / paper Table 2
+# (copied from bench.py:21-31)
+A100_PIPELINE_MS = {
+    "stream_petr_eva_vit_l": 317.0,
+    "ToC3D_fast": 281.0,
+    "ToC3D_faster": 237.2,
+    "stream_petr_eva_vit_l_1600": 1309.9,
+    "ToC3D_fast_1600": 1051.9,
+    "ToC3D_faster_1600": 878.5,
+    "stream_petr_vit_b": 115.0,
+    "ToC3D_vit_b_fast": 94.0,
+    "ToC3D_vit_b_faster": 85.0,
+}
+SCENE_LEN = 40      # frames per scene (bench.py:350)
+CONTENTS = 4        # distinct image contents, cycled (bench.py:352)
+VIEWS = 6
+
+
+def make_frame(rng, b, n, h, w, prev_exists, pin: bool):
+    """bench.py make_frame (:47-61) with a uint8 image: host tensors, in
+    pinned memory when ``pin``."""
+    eye = np.tile(np.eye(4, dtype=np.float32), (b, n, 1, 1))
+    intr = eye.copy()
+    intr[..., 0, 0] = intr[..., 1, 1] = 1.2e3
+    img2lidar = eye + rng.randn(b, n, 4, 4).astype(np.float32) * 1e-3
+    ego = np.tile(np.eye(4, dtype=np.float32), (b, 1, 1))
+    frame = {
+        "img": rng.randint(0, 256, (b, n, h, w, 3), dtype=np.uint8),
+        "intrinsics": intr, "img2lidar": img2lidar,
+        "timestamp": np.full((b,), 0.5, np.float32),
+        "ego_pose": ego, "ego_pose_inv": ego.copy(),
+        "prev_exists": np.full((b,), prev_exists, np.float32),
+    }
+    frame = {k: torch.from_numpy(v) for k, v in frame.items()}
+    return {k: v.pin_memory() for k, v in frame.items()} if pin else frame
+
+
+def schedule(i: int):
+    """(content index, prev_exists) of frame i."""
+    return i % CONTENTS, 0.0 if i % SCENE_LEN == 0 else 1.0
+
+
+def fetch_start(det):
+    """Queue the copy of one frame's boxes to the host (pinned) behind the
+    frame; returns (host boxes, event) for ``fetch_wait``."""
+    if not det.scores.is_cuda:
+        return det, None
+    host = type(det)(*(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                       .copy_(t, non_blocking=True) for t in det))
+    ev = torch.cuda.Event()
+    ev.record()
+    return host, ev
+
+
+def fetch_wait(pending):
+    """Wait for a fetch queued by ``fetch_start``: only for that frame, not
+    for what was queued after it. Returns the boxes as numpy arrays."""
+    host, ev = pending
+    if ev is not None:
+        ev.synchronize()
+    return type(host)(*(t.numpy() for t in host))
+
+
+def nvidia_smi_line() -> str:
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60, check=True)
+    return r.stdout.strip().splitlines()[0]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--config", default="ToC3D_faster_1600")
+    ap.add_argument("--warmup", type=int, default=200)
+    ap.add_argument("--frames", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=1)
+    ap.add_argument("--int8", action="store_true",
+                    help="int8 serving: backbone and decoder quant 'int8' "
+                         "(dynamic per-row activation scales)")
+    ap.add_argument("--int8-calib", type=int, default=0,
+                    help="with --int8: static activation scales calibrated "
+                         "on this many synthetic frames")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the frame eagerly (infer_step) instead of as "
+                         "captured CUDA graphs, for comparison")
+    args = ap.parse_args(argv)
+    if args.int8_calib and not args.int8:
+        ap.error("--int8-calib requires --int8")
+    cuda = torch.device(args.device).type == "cuda"
+    if cuda and not torch.cuda.is_available():
+        print("bench: no CUDA device (pass --device cpu for the protocol "
+              "check)", file=sys.stderr)
+        return 2
+
+    from .configs import get_config
+    from .models.detector import (build_detector, eager_infer_fn,
+                                  frame_to_device, init_state, make_infer_fn)
+    from .ops.int8_calib import attach_act_scales, calibrate_act_scales
+    from .runtime.timer import StageTimer
+
+    if cuda:
+        print(nvidia_smi_line(), flush=True)
+        from .ops.cuda import build
+        build.build_all()
+    cfg = get_config(args.config)
+    label = args.config
+    if args.int8:
+        cfg = replace(cfg, backbone=replace(cfg.backbone, quant="int8"),
+                      head=replace(cfg.head, decoder=replace(
+                          cfg.head.decoder, quant="int8")))
+        label += "+int8"
+    h, w = cfg.pad_shape
+    b, n = args.batch, VIEWS
+    model = build_detector(cfg, device=args.device, seed=0)
+    if args.int8_calib:
+        crng = np.random.RandomState(7)
+        cal = [frame_to_device(make_frame(crng, b, n, h, w, float(i > 0),
+                                          False), args.device)
+               for i in range(args.int8_calib)]
+        with torch.no_grad():
+            attach_act_scales(model, calibrate_act_scales(model, cal))
+        label += f"+calib{args.int8_calib}"
+
+    rng = np.random.RandomState(0)
+    variants = [[make_frame(rng, b, n, h, w, pe, cuda)
+                 for _ in range(CONTENTS)] for pe in (0.0, 1.0)]
+
+    def frame_at(i):
+        c, pe = schedule(i)
+        return variants[int(pe)][c]
+
+    timer = StageTimer(args.device)
+    step = (eager_infer_fn if args.eager else make_infer_fn)(model, timer)
+    if args.eager:
+        label += "+eager"
+    state = init_state(b, cfg, device=args.device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(args.warmup):
+        state, det = step(state, frame_at(i))
+        if (i + 1) % 25 == 0:
+            det.scores.cpu()        # bound the queue
+    if args.warmup:
+        det.scores.cpu()
+    warm_s = time.perf_counter() - t0
+    timer.reset()
+
+    t0 = time.perf_counter()
+    pending = None
+    for i in range(args.frames):
+        state, det = step(state, frame_at(i))
+        fetch = fetch_start(det)
+        if pending is not None:
+            fetch_wait(pending)
+        pending = fetch
+    boxes = fetch_wait(pending)
+    dt = time.perf_counter() - t0
+
+    ok = bool(np.isfinite(boxes.scores).all() and np.isfinite(
+        boxes.bboxes).all())
+    where = torch.cuda.get_device_name(0) if cuda else "cpu"
+    print(f"{label} on {where}: batch {b}, {n} views {w}x{h}, warmup "
+          f"{args.warmup} frames in {warm_s:.3f} s, {args.frames} timed "
+          f"frames; last boxes finite {ok}")
+    if cuda:
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"peak device memory {peak:.3f} GiB (warm-up and capture "
+              "included)")
+    print(f"wall {dt / args.frames * 1e3:.3f} ms/frame")
+    for name, s in timer.summary().items():
+        print(f"  {name:14s} {'device' if cuda else 'host'} ms/frame "
+              f"mean {s['mean']:.3f} min {s['min']:.3f} max {s['max']:.3f} "
+              f"(n {s['n']})")
+    if not ok:
+        print("bench: non-finite boxes", file=sys.stderr)
+        return 1
+    fps = args.frames * b / dt
+    ref_fps = 1000.0 / A100_PIPELINE_MS.get(
+        args.config, A100_PIPELINE_MS["ToC3D_faster_1600"])
+    print(json.dumps({
+        "metric": f"{label} {n}-view frames/sec/"
+                  f"{'chip' if cuda else 'cpu'}",
+        "value": round(fps, 4),
+        "unit": "frames/s",
+        "vs_baseline": round(fps / ref_fps, 4),
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

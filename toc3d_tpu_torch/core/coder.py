@@ -7,6 +7,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops.consts import const_vector
 from .boxes import denormalize_bbox
 
 
@@ -29,8 +30,7 @@ def nms_free_decode(all_cls_scores, all_bbox_preds, num_classes: int,
     bidx = idx // num_classes
     box = torch.gather(box, 1, bidx[..., None].expand(-1, -1, box.shape[-1]))
     final = denormalize_bbox(box)
-    pcr = torch.tensor(post_center_range, dtype=final.dtype,
-                       device=final.device)
+    pcr = const_vector(post_center_range, final.dtype, final.device)
     valid = ((final[..., :3] >= pcr[:3]).all(dim=-1)
              & (final[..., :3] <= pcr[3:]).all(dim=-1))
     return DecodedBoxes(final, scores, labels, valid)

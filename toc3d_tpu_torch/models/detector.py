@@ -18,6 +18,7 @@ Hopper kernels (ops/cuda).
 """
 from __future__ import annotations
 
+import functools
 import math
 import re
 from dataclasses import dataclass, field
@@ -28,6 +29,8 @@ import torch
 import torch.nn as nn
 
 from ..core.coder import DecodedBoxes, nms_free_decode, to_bottom_center
+from ..ops.consts import const_vector
+from ..runtime.timer import span
 from .neck import CPFPN, CPFPNConfig, cpfpn_forward
 from .streampetr_head import (MemoryBank, StreamPETRHead,
                               StreamPETRHeadConfig, head_forward, init_memory)
@@ -201,16 +204,28 @@ def init_state(batch_size: int, cfg: DetectorConfig,
     return DetectorState(memory=init_memory(batch_size, cfg.head, device))
 
 
-def frame_to_device(frame, device="cuda"):
-    """numpy / tensor frame dict -> tensors on ``device`` (uint8 images
+def frame_tensors(frame):
+    """numpy / tensor frame dict -> tensors where they lie (uint8 images
     stay uint8, everything else float32)."""
     out = {}
     for k, v in frame.items():
         t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
             np.ascontiguousarray(v))
-        if t.dtype != torch.uint8:
-            t = t.float()
-        out[k] = t.to(device)
+        out[k] = t if t.dtype == torch.uint8 else t.float()
+    return out
+
+
+def frame_to_device(frame, device="cuda"):
+    """numpy / tensor frame dict -> tensors on ``device`` (uint8 images
+    stay uint8, everything else float32). A tensor already there is taken
+    as it is; one in pinned host memory is copied without blocking the
+    host, so leave it unchanged until the frame has run."""
+    device = torch.device(device)
+    out = frame_tensors(frame)
+    for k, t in out.items():
+        if t.device.type != device.type or (
+                device.index is not None and t.device.index != device.index):
+            out[k] = t.to(device, non_blocking=True)
     return out
 
 
@@ -272,9 +287,8 @@ def extract_img_feat(model: ToC3DDetector, img, memory: MemoryBank, frame,
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" \
         else torch.float32
     if x.dtype == torch.uint8:
-        mean = torch.tensor(IMG_NORM_MEAN, dtype=torch.float32,
-                            device=x.device)
-        std = torch.tensor(IMG_NORM_STD, dtype=torch.float32, device=x.device)
+        mean = const_vector(IMG_NORM_MEAN, torch.float32, x.device)
+        std = const_vector(IMG_NORM_STD, torch.float32, x.device)
         x = (x.float() - mean) / std
     x = x.to(dtype).contiguous()
     feats = toc3d_vit_forward(model.img_backbone, x,
@@ -304,13 +318,31 @@ def head_step(model: ToC3DDetector, state: DetectorState, feats, frame):
         bboxes=to_bottom_center(dec.bboxes))
 
 
+def is_steady(frame) -> bool:
+    """all(prev_exists > 0): whether every lane continues its scene, so the
+    selectors skip the first-frame score MLP. JAX decides this on the
+    device (lax.cond, token_select.py:227); here the host decides, reading
+    the frame's prev_exists where it lies: a numpy array or a host tensor
+    costs no device read, a device tensor one."""
+    return bool((frame["prev_exists"] > 0).all())
+
+
 @torch.no_grad()
-def infer_step(model: ToC3DDetector, state: DetectorState, frame):
-    """(state, frame) -> (state', DecodedBoxes) (detector.py:243-272)."""
-    steady = bool((frame["prev_exists"] > 0).all())
-    feats = extract_img_feat(model, frame["img"], state.memory, frame,
-                             steady=steady)
-    return head_step(model, state, feats, frame)
+def infer_step(model: ToC3DDetector, state: DetectorState, frame,
+               timer=None):
+    """(state, frame) -> (state', DecodedBoxes) (detector.py:243-272),
+    eagerly. The frame's arrays may lie on the host (numpy or tensors) or
+    on the model's device; host ones are moved there (frame_to_device).
+    ``timer`` (runtime/timer.StageTimer): the spans "inputs",
+    "backbone+neck" and "head+decode" are recorded on it."""
+    steady = is_steady(frame)
+    with span(timer, "inputs"):
+        frame = frame_to_device(frame, next(model.parameters()).device)
+    with span(timer, "backbone+neck"):
+        feats = extract_img_feat(model, frame["img"], state.memory, frame,
+                                 steady=steady)
+    with span(timer, "head+decode"):
+        return head_step(model, state, feats, frame)
 
 
 @torch.no_grad()
@@ -356,22 +388,36 @@ def precast_backbone_(model: ToC3DDetector) -> None:
         quantize_decoder_params(model.pts_bbox_head.transformer.decoder)
 
 
-def make_infer_fn(model: ToC3DDetector):
+def eager_infer_fn(model: ToC3DDetector, timer=None):
+    """``infer(state, frame)``: ``infer_step`` on ``model`` with ``timer``,
+    after casting (or, for int8, quantizing) the weights once
+    (precast_backbone_)."""
+    precast_backbone_(model)
+    return functools.partial(infer_step, model, timer=timer)
+
+
+def make_infer_fn(model: ToC3DDetector, timer=None):
     """Streaming inference callable ``infer(state, frame) -> (state',
     DecodedBoxes)`` (detector.py:369-406). Casts (or, for int8 serving,
-    quantizes) the weights once (precast_backbone_) before returning; to
-    serve static int8, attach calibrated scales first
-    (ops/int8_calib.attach_act_scales)."""
-    precast_backbone_(model)
+    quantizes) the weights once (precast_backbone_); to serve static int8,
+    attach calibrated scales first (ops/int8_calib.attach_act_scales).
 
-    def infer(state: DetectorState, frame):
-        return infer_step(model, state, frame)
-
-    return infer
+    On a CUDA model the frame runs as captured CUDA graphs, the
+    counterpart of JAX's two jitted programs (runtime/graphs.CapturedInfer:
+    backbone + neck, one graph per value of steady, and head + decode);
+    a capture that fails raises. On the CPU it runs ``infer_step``
+    eagerly (``eager_infer_fn``). ``timer`` (runtime/timer.StageTimer):
+    the spans "inputs", "backbone+neck" and "head+decode" are recorded on
+    it."""
+    if next(model.parameters()).is_cuda:
+        from ..runtime.graphs import CapturedInfer
+        return CapturedInfer(model, timer)
+    return eager_infer_fn(model, timer)
 
 
 __all__ = ["DetectorConfig", "DetectorState", "DecodedBoxes",
            "FocalHeadConfig", "ToC3DDetector", "build_detector",
            "init_state", "infer_step", "head_step", "extract_img_feat",
-           "make_infer_fn", "precast_backbone_", "frame_to_device",
+           "make_infer_fn", "eager_infer_fn", "precast_backbone_",
+           "frame_to_device", "frame_tensors", "is_steady",
            "synthetic_frame"]

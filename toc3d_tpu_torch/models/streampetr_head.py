@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from ..layers import (MLN, SELinear, inverse_sigmoid, lin, ln, mlp_relu, mln,
                       se_linear)
+from ..ops.consts import const_vector, device_const
 from ..ops.gather import memory_refresh, topk_gather
 from ..ops.posenc import (nerf_positional_encoding, pos2posemb1d,
                           pos2posemb3d)
@@ -152,7 +153,7 @@ def pre_update_memory(cfg: StreamPETRHeadConfig, head: StreamPETRHead,
     velo = memory_refresh(bank.velo, x)
     if cfg.num_propagated > 0:
         p = cfg.num_propagated
-        pc = torch.tensor(cfg.pc_range, dtype=ref.dtype, device=ref.device)
+        pc = const_vector(cfg.pc_range, ref.dtype, ref.device)
         pseudo = (head.pseudo_reference_points.weight.to(ref.dtype)
                   * (pc[3:6] - pc[0:3]) + pc[0:3])
         ref = torch.cat([ref[:, :p] + (1 - x).reshape(b, 1, 1) * pseudo,
@@ -198,11 +199,15 @@ def post_update_memory(cfg: StreamPETRHeadConfig, bank: MemoryBank,
 
 def location_grid(h: int, w: int, stride: int, pad_h: int, pad_w: int,
                   device="cuda"):
-    """Pixel-center grid normalized by the padded image size, (h, w, 2)."""
-    sx = (np.arange(w, dtype=np.float32) * stride + stride // 2) / pad_w
-    sy = (np.arange(h, dtype=np.float32) * stride + stride // 2) / pad_h
-    gx, gy = np.meshgrid(sx, sy)
-    return torch.from_numpy(np.stack([gx, gy], axis=-1)).to(device)
+    """Pixel-center grid normalized by the padded image size, (h, w, 2),
+    built once per shape and device."""
+    def build():
+        sx = (np.arange(w, dtype=np.float32) * stride + stride // 2) / pad_w
+        sy = (np.arange(h, dtype=np.float32) * stride + stride // 2) / pad_h
+        gx, gy = np.meshgrid(sx, sy)
+        return torch.from_numpy(np.stack([gx, gy], axis=-1))
+    return device_const(("location_grid", h, w, stride, pad_h, pad_w),
+                        device, build)
 
 
 def position_embeding(head: StreamPETRHead, cfg: StreamPETRHeadConfig, data,
@@ -221,11 +226,13 @@ def position_embeding(head: StreamPETRHead, cfg: StreamPETRHeadConfig, data,
                              data["intrinsics"][..., 1, 1]], dim=-1)
     intrinsic = intrinsic.abs() / 1e3
     intrinsic = intrinsic[:, None].expand(b, hw, n, 2).reshape(b, hw * n, 2)
-    centers_px = centers * torch.tensor([pad_w, pad_h], dtype=centers.dtype,
-                                        device=dev)
+    centers_px = centers * const_vector((pad_w, pad_h), centers.dtype, dev)
     centers_px = centers_px.reshape(1, 1, hw, 2).expand(b, n, hw, 2)
     centers_px = centers_px.reshape(b, k, 1, 2)
-    coords_d = torch.from_numpy(lid_depth_bins(cfg)).to(dev)
+    coords_d = device_const(
+        ("lid_depth_bins", cfg.depth_num, cfg.LID, cfg.depth_start,
+         cfg.position_range[3]), dev,
+        lambda: torch.from_numpy(lid_depth_bins(cfg)))
     d = cfg.depth_num
     xy = centers_px.expand(b, k, d, 2)
     dd = coords_d.reshape(1, 1, d, 1).expand(b, k, d, 1)
@@ -234,7 +241,7 @@ def position_embeding(head: StreamPETRHead, cfg: StreamPETRHeadConfig, data,
     img2lidar = data["img2lidar"][:, :, None].expand(b, n, hw, 4, 4)
     img2lidar = img2lidar.reshape(b, k, 4, 4)
     coords3d = torch.einsum("bkij,bkdj->bkdi", img2lidar, coords)[..., :3]
-    pr = torch.tensor(cfg.position_range, dtype=coords3d.dtype, device=dev)
+    pr = const_vector(cfg.position_range, coords3d.dtype, dev)
     coords3d = (coords3d - pr[0:3]) / (pr[3:6] - pr[0:3])
     coords3d = coords3d.reshape(b, k, d * 3)
     pos_in = inverse_sigmoid(coords3d)
@@ -253,7 +260,7 @@ def temporal_alignment(head: StreamPETRHead, cfg: StreamPETRHeadConfig,
     (streampetr_head.py:342-396)."""
     b = query_pos.shape[0]
     dev = query_pos.device
-    pc = torch.tensor(cfg.pc_range, dtype=torch.float32, device=dev)
+    pc = const_vector(cfg.pc_range, torch.float32, dev)
     temp_ref_norm = (bank.reference_point - pc[:3]) / (pc[3:6] - pc[:3])
     temp_pos = mlp_relu(head.query_embedding,
                         pos2posemb3d(temp_ref_norm,
@@ -341,8 +348,7 @@ def head_forward(head: StreamPETRHead, cfg: StreamPETRHeadConfig, feats,
         all_box.append(torch.cat([xyz, tmp[..., 3:]], dim=-1))
     all_cls_scores = torch.stack(all_cls)
     all_bbox_preds = torch.stack(all_box)
-    pc = torch.tensor(cfg.pc_range, dtype=all_bbox_preds.dtype,
-                      device=feats.device)
+    pc = const_vector(cfg.pc_range, all_bbox_preds.dtype, feats.device)
     xyz = all_bbox_preds[..., 0:3] * (pc[3:6] - pc[0:3]) + pc[0:3]
     all_bbox_preds = torch.cat([xyz, all_bbox_preds[..., 3:]], dim=-1)
     bank = post_update_memory(cfg, bank, data["timestamp"], data["ego_pose"],

@@ -18,6 +18,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..layers import MLN, lin, ln, mln
+from ..ops.consts import const_vector
 from ..ops.posenc import (nerf_positional_encoding, pos2posemb1d,
                           pos2posemb3d)
 
@@ -79,8 +80,7 @@ def get_motion_aware_queries(p: Selector, cfg: SelectorConfig, temp_queries,
                              temp_ego_pose, ego_pose_inv):
     """History queries conditioned on motion (toc3d_utils.py:334-360)."""
     from ..core.boxes import transform_reference_points
-    pc = torch.tensor(cfg.pc_range, dtype=torch.float32,
-                      device=temp_queries.device)
+    pc = const_vector(cfg.pc_range, torch.float32, temp_queries.device)
     ref = transform_reference_points(temp_ref_points, ego_pose_inv)
     ref = (ref - pc[:3]) / (pc[3:6] - pc[:3])
     pos = pos2posemb3d(ref, num_pos_feats=cfg.query_dim // 2)

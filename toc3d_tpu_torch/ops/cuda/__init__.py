@@ -86,6 +86,23 @@ def cached_pack(module, name: str, key, build):
 
 
 def param_key(module, *extra):
-    tensors = list(module.parameters()) + list(module.buffers())
+    """``extra`` and the storage, version, dtype and device of every
+    parameter and buffer of ``module`` and its submodules, in one walk of
+    the module tree: any reload, in-place update, cast, replacement or new
+    buffer changes it."""
     return extra + tuple((t.data_ptr(), t._version, t.dtype, t.device)
-                         for t in tensors)
+                         for m in module.modules()
+                         for slots in (m._parameters, m._buffers)
+                         for t in slots.values() if t is not None)
+
+
+def counted_wrappers():
+    """Every kernel wrapper that counts its launches in ``launches``: A,
+    B, C, D, B8, C8, H8, then G (every bf16 matmul of B and C), G8 (every
+    int8 matmul of B8 and C8) and the blocks' LayerNorm."""
+    from . import cross_attn, int8, patch_embed, vit_block
+    return (patch_embed.patchify_matmul, vit_block.fused_full_block,
+            vit_block.fused_compressed_block, cross_attn.flash_attention_core,
+            vit_block.fused_full_block_int8,
+            vit_block.fused_compressed_block_int8, int8.int8_linear,
+            vit_block._gemm, int8.gemm_s8_sm90, vit_block.layernorm)

@@ -8,6 +8,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .consts import device_const
+
 _A = -0.75
 
 
@@ -37,11 +39,16 @@ def bicubic_weight_matrix(n_in: int, n_out: int) -> np.ndarray:
     return out.astype(np.float32)
 
 
+def _matrix(n_in: int, n_out: int, device):
+    return device_const(("bicubic", n_in, n_out), device, lambda: (
+        torch.from_numpy(bicubic_weight_matrix(n_in, n_out))))
+
+
 def resize_bicubic_2d(x, out_h: int, out_w: int):
     """x: (..., H, W) -> (..., out_h, out_w) in f32, cast back to x.dtype."""
     h, w = x.shape[-2], x.shape[-1]
-    wh = torch.from_numpy(bicubic_weight_matrix(h, out_h)).to(x.device)
-    ww = torch.from_numpy(bicubic_weight_matrix(w, out_w)).to(x.device)
+    wh = _matrix(h, out_h, x.device)
+    ww = _matrix(w, out_w, x.device)
     y = torch.einsum("oh,...hw->...ow", wh, x.float())
     y = torch.einsum("pw,...ow->...op", ww, y)
     return y.to(x.dtype)

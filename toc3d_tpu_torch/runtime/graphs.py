@@ -1,0 +1,170 @@
+"""The streaming frame as captured CUDA graphs (counterpart of
+toc3d_tpu/models/detector.py :: make_infer_fn, :369-406, which jit-compiles
+the frame as two programs).
+
+Run eagerly, a frame pays the host for every launch: about two thousand
+kernels, each behind Python checks and a ctypes call, so the card idles
+for most of it. Captured, the host replays three graphs:
+
+* backbone + neck (``extract_img_feat``), one graph per value of
+  ``steady``. JAX picks the first-frame selector branch on the device
+  (``lax.cond``, token_select.py:227); here the host reads it from the
+  frame's ``prev_exists`` (``is_steady``: no device read when the frame
+  lies on the host) and replays the matching graph. Both write the neck
+  features into one buffer allocated outside the graphs;
+* head + decode (``head_step``), one graph.
+
+Each call copies the frame and the memory bank into static input buffers
+(a host frame in pinned memory is copied without blocking the host), replays
+the two programs and returns the state and boxes as fresh tensors, copied
+out of the graph's outputs, so results a caller holds are never overwritten
+by a later replay.
+
+A program's first use runs eagerly on a side stream and is that frame's
+result; it also does what a capture cannot: the kernels' shared-memory
+attributes and tensor maps, the cached constants and weight packs, the
+libraries' handles and workspaces. The program is then captured on the same
+stream. The three graphs share one memory pool: they never run at once,
+and their outputs stay referenced, so no live tensor is reused.
+
+The graphs read the weight packs that ``precast_backbone_`` and
+``cached_pack`` built, at the addresses they had at capture. Every call
+therefore compares the model's weight key (``ops.cuda.param_key``: each
+parameter's and buffer's storage and version) with the one the graphs were
+captured under; a ``load_state_dict``, ``attach_act_scales`` or in-place
+update changes it, and the programs are packed and captured again. So does
+a frame or bank of other shapes. A capture or replay that fails raises;
+nothing falls back to eager execution.
+
+Launch counters: a replay runs no Python wrapper, so each program records
+every counter's change while it is captured (the capture itself launches
+nothing, and the counters are put back) and adds that change on each
+replay.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..models.detector import (DetectorState, extract_img_feat,
+                               frame_tensors, head_step, is_steady,
+                               precast_backbone_)
+from ..models.streampetr_head import MemoryBank
+from ..ops.cuda import counted_wrappers, param_key
+from .timer import span
+
+
+class _Program:
+    """One captured graph, its output and the launches each replay
+    makes."""
+
+    def __init__(self, graph, out, launches):
+        self.graph, self.out, self.launches = graph, out, launches
+
+    def replay(self):
+        self.graph.replay()
+        for f, n in self.launches:
+            f.launches += n
+        return self.out
+
+
+class CapturedInfer:
+    """``infer(state, frame) -> (state', DecodedBoxes)`` on a CUDA model,
+    as replayed CUDA graphs (see the module note). ``timer``: a
+    runtime.timer.StageTimer for the spans "inputs", "backbone+neck" and
+    "head+decode"."""
+
+    def __init__(self, model, timer=None):
+        self.model = model
+        self.timer = timer
+        self.device = next(model.parameters()).device
+        self.stream = torch.cuda.Stream(self.device)
+        self._reset()
+
+    def _reset(self):
+        """Pack the weights and take their key; the next call allocates
+        its buffers and captures anew."""
+        precast_backbone_(self.model)
+        self._key = param_key(self.model)
+        self._shapes = None
+
+    def _buffers(self, frame, bank):
+        """Static input buffers for this frame and bank: the frame's laid
+        out as its tensors (shape, strides, dtype), so each copy into them
+        is one plain copy, from pinned memory where the frame is pinned (a
+        host tensor of other strides would first be made contiguous in
+        pageable memory); the bank's contiguous. A change of layout drops
+        the graphs captured on the old buffers."""
+        shapes = tuple((k, tuple(t.shape), t.stride(), t.dtype)
+                       for k, t in frame.items()) + tuple(
+            (tuple(t.shape), t.dtype) for t in bank)
+        if shapes == self._shapes:
+            return
+        self._programs = {}
+        self._pool = torch.cuda.graph_pool_handle()
+        self._shapes = shapes
+        dev = self.device
+        self._frame = {k: torch.empty_strided(t.shape, t.stride(),
+                                              dtype=t.dtype, device=dev)
+                       for k, t in frame.items()}
+        self._bank = MemoryBank(*(torch.empty(t.shape, dtype=t.dtype,
+                                              device=dev) for t in bank))
+        self._feats = None
+
+    def _run(self, name, fn):
+        """Replay program ``name``; at its first use run ``fn`` eagerly (the
+        frame's result) and capture it."""
+        prog = self._programs.get(name)
+        if prog is not None:
+            return prog.replay()
+        main = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream):
+            out = fn()
+        main.wait_stream(self.stream)
+        counters = counted_wrappers()
+        before = [f.launches for f in counters]
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool, stream=self.stream):
+                captured = fn()
+        finally:
+            launches = [(f, f.launches - n) for f, n in zip(counters, before)]
+            for f, n in zip(counters, before):
+                f.launches = n
+        self._programs[name] = _Program(
+            graph, captured, [(f, n) for f, n in launches if n])
+        return out
+
+    def _backbone(self, steady):
+        def fn():
+            f = self._frame
+            feats = extract_img_feat(self.model, f["img"], self._bank, f,
+                                     steady=steady)
+            if self._feats is None:     # first eager run: the static output
+                self._feats = torch.empty_like(feats)
+            return self._feats.copy_(feats)
+        return fn
+
+    def _head(self):
+        return head_step(self.model, DetectorState(self._bank), self._feats,
+                         self._frame)
+
+    @torch.no_grad()
+    def __call__(self, state: DetectorState, frame):
+        steady = is_steady(frame)
+        if param_key(self.model) != self._key:
+            self._reset()
+        frame = frame_tensors(frame)
+        self._buffers(frame, state.memory)
+        with span(self.timer, "inputs"):
+            for k, t in frame.items():
+                self._frame[k].copy_(t, non_blocking=True)
+            for buf, t in zip(self._bank, state.memory):
+                buf.copy_(t, non_blocking=True)
+        with span(self.timer, "backbone+neck"):
+            self._run(("backbone+neck", steady), self._backbone(steady))
+        with span(self.timer, "head+decode"):
+            new_state, det = self._run("head+decode", self._head)
+            return (DetectorState(MemoryBank(*(t.clone()
+                                               for t in new_state.memory))),
+                    type(det)(*(t.clone() for t in det)))

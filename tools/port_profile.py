@@ -1,18 +1,25 @@
-"""Device-time breakdown of the PyTorch port's main path on one GPU.
+"""Device-time breakdown of the PyTorch port's main path on one GPU, eager
+and captured.
 
     python3 tools/port_profile.py [--frames 2] [--warmup 3] [--int8
                                   [--int8-calib N]]
 
 Builds ToC3D_faster_1600 with seeded random weights (6 views, 1600x800,
-batch 1, uint8 frames; with --int8 the backbone and decoder quant 'int8',
-dynamic, or static with scales calibrated on N synthetic frames as
-bench.py --int8 --int8-calib N does), streams ``warmup`` frames, then
-records ``frames``
-steady frames under torch.profiler and prints: the card's nvidia-smi name
-and power limit, the wall time per frame, the summed device time per CUDA
-kernel (top entries), the device time of the port's own kernels grouped by
-family, and the device idle share (1 - kernel time / wall time). Needs a CUDA
-card; exits non-zero without one.
+batch 1, uint8 frames built on the host in pinned memory; with --int8 the
+backbone and decoder quant 'int8', dynamic, or static with scales
+calibrated on N synthetic frames as bench.py --int8 --int8-calib N does).
+Then, in one process, for each of the two ways to run a frame: eager
+(``eager_infer_fn``, i.e. ``infer_step``) and captured (``make_infer_fn``,
+the frame as CUDA graphs), streams ``warmup`` frames, then records
+``frames`` steady frames under torch.profiler and prints: the wall time per
+frame, the summed device time of the CUDA kernels per frame (copies and
+fills not counted), the device idle share (1 - kernel time / wall time),
+the device time of the port's own kernels grouped by family and the top
+kernels; then the time per frame between the first and last kernel of each
+program from CUDA events (runtime/timer.py), which stands in for the
+kernel sum should the profiler see no kernel inside a replay. First line:
+the card's nvidia-smi name and power limit. Needs a CUDA card; exits
+non-zero without one.
 """
 from __future__ import annotations
 
@@ -44,6 +51,50 @@ FAMILIES = (("gemm_s8_sm90_kernel", "GEMM s8 wgmma G8 (B8, C8)"),
             ("flash_combine_kernel", "flash attention (D), combine"))
 
 
+def profile(infer, state, frames, warm, timer=None):
+    """Stream ``warm`` frames, then profile ``frames``; returns (state, wall
+    ms per frame, {kernel name: device ms summed})."""
+    import torch
+    for f in warm:
+        state, _ = infer(state, f)
+    torch.cuda.synchronize()
+    if timer is not None:
+        timer.reset()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for f in frames:
+            state, _ = infer(state, f)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / len(frames)
+    per_kernel = defaultdict(float)
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA \
+                and "Memcpy" not in ev.name and "Memset" not in ev.name:
+            per_kernel[ev.name] += ev.time_range.elapsed_us() / 1e3
+    return state, wall, per_kernel
+
+
+def report(label, wall, per_kernel, n, top):
+    total = sum(per_kernel.values())
+    print(f"{label}: wall {wall:.3f} ms/frame; device kernel time "
+          f"{total / n:.3f} ms/frame; device idle share "
+          f"{max(0.0, 1 - total / n / wall):.3f}", flush=True)
+    if not total:
+        return
+    fam = defaultdict(float)
+    for name, ms in per_kernel.items():
+        key = next((lab for pat, lab in FAMILIES if pat in name),
+                   "other (PyTorch glue)")
+        fam[key] += ms
+    for key, ms in sorted(fam.items(), key=lambda kv: -kv[1]):
+        print(f"  {key:30s} {ms / n:9.3f} ms/frame  {ms / total:6.1%}")
+    print("  top kernels (ms/frame):")
+    for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"  {ms / n:9.3f}  {name[:110]}")
+
+
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser()
@@ -57,12 +108,14 @@ def main() -> int:
         print("port_profile: no CUDA device", file=sys.stderr)
         return 2
     from toc3d_tpu_torch.configs import get_config
-    from toc3d_tpu_torch.models.detector import (build_detector, init_state,
+    from toc3d_tpu_torch.models.detector import (build_detector,
+                                                 eager_infer_fn, init_state,
                                                  make_infer_fn,
                                                  synthetic_frame)
     from toc3d_tpu_torch.ops.cuda import build
     from toc3d_tpu_torch.ops.int8_calib import (attach_act_scales,
                                                 calibrate_act_scales)
+    from toc3d_tpu_torch.runtime.timer import StageTimer
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
@@ -74,50 +127,38 @@ def main() -> int:
                       head=replace(cfg.head, decoder=replace(
                           cfg.head.decoder, quant="int8")))
     model = build_detector(cfg, device="cuda", seed=0)
-    g = torch.Generator(device="cuda").manual_seed(2)
+    g = torch.Generator().manual_seed(2)
     if args.int8_calib:
         with torch.no_grad():
             attach_act_scales(model, calibrate_act_scales(
-                model, [synthetic_frame(g, t)
+                model, [{k: v.cuda() for k, v in
+                         synthetic_frame(g, t, device="cpu").items()}
                         for t in range(args.int8_calib)]))
-    infer = make_infer_fn(model)
-    state = init_state(1, model.cfg, device="cuda")
-    with torch.no_grad():
-        for t in range(args.warmup):
-            state, _ = infer(state, synthetic_frame(g, t))
-        frames = [synthetic_frame(g, args.warmup + t)
-                  for t in range(args.frames)]
-        torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            for f in frames:
-                state, det = infer(state, f)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-    per_kernel = defaultdict(float)
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            per_kernel[ev.name] += ev.time_range.elapsed_us() / 1e3
-    total = sum(per_kernel.values())
-    n = args.frames
+    frames = [{k: v.pin_memory() for k, v in
+               synthetic_frame(g, t, device="cpu").items()}
+              for t in range(args.warmup + args.frames)]
+    warm, timed = frames[:args.warmup], frames[args.warmup:]
     mode = ("bf16" if not args.int8 else "int8 static" if args.int8_calib
             else "int8 dynamic")
-    print(f"{mode}: wall {wall / n:.3f} ms/frame; device kernel time "
-          f"{total / n:.3f} ms/frame; device idle share "
-          f"{max(0.0, 1 - total / wall):.3f}")
-    fam = defaultdict(float)
-    for name, ms in per_kernel.items():
-        key = next((label for pat, label in FAMILIES if pat in name),
-                   "other (PyTorch glue)")
-        fam[key] += ms
-    for key, ms in sorted(fam.items(), key=lambda kv: -kv[1]):
-        print(f"  {key:30s} {ms / n:9.3f} ms/frame  {ms / total:6.1%}")
-    print("top kernels (ms/frame):")
-    for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[
-            :args.top]:
-        print(f"  {ms / n:9.3f}  {name[:110]}")
+    n = args.frames
+    for name, make in (("eager", eager_infer_fn),
+                       ("captured", make_infer_fn)):
+        timer = StageTimer("cuda")
+        infer = make(model, timer)
+        with torch.no_grad():
+            _, wall, kern = profile(infer, init_state(1, cfg, device="cuda"),
+                                    timed, warm, timer)
+        report(f"{mode} {name}", wall, kern, n, args.top)
+        spans = timer.summary()
+        dev_ms = spans["backbone+neck"]["mean"] + spans["head+decode"]["mean"]
+        print(f"{mode} {name}, CUDA events: backbone+neck "
+              f"{spans['backbone+neck']['mean']:.3f} + head+decode "
+              f"{spans['head+decode']['mean']:.3f} = {dev_ms:.3f} ms/frame "
+              f"between the programs' first and last kernels (inputs "
+              f"{spans['inputs']['mean']:.3f}); idle share by events "
+              f"{max(0.0, 1 - dev_ms / wall):.3f}"
+              + ("" if kern else "; the profiler saw no kernel"), flush=True)
+        del infer
     return 0
 
 
