@@ -7,17 +7,18 @@ Phases, each fatal on failure (exit code != 0):
   2. build: compiles every kernel of the main path from toc3d_tpu_torch/csrc
      (one nvcc per source, in parallel) into build/kernels/;
   3. check: each kernel (A patch embed: im2col and kernel G's product, B
-     full block, C compressed block at
-     its six main-path shapes, D split-K flash attention, G the bf16 TMA +
-     wgmma GEMM of B and C alone at its four GEMMs for B's 30001 rows and
-     C's largest row count, 21504) on the card at the main-path shapes of
-     ToC3D_faster_1600, in bf16, against its plain PyTorch version, and the
-     attention deltas of B and C alone; G8, G's int8 form behind B8 and
-     C8, at the same eight shapes with dynamic and static scales, bit for
-     bit against the mma.sync s8 tile at all four epilogues and against
-     its plain version; the LayerNorm of B, C, B8 and C8 alone at each call
-     site (LN1, LN2, the SwiGLU sub-LN; B's and C's row counts) in bf16,
-     int8 dynamic and int8 static, and the window attention and row
+     full block, C compressed block at each block shape of the frame
+     (block_shapes: B at ws 16 and 20, C at each ratio at both), D split-K
+     flash attention, G the bf16 TMA + wgmma GEMM of B and C alone at its
+     four GEMMs for B's 30001 rows and C's largest row count, 21504) on
+     the card at the main-path shapes of ToC3D_faster_1600, in bf16,
+     against its plain PyTorch version, and the attention deltas of B and C
+     alone; G8, G's int8 form behind B8 and C8, at the same eight shapes
+     with dynamic and static scales, bit for bit against the mma.sync s8
+     tile at all four epilogues and against its plain version
+     (check_gemms); the LayerNorm of B, C, B8 and C8 alone at each call
+     site of each block shape (ln_sites: LN1, LN2, the SwiGLU sub-LN) in
+     bf16, int8 dynamic and int8 static, and the window attention and row
      quantization alone;
   4. time: each kernel, its plain version and a PyTorch yardstick
      (library_ms) with CUDA events, beside the bound for the same work (C
@@ -42,14 +43,36 @@ Phases, each fatal on failure (exit code != 0):
      host cost; then the `tiny` preset in bf16 against the plain path on
      the CPU as a small-input agreement check;
   6. int8: the int8 blocks B8 (ws 16, 20) and C8 (the six main-path
-     shapes), dynamic and with static scales, and the head's int8 linear
-     H8, checked and timed as in 3-4; the int8 main path (backbone and
-     decoder quant 'int8') streamed for 6 frames with per-row (dynamic)
-     activation scales, then calibrated on 2 frames and streamed again
-     with static scales, each captured and eager as in 5 and checking A 1,
-     B8 6, C8 18, D 12, H8 60, G8 96, LN 72 and bf16 B / C / G 0 per
-     frame; the tiny int8 small-input agreement, dynamic and static;
-  7. report: a {"kernels": [...]} JSON line, the nvidia-smi line, and last
+     shapes), dynamic and with static scales (check_block), and the head's
+     int8 linear H8, checked and timed as in 3-4; the int8 main path
+     (backbone and decoder quant 'int8') streamed for 6 frames with
+     per-row (dynamic) activation scales, then calibrated on 2 frames and
+     streamed again with static scales, each captured and eager as in 5
+     and checking A 1, B8 6, C8 18, D 12, H8 60, G8 96, LN 72 and bf16
+     B / C / G 0 per frame; the tiny int8 small-input agreement, dynamic
+     and static;
+  7. the other presets: their kernel shapes (phase_preset_shapes), each
+     derived from the preset's config as the main path's are and not
+     already held by it: A at 800x320 at both widths; every (width, map,
+     window size, ratio) block shape of the nine full-width presets as B /
+     C in bf16 and B8 / C8 dynamic and static (ViT-L at 20 x 50 and
+     1600x800's ratio .7, ViT-B at width 768 with 12 heads and hidden
+     2048); G / G8 at each width's GEMMs for each map's B rows and largest
+     C rows; the LayerNorm at every call site of those blocks; D with
+     6000 keys; checked and timed as in 3-4;
+     their paths (phase_presets), each with the counts set to 0 just before
+     it and read just after, captured against eager bit for bit:
+     stream_petr_eva_vit_l_1600 (the plain backbone) for 6 frames in bf16
+     (A 1, B 24, C 0, D 12, G 96, LN 72, no selector run) and int8
+     dynamic (B8 24, G8 96, H8 60, B / C / G 0), ToC3D_fast and
+     ToC3D_vit_b_faster at 800x320 for 3 frames (A 1, B 6 / 3, C 18 / 9,
+     D 12, G 96 / 48, LN 72 / 36); eval_mask 'gumbel' on the tiny preset
+     (phase_gumbel): captured equal to eager from one mask_seed, two
+     replays on one state and frame different, the global generator
+     untouched; the tiny small-input agreement with the plain backbone
+     (the card and the CPU's own bf16 stream each against an f32 run: the
+     card's distance at most 1.25 times the CPU's);
+  8. report: a {"kernels": [...]} JSON line, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 The kernels' plain versions compute in f32 (TF32 off for matmuls and
 convolutions).
@@ -66,10 +89,6 @@ PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 PEAK_INT8_OPS = 1979e12      # H100 SXM dense int8 tensor-core peak
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 
-# the main path's compressed blocks (block, ratio): each ratio segment at
-# ws 16 and at ws 20 (the global layers)
-C_SHAPES = ((6, 0.5), (8, 0.5), (12, 0.4), (14, 0.4), (18, 0.3), (20, 0.3))
-
 # kernel tolerance on the card, bf16 kernel vs its plain version on the same
 # inputs: max |err| <= 2^-5 * max |plain| and mean |err| <= 2^-6 * mean
 # |plain| (bf16 keeps 8 bits; accumulation order flips the last bit of
@@ -78,10 +97,6 @@ TOL_MAX_REL = 2.0 ** -5
 TOL_MEAN_REL = 2.0 ** -6
 # kernel G's f32 output against its plain version: the sums' order only
 TOL_F32_REL = 1e-5
-
-# kernel G's four GEMMs of a ViT-L block: (N, K, epilogue)
-G_SHAPES = {"qkv": (3072, 1024, "f32"), "o": (1024, 1024, "res"),
-            "gate": (5472, 1024, "gate"), "w3": (1024, 2736, "res")}
 
 
 def log(*a):
@@ -274,15 +289,17 @@ def block_weight_bytes(c, hid):
     return (3 * c * c + c * c + 2 * hid * c + hid * c) * 2 + (8 * c + 3 * hid) * 4
 
 
-def full_block_work(b, h, w, c, hid, ws):
+def full_block_work(b, h, w, c, hid, ws, d=64):
+    """(flops, bytes) of one B call; d: the head dim (the RoPE tables' width
+    is d)."""
     nwh, nww = -(-h // ws), -(-w // ws)
     nw, n, m = b * nwh * nww, ws * ws, b * h * w
     flops = 2 * m * c * (4 * c + 3 * hid) + 4 * nw * n * n * c
-    nbytes = 2 * m * c * 2 + block_weight_bytes(c, hid) + 2 * n * (c // 16) * 4
+    nbytes = 2 * m * c * 2 + block_weight_bytes(c, hid) + 2 * n * d * 4
     return flops, nbytes
 
 
-def compressed_block_work(b, h, w, c, hid, ws, k, has_rep):
+def compressed_block_work(b, h, w, c, hid, ws, k, has_rep, d=64):
     nwh, nww = -(-h // ws), -(-w // ws)
     nw, n, m = b * nwh * nww, ws * ws, b * h * w
     kr = k + int(has_rep)
@@ -290,7 +307,7 @@ def compressed_block_work(b, h, w, c, hid, ws, k, has_rep):
     flops = (2 * rows * c * (4 * c + 3 * hid) + 4 * nw * kr * kr * c
              + 2 * nw * (n - k) * c * int(has_rep))
     nbytes = (2 * m * c * 2 + m * 2 + block_weight_bytes(c, hid)
-              + 2 * n * (c // 16) * 4)
+              + 2 * n * d * 4)
     return flops, nbytes
 
 
@@ -300,16 +317,16 @@ def block_weight_bytes_int8(c, hid):
         + (8 * c + 3 * hid) * 4
 
 
-def full_block_work_int8(b, h, w, c, hid, ws):
+def full_block_work_int8(b, h, w, c, hid, ws, d=64):
     """(int8 ops, bf16 flops, bytes) of one B8 call."""
     nwh, nww = -(-h // ws), -(-w // ws)
     nw, n, m = b * nwh * nww, ws * ws, b * h * w
     nbytes = (2 * m * c * 2 + block_weight_bytes_int8(c, hid)
-              + 2 * n * (c // 16) * 4)
+              + 2 * n * d * 4)
     return 2 * m * c * (4 * c + 3 * hid), 4 * nw * n * n * c, nbytes
 
 
-def compressed_block_work_int8(b, h, w, c, hid, ws, k, has_rep):
+def compressed_block_work_int8(b, h, w, c, hid, ws, k, has_rep, d=64):
     """(int8 ops, bf16 flops, bytes) of one C8 call."""
     nwh, nww = -(-h // ws), -(-w // ws)
     nw, n, m = b * nwh * nww, ws * ws, b * h * w
@@ -317,7 +334,7 @@ def compressed_block_work_int8(b, h, w, c, hid, ws, k, has_rep):
     rows = nw * kr
     flops = 4 * nw * kr * kr * c + 2 * nw * (n - k) * c * int(has_rep)
     nbytes = (2 * m * c * 2 + m * 2 + block_weight_bytes_int8(c, hid)
-              + 2 * n * (c // 16) * 4)
+              + 2 * n * d * 4)
     return 2 * rows * c * (4 * c + 3 * hid), flops, nbytes
 
 
@@ -348,15 +365,33 @@ def phase_build():
         f"{build.occupancy('cross_attn', 'toc3d_flash_occupancy', 32)}")
 
 
+def keep_row(results, key, entry, name, source, replaces, **extra):
+    """The first entry of a kernel is its row of the kernels line; the
+    row's max_abs_err is the largest over every shape checked."""
+    if key not in results:
+        results[key] = dict(name=name, route="cuda", source=source,
+                            replaces=replaces, **extra, **entry)
+    results[key]["max_abs_err"] = max(results[key]["max_abs_err"],
+                                      entry["max_abs_err"])
+
+
+BLOCK_ROWS = {
+    "B": ("fused_full_block", "toc3d_tpu/ops/pallas/vit_block.py:602"),
+    "C": ("fused_compressed_block", "toc3d_tpu/ops/pallas/vit_block.py:819"),
+    "B8": ("fused_full_block_int8", "toc3d_tpu/ops/pallas/vit_block.py:602"),
+    "C8": ("fused_compressed_block_int8",
+           "toc3d_tpu/ops/pallas/vit_block.py:819")}
+
+
 def phase_kernels(model, results):
     """Check and time every kernel at its main-path shapes."""
     import torch
     from toc3d_tpu_torch.models.eva_vit import make_rope_tables, rope_tensors
-    from toc3d_tpu_torch.ops.cuda import cross_attn, patch_embed, vit_block
+    from toc3d_tpu_torch.ops.cuda import patch_embed, vit_block
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
     cfg = model.cfg.backbone
-    c, heads = cfg.embed_dim, cfg.num_heads
+    c = cfg.embed_dim
     bf = torch.bfloat16
     ok_all = True
     win, glb = make_rope_tables(cfg)
@@ -407,196 +442,238 @@ def phase_kernels(model, results):
     log(f"time A: {json.dumps(results['A'])}")
     del x_img, xin, out, ref, cols, out2
 
-    # B: full block at ws 16 (blocks 0, 1, 3, 4) and ws 20 (blocks 2, 5)
+    # B at ws 16 and ws 20, C at every ratio segment at both window sizes
     x = (torch.randn(6, 50, 100, c, device=dev, generator=g) * 0.5).to(bf)
-    hid = int(c * cfg.mlp_ratio)
-    b_err = 0.0
-    for blk_i in (0, 2):
-        blk = model.img_backbone.blocks[blk_i]
-        ws = cfg.global_window_size if blk_i in cfg.global_attn_indexes \
-            else cfg.window_size
-        wts = vit_block.pack_block_weights(blk, heads, bf)
-        out = vit_block.fused_full_block(blk, x, heads, ws, rope[ws])
-        ref = vit_block.full_block_plain(wts, x, heads, ws, rope[ws])
-        ok, err = compare(f"B full block ws{ws} (6,50,100,1024)", out, ref)
-        ok_all &= ok
-        b_err = max(b_err, err)
-        ok_all &= compare(
-            f"B attention delta ws{ws}",
-            vit_block.attention_delta(blk, x, heads, ws, rope[ws]),
-            vit_block.attention_delta_plain(wts, x, heads, ws, rope[ws]))[0]
-        flops, nbytes = full_block_work(6, 50, 100, c, hid, ws)
-        b_ms, b_by = bound(flops, nbytes)
-        entry = dict(
-            shape=f"x (6,50,100,1024) bf16, ws {ws}",
-            ms=cuda_time(lambda: vit_block.fused_full_block(
-                blk, x, heads, ws, rope[ws]), 10),
-            plain_ms=cuda_time(lambda: vit_block.full_block_plain(
-                wts, x, heads, ws, rope[ws]), 3),
-            library_ms=cuda_time(lambda: lib_full_block(
-                wts, x, heads, ws, rope[ws]), 10),
-            bound_ms=b_ms, bound_by=b_by)
-        log(f"time B ws{ws}: {json.dumps(entry)}")
-        if "B" not in results:
-            results["B"] = dict(
-                name="fused_full_block", route="cuda",
-                source="toc3d_tpu_torch/csrc/vit_block.cu",
-                replaces="toc3d_tpu/ops/pallas/vit_block.py:602", **entry)
-        del out, ref
-    results["B"]["max_abs_err"] = b_err
-
-    # C: compressed blocks, every ratio segment at both window sizes
     scores = torch.randn(6, 5000, device=dev, generator=g).to(bf)
-    c_err = 0.0
-    for blk_i, ratio in C_SHAPES:
-        blk = model.img_backbone.blocks[blk_i]
-        ws = cfg.global_window_size if blk_i in cfg.global_attn_indexes \
-            else cfg.window_size
-        wts = vit_block.pack_block_weights(blk, heads, bf)
-        make_plan = lambda: vit_block.compress_plan(
-            scores, 6, 50, 100, ws, ratio, True, cfg.mxu_align_k)
-        plan = make_plan()
-        out = vit_block.fused_compressed_block(
-            blk, x, scores, heads, ws, ratio, rope[ws], True, True,
-            cfg.mxu_align_k)
-        ref = vit_block.compressed_block_plain(wts, x, plan, heads, ws,
-                                               rope[ws])
-        ok, err = compare(f"C compressed ws{ws} ratio {ratio} k {plan.k}",
-                          out, ref)
+    for i, ws, ratio in block_shapes(cfg):
+        key = "B" if ratio is None else "C"
+        tag = f"{key} ws{ws}" + ("" if ratio is None else f" r{ratio}")
+        ok, entry = check_block(tag, model.img_backbone.blocks[i], x, cfg,
+                                ws, rope[ws], scores, ratio, reps=10)
         ok_all &= ok
-        c_err = max(c_err, err)
-        # the k + 1 gathered rows, RoPE at the kept positions and row k
-        ok_all &= compare(
-            f"C attention delta ws{ws} ratio {ratio} (rows)",
-            vit_block.attention_delta(blk, x, heads, ws, rope[ws], plan),
-            vit_block.attention_delta_plain(wts, x, heads, ws, rope[ws],
-                                            plan))[0]
-        flops, nbytes = compressed_block_work(6, 50, 100, c, hid, ws, plan.k,
-                                              plan.has_rep)
-        b_ms, b_by = bound(flops, nbytes)
-        # kernel and yardstick both route the tokens (compress_plan) inside
-        # the timed call; the plan's own time and the yardstick with the
-        # plan made beforehand are logged beside
-        entry = dict(
-            shape=f"x (6,50,100,1024) bf16, ws {ws}, ratio {ratio}, "
-                  f"k {plan.k}",
-            ms=cuda_time(lambda: vit_block.fused_compressed_block(
-                blk, x, scores, heads, ws, ratio, rope[ws], True, True,
-                cfg.mxu_align_k), 10),
-            plain_ms=cuda_time(lambda: vit_block.compressed_block_plain(
-                wts, x, plan, heads, ws, rope[ws]), 3),
-            library_ms=cuda_time(lambda: lib_compressed_block(
-                wts, x, make_plan(), heads, ws, rope[ws]), 10),
-            library_ms_plan_outside=cuda_time(lambda: lib_compressed_block(
-                wts, x, plan, heads, ws, rope[ws]), 10),
-            plan_ms=cuda_time(make_plan, 10),
-            bound_ms=b_ms, bound_by=b_by)
-        log(f"time C ws{ws} r{ratio}: {json.dumps(entry)}")
-        if "C" not in results:
-            results["C"] = dict(
-                name="fused_compressed_block", route="cuda",
-                source="toc3d_tpu_torch/csrc/vit_block.cu",
-                replaces="toc3d_tpu/ops/pallas/vit_block.py:819", **entry)
-        del out, ref
-    results["C"]["max_abs_err"] = c_err
-    del x
+        keep_row(results, key, entry, BLOCK_ROWS[key][0],
+                 "toc3d_tpu_torch/csrc/vit_block.cu", BLOCK_ROWS[key][1])
+    del x, scores
 
     # D: decoder cross-attention (K = 30000) and self-attention (K = 1668)
-    d_err = 0.0
+    for kv in (30000, 1668):
+        ok, entry = check_flash(kv, g)
+        ok_all &= ok
+        keep_row(results, "D", entry, "flash_attention_core",
+                 "toc3d_tpu_torch/csrc/cross_attn.cu",
+                 "toc3d_tpu/ops/pallas/cross_attn.py:118")
+    ok_g = phase_gemm(results, g)
+    ok_r = phase_rows(model, results)
+    return ok_g and ok_r and ok_all
+
+
+def check_flash(kv, g, reps=20):
+    """Kernel D on q (1,900,256) against k/v (1,kv,256), 8 heads, against
+    its plain version, timed beside SDPA and the bound. Returns
+    (ok, entry)."""
+    import torch
+    from toc3d_tpu_torch.ops.cuda import cross_attn
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
     hd = 8
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for kv in (30000, 1668):
-        q = (torch.randn(1, 900, 256, device=dev, generator=g)
-             * (3 * 32 ** -0.5)).to(bf)
-        k = torch.randn(1, kv, 256, device=dev, generator=g).to(bf)
-        v = torch.randn(1, kv, 256, device=dev, generator=g).to(bf)
-        out = cross_attn.flash_attention_core(q, k, v, hd)
-        ref = cross_attn.flash_attention_plain(q, k, v, hd)
-        splits, per = cross_attn.flash_splits(900, kv, hd, 1, sms)
-        blocks = -(-900 // cross_attn.QUERY_TILE) * hd * splits
-        ok, err = compare(f"D flash q (1,900,256) k/v (1,{kv},256), "
-                          f"{splits} splits of {per} key tiles, {blocks} "
-                          f"blocks on {sms} SMs", out, ref)
-        ok_all &= ok
-        d_err = max(d_err, err)
-        sh = lambda t: t.reshape(1, -1, hd, 32).transpose(1, 2)
-        b_ms, b_by = bound(4 * 900 * kv * 256, (900 * 2 + kv * 2) * 256 * 2)
-        entry = dict(
-            shape=f"q (1,900,256) k/v (1,{kv},256) bf16, 8 heads",
-            ms=cuda_time(lambda: cross_attn.flash_attention_core(q, k, v, hd),
-                         20),
-            plain_ms=cuda_time(lambda: cross_attn.flash_attention_plain(
-                q, k, v, hd), 5),
-            library_ms=cuda_time(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    sh(q), sh(k), sh(v), scale=1.0), 20),
-            bound_ms=b_ms, bound_by=b_by)
-        log(f"time D kv{kv}: {json.dumps(entry)}")
-        if "D" not in results:
-            results["D"] = dict(
-                name="flash_attention_core", route="cuda",
-                source="toc3d_tpu_torch/csrc/cross_attn.cu",
-                replaces="toc3d_tpu/ops/pallas/cross_attn.py:118", **entry)
-    results["D"]["max_abs_err"] = d_err
-    ok_g = phase_gemm(results, g)
-    ok_g8 = phase_gemm_s8(results, g)
-    ok_r = phase_rows(model, results)
-    return ok_g and ok_g8 and ok_r and ok_all
+    q = (torch.randn(1, 900, 256, device=dev, generator=g)
+         * (3 * 32 ** -0.5)).to(bf)
+    k = torch.randn(1, kv, 256, device=dev, generator=g).to(bf)
+    v = torch.randn(1, kv, 256, device=dev, generator=g).to(bf)
+    splits, per = cross_attn.flash_splits(900, kv, hd, 1, sms)
+    blocks = -(-900 // cross_attn.QUERY_TILE) * hd * splits
+    ok, err = compare(f"D flash q (1,900,256) k/v (1,{kv},256), {splits} "
+                      f"splits of {per} key tiles, {blocks} blocks on {sms} "
+                      f"SMs", cross_attn.flash_attention_core(q, k, v, hd),
+                      cross_attn.flash_attention_plain(q, k, v, hd))
+    sh = lambda t: t.reshape(1, -1, hd, 32).transpose(1, 2)
+    b_ms, b_by = bound(4 * 900 * kv * 256, (900 * 2 + kv * 2) * 256 * 2)
+    entry = dict(
+        shape=f"q (1,900,256) k/v (1,{kv},256) bf16, 8 heads",
+        max_abs_err=err,
+        ms=cuda_time(lambda: cross_attn.flash_attention_core(q, k, v, hd),
+                     reps),
+        plain_ms=cuda_time(lambda: cross_attn.flash_attention_plain(
+            q, k, v, hd), 3),
+        library_ms=cuda_time(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                sh(q), sh(k), sh(v), scale=1.0), reps),
+        bound_ms=b_ms, bound_by=b_by)
+    log(f"time D kv{kv}: {json.dumps(entry)}")
+    return ok, entry
 
 
-def phase_gemm(results, g):
-    """Kernel G alone: the four GEMMs of a block at B's 30001 rows and C's
-    largest row count (21504, ws 16 ratio .5) against gemm_bf16_plain,
-    timed beside F.linear on the same operands."""
+def check_patch_embed(h, w, c, g):
+    """Kernel A on a (6, h, w, 3) image to width c with a fresh stride-16
+    convolution, against its plain version, timed beside F.conv2d and the
+    bound. Returns ok."""
+    import torch
+    from toc3d_tpu_torch.ops.cuda import patch_embed
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    x_img = torch.randn(6, h, w, 3, device=dev, generator=g).to(bf)
+    conv = torch.nn.Conv2d(3, c, 16, stride=16).to(dev)
+    wmat, bias = patch_embed.pack_patch_weight(conv, bf)
+    shape = f"(6,{h},{w},3)->(6,{h // 16},{w // 16},{c})"
+    ok, err = compare(f"A patchify {shape}",
+                      patch_embed.patchify_matmul(x_img, wmat, bias, 16),
+                      patch_embed.patchify_plain(x_img, wmat, bias, 16))
+    m = 6 * (h // 16) * (w // 16)
+    b_ms, b_by = bound(2 * m * 768 * c, x_img.numel() * 2
+                       + wmat.numel() * 2 + m * c * 2)
+    xin, wc, bc = x_img.permute(0, 3, 1, 2), conv.weight.to(bf), \
+        conv.bias.to(bf)
+    log(f"time A {shape}: " + json.dumps(dict(
+        shape=f"x {shape} bf16", max_abs_err=err,
+        ms=cuda_time(lambda: patch_embed.patchify_matmul(
+            x_img, wmat, bias, 16), 20),
+        plain_ms=cuda_time(lambda: patch_embed.patchify_plain(
+            x_img, wmat, bias, 16), 3),
+        library_ms=cuda_time(lambda: torch.nn.functional.conv2d(
+            xin, wc, bc, stride=16), 20),
+        bound_ms=b_ms, bound_by=b_by)))
+    return ok
+
+
+def gemm_shapes(c, hid):
+    """Kernel G's four GEMMs of a block of width c and SwiGLU hidden width
+    hid (padded to a multiple of 16): {name: (N, K, epilogue)}."""
+    hp = -(-hid // 16) * 16
+    return {"qkv": (3 * c, c, "f32"), "o": (c, c, "res"),
+            "gate": (2 * hp, c, "gate"), "w3": (c, hp, "res")}
+
+
+def check_gemms(tag, m, shapes, g, reps=20, on_entry=None):
+    """Kernels G and G8 alone at ``shapes`` ({name: (N, K, epilogue)}) for
+    m rows. G against gemm_bf16_plain (f32 out within TOL_F32_REL, bf16
+    within the kernel bounds). G8 on int8 operands over their whole range,
+    with per-row (dynamic) and one static activation scale: each of the
+    four epilogues bit for bit the mma.sync s8 tile's (gemm_s8), and the
+    shape's own epilogue its plain version (f32 exactly, bf16 within the
+    kernel bounds). Each timed beside its bound, its plain version and
+    F.linear / torch._int_mm on the same operands (the bare product; G8
+    beside the mma.sync tile too). on_entry(kernel, name, mode, entry) sees
+    each timing entry. Returns (ok, largest G error, largest G8 error)."""
     import torch
     import torch.nn.functional as F
-    from toc3d_tpu_torch.ops.cuda import vit_block
+    from toc3d_tpu_torch.ops.cuda import int8, vit_block
     dev = torch.device("cuda")
     bf = torch.bfloat16
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    ok_all, g_err = True, 0.0
-    for m in (30001, 21504):
-        for name, (n, k, epi) in G_SHAPES.items():
-            a = torch.randn(m, k, device=dev, generator=g).to(bf)
-            w = (torch.randn(n, k, device=dev, generator=g)
-                 * k ** -0.5).to(bf)
-            res = (torch.randn(m, n, device=dev, generator=g).to(bf)
-                   if epi == "res" else None)
-            kw = dict(bias=torch.randn(n, device=dev, generator=g) * 0.1,
-                      res=res, out_f32=epi == "f32", gate=epi == "gate")
-            out = vit_block.gemm_bf16(a, w, **kw)
-            ref = vit_block.gemm_bf16_plain(a, w, **kw)
-            # the persistent grid: min(tiles, SMs) blocks of 128 x 256 tiles
-            tiles = -(-m // 128) * -(-n // 256)
-            grid = min(tiles, sms)
-            tag = (f"G {name} ({m},{k}) x ({n},{k}) {epi}, {grid} blocks x "
-                   f"{-(-tiles // grid)} tiles")
+    ok_all, g_err, g8_err = True, 0.0, 0.0
+    epilogues = {"f32": dict(out_f32=True), "res": {}, "gate": dict(gate=True),
+                 "bf16": {}}
+    for name, (n, k, epi) in shapes.items():
+        # the persistent grid: min(tiles, SMs) blocks of 128 x 256 tiles
+        tiles = -(-m // 128) * -(-n // 256)
+        grid = min(tiles, sms)
+        out_bytes = m * (n // 2 * 2 if epi == "gate" else
+                         n * (4 if epi == "f32" else 2))
+        a = torch.randn(m, k, device=dev, generator=g).to(bf)
+        w = (torch.randn(n, k, device=dev, generator=g) * k ** -0.5).to(bf)
+        res = torch.randn(m, n, device=dev, generator=g).to(bf)
+        bias = torch.randn(n, device=dev, generator=g) * 0.1
+        kw = dict(bias=bias, res=res if epi == "res" else None,
+                  out_f32=epi == "f32", gate=epi == "gate")
+        out = vit_block.gemm_bf16(a, w, **kw)
+        ref = vit_block.gemm_bf16_plain(a, w, **kw)
+        gtag = (f"G {tag} {name} ({m},{k}) x ({n},{k}) {epi}, {grid} blocks "
+                f"x {-(-tiles // grid)} tiles")
+        if epi == "f32":
+            err = (out - ref).abs().max().item()
+            tol = TOL_F32_REL * ref.abs().max().item()
+            ok = math.isfinite(err) and err <= tol
+            log(f"check {gtag}: max_abs {err:.6g} (tol {tol:.6g}) "
+                f"{'ok' if ok else 'FAIL'}")
+        else:
+            ok, err = compare(gtag, out, ref)
+        ok_all &= ok
+        g_err = max(g_err, err)
+        b_ms, b_by = bound(2 * m * n * k, (m + n) * k * 2 + n * 4 + out_bytes
+                           + (m * n * 2 if epi == "res" else 0))
+        entry = dict(
+            shape=f"{name}: a ({m},{k}) bf16, w ({n},{k}), {epi}",
+            max_abs_err=err,
+            ms=cuda_time(lambda: vit_block.gemm_bf16(a, w, out=out, **kw),
+                         reps),
+            plain_ms=cuda_time(lambda: vit_block.gemm_bf16_plain(a, w, **kw),
+                               1, warmup=1),
+            library_ms=cuda_time(lambda: F.linear(a, w), reps),
+            bound_ms=b_ms, bound_by=b_by)
+        log(f"time G {tag} {name} m{m}: {json.dumps(entry)}")
+        if on_entry is not None:
+            on_entry("G", name, None, entry)
+        del a, w, out, ref
+        aq = torch.randint(-127, 128, (m, k), device=dev, generator=g,
+                           dtype=torch.int8)
+        wq = torch.randint(-127, 128, (n, k), device=dev, generator=g,
+                           dtype=torch.int8)
+        ws = torch.rand(n, device=dev, generator=g) * 1e-4 + 1e-5
+        for mode in ("dynamic", "static"):
+            xs = (torch.rand(m if mode == "dynamic" else 1, device=dev,
+                             generator=g) * 0.01 + 1e-3)
+            same = []
+            for e, ekw in epilogues.items():
+                ekw = dict(ekw, res=res if e == "res" else None)
+                out = int8.gemm_s8_sm90(aq, xs, wq, ws, bias, **ekw)
+                same.append(torch.equal(
+                    out, int8.gemm_s8(aq, xs, wq, ws, bias, **ekw)))
+                del out
+            kw8 = dict(epilogues[epi], res=res if epi == "res" else None)
+            out = int8.gemm_s8_sm90(aq, xs, wq, ws, bias, **kw8)
+            ref = int8.gemm_s8_plain(aq, xs, wq, ws, bias, **kw8)
+            gtag = (f"G8 {tag} {name} ({m},{k}) x ({n},{k}) {epi} {mode}, "
+                    f"bit-equal to mma.sync at f32/res/gate/bf16 {same}")
             if epi == "f32":
                 err = (out - ref).abs().max().item()
-                tol = TOL_F32_REL * ref.abs().max().item()
-                ok = math.isfinite(err) and err <= tol
-                log(f"check {tag}: max_abs {err:.6g} (tol {tol:.6g}) "
-                    f"{'ok' if ok else 'FAIL'}")
+                ok = torch.equal(out, ref)
+                log(f"check {gtag}: max_abs {err:.6g} (equal to plain: "
+                    f"{ok}) {'ok' if ok and all(same) else 'FAIL'}")
             else:
-                ok, err = compare(tag, out, ref)
-            ok_all &= ok
-            g_err = max(g_err, err)
-            out_bytes = m * (n // 2 * 2 if epi == "gate" else
-                             n * (4 if epi == "f32" else 2))
-            b_ms, b_by = bound(2 * m * n * k,
-                               (m + n) * k * 2 + n * 4 + out_bytes
-                               + (m * n * 2 if res is not None else 0))
+                ok, err = compare(gtag, out, ref)
+            ok_all &= ok and all(same)
+            g8_err = max(g8_err, err)
+            b_ms, b_by = bound_int8(
+                2 * m * n * k, 0,
+                (m + n) * k + n * 8 + xs.numel() * 4 + out_bytes
+                + (m * n * 2 if epi == "res" else 0))
             entry = dict(
-                shape=f"{name}: a ({m},{k}) bf16, w ({n},{k}), {epi}",
+                shape=f"{name}: a ({m},{k}) int8, w ({n},{k}), {epi}, "
+                      f"{mode}",
                 max_abs_err=err,
-                ms=cuda_time(lambda: vit_block.gemm_bf16(a, w, out=out,
-                                                         **kw), 20),
-                plain_ms=cuda_time(lambda: vit_block.gemm_bf16_plain(
-                    a, w, **kw), 3),
-                library_ms=cuda_time(lambda: F.linear(a, w), 20),
-                bound_ms=b_ms, bound_by=b_by)
-            log(f"time G {name} m{m}: {json.dumps(entry)}")
-            if name == "gate" and m == 30001:
+                ms=cuda_time(lambda: int8.gemm_s8_sm90(
+                    aq, xs, wq, ws, bias, out=out, **kw8), reps),
+                mma_sync_ms=cuda_time(lambda: int8.gemm_s8(
+                    aq, xs, wq, ws, bias, out=out, **kw8), reps),
+                plain_ms=cuda_time(lambda: int8.gemm_s8_plain(
+                    aq, xs, wq, ws, bias, **kw8), 1, warmup=1),
+                library_ms=cuda_time(lambda: torch._int_mm(aq, wq.t()),
+                                     reps),
+                bound_ms=b_ms, bound_by=b_by, tiles=tiles)
+            log(f"time G8 {tag} {name} m{m} {mode}: {json.dumps(entry)}")
+            if on_entry is not None:
+                on_entry("G8", name, mode, entry)
+            del out, ref
+        del aq, wq, res
+    return ok_all, g_err, g8_err
+
+
+def phase_gemm(results, g):
+    """Kernels G and G8 alone (check_gemms) at the four GEMMs of a block
+    for B's 30001 rows and C's largest row count (21504, ws 16 ratio .5);
+    then the main loop's rate, G8's beside G's, and each one's host cost
+    per call."""
+    import torch
+    from toc3d_tpu_torch.ops.cuda import int8, vit_block
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    ok_all, g_err, g8_err = True, 0.0, 0.0
+    for m in (30001, 21504):
+        def on_entry(kernel, name, mode, entry, m=m):
+            if name != "gate" or m != 30001 or mode == "static":
+                return
+            if kernel == "G":
                 results["G"] = dict(
                     name="gemm_bf16", route="cuda",
                     source="toc3d_tpu_torch/csrc/gemm_sm90.cuh",
@@ -606,8 +683,21 @@ def phase_gemm(results, g):
                                   "products of _attention and _swiglu in "
                                   "_full_block_kernel and "
                                   "_compressed_block_kernel)", **entry)
-            del a, w, res, out, ref
+            else:
+                results["G8"] = dict(
+                    name="gemm_s8_sm90", route="cuda",
+                    source="toc3d_tpu_torch/csrc/gemm_sm90.cuh",
+                    replaces="toc3d_tpu/ops/pallas/vit_block.py:277",
+                    stands_in_for="toc3d_tpu/ops/pallas/vit_block.py:"
+                                  "277-284 (_qmm, fed by _actquant :271, "
+                                  "in the int8 bodies of the "
+                                  "pallas_calls :639 and :906)", **entry)
+        ok, eg, e8 = check_gemms("ViT-L", m, gemm_shapes(1024, 2730), g,
+                                 on_entry=on_entry)
+        ok_all &= ok
+        g_err, g8_err = max(g_err, eg), max(g8_err, e8)
     results["G"]["max_abs_err"] = g_err
+    results["G8"]["max_abs_err"] = g8_err
     # the host's share of a call (checks, three tensor-map encodes, the
     # launch): wall time per call of a GEMM too small to keep the card busy
     a = torch.randn(128, 64, device=dev, generator=g).to(bf)
@@ -617,91 +707,6 @@ def phase_gemm(results, g):
     us = host_us(lambda: vit_block.gemm_bf16(a, w, bias, out=out))
     log(f"G host cost: {us:.2f} us per call (a (128,64) x w (256,64), 500 "
         f"calls)")
-    return ok_all
-
-
-def phase_gemm_s8(results, g):
-    """Kernel G8 alone: the four GEMMs of a block at 30001 and 21504 rows,
-    with per-row (dynamic) and one static activation scale, on int8
-    operands over their whole range. At every shape and scale kind each of
-    the four epilogues must equal the mma.sync s8 tile's (gemm_s8) bit for
-    bit, and the shape's own epilogue its plain version (f32 exactly, bf16
-    within the kernel bounds); timed beside the mma.sync tile, the plain
-    version and torch._int_mm on the same operands (the bare product). Then
-    the main loop's rate, G8's beside G's, and G8's host cost per call."""
-    import torch
-    from toc3d_tpu_torch.ops.cuda import int8, vit_block
-    dev = torch.device("cuda")
-    bf = torch.bfloat16
-    ok_all, g_err = True, 0.0
-    epilogues = {"f32": dict(out_f32=True), "res": {}, "gate": dict(gate=True),
-                 "bf16": {}}
-    for m in (30001, 21504):
-        for name, (n, k, epi) in G_SHAPES.items():
-            aq = torch.randint(-127, 128, (m, k), device=dev, generator=g,
-                               dtype=torch.int8)
-            wq = torch.randint(-127, 128, (n, k), device=dev, generator=g,
-                               dtype=torch.int8)
-            ws = torch.rand(n, device=dev, generator=g) * 1e-4 + 1e-5
-            bias = torch.randn(n, device=dev, generator=g) * 0.1
-            res = torch.randn(m, n, device=dev, generator=g).to(bf)
-            for mode in ("dynamic", "static"):
-                xs = (torch.rand(m if mode == "dynamic" else 1, device=dev,
-                                 generator=g) * 0.01 + 1e-3)
-                same = []
-                for e, kw in epilogues.items():
-                    kw = dict(kw, res=res if e == "res" else None)
-                    out = int8.gemm_s8_sm90(aq, xs, wq, ws, bias, **kw)
-                    same.append(torch.equal(
-                        out, int8.gemm_s8(aq, xs, wq, ws, bias, **kw)))
-                    del out
-                kw = dict(epilogues[epi], res=res if epi == "res" else None)
-                out = int8.gemm_s8_sm90(aq, xs, wq, ws, bias, **kw)
-                ref = int8.gemm_s8_plain(aq, xs, wq, ws, bias, **kw)
-                tiles = -(-m // 128) * -(-n // 256)
-                tag = (f"G8 {name} ({m},{k}) x ({n},{k}) {epi} {mode}, "
-                       f"bit-equal to mma.sync at f32/res/gate/bf16 {same}")
-                if epi == "f32":
-                    err = (out - ref).abs().max().item()
-                    ok = torch.equal(out, ref)
-                    log(f"check {tag}: max_abs {err:.6g} (equal to plain: "
-                        f"{ok}) {'ok' if ok and all(same) else 'FAIL'}")
-                else:
-                    ok, err = compare(tag, out, ref)
-                ok_all &= ok and all(same)
-                g_err = max(g_err, err)
-                out_bytes = m * (n // 2 * 2 if epi == "gate" else
-                                 n * (4 if epi == "f32" else 2))
-                b_ms, b_by = bound_int8(
-                    2 * m * n * k, 0,
-                    (m + n) * k + n * 8 + xs.numel() * 4 + out_bytes
-                    + (m * n * 2 if epi == "res" else 0))
-                entry = dict(
-                    shape=f"{name}: a ({m},{k}) int8, w ({n},{k}), {epi}, "
-                          f"{mode}",
-                    max_abs_err=err,
-                    ms=cuda_time(lambda: int8.gemm_s8_sm90(
-                        aq, xs, wq, ws, bias, out=out, **kw), 20),
-                    mma_sync_ms=cuda_time(lambda: int8.gemm_s8(
-                        aq, xs, wq, ws, bias, out=out, **kw), 20),
-                    plain_ms=cuda_time(lambda: int8.gemm_s8_plain(
-                        aq, xs, wq, ws, bias, **kw), 3),
-                    library_ms=cuda_time(lambda: torch._int_mm(aq, wq.t()),
-                                         20),
-                    bound_ms=b_ms, bound_by=b_by, tiles=tiles)
-                log(f"time G8 {name} m{m} {mode}: {json.dumps(entry)}")
-                if name == "gate" and m == 30001 and mode == "dynamic":
-                    results["G8"] = dict(
-                        name="gemm_s8_sm90", route="cuda",
-                        source="toc3d_tpu_torch/csrc/gemm_sm90.cuh",
-                        replaces="toc3d_tpu/ops/pallas/vit_block.py:277",
-                        stands_in_for="toc3d_tpu/ops/pallas/vit_block.py:"
-                                      "277-284 (_qmm, fed by _actquant :271, "
-                                      "in the int8 bodies of the "
-                                      "pallas_calls :639 and :906)", **entry)
-                del out, ref
-            del aq, wq, res
-    results["G8"]["max_abs_err"] = g_err
     # the main loop's rate without the epilogue: the K slope of a bf16-out
     # GEMM of 30001 x 5472 from K 1024 to 3072, G8 beside G (a stage is the
     # same 48 KB in both: if the main loop waited on L2, not on the tensor
@@ -734,8 +739,6 @@ def phase_gemm_s8(results, g):
     aq = torch.zeros(128, 128, device=dev, dtype=torch.int8)
     wq = torch.zeros(256, 128, device=dev, dtype=torch.int8)
     xs, ws = torch.ones(128, device=dev), torch.ones(256, device=dev)
-    bias = torch.zeros(256, device=dev)
-    out = torch.empty(128, 256, device=dev, dtype=bf)
     us = host_us(lambda: int8.gemm_s8_sm90(aq, xs, wq, ws, bias, out=out))
     log(f"G8 host cost: {us:.2f} us per call (a (128,128) x w (256,128) "
         f"int8, 500 calls)")
@@ -744,27 +747,57 @@ def phase_gemm_s8(results, g):
 
 def frame_blocks(cfg):
     """(window size, token ratio or None for a full block) of each block of
-    the backbone, in order."""
+    the backbone (a plain EVA-02 backbone: every block full), in order."""
     out, ratio = [], None
+    ploc = getattr(cfg, "pruning_loc", ())
     for i in range(cfg.depth):
-        if i in cfg.pruning_loc:
-            ratio = cfg.token_ratio[cfg.pruning_loc.index(i)]
+        if i in ploc:
+            ratio = cfg.token_ratio[ploc.index(i)]
         ws = cfg.global_window_size if i in cfg.global_attn_indexes \
             else cfg.window_size
         out.append((ws, ratio))
     return out
 
 
+def block_shapes(cfg):
+    """(first block, window size, ratio or None) of each distinct block
+    shape of the backbone, in the order the frame first runs them."""
+    first = {}
+    for i, shape in enumerate(frame_blocks(cfg)):
+        first.setdefault(shape, i)
+    return [(i,) + shape for shape, i in first.items()]
+
+
 def block_rows(cfg, ws, ratio, b=6, h=50, w=100):
-    """(windows, rows a window, rows of the block's matmuls) on the main
-    path's (6, 50, 100) map: B's tokens, or C's k kept rows plus the
-    representative row a window."""
+    """(windows, rows a window, rows of the block's matmuls) on a (b, h, w)
+    patch map (the main path's by default): B's tokens, or C's k kept rows
+    plus the representative row a window."""
     from toc3d_tpu_torch.models.token_select import keep_count
     nw = b * -(-h // ws) * -(-w // ws)
     if ratio is None:
         return nw, ws * ws, b * h * w
     kr = keep_count(ws * ws, ratio, n_rep=1, mxu_align=cfg.mxu_align_k) + 1
     return nw, kr, nw * kr
+
+
+def ln_sites(cfg, b=6, h=50, w=100):
+    """The LayerNorm call sites of every block shape of the backbone on a
+    (b, h, w) patch map: {name: (x rows, output rows, n, npad, residual)}.
+    B: LN1 with its LN(0) row, LN2, the SwiGLU sub-LN on the gate output's
+    npad columns (hid of them the hidden width, in place in bf16); C at
+    each (ws, ratio) on its k + 1 rows a window: LN1, LN2 that adds the
+    attention delta and stores the sum, the sub-LN."""
+    c = cfg.embed_dim
+    hid = int(c * cfg.mlp_ratio)
+    hp = -(-hid // 16) * 16
+    sites = {}
+    for ws, r in frame_blocks(cfg):
+        rows = block_rows(cfg, ws, r, b, h, w)[2]
+        kind = "B" if r is None else f"C ws{ws} r{r}"
+        sites[f"LN1 {kind}"] = (rows, rows + (r is None), c, c, False)
+        sites[f"LN2 {kind}"] = (rows, rows, c, c, r is not None)
+        sites[f"sub-LN {kind}"] = (rows, rows, hid, hp, False)
+    return sites
 
 
 def ln_bytes(xr, rows, n, npad, res, mode):
@@ -777,38 +810,20 @@ def ln_bytes(xr, rows, n, npad, res, mode):
     return nbytes + rows * per_row
 
 
-def phase_rows(model, results):
-    """The row kernels alone at the main path's shapes. The LayerNorm of B,
-    C, B8 and C8 at each call site (LN1 of B with its LN(0) row, LN1 of C,
-    LN2 of B, LN2 of C that adds the attention delta and stores the sum,
-    the SwiGLU sub-LN in place on the gate output's 2736 columns, 2730 of
-    them the hidden width; C at its largest row count, ws 16 ratio .5) in
-    bf16 against its plain version (the kernel bounds), and quantizing,
-    dynamic and static, within one int8 step (mean <= 1e-2, scales within
-    2^-7); each timed beside its bound, its plain version and, for a site
-    that one call computes, F.layer_norm. Then the window attention of B
-    and C and the row quantization of B8 / C8's proj_in site and of H8,
-    timed beside their bounds (SDPA on windowed q / k / v for the
-    attention), and the per-frame bounds of the three families."""
+def check_ln_sites(sites, g, results=None):
+    """The LayerNorm of B, C, B8 and C8 alone at each site of ``sites``
+    ({name: (x rows, output rows, n, npad, residual)}) in bf16 against its
+    plain version (the kernel bounds) and quantizing, dynamic and static,
+    within one int8 step (mean <= 1e-2, scales within 2^-7); each timed
+    beside its bound, its plain version and, for a site that one call
+    computes, F.layer_norm. With ``results``, the bf16 sub-LN of B is the
+    LN row of the kernels line. Returns (ok, largest bf16 error)."""
     import torch
     import torch.nn.functional as F
-    from toc3d_tpu_torch.models.eva_vit import make_rope_tables, rope_tensors
-    from toc3d_tpu_torch.ops.cuda import int8, vit_block
+    from toc3d_tpu_torch.ops.cuda import vit_block
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(6)
-    cfg = model.cfg.backbone
-    c, heads = cfg.embed_dim, cfg.num_heads
-    hid = int(c * cfg.mlp_ratio)
-    hp = -(-hid // 16) * 16
     bf = torch.bfloat16
     ok_all = True
-    _, _, rows_c = block_rows(cfg, cfg.window_size, cfg.token_ratio[0])
-    sites = {"LN1 B": (30000, 30001, c, c, False),
-             "LN1 C": (rows_c, rows_c, c, c, False),
-             "LN2 B": (30000, 30000, c, c, False),
-             "LN2 C": (rows_c, rows_c, c, c, True),
-             "sub-LN B": (30000, 30000, hid, hp, False),
-             "sub-LN C": (rows_c, rows_c, hid, hp, False)}
     ln_err = 0.0
     for site, (xr, rows, n, npad, res) in sites.items():
         x = (torch.randn(xr, npad, device=dev, generator=g) * 0.7
@@ -874,11 +889,42 @@ def phase_rows(model, results):
                                                                        50),
                          bound_ms=b_ms, bound_by=b_by)
             log(f"time {tag}: {json.dumps(entry)}")
-            if site == "sub-LN B" and mode == "bf16":
+            if site == "sub-LN B" and mode == "bf16" and results is not None:
                 results["LN"] = dict(
                     name="layernorm", route="cuda",
                     source="toc3d_tpu_torch/csrc/vit_block.cu",
                     replaces="toc3d_tpu/ops/pallas/vit_block.py:63", **entry)
+    return ok_all, ln_err
+
+
+def phase_rows(model, results):
+    """The row kernels alone at the main path's shapes. The LayerNorm of B,
+    C, B8 and C8 at each call site of every block shape (ln_sites: LN1 of
+    B with its LN(0) row, LN1 of C, LN2 of B, LN2 of C that adds the
+    attention delta and stores the sum, the SwiGLU sub-LN in place on the
+    gate output's 2736 columns, 2730 of them the hidden width) in bf16
+    against its plain version (the kernel bounds), and quantizing,
+    dynamic and static, within one int8 step (mean <= 1e-2, scales within
+    2^-7); each timed beside its bound, its plain version and, for a site
+    that one call computes, F.layer_norm. Then the window attention of B
+    and C and the row quantization of B8 / C8's proj_in site and of H8,
+    timed beside their bounds (SDPA on windowed q / k / v for the
+    attention), and the per-frame bounds of the three families."""
+    import torch
+    import torch.nn.functional as F
+    from toc3d_tpu_torch.models.eva_vit import make_rope_tables, rope_tensors
+    from toc3d_tpu_torch.ops.cuda import int8, vit_block
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    cfg = model.cfg.backbone
+    c, heads = cfg.embed_dim, cfg.num_heads
+    hid = int(c * cfg.mlp_ratio)
+    hp = -(-hid // 16) * 16
+    bf = torch.bfloat16
+    ok_all = True
+    _, _, rows_c = block_rows(cfg, cfg.window_size, cfg.token_ratio[0])
+    ln_ok, ln_err = check_ln_sites(ln_sites(cfg), g, results)
+    ok_all &= ln_ok
     results["LN"]["max_abs_err"] = ln_err
 
     # per-frame bounds: three LayerNorms a block, one window attention, and
@@ -980,90 +1026,30 @@ def phase_kernels_int8(model, results):
     int8 linear H8 at its largest main-path shape."""
     import torch
     from toc3d_tpu_torch.layers import quantize_linear
-    from toc3d_tpu_torch.models.eva_vit import (make_rope_tables,
-                                                rope_tensors, set_act_scales)
-    from toc3d_tpu_torch.ops import int8_calib
-    from toc3d_tpu_torch.ops.cuda import int8, vit_block
+    from toc3d_tpu_torch.models.eva_vit import make_rope_tables, rope_tensors
+    from toc3d_tpu_torch.ops.cuda import int8
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(5)
     cfg = model.cfg.backbone
-    c, heads = cfg.embed_dim, cfg.num_heads
     bf = torch.bfloat16
-    hid = int(c * cfg.mlp_ratio)
     win, glb = make_rope_tables(cfg)
     rope = {cfg.window_size: rope_tensors(win, dev),
             cfg.global_window_size: rope_tensors(glb, dev)}
-    x = (torch.randn(6, 50, 100, c, device=dev, generator=g) * 0.5).to(bf)
+    x = (torch.randn(6, 50, 100, cfg.embed_dim, device=dev, generator=g)
+         * 0.5).to(bf)
     scores = torch.randn(6, 5000, device=dev, generator=g).to(bf)
     ok_all = True
-    shapes = [(0, None), (2, None)] + list(C_SHAPES)
-    for blk_i, ratio in shapes:
-        blk = model.img_backbone.blocks[blk_i]
-        ws = cfg.global_window_size if blk_i in cfg.global_attn_indexes \
-            else cfg.window_size
+    for i, ws, ratio in block_shapes(cfg):
         key = "B8" if ratio is None else "C8"
-        make_plan = lambda: vit_block.compress_plan(
-            scores, 6, 50, 100, ws, ratio, True, cfg.mxu_align_k)
-        plan = None if ratio is None else make_plan()
         for mode in ("dynamic", "static"):
-            if mode == "static":
-                amax = (int8_calib.full_block_site_amax(
-                    blk, x, heads, ws, rope[ws]) if plan is None else
-                    int8_calib.compressed_block_site_amax(
-                        blk, x, scores, cfg, ws, ratio, rope[ws]))
-                set_act_scales(blk, (amax.float() / 127.0).tolist())
-            wts = vit_block.pack_block_weights_int8(blk, heads, bf)
-            if plan is None:
-                tag = f"B8 ws{ws} {mode}"
-                run = lambda: vit_block.fused_full_block_int8(
-                    blk, x, heads, ws, rope[ws])
-                plain = lambda: vit_block.full_block_plain(
-                    wts, x, heads, ws, rope[ws])
-                lib = lambda: lib_full_block(wts, x, heads, ws, rope[ws],
-                                             _lib_rows_block_int8)
-                ops8, flops, nbytes = full_block_work_int8(6, 50, 100, c,
-                                                           hid, ws)
-                shape = f"x (6,50,100,1024) bf16, ws {ws}, {mode}"
-            else:
-                tag = f"C8 ws{ws} r{ratio} k{plan.k} {mode}"
-                run = lambda: vit_block.fused_compressed_block_int8(
-                    blk, x, scores, heads, ws, ratio, rope[ws], True, True,
-                    cfg.mxu_align_k)
-                plain = lambda: vit_block.compressed_block_plain(
-                    wts, x, plan, heads, ws, rope[ws])
-                lib = lambda: lib_compressed_block(
-                    wts, x, make_plan(), heads, ws, rope[ws],
-                    _lib_rows_block_int8)
-                ops8, flops, nbytes = compressed_block_work_int8(
-                    6, 50, 100, c, hid, ws, plan.k, plan.has_rep)
-                shape = (f"x (6,50,100,1024) bf16, ws {ws}, ratio {ratio}, "
-                         f"k {plan.k}, {mode}")
-            ok, err = compare(tag, run(), plain())
+            tag = (f"{key} ws{ws}" + ("" if ratio is None else f" r{ratio}")
+                   + f" {mode}")
+            ok, entry = check_block(tag, model.img_backbone.blocks[i], x, cfg,
+                                    ws, rope[ws], scores, ratio, mode,
+                                    reps=10)
             ok_all &= ok
-            ok_all &= compare(
-                f"{tag} attention delta",
-                vit_block.attention_delta(blk, x, heads, ws, rope[ws], plan,
-                                          int8=True),
-                vit_block.attention_delta_plain(wts, x, heads, ws, rope[ws],
-                                                plan))[0]
-            b_ms, b_by = bound_int8(ops8, flops, nbytes)
-            entry = dict(shape=shape, max_abs_err=err,
-                         ms=cuda_time(run, 10), plain_ms=cuda_time(plain, 3),
-                         library_ms=cuda_time(lib, 10), bound_ms=b_ms,
-                         bound_by=b_by)
-            log(f"time {tag}: {json.dumps(entry)}")
-            if key not in results:
-                results[key] = dict(
-                    name=("fused_full_block_int8" if key == "B8"
-                          else "fused_compressed_block_int8"),
-                    route="cuda", source="toc3d_tpu_torch/csrc/vit_block.cu",
-                    replaces=("toc3d_tpu/ops/pallas/vit_block.py:602"
-                              if key == "B8" else
-                              "toc3d_tpu/ops/pallas/vit_block.py:819"),
-                    **entry)
-            results[key]["max_abs_err"] = max(results[key]["max_abs_err"],
-                                              err)
-        set_act_scales(blk, None)
+            keep_row(results, key, entry, BLOCK_ROWS[key][0],
+                     "toc3d_tpu_torch/csrc/vit_block.cu", BLOCK_ROWS[key][1])
     del x, scores
 
     # H8: the decoder's cross-attention key projection, 6 x 50 x 100 image
@@ -1091,6 +1077,218 @@ def phase_kernels_int8(model, results):
     return ok_all
 
 
+def check_block(tag, blk, x, cfg, ws, rope, scores=None, ratio=None,
+                mode="bf16", reps=5):
+    """One B / C / B8 / C8 call of a block of the backbone ``cfg`` (ratio
+    None: the full block; mode 'dynamic' / 'static': the int8 form, static
+    with the site scales that the plain probes of ops/int8_calib calibrate
+    on the same input) and its attention delta against the plain versions,
+    timed beside the library yardstick and the bound. C and its yardstick
+    both route the tokens (compress_plan) inside the timed call; the plan's
+    own time and the yardstick with the plan made beforehand are logged
+    beside. Returns (ok, entry)."""
+    from toc3d_tpu_torch.models.eva_vit import set_act_scales
+    from toc3d_tpu_torch.ops import int8_calib
+    from toc3d_tpu_torch.ops.cuda import vit_block
+    b, h, w, c = x.shape
+    heads = cfg.num_heads
+    d = c // heads
+    hid = blk.mlp.w1.out_features
+    int8_ = mode != "bf16"
+    if mode == "static":
+        amax = (int8_calib.full_block_site_amax(blk, x, heads, ws, rope)
+                if ratio is None else int8_calib.compressed_block_site_amax(
+                    blk, x, scores, cfg, ws, ratio, rope))
+        set_act_scales(blk, (amax.float() / 127.0).tolist())
+    wts = (vit_block.pack_block_weights_int8 if int8_ else
+           vit_block.pack_block_weights)(blk, heads, x.dtype)
+    rows_fn = _lib_rows_block_int8 if int8_ else _lib_rows_block
+    plan, extra = None, {}
+    shape = f"x ({b},{h},{w},{c}) bf16, {heads} heads, ws {ws}"
+    if ratio is None:
+        fn = vit_block.fused_full_block_int8 if int8_ \
+            else vit_block.fused_full_block
+        run = lambda: fn(blk, x, heads, ws, rope)
+        plain = lambda: vit_block.full_block_plain(wts, x, heads, ws, rope)
+        lib = lambda: lib_full_block(wts, x, heads, ws, rope, rows_fn)
+        work = (full_block_work_int8 if int8_ else full_block_work)(
+            b, h, w, c, hid, ws, d)
+    else:
+        fn = vit_block.fused_compressed_block_int8 if int8_ \
+            else vit_block.fused_compressed_block
+        make_plan = lambda: vit_block.compress_plan(
+            scores, b, h, w, ws, ratio, cfg.use_represent_tokens,
+            cfg.mxu_align_k)
+        plan = make_plan()
+        run = lambda: fn(blk, x, scores, heads, ws, ratio, rope,
+                         cfg.use_represent_tokens, cfg.rope_acc,
+                         cfg.mxu_align_k)
+        plain = lambda: vit_block.compressed_block_plain(wts, x, plan, heads,
+                                                         ws, rope)
+        lib = lambda: lib_compressed_block(wts, x, make_plan(), heads, ws,
+                                           rope, rows_fn)
+        work = (compressed_block_work_int8 if int8_ else
+                compressed_block_work)(b, h, w, c, hid, ws, plan.k,
+                                       plan.has_rep, d)
+        shape += f", ratio {ratio}, k {plan.k}"
+        extra = dict(
+            library_ms_plan_outside=cuda_time(lambda: lib_compressed_block(
+                wts, x, plan, heads, ws, rope, rows_fn), reps),
+            plan_ms=cuda_time(make_plan, reps))
+    if int8_:
+        shape += ", " + vit_block.is_quantized(wts)
+    ok, err = compare(tag, run(), plain())
+    ok &= compare(f"{tag} attention delta",
+                  vit_block.attention_delta(blk, x, heads, ws, rope, plan,
+                                            int8=int8_),
+                  vit_block.attention_delta_plain(wts, x, heads, ws, rope,
+                                                  plan))[0]
+    b_ms, b_by = bound_int8(*work) if int8_ else bound(*work)
+    entry = dict(shape=shape, max_abs_err=err, ms=cuda_time(run, reps),
+                 plain_ms=cuda_time(plain, 1, warmup=1),
+                 library_ms=cuda_time(lib, reps), bound_ms=b_ms,
+                 bound_by=b_by, **extra)
+    log(f"time {tag}: {json.dumps(entry)}")
+    if mode == "static":
+        set_act_scales(blk, None)
+    return ok, entry
+
+
+# ---------------------------------------------------------------------------
+# the other presets' kernel shapes
+# ---------------------------------------------------------------------------
+
+def _block_model(c, heads, hid, seed):
+    """One EVA-02 block of width c on the card, weights as build_detector
+    draws them (trunc. normal 0.02 matrices), LN weights near 1."""
+    import torch
+    from toc3d_tpu_torch.models.eva_vit import Block, EVAViTConfig
+    blk = Block(EVAViTConfig(embed_dim=c, num_heads=heads,
+                             mlp_ratio=hid / c))
+    assert blk.mlp.w1.out_features == hid
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in blk.named_parameters():
+            p.copy_(torch.randn(p.shape, generator=g)
+                    * (0.02 if p.dim() > 1 else 0.1))
+            if name.endswith(("norm1.weight", "norm2.weight",
+                              "ffn_ln.weight")):
+                p.add_(1.0)
+    return blk.cuda()
+
+
+def preset_shapes(main="ToC3D_faster_1600"):
+    """The kernel shapes of every full-width preset, derived from its
+    config as the main path's are (frame_blocks, block_rows, ln_sites), less
+    those of ``main``, which phases 3-4 and 6 hold: {"A": {(h, w, c)}, "D":
+    {keys}, "blocks": {(c, heads, hid, h, w, ws, ratio): (preset, backbone
+    config)}, "gemm": {(c, hid): {rows}}, "ln": {site: name}}. A block's
+    GEMMs run at B's tokens plus the LN(0) row, or at C's rows; G and G8
+    alone are held at each map's B rows and its largest C rows."""
+    from toc3d_tpu_torch.configs import get_config
+    from toc3d_tpu_torch.configs.presets import PRESETS
+
+    def of(name):
+        cfg = get_config(name)
+        bcfg = cfg.backbone
+        p = bcfg.patch_size
+        h, w = cfg.pad_shape[0] // p, cfg.pad_shape[1] // p
+        c, heads = bcfg.embed_dim, bcfg.num_heads
+        hid = int(c * bcfg.mlp_ratio)
+        out = {"A": {(h * p, w * p, c)}, "D": {6 * h * w}, "blocks": {},
+               "gemm": {}, "ln": {}}
+        c_rows = 0
+        for ws, r in frame_blocks(bcfg):
+            out["blocks"].setdefault((c, heads, hid, h, w, ws, r),
+                                     (name, bcfg))
+            rows = block_rows(bcfg, ws, r, 6, h, w)[2]
+            if r is None:
+                out["gemm"].setdefault((c, hid), set()).add(rows + 1)
+            else:
+                c_rows = max(c_rows, rows)
+        if c_rows:
+            out["gemm"][(c, hid)].add(c_rows)
+        for site, args in ln_sites(bcfg, 6, h, w).items():
+            out["ln"].setdefault(args, f"{site} ({c}-wide, {h}x{w})")
+        return out
+
+    done = of(main)
+    todo = {"A": set(), "D": set(), "blocks": {}, "gemm": {}, "ln": {}}
+    for name in PRESETS:
+        if name in ("tiny", main):
+            continue
+        s = of(name)
+        todo["A"] |= s["A"] - done["A"]
+        todo["D"] |= s["D"] - done["D"]
+        for key in ("blocks", "ln"):
+            for k, v in s[key].items():
+                if k not in done[key]:
+                    todo[key].setdefault(k, v)
+        for k, rows in s["gemm"].items():
+            todo["gemm"].setdefault(k, set()).update(
+                rows - done["gemm"].get(k, set()))
+    return todo
+
+
+def phase_preset_shapes():
+    """Every kernel shape of the other presets (preset_shapes), each
+    against its plain version on the card and timed beside its library
+    yardstick and bound, as phases 3-4 and 6 hold the main path's: A at
+    each (image, width); B / C in bf16 and B8 / C8 dynamic and static at
+    each (width, map, window size, ratio) a preset runs; G and G8 alone at
+    each width's GEMMs; the LayerNorm at each call site (check_ln_sites);
+    D at each map's keys. Returns ok."""
+    import torch
+    from toc3d_tpu_torch.models.eva_vit import make_rope_tables, rope_tensors
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+    bf = torch.bfloat16
+    ok_all = True
+    todo = preset_shapes()
+    log(f"other presets' kernel shapes: A {sorted(todo['A'])}; "
+        f"{len(todo['blocks'])} block shapes (width, heads, hidden, map, ws, "
+        f"ratio) {sorted(todo['blocks'], key=str)}; G / G8 rows "
+        f"{ {k: sorted(v) for k, v in todo['gemm'].items()} }; "
+        f"{len(todo['ln'])} LayerNorm sites; D keys {sorted(todo['D'])}")
+    for h, w, c in sorted(todo["A"]):
+        ok_all &= check_patch_embed(h, w, c, g)
+
+    models, maps = {}, {}
+    for key in sorted(todo["blocks"], key=str):
+        c, heads, hid, h, w, ws, ratio = key
+        name, cfg = todo["blocks"][key]
+        blk = models.get((c, heads, hid))
+        if blk is None:
+            blk = models[(c, heads, hid)] = _block_model(c, heads, hid, c)
+        if (c, h, w) not in maps:
+            maps.clear()
+            maps[(c, h, w)] = (
+                (torch.randn(6, h, w, c, device=dev, generator=g)
+                 * 0.5).to(bf),
+                torch.randn(6, h * w, device=dev, generator=g).to(bf))
+        x, scores = maps[(c, h, w)]
+        win, glb = make_rope_tables(cfg)
+        rope = rope_tensors(win if ws == cfg.window_size else glb, dev)
+        kind = "B" if ratio is None else "C"
+        for mode in ("bf16", "dynamic", "static"):
+            tag = (f"{kind}{'' if mode == 'bf16' else '8'} {name} "
+                   f"({c},{h}x{w}) ws{ws}"
+                   + ("" if ratio is None else f" r{ratio}")
+                   + ("" if mode == "bf16" else f" {mode}"))
+            ok_all &= check_block(tag, blk, x, cfg, ws, rope, scores, ratio,
+                                  mode)[0]
+    del models, maps
+
+    for (c, hid), rows in sorted(todo["gemm"].items()):
+        for m in sorted(rows):
+            ok_all &= check_gemms(f"{c}-wide", m, gemm_shapes(c, hid), g,
+                                  reps=10)[0]
+    ok_all &= check_ln_sites({v: k for k, v in todo["ln"].items()}, g)[0]
+    for kv in sorted(todo["D"]):
+        ok_all &= check_flash(kv, g)[0]
+    return ok_all
+
+
 KERNELS = ("A", "B", "C", "D", "B8", "C8", "H8", "G", "G8", "LN")
 
 
@@ -1104,14 +1302,17 @@ def counters():
     return counted_wrappers()
 
 
-def host_frames(seed: int, n: int = 6):
-    """n full-size frames of the synthetic stream (prev_exists 0, then 1)
-    built on the host and held in pinned memory, as a server holds them."""
+def host_frames(seed: int, n: int = 6, pad_shape=(800, 1600)):
+    """n frames of the synthetic stream (prev_exists 0, then 1) at
+    ``pad_shape``, built on the host and held in pinned memory, as a server
+    holds them."""
     import torch
     from toc3d_tpu_torch.models.detector import synthetic_frame
     g = torch.Generator().manual_seed(seed)
+    h, w = pad_shape
     return [{k: v.pin_memory() for k, v in
-             synthetic_frame(g, t, device="cpu").items()} for t in range(n)]
+             synthetic_frame(g, t, height=h, width=w, device="cpu").items()}
+            for t in range(n)]
 
 
 def host_calls(fn) -> dict:
@@ -1161,28 +1362,43 @@ def _stream(infer, state, frames):
 
 def phase_main_path(model, results, label="bf16",
                     per_frame=(1, 6, 18, 12, 0, 0, 0, 96, 0, 72),
-                    record=("A", "B", "C", "D", "G", "LN")):
-    """Stream 6 full-size host frames (pinned) eagerly through infer_step,
-    then with every launch count set to 0 just before, through
-    make_infer_fn(model), the captured frame (the main path); per_frame:
-    the launches each frame must make of each kernel, in KERNELS order;
-    record: the kernels whose launch counts this run reports. The captured
-    frame's outputs (boxes, scores, labels, validity, the bank) must equal
-    eager's bit for bit, frame by frame. Prints for both: the frame times,
-    steady ms/frame, peak memory, and the host's synchronisations and
-    copies in one more steady frame. Returns (ok, decoded per frame)."""
+                    record=("A", "B", "C", "D", "G", "LN"),
+                    name="ToC3D_faster_1600", n_frames=6, selectors=3,
+                    host_checks=True):
+    """Stream n_frames host frames (pinned) at the preset's pad shape
+    eagerly through infer_step, then with every launch count set to 0 just
+    before, through make_infer_fn(model), the captured frame (the main
+    path; a preset's own path for another ``name``); per_frame: the
+    launches each frame must make of each kernel, in KERNELS order;
+    selectors: the token selectors each eager frame must run; record: the
+    kernels whose launch counts this run reports. The captured frame's
+    outputs (boxes, scores, labels, validity, the bank) must equal eager's
+    bit for bit, frame by frame. Prints for both: the frame times, steady
+    ms/frame, peak memory and, with host_checks, the host's
+    synchronisations and copies in one more steady frame and the
+    weight-key check's host cost. Returns (ok, decoded per frame)."""
     import torch
+    from toc3d_tpu_torch.models import toc3d_vit
     from toc3d_tpu_torch.models.detector import (infer_step, init_state,
                                                  make_infer_fn)
     from toc3d_tpu_torch.ops.cuda import param_key
     dev = torch.device("cuda")
-    frames = host_frames(2)
+    frames = host_frames(2, n_frames, model.cfg.pad_shape)
     infer = make_infer_fn(model)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    eager_state, eager, eager_ms = _stream(
-        lambda s, f: infer_step(model, s, f),
-        init_state(1, model.cfg, device=dev), frames)
+    selector, ran = toc3d_vit.selector_score, []
+
+    def count_selector(*a, **kw):
+        ran.append(1)
+        return selector(*a, **kw)
+    toc3d_vit.selector_score = count_selector
+    try:
+        eager_state, eager, eager_ms = _stream(
+            lambda s, f: infer_step(model, s, f),
+            init_state(1, model.cfg, device=dev), frames)
+    finally:
+        toc3d_vit.selector_score = selector
     eager_peak = torch.cuda.max_memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
     for f in counters():
@@ -1191,13 +1407,16 @@ def phase_main_path(model, results, label="bf16",
                                                        device=dev), frames)
     launches = [f.launches for f in counters()]
     graph_peak = torch.cuda.max_memory_allocated() / 2**30
-    ok = True
+    ok = len(ran) == selectors * len(frames)
+    if not ok:
+        log(f"main path {name} {label}: {len(ran)} selector runs in "
+            f"{len(frames)} eager frames, expected {selectors} a frame")
     for key, got, want in zip(KERNELS, launches, per_frame):
         if key in record:
             results[key]["launches"] = got
         if got != want * len(frames):
-            log(f"main path {label}: kernel {key} launched {got} times, "
-                f"expected {want * len(frames)}")
+            log(f"main path {name} {label}: kernel {key} launched {got} "
+                f"times, expected {want * len(frames)}")
             ok = False
     equal = [all(torch.equal(a, b) for a, b in zip(
         tuple(gs.memory) + tuple(gd), tuple(es.memory) + tuple(ed)))
@@ -1212,21 +1431,27 @@ def phase_main_path(model, results, label="bf16",
               and tuple(det.scores.shape) == (1, 300))
     ok &= finite and shapes
     steady = frames[-1]
-    calls_g = host_calls(lambda: infer(state, steady))
-    calls_e = host_calls(lambda: infer_step(model, eager_state, steady))
-    key_us = host_us(lambda: param_key(model), calls=200)
-    for name, ms, peak, calls in (("eager infer_step", eager_ms, eager_peak,
-                                   calls_e),
-                                  ("captured make_infer_fn", graph_ms,
-                                   graph_peak, calls_g)):
-        log(f"main path ToC3D_faster_1600 {label}, {name}, 6 x 1600x800 "
+    calls_g = calls_e = "not counted"
+    key_us = float("nan")
+    if host_checks:
+        calls_g = host_calls(lambda: infer(state, steady))
+        calls_e = host_calls(lambda: infer_step(model, eager_state, steady))
+        key_us = host_us(lambda: param_key(model), calls=200)
+    h, w = model.cfg.pad_shape
+    for run, ms, peak, calls in (("eager infer_step", eager_ms, eager_peak,
+                                  calls_e),
+                                 ("captured make_infer_fn", graph_ms,
+                                  graph_peak, calls_g)):
+        log(f"main path {name} {label}, {run}, {len(frames)} x {w}x{h} "
             f"uint8 host frames, batch 1: frame ms "
             f"{[round(t, 3) for t in ms]}; steady mean "
-            f"{sum(ms[2:]) / len(ms[2:]):.3f} ms/frame over frames 2-5; "
-            f"peak memory {peak:.3f} GiB; one more steady frame: {calls}")
-    log(f"main path {label}: launches {'/'.join(KERNELS)} {launches}; "
-        f"captured equals eager per frame {equal}; finite {finite} shapes "
-        f"{shapes}; weight-key check {key_us:.1f} us a call")
+            f"{sum(ms[2:]) / len(ms[2:]):.3f} ms/frame over frames 2-"
+            f"{len(frames) - 1}; peak memory {peak:.3f} GiB; one more steady "
+            f"frame: {calls}")
+    log(f"main path {name} {label}: launches {'/'.join(KERNELS)} "
+        f"{launches}; selector runs (eager) {len(ran)}; captured equals "
+        f"eager per frame {equal}; finite {finite} shapes {shapes}; "
+        f"weight-key check {key_us:.1f} us a call")
     return ok, dets
 
 
@@ -1280,7 +1505,109 @@ def phase_main_path_int8(results, bf16_dets):
     return ok and ok_s
 
 
-def phase_small_agreement(quant="none"):
+def phase_presets(results):
+    """The other presets' paths at full width, each with every launch count
+    set to 0 just before it and read just after (phase_main_path):
+    stream_petr_eva_vit_l_1600 (the plain backbone: 24 B blocks, no
+    selector) for 6 frames in bf16 and in int8 dynamic; ToC3D_fast (ratio
+    .7) and ToC3D_vit_b_faster (ViT-B, selectors at 3, 6, 9) at 800x320
+    for 3 frames each; captured against eager bit for bit. Returns ok."""
+    import torch
+    from dataclasses import replace
+    from toc3d_tpu_torch.configs import get_config
+    from toc3d_tpu_torch.models.detector import build_detector
+    ok_all = True
+    runs = (("stream_petr_eva_vit_l_1600", "bf16", 6, 0,
+             (1, 24, 0, 12, 0, 0, 0, 96, 0, 72)),
+            ("stream_petr_eva_vit_l_1600", "int8 dynamic", 6, 0,
+             (1, 0, 0, 12, 24, 0, 60, 0, 96, 72)),
+            ("ToC3D_fast", "bf16", 3, 3, (1, 6, 18, 12, 0, 0, 0, 96, 0, 72)),
+            ("ToC3D_vit_b_faster", "bf16", 3, 3,
+             (1, 3, 9, 12, 0, 0, 0, 48, 0, 36)))
+    for name, label, n, sel, per_frame in runs:
+        cfg = get_config(name)
+        if label != "bf16":
+            cfg = replace(cfg, backbone=replace(cfg.backbone, quant="int8"),
+                          head=replace(cfg.head, decoder=replace(
+                              cfg.head.decoder, quant="int8")))
+        model = build_detector(cfg, device="cuda", seed=0)
+        ok, _ = phase_main_path(model, results, label, per_frame, (), name,
+                                n, sel, host_checks=False)
+        ok_all &= ok
+        del model
+        torch.cuda.empty_cache()
+    return ok_all
+
+
+def phase_gumbel():
+    """eval_mask 'gumbel' on the card: the tiny preset with two selectors
+    (the first one's mask feeds the second), streamed over prev_exists 0,
+    1, 1, 0, 1 through the captured make_infer_fn and through eager
+    infer_step (eager_infer_fn), both from mask_seed 11: equal bit for bit.
+    Then two more calls on the same state and frame: the noise is fresh,
+    so they differ, and the global generator is untouched. Returns ok."""
+    import torch
+    from dataclasses import replace
+    from toc3d_tpu_torch.configs import get_config
+    from toc3d_tpu_torch.models.detector import (build_detector,
+                                                 eager_infer_fn, init_state,
+                                                 make_infer_fn,
+                                                 synthetic_frame)
+    cfg = get_config("tiny", compute_dtype="bfloat16")
+    cfg = replace(cfg, head=replace(cfg.head, compute_dtype="bfloat16"),
+                  backbone=replace(cfg.backbone, eval_mask="gumbel",
+                                   pruning_loc=(0, 2),
+                                   token_ratio=(0.5, 0.5)))
+    model = build_detector(cfg, device="cuda", seed=3)
+    g = torch.Generator().manual_seed(4)
+    frames = []
+    for t, pe in enumerate((0.0, 1.0, 1.0, 0.0, 1.0)):
+        f = synthetic_frame(g, t, views=2, height=64, width=128, device="cpu")
+        f["prev_exists"] = torch.full((1,), pe)
+        frames.append({k: v.pin_memory() for k, v in f.items()})
+    outs = {}
+    for kind, make in (("captured", make_infer_fn), ("eager", eager_infer_fn)):
+        infer = make(model, mask_seed=11)
+        state = init_state(1, cfg, device="cuda")
+        outs[kind] = []
+        for f in frames:
+            state, det = infer(state, f)
+            outs[kind].append(tuple(state.memory) + tuple(det))
+    equal = [all(torch.equal(a, b) for a, b in zip(x, y))
+             for x, y in zip(outs["captured"], outs["eager"])]
+    infer = make_infer_fn(model, mask_seed=11)
+    state = init_state(1, cfg, device="cuda")
+    for f in frames[:2]:
+        state, _ = infer(state, f)
+    rng = torch.cuda.get_rng_state()
+    first = infer(state, frames[2])[0].memory.embedding
+    again = infer(state, frames[2])[0].memory.embedding
+    fresh = not torch.equal(first, again)
+    untouched = torch.equal(rng, torch.cuda.get_rng_state())
+    ok = all(equal) and fresh and untouched
+    log(f"gumbel eval mask (tiny, 2 selectors, mask_seed 11): captured "
+        f"equals eager per frame {equal}; two replays on one state and "
+        f"frame differ {fresh} (bank embeddings mean |d| "
+        f"{(first - again).abs().mean().item():.6g}); global generator "
+        f"untouched {untouched} {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+FLIPS = 8   # CPU streams with last-bit steps in their features
+
+
+def last_bit_steps(f, g):
+    """f (f32 holding bf16 values) with about half its nonzero values
+    moved one bf16 step up or down in magnitude (a quarter each way): the
+    kind of difference two bf16 implementations of the same op leave."""
+    import torch
+    b = f.to(torch.bfloat16)
+    r = torch.randint(0, 4, f.shape, generator=g)
+    step = ((r == 2).to(torch.int16) - (r == 3).to(torch.int16)) * (b != 0)
+    return (b.view(torch.int16) + step).view(torch.bfloat16).to(f.dtype)
+
+
+def phase_small_agreement(quant="none", plain=False):
     """The tiny preset in bf16 on the card (kernels) against the same model
     on the CPU (plain versions, bf16), streamed for 3 frames (prev_exists
     0, 1, 1), each side carrying its own memory bank from frame to frame.
@@ -1293,6 +1620,30 @@ def phase_small_agreement(quant="none"):
     the values near the row's maximum, so after the decoder's 60 int8
     linears the banks' mean error reaches 2^-6 of their mean (measured on
     the card).
+
+    plain: the tiny preset's widths with the plain EVA-02 backbone (no
+    selector). Its random-weight head amplifies the backbone's last-bit
+    differences: the neck features of card and CPU differ by 0.32% of their
+    mean, and the banks by 1.8-3.4%, while the card's head computes bit for
+    bit the CPU's given the same features and bank choice (measured on the
+    card, frame 0). So the CPU's head takes the card's neck features there,
+    after they are compared: the backbone and the head are each held to
+    the bounds. End to end, a second CPU stream runs its own head on its
+    own features, and the f32 yardstick below holds it.
+
+    The f32 yardstick (quant 'none'): the same model in f32 on the CPU,
+    with the card's choices. Its distance (mean |d| over mean |f32|) to the
+    card must be at most 1.25 times the largest of its distances to the
+    CPU's bf16 streams: the CPU's own, and FLIPS more whose head takes the
+    CPU's neck features with the last bit of about half the values moved
+    one step (last_bit_steps), each carrying its own bank. One bf16 stream
+    is one sample of how far a last-bit difference in the features carries
+    through this random head: for the plain backbone, the card's bank and
+    the CPU's own stood 1.5-3 times apart against the f32 run (measured on
+    the card), while their features stood equally far from it. Checked per
+    frame for the neck features and the bank's embeddings (512 values or
+    more), and over the 3 frames together for the bank's reference points
+    and velocities (8, 16 and 24 entries of 5 values).
 
     Two discrete choices are a top-k over nearly tied values: token
     routing, over bf16 selector scores, and the queries that enter the
@@ -1312,9 +1663,10 @@ def phase_small_agreement(quant="none"):
     otherwise. They show what the pinned choices take out of the
     comparison."""
     import torch
-    from dataclasses import replace
+    from dataclasses import fields, replace
     from toc3d_tpu_torch.configs import get_config
     from toc3d_tpu_torch.models import streampetr_head, toc3d_vit
+    from toc3d_tpu_torch.models.eva_vit import EVAViTConfig
     from toc3d_tpu_torch.models.detector import (build_detector,
                                                  extract_img_feat, head_step,
                                                  init_state,
@@ -1324,11 +1676,16 @@ def phase_small_agreement(quant="none"):
                                                 calibrate_act_scales)
     cfg = get_config("tiny", compute_dtype="bfloat16")
     cfg = replace(cfg, head=replace(cfg.head, compute_dtype="bfloat16"))
+    if plain:
+        cfg = replace(cfg, backbone=EVAViTConfig(**{
+            f.name: getattr(cfg.backbone, f.name)
+            for f in fields(EVAViTConfig)}))
     if quant != "none":
         cfg = replace(cfg, backbone=replace(cfg.backbone, quant="int8"),
                       head=replace(cfg.head, decoder=replace(
                           cfg.head.decoder, quant="int8")))
-    tag = "tiny" if quant == "none" else f"tiny int8 {quant}"
+    tag = ("tiny" if quant == "none" else f"tiny int8 {quant}") + (
+        ", plain backbone" if plain else "")
     tol = 1.0 if quant == "none" else 2.0
     gpu = build_detector(cfg, device="cuda", seed=3)
     cpu = build_detector(cfg, device="cpu")
@@ -1338,6 +1695,21 @@ def phase_small_agreement(quant="none"):
             synthetic_frame(gc, t, views=2, height=64, width=128,
                             device="cuda") for t in range(2)]))
     cpu.load_state_dict(gpu.state_dict())
+    # an f32 run on the CPU (same choices as the card's) as the yardstick
+    # of both bf16 sides' rounding
+    ref = None
+    if quant == "none":
+        ref = build_detector(replace(cfg, compute_dtype="float32",
+                                     head=replace(cfg.head,
+                                                  compute_dtype="float32")),
+                             device="cpu")
+        ref.load_state_dict(gpu.state_dict())
+        sr = init_state(1, ref.cfg, "cpu")
+        so = init_state(1, cfg, "cpu")
+        stepped = [init_state(1, cfg, "cpu") for _ in range(FLIPS)]
+        gs = torch.Generator().manual_seed(8)
+        # summed |d| of the card and of each CPU stream, then sum |f32|
+        geo = {n: [0.0] * (FLIPS + 3) for n in ("reference_point", "velo")}
     precast_backbone_(gpu)
     precast_backbone_(cpu)
     g = torch.Generator(device="cuda").manual_seed(4)
@@ -1380,7 +1752,53 @@ def phase_small_agreement(quant="none"):
             toc3d_vit.selector_score = replay
             streampetr_head.propagated_queries = replay_bank
             featc = extract_img_feat(cpu, fc["img"], sc.memory, fc, steady)
-            sc, dc = head_step(cpu, sc, featc, fc)
+            sc, dc = head_step(cpu, sc, featg.cpu() if plain else featc, fc)
+            if ref is not None:
+                seen = []
+
+                def replay_ref(*a, **kw):
+                    seen.append(1)
+                    return tuple(x.cpu().float()
+                                 for x in card_sel[len(seen) - 1])
+                toc3d_vit.selector_score = replay_ref
+                streampetr_head.propagated_queries = \
+                    lambda hcfg, cls_last: card_bank[-1].cpu()
+                featr = extract_img_feat(ref, fc["img"], sr.memory, fc,
+                                         steady)
+                sr, _ = head_step(ref, sr, featr, fc)
+                if plain:
+                    so, _ = head_step(cpu, so, featc, fc)
+                feats, states = [featg.cpu(), featc], [sg, so if plain
+                                                       else sc]
+                for i in range(FLIPS):
+                    feats.append(last_bit_steps(featc, gs))
+                    stepped[i], _ = head_step(cpu, stepped[i], feats[-1],
+                                              fc)
+                    states.append(stepped[i])
+                rel = lambda a, b: ((a.float() - b).abs().mean()
+                                    / b.abs().mean()).item()
+                d = {"neck features": [rel(f, featr) for f in feats]}
+                for n in ("embedding", "reference_point", "velo"):
+                    d[f"memory {n}"] = [
+                        rel(getattr(st.memory, n).cpu(),
+                            getattr(sr.memory, n)) for st in states]
+                for n, acc in geo.items():
+                    r = getattr(sr.memory, n)
+                    for i, st in enumerate(states):
+                        acc[i] += (getattr(st.memory, n).cpu().float()
+                                   - r).abs().sum().item()
+                    acc[-1] += r.abs().sum().item()
+                held = all(d[n][0] <= 1.25 * max(d[n][1:]) for n in (
+                    "neck features", "memory embedding"))
+                ok &= held
+                log(f"frame {t} against an f32 CPU run with the card's "
+                    f"choices ({tag}): mean |d| / mean |f32| of the card / "
+                    f"the CPU's own bf16 stream / the largest of all "
+                    f"{FLIPS + 1} CPU streams: " + ", ".join(
+                        f"{n} {v[0]:.4%} / {v[1]:.4%} / {max(v[1:]):.4%}"
+                        for n, v in d.items())
+                    + " (neck features and embedding: card <= 1.25 x "
+                    f"largest) {'ok' if held else 'FAIL'}")
             toc3d_vit.selector_score = selector
             streampetr_head.propagated_queries = propagated
             for i, (card, own) in enumerate(zip(card_sel, cpu_pred)):
@@ -1415,6 +1833,15 @@ def phase_small_agreement(quant="none"):
         toc3d_vit.selector_score = selector
         streampetr_head.propagated_queries = propagated
     ok &= score_abs <= 0.01
+    for n, acc in (geo.items() if ref is not None else ()):
+        card, own, top = acc[0], acc[1], max(acc[1:-1])
+        geo_ok = card <= 1.25 * top
+        ok &= geo_ok
+        log(f"memory {n} over 3 frames against the f32 run ({tag}): mean "
+            f"|d| / mean |f32| of the card {card / acc[-1]:.4%} / the CPU's "
+            f"own bf16 stream {own / acc[-1]:.4%} / the largest CPU stream "
+            f"{top / acc[-1]:.4%} (card <= 1.25 x largest) "
+            f"{'ok' if geo_ok else 'FAIL'}")
     log(f"small-input agreement ({tag}, bf16, card vs CPU plain, 3 frames): "
         f"decoded scores max |d| {score_abs:.6g} (tol 0.01) "
         f"{'ok' if ok else 'FAIL'}")
@@ -1445,19 +1872,26 @@ def main() -> int:
     with torch.no_grad():
         ok_k = phase_kernels(model, results)
         ok_k8 = phase_kernels_int8(model, results)
+        ok_ps = phase_preset_shapes()
         ok_m, bf16_dets = phase_main_path(model, results)
         del model
         torch.cuda.empty_cache()
         ok_m8 = phase_main_path_int8(results, bf16_dets)
         del bf16_dets
         torch.cuda.empty_cache()
-        ok_s = phase_small_agreement()
+        ok_p = phase_presets(results)
+        ok_gb = phase_gumbel()
+        ok_s = all([phase_small_agreement(),
+                    phase_small_agreement(plain=True)])
         ok_s8 = all([phase_small_agreement("dynamic"),
                      phase_small_agreement("static")])
-    if not (ok_k and ok_k8 and ok_m and ok_m8 and ok_s and ok_s8):
+    if not (ok_k and ok_k8 and ok_ps and ok_m and ok_m8 and ok_p and ok_gb
+            and ok_s and ok_s8):
         log(f"chip_smoke: FAILED (kernels {ok_k}, int8 kernels {ok_k8}, "
-            f"main path {ok_m}, int8 main path {ok_m8}, small-input "
-            f"agreement {ok_s}, int8 small-input agreement {ok_s8})")
+            f"other presets' kernel shapes {ok_ps}, main path {ok_m}, int8 "
+            f"main path {ok_m8}, other presets' paths {ok_p}, gumbel eval "
+            f"mask {ok_gb}, small-input agreement {ok_s}, int8 small-input "
+            f"agreement {ok_s8})")
         return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")

@@ -136,6 +136,8 @@ LN_SITES = {"ln1_full": (37, 38, 1024, 1024, False),
             "ln1_rows": (129, 129, 1024, 1024, False),
             "ln2_rows": (41, 41, 1024, 1024, True),
             "sub_ln": (33, 33, 2730, 2736, False),
+            "vit_b_ln2_rows": (41, 41, 768, 768, True),
+            "vit_b_sub_ln": (33, 33, 2048, 2048, False),
             "tiny": (5, 6, 64, 64, True),
             "odd_pairs": (7, 7, 258, 258, True)}
 
@@ -181,7 +183,8 @@ def test_layernorm_kernel(dev, site, mode):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("site", ["ln1_full", "ln2_rows", "sub_ln"])
+@pytest.mark.parametrize("site", ["ln1_full", "ln2_rows", "sub_ln",
+                                  "vit_b_ln2_rows", "vit_b_sub_ln"])
 @pytest.mark.parametrize("static", [False, True])
 def test_layernorm_int8_kernel_at_call_sites(dev, site, static):
     """The quantizing LayerNorm at the main path's widths, the LN(0) row
@@ -630,22 +633,105 @@ def test_int8_linear_kernel(dev, shape):
 
 
 # ---------------------------------------------------------------------------
+# the shapes of the other presets: ViT-B's width, ratio .7, 800x320 maps
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["B", "C", "B8", "C8", "B8 static",
+                                  "C8 static"])
+def test_vit_b_width_blocks(dev, kind):
+    """ViT-B's block: width 768 in 12 heads of 64, SwiGLU hidden 2048 (no
+    padding: the gate output and the sub-LN are exactly 2048 wide), on a
+    20 x 50 map (800x320's patch grid) whose ws 16 windows reach past its
+    edges."""
+    c, heads, hidden, ws = 768, 12, 2048, 16
+    blk = _block(c, heads, hidden, 7, dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = (torch.randn(1, 20, 50, c, device=dev, generator=g) * 0.5).to(BF)
+    scores = torch.randn(1, 1000, device=dev, generator=g).to(BF)
+    tables = _rope(c, heads, ws, dev)
+    int8_ = kind.startswith(("B8", "C8"))
+    if kind.endswith("static"):
+        _calibrate(blk, x, heads, ws, tables)
+    wts = (vit_block.pack_block_weights_int8 if int8_ else
+           vit_block.pack_block_weights)(blk, heads, BF)
+    assert wts.hidden == wts.w3.shape[1] == hidden
+    if kind.startswith("B"):
+        fn = vit_block.fused_full_block_int8 if int8_ \
+            else vit_block.fused_full_block
+        out = _counted(fn, blk, x, heads, ws, tables)
+        _close(out, vit_block.full_block_plain(wts, x, heads, ws, tables))
+        plan = None
+    else:
+        fn = vit_block.fused_compressed_block_int8 if int8_ \
+            else vit_block.fused_compressed_block
+        out = _counted(fn, blk, x, scores, heads, ws, 0.7, tables, True,
+                       True, True)
+        plan = vit_block.compress_plan(scores, 1, 20, 50, ws, 0.7, True,
+                                       True)
+        assert plan.k == 179
+        _close(out, vit_block.compressed_block_plain(wts, x, plan, heads,
+                                                     ws, tables))
+    _close(vit_block.attention_delta(blk, x, heads, ws, tables, plan,
+                                     int8=int8_),
+           vit_block.attention_delta_plain(wts, x, heads, ws, tables, plan))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ws,k", [(16, 179), (20, 280)])
+@pytest.mark.parametrize("kind", ["C", "C8", "C8 static"])
+def test_ratio_07_compressed_blocks(dev, ws, k, kind):
+    """Ratio .7 (ToC3D_fast): k = int(n * .7) kept rows a window, 179 at ws
+    16 and 280 at ws 20 (mxu_align_k leaves both), on a 20 x 50 map."""
+    c, heads, hidden = 128, 2, 256
+    blk = _block(c, heads, hidden, 8, dev)
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = (torch.randn(2, 20, 50, c, device=dev, generator=g) * 0.5).to(BF)
+    scores = torch.randn(2, 1000, device=dev, generator=g).to(BF)
+    tables = _rope(c, heads, ws, dev)
+    int8_ = kind != "C"
+    if kind == "C8 static":
+        _calibrate(blk, x, heads, ws, tables)
+    plan = vit_block.compress_plan(scores, 2, 20, 50, ws, 0.7, True, True)
+    assert plan.k == k
+    fn = vit_block.fused_compressed_block_int8 if int8_ \
+        else vit_block.fused_compressed_block
+    out = _counted(fn, blk, x, scores, heads, ws, 0.7, tables, True, True,
+                   True)
+    wts = (vit_block.pack_block_weights_int8 if int8_ else
+           vit_block.pack_block_weights)(blk, heads, BF)
+    _close(out, vit_block.compressed_block_plain(wts, x, plan, heads, ws,
+                                                 tables))
+    _close(vit_block.attention_delta(blk, x, heads, ws, tables, plan,
+                                     int8=int8_),
+           vit_block.attention_delta_plain(wts, x, heads, ws, tables, plan))
+
+
+# ---------------------------------------------------------------------------
 # the captured frame (make_infer_fn on the card) against eager infer_step
 # ---------------------------------------------------------------------------
 
 RESET_STREAM = (0.0, 1.0, 1.0, 0.0, 1.0)
 
 
-def _serving_model(quant, seed=3):
+def _serving_model(quant, seed=3, backbone=None):
     """The tiny preset in bf16 on the card; quant 'static': backbone and
-    decoder int8 with scales calibrated on 2 frames."""
-    from dataclasses import replace
+    decoder int8 with scales calibrated on 2 frames. backbone: fields to
+    replace in the tiny backbone config, or "plain" for the plain EVA-02
+    backbone of its widths."""
+    from dataclasses import fields, replace
     from toc3d_tpu_torch.configs import get_config
     from toc3d_tpu_torch.models.detector import build_detector, synthetic_frame
     from toc3d_tpu_torch.ops.int8_calib import (attach_act_scales,
                                                 calibrate_act_scales)
     cfg = get_config("tiny", compute_dtype="bfloat16")
     cfg = replace(cfg, head=replace(cfg.head, compute_dtype="bfloat16"))
+    if backbone == "plain":
+        cfg = replace(cfg, backbone=EVAViTConfig(**{
+            f.name: getattr(cfg.backbone, f.name)
+            for f in fields(EVAViTConfig)}))
+    elif backbone:
+        cfg = replace(cfg, backbone=replace(cfg.backbone, **backbone))
     if quant != "none":
         cfg = replace(cfg, backbone=replace(cfg.backbone, quant="int8"),
                       head=replace(cfg.head, decoder=replace(
@@ -678,12 +764,13 @@ def _outputs(out):
     return tuple(state.memory) + tuple(det)
 
 
-def _eager_stream(model, frames):
-    from toc3d_tpu_torch.models.detector import infer_step, init_state
+def _eager_stream(model, frames, mask_seed=0):
+    from toc3d_tpu_torch.models.detector import eager_infer_fn, init_state
+    infer = eager_infer_fn(model, mask_seed=mask_seed)
     state = init_state(1, model.cfg, device="cuda")
     outs = []
     for f in frames:
-        state, det = infer_step(model, state, f)
+        state, det = infer(state, f)
         outs.append(_outputs((state, det)))
     return outs
 
@@ -803,3 +890,61 @@ def test_failed_capture_raises(dev):
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "raised" in r.stdout
+
+
+@pytest.mark.cuda
+def test_plain_backbone_frame_captured_once_equals_eager(dev):
+    """The StreamPETR form (plain EVA-02 backbone, no selectors): one
+    backbone program, whatever prev_exists says, and one head program, each
+    captured once; bit for bit eager's over a stream with a reset."""
+    from toc3d_tpu_torch.models.detector import init_state, make_infer_fn
+    from toc3d_tpu_torch.models.eva_vit import EVAViT
+    model = _serving_model("none", backbone="plain")
+    assert type(model.img_backbone) is EVAViT and not model.cfg.is_toc3d
+    frames = _host_stream()
+    infer = make_infer_fn(model)
+    state = init_state(1, model.cfg, device="cuda")
+    got, captured = [], {}
+    for t, f in enumerate(frames):
+        state, det = infer(state, f)
+        for name, prog in infer._programs.items():
+            assert captured.setdefault(name, prog) is prog, (t, name)
+        got.append(_outputs((state, det)))
+    assert sorted(map(str, infer._programs)) == sorted(
+        map(str, [("backbone+neck",), "head+decode"]))
+    for t, (a, b) in enumerate(zip(got, _eager_stream(model, frames))):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y), f"frame {t}"
+
+
+# two selectors, so the first one's mask shapes the second one's scores
+GUMBEL = dict(eval_mask="gumbel", pruning_loc=(0, 2), token_ratio=(0.5, 0.5))
+
+
+@pytest.mark.cuda
+def test_gumbel_replays_draw_fresh_noise_and_equal_eager(dev):
+    """eval_mask 'gumbel' captured: every call draws its frame's noise from
+    (mask_seed, frame) into the graphs' static buffers, so the captured
+    stream equals eager infer_step from the same mask_seed bit for bit,
+    and two replays on the same state and frame give different results
+    (fresh noise) while the global generator is left alone."""
+    from toc3d_tpu_torch.models.detector import init_state, make_infer_fn
+    model = _serving_model("none", backbone=GUMBEL)
+    frames = _host_stream()
+    infer = make_infer_fn(model, mask_seed=11)
+    state = init_state(1, model.cfg, device="cuda")
+    got = []
+    for f in frames:
+        state, det = infer(state, f)
+        got.append(_outputs((state, det)))
+    for t, (a, b) in enumerate(zip(got, _eager_stream(model, frames, 11))):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y), f"frame {t}"
+    other = _eager_stream(model, frames, 12)
+    assert not all(torch.equal(x, y) for x, y in zip(got[1], other[1]))
+    rng = torch.cuda.get_rng_state()
+    first = _outputs(infer(state, frames[-1]))
+    again = _outputs(infer(state, frames[-1]))
+    assert infer.noise.counter == len(frames) + 2
+    assert not torch.equal(first[0], again[0])     # the bank's embeddings
+    assert torch.equal(rng, torch.cuda.get_rng_state())

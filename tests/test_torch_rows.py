@@ -50,7 +50,9 @@ _PATCH = (CSRC / "patch_embed.cu").read_text()
 
 # (n, npad): LN1 / LN2 at C 1024, the sub-LN's hidden 2730 in 2736 columns,
 # and a small width
-WIDTHS = [(64, 64), (1024, 1024), (2730, 2736)]
+# ViT-L's width and its sub-LN's 2730 of 2736 columns, ViT-B's 768 and its
+# unpadded SwiGLU hidden 2048, and a small width
+WIDTHS = [(64, 64), (1024, 1024), (2730, 2736), (768, 768), (2048, 2048)]
 
 
 def _inputs(seed, xr, npad, n):
@@ -198,7 +200,8 @@ def test_instances_cover_every_width_up_to_the_cap():
 
 @pytest.mark.parametrize("n,npad,vec", [
     (1024, 1024, 8), (2730, 2736, 8), (64, 64, 8), (170, 176, 8),
-    (2730, 2730, 2), (258, 258, 2), (1024, 1024, 2), (4096, 4096, 8)])
+    (2730, 2730, 2), (258, 258, 2), (1024, 1024, 2), (4096, 4096, 8),
+    (768, 768, 8), (2048, 2048, 8)])
 def test_lane_map_loads_and_stores_each_column_once(n, npad, vec):
     ch, wpr = ln_instance(npad, vec)
     loaded, stored, owner = [], [], {}
@@ -218,7 +221,8 @@ def test_lane_map_loads_and_stores_each_column_once(n, npad, vec):
     assert sorted(stored) == list(range(npad))       # once each
 
 
-@pytest.mark.parametrize("n,npad", [(2730, 2736), (1024, 1024)])
+@pytest.mark.parametrize("n,npad", [(2730, 2736), (1024, 1024),
+                                   (2048, 2048)])
 def test_no_store_precedes_the_rows_last_load(n, npad):
     """The in-place sub-LN (y == x): run the row's threads' programs in a
     random interleaving in which the row's reductions are the only

@@ -1,10 +1,15 @@
 """Streaming inference benchmark of the PyTorch port on one GPU (the
-inference protocol of bench.py:249-390, ported; training, the sweep and the
-view and attention chunking are not).
+inference protocol of bench.py:249-390 and its sweep, :181-230, ported;
+training and the view and attention chunking are not).
 
     python3 -m toc3d_tpu_torch.bench [--config ToC3D_faster_1600]
         [--warmup 200] [--frames 100] [--batch 1] [--int8 [--int8-calib N]]
         [--eager] [--device cuda]
+    python3 -m toc3d_tpu_torch.bench --sweep [--warmup 200] [--frames 100]
+        [--int8] [--eager]
+
+--config takes every preset of configs/presets.py and the ToC3D_ratio*
+speed-sweep names (ToC3D_ratio543, ToC3D_ratio543_1600).
 
 The protocol (reference README.md:113-123, gpu_timer.py:29): seeded random
 weights; 6 camera views at the preset's pad shape; 4 image contents built on
@@ -23,6 +28,13 @@ ms/frame, the per-stage device time from CUDA events (runtime/timer.py;
 bench.py has no split, the JAX package's GlobalTimer gives one) and, last,
 one JSON line {"metric", "value", "unit", "vs_baseline"}: frames/s against
 the paper's A100 whole-pipeline latency.
+
+--sweep benches each config of SWEEP_FAMILIES (the paper's Table 2 rows:
+StreamPETR, ToC3D-Fast and ToC3D-Faster for ViT-L at 800x320 and 1600x800
+and for ViT-B at 800x320) in its own process, with the same options, and
+prints the nvidia-smi line and one table: ms/frame, frames/s, the speedup
+over the family's StreamPETR baseline and the peak device memory, beside
+the paper's A100 latency of the same config. It writes no file.
 """
 from __future__ import annotations
 
@@ -49,6 +61,16 @@ A100_PIPELINE_MS = {
     "ToC3D_vit_b_fast": 94.0,
     "ToC3D_vit_b_faster": 85.0,
 }
+# the paper's compression-payoff table: baseline, fast and faster per
+# backbone and resolution (copied from bench.py:36-43)
+SWEEP_FAMILIES = [
+    ("ViT-L 800x320", ["stream_petr_eva_vit_l", "ToC3D_fast",
+                       "ToC3D_faster"]),
+    ("ViT-L 1600x800", ["stream_petr_eva_vit_l_1600", "ToC3D_fast_1600",
+                        "ToC3D_faster_1600"]),
+    ("ViT-B 800x320", ["stream_petr_vit_b", "ToC3D_vit_b_fast",
+                       "ToC3D_vit_b_faster"]),
+]
 SCENE_LEN = 40      # frames per scene (bench.py:350)
 CONTENTS = 4        # distinct image contents, cycled (bench.py:352)
 VIEWS = 6
@@ -106,6 +128,80 @@ def nvidia_smi_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
+def parse_run(stdout: str):
+    """The figures of one bench run from its output: {"fps", "ms",
+    "peak_gib" (None off the card), "metric"}; None if the run printed no
+    JSON line."""
+    lines = stdout.strip().splitlines()
+    if not lines or not lines[-1].startswith("{"):
+        return None
+    rec = json.loads(lines[-1])
+    out = {"fps": rec["value"], "metric": rec["metric"], "ms": None,
+           "peak_gib": None}
+    for line in lines:
+        if line.startswith("wall ") and line.endswith(" ms/frame"):
+            out["ms"] = float(line.split()[1])
+        elif line.startswith("peak device memory "):
+            out["peak_gib"] = float(line.split()[3])
+    return out
+
+
+def sweep_table(results, families=SWEEP_FAMILIES):
+    """The sweep's table (markdown) from {config: parse_run(...) or None}:
+    per family, each config's ms/frame, frames/s, speedup over the family's
+    first config (its ms over this one's) and peak GiB, beside the paper's
+    A100 ms and its speedup."""
+    rows = ["| Family | Config | ms/frame | frames/s | speedup vs baseline "
+            "| peak GiB | paper's A100 ms (speedup) |",
+            "|---|---|---|---|---|---|---|"]
+    for fam, names in families:
+        base = results.get(names[0])
+        for name in names:
+            rec = results.get(name)
+            a100 = A100_PIPELINE_MS.get(name)
+            a100_base = A100_PIPELINE_MS.get(names[0])
+            paper = "-" if a100 is None else (
+                f"{a100}" + ("" if name == names[0] or a100_base is None
+                             else f" ({a100_base / a100:.3f}x)"))
+            if rec is None:
+                rows.append(f"| {fam} | {name} | FAILED | | | | {paper} |")
+                continue
+            speed = "1 (baseline)" if name == names[0] else (
+                "-" if base is None else f"{base['ms'] / rec['ms']:.4f}x")
+            peak = "-" if rec["peak_gib"] is None else f"{rec['peak_gib']}"
+            rows.append(f"| {fam} | {name} | {rec['ms']} | {rec['fps']} | "
+                        f"{speed} | {peak} | {paper} |")
+    return "\n".join(rows)
+
+
+def run_sweep(args) -> int:
+    """Bench every config of SWEEP_FAMILIES in its own process (a fresh
+    device memory pool and set of captures each) and print the table;
+    non-zero if a config failed."""
+    results = {}
+    passthrough = ["--warmup", str(args.warmup), "--frames", str(args.frames),
+                   "--batch", str(args.batch), "--device", args.device]
+    passthrough += ["--int8"] * args.int8 + ["--eager"] * args.eager
+    for _, names in SWEEP_FAMILIES:
+        for name in names:
+            cmd = [sys.executable, "-m", "toc3d_tpu_torch.bench", "--config",
+                   name] + passthrough
+            print(f"# bench {name} ...", flush=True)
+            r = subprocess.run(cmd, capture_output=True, text=True)
+            results[name] = parse_run(r.stdout) if r.returncode == 0 \
+                else None
+            if results[name] is None:
+                print(f"# {name} FAILED (exit {r.returncode}):\n"
+                      f"{r.stderr[-3000:]}", flush=True)
+            else:
+                print("\n".join(r.stdout.strip().splitlines()[-6:]),
+                      flush=True)
+    if torch.device(args.device).type == "cuda":
+        print(nvidia_smi_line())
+    print(sweep_table(results))
+    return 0 if all(v is not None for v in results.values()) else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", default="ToC3D_faster_1600")
@@ -122,6 +218,9 @@ def main(argv=None) -> int:
     ap.add_argument("--eager", action="store_true",
                     help="run the frame eagerly (infer_step) instead of as "
                          "captured CUDA graphs, for comparison")
+    ap.add_argument("--sweep", action="store_true",
+                    help="bench every config of SWEEP_FAMILIES, one process "
+                         "each, and print the table")
     args = ap.parse_args(argv)
     if args.int8_calib and not args.int8:
         ap.error("--int8-calib requires --int8")
@@ -130,6 +229,10 @@ def main(argv=None) -> int:
         print("bench: no CUDA device (pass --device cpu for the protocol "
               "check)", file=sys.stderr)
         return 2
+    if args.sweep:
+        if args.int8_calib:
+            ap.error("--sweep takes no --int8-calib")
+        return run_sweep(args)
 
     from .configs import get_config
     from .models.detector import (build_detector, eager_infer_fn,
@@ -143,6 +246,13 @@ def main(argv=None) -> int:
         build.build_all()
     cfg = get_config(args.config)
     label = args.config
+    if cuda and cfg.compute_dtype != "bfloat16":
+        # the kernels take bf16 activations (the `tiny` preset is f32)
+        cfg = replace(cfg, compute_dtype="bfloat16", head=replace(
+            cfg.head, compute_dtype="bfloat16"))
+        label += "+bf16"
+        print(f"{args.config}: served in bf16 on the card (the kernels take "
+              "bf16 activations)", flush=True)
     if args.int8:
         cfg = replace(cfg, backbone=replace(cfg.backbone, quant="int8"),
                       head=replace(cfg.head, decoder=replace(

@@ -1,1 +1,1 @@
-from .presets import PRESETS, get_config  # noqa: F401
+from .presets import PRESETS, apply_overrides, get_config  # noqa: F401

@@ -3,7 +3,10 @@
 ``params_from_jax(params_np, cfg)`` takes the tree the JAX package builds
 (``init_detector`` or runtime/checkpoint.convert_detector_checkpoint) as
 nested dicts / lists of numpy arrays and returns a state dict with the
-reference (mmdet3d) names of ``models.detector.ToC3DDetector``. It inverts
+reference (mmdet3d) names of ``models.detector.ToC3DDetector``, for either
+backbone: a ToC3D tree with its ``score_predictor`` list, or the plain
+EVA-02 tree of ``init_eva_vit`` (StreamPETR), which has none; any width
+(ViT-L, ViT-B). It inverts
 the JAX converter's conventions (runtime/checkpoint.py:1-16): a Linear ``w``
 is (in, out) and becomes the torch (out, in) weight; a conv ``w`` is
 (kh, kw, in, out) and becomes (out, in, kh, kw); MHA q/k/v pack into

@@ -25,7 +25,11 @@ def nms_free_decode(all_cls_scores, all_bbox_preds, num_classes: int,
     cls = torch.sigmoid(all_cls_scores[-1])
     box = all_bbox_preds[-1]
     b, q, c = cls.shape
-    scores, idx = cls.reshape(b, q * c).topk(max_num, dim=1)
+    # a stable descending sort: tied scores keep ascending index order, as
+    # lax.top_k returns them (coder.py:37); torch.topk leaves ties unordered
+    scores, idx = torch.sort(cls.reshape(b, q * c), dim=1, descending=True,
+                             stable=True)
+    scores, idx = scores[:, :max_num], idx[:, :max_num]
     labels = idx % num_classes
     bidx = idx // num_classes
     box = torch.gather(box, 1, bidx[..., None].expand(-1, -1, box.shape[-1]))

@@ -18,7 +18,6 @@ Hopper kernels (ops/cuda).
 """
 from __future__ import annotations
 
-import functools
 import math
 import re
 from dataclasses import dataclass, field
@@ -34,7 +33,9 @@ from ..runtime.timer import span
 from .neck import CPFPN, CPFPNConfig, cpfpn_forward
 from .streampetr_head import (MemoryBank, StreamPETRHead,
                               StreamPETRHeadConfig, head_forward, init_memory)
+from .eva_vit import EVAViT, EVAViTConfig, eva_vit_forward
 from .toc3d_vit import ToC3DViT, ToC3DViTConfig, toc3d_vit_forward
+from .token_select import gumbel_
 
 
 @dataclass(frozen=True)
@@ -50,8 +51,10 @@ class FocalHeadConfig:
 
 @dataclass(frozen=True)
 class DetectorConfig:
-    """Field names of detector.py:35-55 that inference reads."""
-    backbone: ToC3DViTConfig = field(default_factory=ToC3DViTConfig)
+    """Field names of detector.py:35-55 that inference reads. backbone: an
+    EVAViTConfig (the plain EVA-02 of the StreamPETR presets) or a
+    ToC3DViTConfig."""
+    backbone: EVAViTConfig = field(default_factory=ToC3DViTConfig)
     neck: CPFPNConfig = field(default_factory=CPFPNConfig)
     head: StreamPETRHeadConfig = field(default_factory=StreamPETRHeadConfig)
     focal: FocalHeadConfig = field(default_factory=FocalHeadConfig)
@@ -59,6 +62,13 @@ class DetectorConfig:
     position_level: int = 0
     pad_shape: Tuple[int, int] = (320, 800)
     compute_dtype: str = "float32"   # backbone dtype: 'float32' | 'bfloat16'
+
+    @property
+    def is_toc3d(self) -> bool:
+        """Token compression runs: a ToC3DViTConfig with a pruning location
+        (detector.py:53-55); otherwise the plain backbone's forward."""
+        return isinstance(self.backbone, ToC3DViTConfig) and bool(
+            self.backbone.pruning_loc)
 
 
 class DetectorState(NamedTuple):
@@ -89,12 +99,16 @@ _BUFFER_PAT = re.compile(
 
 
 class ToC3DDetector(nn.Module):
-    """Petr3D module tree with the reference (mmdet3d) parameter names."""
+    """Petr3D module tree with the reference (mmdet3d) parameter names; the
+    backbone is a ToC3DViT for a ToC3DViTConfig, else the plain EVAViT
+    (detector.py:63-68), which has no score_predictor."""
 
     def __init__(self, cfg: DetectorConfig):
         super().__init__()
         self.cfg = cfg
-        self.img_backbone = ToC3DViT(cfg.backbone)
+        self.img_backbone = (ToC3DViT if isinstance(cfg.backbone,
+                                                    ToC3DViTConfig)
+                             else EVAViT)(cfg.backbone)
         self.img_neck = CPFPN(cfg.neck)
         self.pts_bbox_head = StreamPETRHead(cfg.head)
         self.img_roi_head = FocalHeadParams(cfg.focal)
@@ -274,12 +288,16 @@ def _motion_ctx_from_memory(cfg: DetectorConfig, memory: MemoryBank, frame):
 
 def extract_img_feat(model: ToC3DDetector, img, memory: MemoryBank, frame,
                      steady=None, collect_block_outs: bool = False,
-                     quant=None):
+                     quant=None, mask_noise=None):
     """img (B, N, H, W, 3) -> neck features (B, N, h, w, C) float32. A uint8
-    image is normalized here, on the device (detector.py:142-150).
-    collect_block_outs: also return the backbone's per-block inputs,
-    outputs and scores (toc3d_vit_forward); quant overrides the backbone's
-    cfg.quant ('none': the float blocks, as calibration runs them)."""
+    image is normalized here, on the device (detector.py:142-150). The
+    backbone is toc3d_vit_forward, guided by the memory bank, when the
+    config compresses tokens (is_toc3d), else eva_vit_forward
+    (detector.py:206-230). collect_block_outs: also return the ToC3D
+    backbone's per-block inputs, outputs and scores (toc3d_vit_forward);
+    quant overrides the backbone's cfg.quant ('none': the float blocks, as
+    calibration runs them); mask_noise: the selectors' Gumbel noise for
+    eval_mask 'gumbel' (MaskNoise)."""
     from ..configs.presets import IMG_NORM_MEAN, IMG_NORM_STD
     cfg = model.cfg
     b, n, h, w, c = img.shape
@@ -291,11 +309,20 @@ def extract_img_feat(model: ToC3DDetector, img, memory: MemoryBank, frame,
         std = const_vector(IMG_NORM_STD, torch.float32, x.device)
         x = (x.float() - mean) / std
     x = x.to(dtype).contiguous()
-    feats = toc3d_vit_forward(model.img_backbone, x,
-                              _motion_ctx_from_memory(cfg, memory, frame),
-                              frame["prev_exists"], steady=steady,
-                              collect_block_outs=collect_block_outs,
-                              quant=quant)
+    if cfg.is_toc3d:
+        feats = toc3d_vit_forward(model.img_backbone, x,
+                                  _motion_ctx_from_memory(cfg, memory, frame),
+                                  frame["prev_exists"], steady=steady,
+                                  collect_block_outs=collect_block_outs,
+                                  quant=quant, mask_noise=mask_noise)
+    elif collect_block_outs:
+        # as JAX's extract_img_feat (detector.py:221-224), which the static
+        # int8 calibration reaches through its collected forward
+        raise NotImplementedError(
+            "collecting block outputs targets the ToC3D backbone; the plain "
+            "EVA-02 backbone has no collected forward")
+    else:
+        feats = eva_vit_forward(model.img_backbone, x, quant=quant)
     if collect_block_outs:
         feats, collected = feats
     f = cpfpn_forward(model.img_neck, feats, cfg.neck)[cfg.position_level]
@@ -329,18 +356,20 @@ def is_steady(frame) -> bool:
 
 @torch.no_grad()
 def infer_step(model: ToC3DDetector, state: DetectorState, frame,
-               timer=None):
+               timer=None, mask_noise=None):
     """(state, frame) -> (state', DecodedBoxes) (detector.py:243-272),
     eagerly. The frame's arrays may lie on the host (numpy or tensors) or
     on the model's device; host ones are moved there (frame_to_device).
     ``timer`` (runtime/timer.StageTimer): the spans "inputs",
-    "backbone+neck" and "head+decode" are recorded on it."""
+    "backbone+neck" and "head+decode" are recorded on it. mask_noise: the
+    selectors' Gumbel noise under eval_mask 'gumbel' (MaskNoise.draw; none:
+    the noiseless mask)."""
     steady = is_steady(frame)
     with span(timer, "inputs"):
         frame = frame_to_device(frame, next(model.parameters()).device)
     with span(timer, "backbone+neck"):
         feats = extract_img_feat(model, frame["img"], state.memory, frame,
-                                 steady=steady)
+                                 steady=steady, mask_noise=mask_noise)
     with span(timer, "head+decode"):
         return head_step(model, state, feats, frame)
 
@@ -376,9 +405,10 @@ def precast_backbone_(model: ToC3DDetector) -> None:
     dtype = torch.bfloat16 if bf16 else torch.float32
     if bf16:
         pack_patch_weight(bb.patch_embed.proj, dtype)
-        for p in bb.score_predictor.parameters():
-            if p.dim() >= 2 and p.dtype == torch.float32:
-                p.data = p.data.to(dtype)
+        for sel in getattr(bb, "score_predictor", ()):
+            for p in sel.parameters():
+                if p.dim() >= 2 and p.dtype == torch.float32:
+                    p.data = p.data.to(dtype)
     for blk in bb.blocks:
         if int8:
             pack_block_weights_int8(blk, cfg.backbone.num_heads, dtype)
@@ -388,36 +418,96 @@ def precast_backbone_(model: ToC3DDetector) -> None:
         quantize_decoder_params(model.pts_bbox_head.transformer.decoder)
 
 
-def eager_infer_fn(model: ToC3DDetector, timer=None):
+def frame_seed(mask_seed: int, t: int) -> int:
+    """A 63-bit seed for frame t of a stream seeded by mask_seed (a
+    splitmix64 mix of the pair, whose low 32 bits, all that a CPU generator
+    keeps, depend on both)."""
+    m = 2 ** 64 - 1
+    x = (mask_seed * 0x9E3779B97F4A7C15 + t) & m
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & m
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & m
+    return (x ^ (x >> 31)) >> 1
+
+
+class MaskNoise:
+    """The selectors' Gumbel noise of eval_mask 'gumbel', frame by frame
+    (detector.py:369-406 folds the frame counter into PRNGKey(mask_seed)
+    and toc3d_vit.py:266-270 splits one key per selector). Frame t draws
+    from one explicit generator on the model's device, seeded from
+    (mask_seed, t), one f32 (B*N, h*w, 2) tensor per selector in selector
+    order; the global generator is never used. ``active`` is False, and
+    ``draw`` returns None, unless the model compresses tokens under
+    eval_mask 'gumbel'."""
+
+    def __init__(self, model: ToC3DDetector, mask_seed: int = 0):
+        cfg = model.cfg
+        self.active = cfg.is_toc3d and cfg.backbone.eval_mask == "gumbel"
+        self.selectors = len(cfg.backbone.pruning_loc) if self.active else 0
+        self.patch = cfg.backbone.patch_size
+        self.seed = mask_seed
+        self.counter = 0
+        self.generator = torch.Generator(
+            device=next(model.parameters()).device) if self.active else None
+
+    def shape(self, img_shape):
+        b, n, h, w = img_shape[:4]
+        return (b * n, (h // self.patch) * (w // self.patch), 2)
+
+    def draw(self, img_shape, out=None):
+        """The next frame's noise for images of ``img_shape`` (B, N, H, W,
+        3): written into ``out`` (one f32 buffer per selector) when given,
+        else into new tensors; None when inactive."""
+        if not self.active:
+            return None
+        self.generator.manual_seed(frame_seed(self.seed, self.counter))
+        self.counter += 1
+        if out is None:
+            out = [torch.empty(self.shape(img_shape), dtype=torch.float32,
+                               device=self.generator.device)
+                   for _ in range(self.selectors)]
+        for t in out:
+            gumbel_(t, self.generator)
+        return out
+
+
+def eager_infer_fn(model: ToC3DDetector, timer=None, mask_seed: int = 0):
     """``infer(state, frame)``: ``infer_step`` on ``model`` with ``timer``,
     after casting (or, for int8, quantizing) the weights once
-    (precast_backbone_)."""
+    (precast_backbone_); under eval_mask 'gumbel' each frame draws its
+    noise from ``mask_seed`` (MaskNoise)."""
     precast_backbone_(model)
-    return functools.partial(infer_step, model, timer=timer)
+    noise = MaskNoise(model, mask_seed)
+
+    def infer(state: DetectorState, frame):
+        return infer_step(model, state, frame, timer,
+                          noise.draw(frame["img"].shape))
+    return infer
 
 
-def make_infer_fn(model: ToC3DDetector, timer=None):
+def make_infer_fn(model: ToC3DDetector, timer=None, mask_seed: int = 0):
     """Streaming inference callable ``infer(state, frame) -> (state',
     DecodedBoxes)`` (detector.py:369-406). Casts (or, for int8 serving,
     quantizes) the weights once (precast_backbone_); to serve static int8,
     attach calibrated scales first (ops/int8_calib.attach_act_scales).
+    mask_seed: under eval_mask 'gumbel', frame t's noise comes from
+    (mask_seed, t) (MaskNoise), the same in both forms below.
 
     On a CUDA model the frame runs as captured CUDA graphs, the
     counterpart of JAX's two jitted programs (runtime/graphs.CapturedInfer:
-    backbone + neck, one graph per value of steady, and head + decode);
-    a capture that fails raises. On the CPU it runs ``infer_step``
-    eagerly (``eager_infer_fn``). ``timer`` (runtime/timer.StageTimer):
-    the spans "inputs", "backbone+neck" and "head+decode" are recorded on
-    it."""
+    backbone + neck, for the ToC3D backbone one graph per value of steady,
+    and head + decode); a capture that fails raises. On the CPU it runs
+    ``infer_step`` eagerly (``eager_infer_fn``). ``timer``
+    (runtime/timer.StageTimer): the spans "inputs", "backbone+neck" and
+    "head+decode" are recorded on it."""
     if next(model.parameters()).is_cuda:
         from ..runtime.graphs import CapturedInfer
-        return CapturedInfer(model, timer)
-    return eager_infer_fn(model, timer)
+        return CapturedInfer(model, timer, mask_seed)
+    return eager_infer_fn(model, timer, mask_seed)
 
 
 __all__ = ["DetectorConfig", "DetectorState", "DecodedBoxes",
            "FocalHeadConfig", "ToC3DDetector", "build_detector",
            "init_state", "infer_step", "head_step", "extract_img_feat",
            "make_infer_fn", "eager_infer_fn", "precast_backbone_",
-           "frame_to_device", "frame_tensors", "is_steady",
+           "MaskNoise", "frame_to_device", "frame_tensors", "is_steady",
            "synthetic_frame"]

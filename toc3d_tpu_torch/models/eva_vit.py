@@ -1,5 +1,6 @@
-"""EVA-02 ViT pieces (counterpart of toc3d_tpu/models/eva_vit.py;
-reference eva_vit.py, eva_utils.py).
+"""EVA-02 ViT backbone (counterpart of toc3d_tpu/models/eva_vit.py;
+reference eva_vit.py, eva_utils.py): the plain backbone that the StreamPETR
+presets run, and the pieces the ToC3D backbone (models/toc3d_vit.py) shares.
 
 Modules carry the reference (mmdet3d) parameter names, so a reference state
 dict loads into them directly. The block forward runs kernel B
@@ -9,7 +10,7 @@ quant='int8') and the patch embedding kernel A
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Tuple
 
 import torch
@@ -18,6 +19,7 @@ import torch.nn as nn
 from ..ops.cuda.patch_embed import pack_patch_weight, patchify_matmul
 from ..ops.cuda.int8 import SITES
 from ..ops.cuda.vit_block import fused_full_block, fused_full_block_int8
+from ..ops.resize import resize_abs_pos
 from ..ops.rope import build_rope_table
 
 LN_EPS = 1e-6
@@ -154,3 +156,56 @@ def rope_tensors(tables, device):
     if tables is None:
         return None
     return tuple(torch.from_numpy(t).to(device) for t in tables)
+
+
+class EVAViT(nn.Module):
+    """Plain EVA-02 backbone parameters with the reference names:
+    patch_embed.proj, pos_embed, blocks.{i} (eva_vit.py:107-118); a
+    StreamPETR state dict has no score_predictor."""
+
+    def __init__(self, cfg: EVAViTConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.patch_embed = PatchEmbed(cfg)
+        if cfg.use_abs_pos:
+            n = (cfg.pretrain_img_size // cfg.patch_size) ** 2
+            n = n + 1 if cfg.pretrain_use_cls_token else n
+            self.pos_embed = nn.Parameter(torch.zeros(1, n, cfg.embed_dim))
+        self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.depth))
+
+    def rope(self, device):
+        """(window, global) RoPE tables as f32 tensors on ``device``."""
+        cache = self.__dict__.setdefault("_rope_cache", {})
+        if device not in cache:
+            win, glb = make_rope_tables(self.cfg)
+            cache[device] = (rope_tensors(win, device),
+                             rope_tensors(glb, device))
+        return cache[device]
+
+
+def embed(model: EVAViT, x, cfg: EVAViTConfig):
+    """Kernel A, then the bicubic-resized absolute position embedding
+    (eva_vit.py:317-321)."""
+    x = patch_embed(model.patch_embed, x, cfg.patch_size)
+    if cfg.use_abs_pos:
+        x = x + resize_abs_pos(model.pos_embed, cfg.pretrain_use_cls_token,
+                               (x.shape[1], x.shape[2])).to(x.dtype)
+    return x
+
+
+def eva_vit_forward(model: EVAViT, x, quant=None):
+    """x (B, H, W, 3) normalized images in the compute dtype -> features
+    (B, h, w, C) (eva_vit.py:302-334, eval path): kernel A, the position
+    embedding, then ``depth`` blocks through kernel B (B8 with quant
+    'int8'), at window_size or, at global_attn_indexes, global_window_size.
+    quant overrides cfg.quant."""
+    cfg = model.cfg if quant is None else replace(model.cfg, quant=quant)
+    rope_win, rope_glb = model.rope(x.device)
+    x = embed(model, x, cfg)
+    for i, blk in enumerate(model.blocks):
+        is_global = i in cfg.global_attn_indexes
+        x = block_forward(
+            blk, x, cfg,
+            cfg.global_window_size if is_global else cfg.window_size,
+            rope_glb if is_global else rope_win)
+    return x

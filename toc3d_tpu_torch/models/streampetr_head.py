@@ -168,7 +168,9 @@ def propagated_queries(cfg: StreamPETRHeadConfig, cls_last):
     """(B, Q, classes) last-layer logits -> (B, topk_proposals) indices of
     the queries that enter the bank, best first."""
     rec_score = torch.sigmoid(cls_last).amax(dim=-1)
-    return rec_score.topk(cfg.topk_proposals, dim=1).indices
+    # stable: tied scores keep ascending index order, as lax.top_k does
+    return torch.sort(rec_score, dim=1, descending=True,
+                      stable=True).indices[:, :cfg.topk_proposals]
 
 
 def post_update_memory(cfg: StreamPETRHeadConfig, bank: MemoryBank,

@@ -17,17 +17,20 @@ import torch.nn as nn
 
 from ..ops.cuda.vit_block import (fused_compressed_block,
                                   fused_compressed_block_int8)
-from ..ops.resize import resize_abs_pos
-from .eva_vit import (Block, EVAViTConfig, PatchEmbed, block_forward,
-                      make_rope_tables, patch_embed, rope_tensors)
-from .token_select import (SelectorConfig, Selector, selector_score,
-                           soft_mask)
+from .eva_vit import EVAViT, EVAViTConfig, Block, block_forward, embed
+from .token_select import (SelectorConfig, Selector, hard_mask,
+                           selector_score, soft_mask)
 
 
 @dataclass(frozen=True)
 class ToC3DViTConfig(EVAViTConfig):
-    """Token-compression knobs of toc3d_tpu/models/toc3d_vit.py:38-89.
-    eval_mask: only the deterministic 'softmax' mask is ported."""
+    """Token-compression knobs of toc3d_tpu/models/toc3d_vit.py:38-89. An
+    empty pruning_loc makes it a plain backbone (DetectorConfig.is_toc3d).
+    eval_mask, the token mask each selector hands the next
+    (toc3d_utils.py:146-157): 'softmax', the noiseless channel 0 of the
+    gumbel-softmax; 'gumbel', with Gumbel noise (the reference's own eval
+    mask, stochastic: make_infer_fn draws it from mask_seed); 'hard', the
+    0/1 mask of the whole-image top-k."""
     pruning_loc: Tuple[int, ...] = (6, 12, 18)
     token_ratio: Tuple[float, ...] = (0.7, 0.5, 0.5)
     pruning_num_queries: int = 64
@@ -49,13 +52,15 @@ class ToC3DViTConfig(EVAViTConfig):
         if overlap:
             raise ValueError("pruning layers cannot be global attention "
                              f"layers (toc3d_eva_vit.py:141-142): {overlap}")
-        if len(self.token_ratio) != len(self.pruning_loc) or any(
+        if len(self.token_ratio) < len(self.pruning_loc) or any(
                 not 0 <= i < self.depth for i in self.pruning_loc):
             raise ValueError(
                 f"pruning_loc {self.pruning_loc} must lie in [0, depth="
-                f"{self.depth}) and match token_ratio {self.token_ratio}")
-        if self.eval_mask != "softmax":
-            raise NotImplementedError("only eval_mask='softmax' is ported")
+                f"{self.depth}) and have a token_ratio each "
+                f"({self.token_ratio})")
+        if self.eval_mask not in ("softmax", "gumbel", "hard"):
+            raise ValueError(f"eval_mask {self.eval_mask!r}: 'softmax', "
+                             "'gumbel' or 'hard'")
 
     def selector_config(self, i: int) -> SelectorConfig:
         return SelectorConfig(
@@ -73,31 +78,15 @@ class ToC3DViTConfig(EVAViTConfig):
         return True
 
 
-class ToC3DViT(nn.Module):
+class ToC3DViT(EVAViT):
     """Backbone parameters with the reference names: patch_embed.proj,
     pos_embed, blocks.{i}, score_predictor.{j}."""
 
     def __init__(self, cfg: ToC3DViTConfig):
-        super().__init__()
-        self.cfg = cfg
-        self.patch_embed = PatchEmbed(cfg)
-        if cfg.use_abs_pos:
-            n = (cfg.pretrain_img_size // cfg.patch_size) ** 2
-            n = n + 1 if cfg.pretrain_use_cls_token else n
-            self.pos_embed = nn.Parameter(torch.zeros(1, n, cfg.embed_dim))
-        self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.depth))
+        super().__init__(cfg)
         self.score_predictor = nn.ModuleList(
             Selector(cfg.selector_config(i))
             for i in range(len(cfg.pruning_loc)))
-
-    def rope(self, device):
-        """(window, global) RoPE tables as f32 tensors on ``device``."""
-        cache = self.__dict__.setdefault("_rope_cache", {})
-        if device not in cache:
-            win, glb = make_rope_tables(self.cfg)
-            cache[device] = (rope_tensors(win, device),
-                             rope_tensors(glb, device))
-        return cache[device]
 
 
 def toc3d_block_forward(blk: Block, x, scores, cfg: ToC3DViTConfig,
@@ -116,22 +105,23 @@ def toc3d_block_forward(blk: Block, x, scores, cfg: ToC3DViTConfig,
 
 def toc3d_vit_forward(model: ToC3DViT, x, motion_ctx, prev_exists,
                       steady=None, collect_block_outs: bool = False,
-                      quant=None):
+                      quant=None, mask_noise=None):
     """x (BN, H, W, 3) normalized images in the compute dtype -> features
     (BN, h, w, C) (toc3d_vit.py:196-369, eval path). motion_ctx: memory-bank
     views for the selectors; prev_exists (B,); steady: all(prev_exists > 0)
     if the caller already knows it. quant overrides cfg.quant ('none' runs
-    the float blocks, as calibration does). collect_block_outs: also return
-    {'inputs': [x_i], 'outputs': [y_i], 'scores': [scores or None]} per
-    block (toc3d_vit.py:361-362), what ops.int8_calib probes."""
+    the float blocks, as calibration does). mask_noise: with eval_mask
+    'gumbel', one f32 Gumbel noise tensor (BN, h*w, 2) per selector, in
+    selector order (toc3d_vit.py:266-270 splits one key per selector);
+    without it the mask is noiseless, as JAX's without a mask_rng.
+    collect_block_outs: also return {'inputs': [x_i], 'outputs': [y_i],
+    'scores': [scores or None]} per block (toc3d_vit.py:361-362), what
+    ops.int8_calib probes."""
     cfg = model.cfg
     if quant is not None:
         cfg = replace(cfg, quant=quant)
     rope_win, rope_glb = model.rope(x.device)
-    x = patch_embed(model.patch_embed, x, cfg.patch_size)
-    if cfg.use_abs_pos:
-        x = x + resize_abs_pos(model.pos_embed, cfg.pretrain_use_cls_token,
-                               (x.shape[1], x.shape[2])).to(x.dtype)
+    x = embed(model, x, cfg)
     bn, h, w, c = x.shape
     masks = torch.ones(bn, h, w, 1, dtype=x.dtype, device=x.device)
     if steady is None:
@@ -146,7 +136,14 @@ def toc3d_vit_forward(model: ToC3DViT, x, motion_ctx, prev_exists,
             scores, pred, _ = selector_score(
                 model.score_predictor[seg], scfg, x, masks, motion_ctx,
                 prev_exists, steady=steady)
-            masks = soft_mask(pred).reshape(bn, h, w, 1)
+            if cfg.eval_mask == "hard":
+                masks = hard_mask(scores, scfg.ratio).to(x.dtype)
+            else:
+                noise = None
+                if cfg.eval_mask == "gumbel" and mask_noise is not None:
+                    noise = mask_noise[seg]
+                masks = soft_mask(pred, noise)
+            masks = masks.reshape(bn, h, w, 1)
             ratio = scfg.ratio
             seg += 1
         is_global = i in cfg.global_attn_indexes

@@ -4,8 +4,9 @@ toc3d_tpu/models/token_select.py; reference toc3d_utils.py:90-360).
 As in the JAX package: the first-frame score-MLP fallback is blended per
 lane, score = mlp * (1 - prev) + query * prev, and the MLP runs only when
 some lane has prev_exists == 0 (token_select.py:196-229; here a Python
-branch); the eval token mask is the noiseless softmax; top-k is a stable
-descending sort, so ties keep ascending index order like
+branch); the eval token mask is the noiseless softmax, or with Gumbel noise
+handed in as a tensor (the reference's stochastic eval mask); top-k is a
+stable descending sort, so ties keep ascending index order like
 lax.sort_key_val on -scores (token_select.py:255-268).
 """
 from __future__ import annotations
@@ -160,7 +161,32 @@ def sample_topk(scores, ratio: float, k: Optional[int] = None):
     return s[..., :k], s[..., k:], idx[..., :k], idx[..., k:]
 
 
-def soft_mask(pred_score, tau: float = 1.0):
-    """Noiseless eval mask: channel 0 of softmax(pred / tau)."""
-    return torch.softmax(pred_score / tau, dim=-1)[..., 0:1].to(
-        pred_score.dtype)
+def hard_mask(scores, ratio: float):
+    """The 0/1 eval mask of eval_mask 'hard' (toc3d_vit.py:276-281,
+    toc3d_utils.py:150-157): 1 at the int(N * ratio) best tokens of the
+    whole image (sample_topk), else 0. scores (B, N) -> (B, N, 1) in
+    scores.dtype."""
+    keep = sample_topk(scores, ratio)[2]
+    mask = torch.zeros(*scores.shape, 1, dtype=scores.dtype,
+                       device=scores.device)
+    return mask.scatter_(1, keep[..., None], 1.0)
+
+
+def gumbel_(out, generator):
+    """Fill the f32 tensor ``out`` in place with standard Gumbel noise drawn
+    from ``generator``: -log(-log(u)), u uniform in [tiny, 1), as
+    jax.random.gumbel draws it. Returns out."""
+    tiny = torch.finfo(torch.float32).tiny
+    return out.uniform_(tiny, 1.0, generator=generator).log_().neg_() \
+        .log_().neg_()
+
+
+def soft_mask(pred_score, noise=None, tau: float = 1.0):
+    """Keep-probability mask, channel 0 of the gumbel-softmax
+    (token_select.py:277-285): softmax(pred / tau) without ``noise``, the
+    deterministic eval mask; with it (f32 Gumbel noise of pred's shape,
+    eval_mask 'gumbel'), softmax((f32(pred) + noise) / tau)."""
+    logits = pred_score
+    if noise is not None:
+        logits = logits.float() + noise
+    return torch.softmax(logits / tau, dim=-1)[..., 0:1].to(pred_score.dtype)

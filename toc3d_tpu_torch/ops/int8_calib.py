@@ -19,6 +19,11 @@ collected float forward (toc3d_vit_forward(collect_block_outs=True)).
     scales = calibrate_act_scales(model, frames)   # float weights
     attach_act_scales(model, scales)
     infer = make_infer_fn(model)   # cfg quant 'int8': static B8 / C8
+
+Static calibration covers the ToC3D backbone only, as in JAX: its collected
+forward (extract_img_feat(collect_block_outs=True)) raises
+NotImplementedError for the plain backbone of the StreamPETR presets, which
+serve int8 with dynamic scales (B8 with per-row quantization).
 """
 from __future__ import annotations
 

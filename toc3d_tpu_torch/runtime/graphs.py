@@ -6,16 +6,21 @@ Run eagerly, a frame pays the host for every launch: about two thousand
 kernels, each behind Python checks and a ctypes call, so the card idles
 for most of it. Captured, the host replays three graphs:
 
-* backbone + neck (``extract_img_feat``), one graph per value of
-  ``steady``. JAX picks the first-frame selector branch on the device
-  (``lax.cond``, token_select.py:227); here the host reads it from the
-  frame's ``prev_exists`` (``is_steady``: no device read when the frame
-  lies on the host) and replays the matching graph. Both write the neck
-  features into one buffer allocated outside the graphs;
+* backbone + neck (``extract_img_feat``); for the ToC3D backbone, one
+  graph per value of ``steady``. JAX picks the first-frame selector branch
+  on the device (``lax.cond``, token_select.py:227); here the host reads it
+  from the frame's ``prev_exists`` (``is_steady``: no device read when the
+  frame lies on the host) and replays the matching graph. The plain
+  backbone has no such branch and one graph. Each writes the neck features
+  into one buffer allocated outside the graphs;
 * head + decode (``head_step``), one graph.
 
 Each call copies the frame and the memory bank into static input buffers
-(a host frame in pinned memory is copied without blocking the host), replays
+(a host frame in pinned memory is copied without blocking the host); under
+eval_mask 'gumbel' it also draws the frame's selector noise into static
+buffers, from the explicit generator of ``detector.MaskNoise`` and outside
+the graphs, so every replay sees fresh noise, the noise eager
+``infer_step`` sees from the same ``mask_seed``. It then replays
 the two programs and returns the state and boxes as fresh tensors, copied
 out of the graph's outputs, so results a caller holds are never overwritten
 by a later replay.
@@ -45,7 +50,7 @@ from __future__ import annotations
 
 import torch
 
-from ..models.detector import (DetectorState, extract_img_feat,
+from ..models.detector import (DetectorState, MaskNoise, extract_img_feat,
                                frame_tensors, head_step, is_steady,
                                precast_backbone_)
 from ..models.streampetr_head import MemoryBank
@@ -71,11 +76,13 @@ class CapturedInfer:
     """``infer(state, frame) -> (state', DecodedBoxes)`` on a CUDA model,
     as replayed CUDA graphs (see the module note). ``timer``: a
     runtime.timer.StageTimer for the spans "inputs", "backbone+neck" and
-    "head+decode"."""
+    "head+decode"; ``mask_seed``: the seed of the eval_mask 'gumbel'
+    noise (MaskNoise)."""
 
-    def __init__(self, model, timer=None):
+    def __init__(self, model, timer=None, mask_seed: int = 0):
         self.model = model
         self.timer = timer
+        self.noise = MaskNoise(model, mask_seed)
         self.device = next(model.parameters()).device
         self.stream = torch.cuda.Stream(self.device)
         self._reset()
@@ -108,6 +115,9 @@ class CapturedInfer:
                        for k, t in frame.items()}
         self._bank = MemoryBank(*(torch.empty(t.shape, dtype=t.dtype,
                                               device=dev) for t in bank))
+        self._noise = [torch.empty(self.noise.shape(frame["img"].shape),
+                                   dtype=torch.float32, device=dev)
+                       for _ in range(self.noise.selectors)] or None
         self._feats = None
 
     def _run(self, name, fn):
@@ -139,7 +149,7 @@ class CapturedInfer:
         def fn():
             f = self._frame
             feats = extract_img_feat(self.model, f["img"], self._bank, f,
-                                     steady=steady)
+                                     steady=steady, mask_noise=self._noise)
             if self._feats is None:     # first eager run: the static output
                 self._feats = torch.empty_like(feats)
             return self._feats.copy_(feats)
@@ -161,8 +171,11 @@ class CapturedInfer:
                 self._frame[k].copy_(t, non_blocking=True)
             for buf, t in zip(self._bank, state.memory):
                 buf.copy_(t, non_blocking=True)
+            self.noise.draw(frame["img"].shape, out=self._noise)
+        key = ("backbone+neck", steady) if self.model.cfg.is_toc3d \
+            else ("backbone+neck",)
         with span(self.timer, "backbone+neck"):
-            self._run(("backbone+neck", steady), self._backbone(steady))
+            self._run(key, self._backbone(steady))
         with span(self.timer, "head+decode"):
             new_state, det = self._run("head+decode", self._head)
             return (DetectorState(MemoryBank(*(t.clone()

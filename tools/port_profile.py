@@ -1,11 +1,12 @@
 """Device-time breakdown of the PyTorch port's main path on one GPU, eager
 and captured.
 
-    python3 tools/port_profile.py [--frames 2] [--warmup 3] [--int8
-                                  [--int8-calib N]]
+    python3 tools/port_profile.py [--config ToC3D_faster_1600] [--frames 2]
+                                  [--warmup 3] [--int8 [--int8-calib N]]
 
-Builds ToC3D_faster_1600 with seeded random weights (6 views, 1600x800,
-batch 1, uint8 frames built on the host in pinned memory; with --int8 the
+Builds the preset ``--config`` (any name configs/presets.get_config takes)
+with seeded random weights (6 views at the preset's pad shape, batch 1,
+uint8 frames built on the host in pinned memory; with --int8 the
 backbone and decoder quant 'int8', dynamic, or static with scales
 calibrated on N synthetic frames as bench.py --int8 --int8-calib N does).
 Then, in one process, for each of the two ways to run a frame: eager
@@ -98,6 +99,7 @@ def report(label, wall, per_kernel, n, top):
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser()
+    ap.add_argument("--config", default="ToC3D_faster_1600")
     ap.add_argument("--frames", type=int, default=2)
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--top", type=int, default=25)
@@ -121,7 +123,8 @@ def main() -> int:
                          text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     build.build_all()
-    cfg = get_config("ToC3D_faster_1600")
+    cfg = get_config(args.config)
+    h, w = cfg.pad_shape
     if args.int8:
         cfg = replace(cfg, backbone=replace(cfg.backbone, quant="int8"),
                       head=replace(cfg.head, decoder=replace(
@@ -132,14 +135,16 @@ def main() -> int:
         with torch.no_grad():
             attach_act_scales(model, calibrate_act_scales(
                 model, [{k: v.cuda() for k, v in
-                         synthetic_frame(g, t, device="cpu").items()}
+                         synthetic_frame(g, t, height=h, width=w,
+                                         device="cpu").items()}
                         for t in range(args.int8_calib)]))
     frames = [{k: v.pin_memory() for k, v in
-               synthetic_frame(g, t, device="cpu").items()}
+               synthetic_frame(g, t, height=h, width=w, device="cpu").items()}
               for t in range(args.warmup + args.frames)]
     warm, timed = frames[:args.warmup], frames[args.warmup:]
-    mode = ("bf16" if not args.int8 else "int8 static" if args.int8_calib
-            else "int8 dynamic")
+    mode = args.config + " " + (
+        "bf16" if not args.int8 else "int8 static" if args.int8_calib
+        else "int8 dynamic")
     n = args.frames
     for name, make in (("eager", eager_infer_fn),
                        ("captured", make_infer_fn)):
