@@ -72,7 +72,19 @@ Phases, each fatal on failure (exit code != 0):
      untouched; the tiny small-input agreement with the plain backbone
      (the card and the CPU's own bf16 stream each against an f32 run: the
      card's distance at most 1.25 times the CPU's);
-  8. report: a {"kernels": [...]} JSON line, the nvidia-smi line, and last
+  8. streaming eval (phase_eval): ToC3D_faster_1600 at full width through
+     the eval CLI (toc3d_tpu_torch.tools.test's main, in this process) on 2
+     learnable synthetic scenes x 6 frames of six 1600x900 JPEGs, the exact
+     path (float32 frames, PIL decode) and --fast-decode (uint8, normalized
+     on the card), each a capture of its own and each with the counts set
+     to 0 just before it and read just after (A 1, B 6, C 18, D 12, G 96,
+     LN 72 a frame): its submission equal byte for byte to the one
+     streaming_eval builds from eager infer_step on the same frames, every
+     sample present, mAP / NDS and the tracker's AMOTA (tools.track
+     --eval) finite and in [0, 1]; prints the readers, eval frames/s, the
+     host's ms to build a frame and the card's ms a frame by stage; then
+     the bench's ToC3D_faster_1600 frames/s in the same process;
+  9. report: a {"kernels": [...]} JSON line, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 The kernels' plain versions compute in f32 (TF32 off for matmuls and
 convolutions).
@@ -81,6 +93,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1455,6 +1468,196 @@ def phase_main_path(model, results, label="bf16",
     return ok, dets
 
 
+MAIN_PER_FRAME = (1, 6, 18, 12, 0, 0, 0, 96, 0, 72)
+
+
+def phase_eval(name="ToC3D_faster_1600", scenes=2, frames_per_scene=6,
+               views=6, src=(900, 1600), device="cuda",
+               per_frame=MAIN_PER_FRAME):
+    """The streaming eval end to end (toc3d_tpu_torch.tools.test's main, in
+    this process) on learnable synthetic scenes written as JPEGs (scenes x
+    frames_per_scene samples of ``views`` src views), at the full width and
+    depth of ``name`` with seeded random weights, through the captured
+    frame: the exact path (float32 frames normalized on the host, PIL
+    decode) and --fast-decode (uint8 frames normalized on the card), two
+    dtypes of the image buffer and so two captures. Each CLI run is driven
+    with the counts set to 0 just before it and read just after; each must
+    launch ``per_frame`` of each kernel a frame. Holds: the submission
+    equals, byte for byte, the one streaming_eval builds from eager
+    infer_step on the same frames and weights; every sample token is in
+    it; mAP and NDS (nusc_metrics) and the tracker's AMOTA (tools.track
+    --eval) are finite and in [0, 1]. Prints the readers, eval frames/s over
+    the frames after the captures and the prefetch queue's fill, the host
+    ms to build a frame and the card ms a frame by stage (CUDA events)."""
+    import gc
+    import tempfile
+    import PIL
+    import torch
+    from toc3d_tpu_torch.configs import get_config
+    from toc3d_tpu_torch.configs.presets import served_in_bf16
+    from toc3d_tpu_torch.data import loader
+    from toc3d_tpu_torch.data.nuscenes import NuScenesInfos
+    from toc3d_tpu_torch.data.synthetic import make_learnable_dataset
+    from toc3d_tpu_torch.models.detector import (build_detector,
+                                                 eager_infer_fn, init_state)
+    from toc3d_tpu_torch.runtime.eval import streaming_eval, write_submission
+    from toc3d_tpu_torch.tools import test as eval_cli
+    from toc3d_tpu_torch.tools import track as track_cli
+    if loader._has_cv2():
+        import cv2
+        fast_reader = f"cv2 {cv2.__version__} imread (reduced decode)"
+    else:
+        fast_reader = f"PIL {PIL.__version__} draft"
+    log(f"eval readers: exact path PIL {PIL.__version__} (Image.open, "
+        f"convert RGB, resize, crop); --fast-decode {fast_reader}")
+    cfg = get_config(name)
+    if device == "cuda" and cfg.compute_dtype != "bfloat16":
+        cfg = served_in_bf16(cfg)
+    aug = eval_cli.eval_aug(cfg, *src)
+    ok = True
+    with tempfile.TemporaryDirectory(prefix="toc3d_eval_") as tmp:
+        t0 = time.perf_counter()
+        ann = make_learnable_dataset(
+            f"{tmp}/data", n_scenes=scenes, frames_per_scene=frames_per_scene,
+            n_cams=views, src_h=src[0], src_w=src[1], seed=0)
+        infos = NuScenesInfos(ann)
+        n = len(infos)
+        tokens = [i["token"] for i in infos.infos]
+        log(f"eval data: {scenes} scenes x {frames_per_scene} frames x "
+            f"{views} views of {src[1]}x{src[0]} JPEGs (learnable synthetic "
+            f"scenes, seed 0) written in {time.perf_counter() - t0:.1f} s; "
+            f"{name} at {cfg.pad_shape[1]}x{cfg.pad_shape[0]}")
+        steps = eval_host_steps(infos, aug)
+        log(f"eval host steps, ms a frame ({views} views, each step alone on "
+            f"one thread of {os.cpu_count()} cores): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in steps.items()))
+        eager = None
+        for tag, fast in (("exact", False), ("fast", True)):
+            argv = ["--config", name, "--ann", ann, "--work-dir",
+                    f"{tmp}/{tag}", "--speed-test", "--device", device,
+                    "--src-h", str(src[0]), "--src-w", str(src[1])]
+            for f in counters():
+                f.launches = 0
+            out = eval_cli.main(argv + ["--fast-decode"] * fast)
+            launches = [f.launches for f in counters()]
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+            counts_ok = launches == [k * n for k in per_frame]
+            if eager is None:
+                eager = eager_infer_fn(build_detector(cfg, device=device,
+                                                      seed=0))
+            pairs = [loader.build_eval_frame(infos, i, aug, fast_decode=fast,
+                                             device_normalize=fast)
+                     for i in range(n)]
+            dtype = pairs[0][0]["img"].dtype
+            ref = streaming_eval(eager, lambda: init_state(1, cfg,
+                                                           device=device),
+                                 [p[0] for p in pairs],
+                                 [p[1] for p in pairs], progress_every=0)
+            del pairs
+            with open(out["path"], "rb") as f:
+                sub = f.read()
+            with open(write_submission(ref, f"{tmp}/{tag}_eager"), "rb") as f:
+                same = sub == f.read()
+            m = out["metrics"]
+            trk = track_cli.main(["--results", out["path"], "--ann", ann,
+                                  "--work-dir", f"{tmp}/{tag}_track",
+                                  "--eval", "--device", device])["metrics"]
+            scores = [m["mAP"], m["NDS"], trk["AMOTA"]]
+            metrics_ok = all(math.isfinite(v) and 0.0 <= v <= 1.0
+                             for v in scores)
+            present = list(out["results"]) == tokens
+            boxes = sum(map(len, out["results"].values()))
+            ok &= counts_ok and same and metrics_ok and present
+            # throughput after the captures (frames 0, 1) and the frames
+            # the prefetch queue (depth 2, one more in the worker) filled
+            # meanwhile
+            k0 = min(5, n - 2)
+            done = out["done_at"]
+            fps = (n - 1 - k0) / (done[-1] - done[k0])
+            stage = {k: v[2:] for k, v in out["stage_ms"].items()}
+            card = [sum(x) for x in zip(*stage.values())]
+            build = out["build_ms"]
+            log(f"eval {tag} ({dtype} frames{', normalized on the card' if fast else ''}), "
+                f"{n} samples: launches {'/'.join(KERNELS)} {launches} "
+                f"(expected {per_frame} x {n}) {'ok' if counts_ok else 'FAIL'}; "
+                f"captured submission equals eager infer_step's byte for "
+                f"byte {same}; all {len(tokens)} tokens {present}, {boxes} "
+                f"boxes; mAP {m['mAP']:.6g} NDS {m['NDS']:.6g} AMOTA "
+                f"{trk['AMOTA']:.6g} (random weights) "
+                f"{'ok' if metrics_ok else 'FAIL'}")
+            log(f"eval {tag}: {fps:.4f} frames/s over frames {k0}-{n - 1} "
+                f"({1e3 / fps:.3f} ms/frame); host build ms/frame mean "
+                f"{sum(build) / len(build):.3f} (min {min(build):.3f}, max "
+                f"{max(build):.3f}, one prefetch thread); card ms/frame "
+                f"over frames 2-{n - 1} by CUDA events: "
+                + ", ".join(f"{k} {sum(v) / len(v):.3f}"
+                            for k, v in stage.items())
+                + f", total {sum(card) / len(card):.3f}; loop wall after each "
+                f"frame (s) {[round(t, 3) for t in done]}")
+        del eager
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return ok
+
+
+def eval_host_steps(infos, aug, index=0, reps=3) -> dict:
+    """ms a frame of each host step of build_eval_frame (data/loader.py) for
+    sample ``index``, both paths, each step timed alone on this thread,
+    mean of ``reps``."""
+    import numpy as np
+    from toc3d_tpu_torch.data import loader
+    from toc3d_tpu_torch.data import nuscenes as nus
+    paths = infos.frame_meta(index)["img_paths"]
+    _, dims, crop, flip = nus.sample_augmentation(aug, training=False)
+    steps = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        steps[name] = steps.get(name, 0.0) + (
+            time.perf_counter() - t0) * 1e3 / reps
+        return out
+    fill = np.round(nus.IMG_NORM_MEAN)
+    for _ in range(reps):
+        imgs, fast = [], []
+        for p in paths:
+            img = timed("exact decode", loader._load_image_bgr, p)
+            img = timed("exact resize+crop", nus.transform_image, img, dims,
+                        crop, flip)
+            img = timed("exact normalize", nus.normalize_image, img)
+            imgs.append(timed("exact pad", nus.pad_to_multiple, img, 32))
+            img = timed("fast decode+crop", loader._load_transform_fast, p,
+                        dims, crop, flip)
+            fast.append(timed("fast pad", nus.pad_to_multiple, img, 32,
+                              fill))
+        timed("exact stack+cast", lambda: np.stack(imgs)[None].astype(
+            np.float32))
+        timed("fast stack", lambda: np.stack(fast)[None])
+    return steps
+
+
+def phase_bench_fps(name="ToC3D_faster_1600"):
+    """The bench's frames/s of ``name`` (toc3d_tpu_torch.bench, its default
+    protocol: 200 warm-up and 100 timed uint8 frames in pinned memory,
+    captured), in this process, beside the eval's."""
+    import contextlib
+    import io
+    from toc3d_tpu_torch import bench
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench.main(["--config", name])
+    run = bench.parse_run(buf.getvalue())
+    if rc != 0 or run is None:
+        log(f"bench {name}: FAILED (exit {rc})\n{buf.getvalue()[-2000:]}")
+        return False
+    log(f"bench {name} (same process): {run['fps']} frames/s, {run['ms']} "
+        f"ms/frame, peak {run['peak_gib']} GiB")
+    return True
+
+
 def _against_bf16(label, dets, ref):
     """Printed, not checked: per frame, how many of the int8 run's 50 best
     boxes have a bf16 box among the bf16 run's 50 best within 0.5 m
@@ -1880,18 +2083,21 @@ def main() -> int:
         del bf16_dets
         torch.cuda.empty_cache()
         ok_p = phase_presets(results)
+        ok_e = phase_eval()
+        ok_bf = phase_bench_fps()
         ok_gb = phase_gumbel()
         ok_s = all([phase_small_agreement(),
                     phase_small_agreement(plain=True)])
         ok_s8 = all([phase_small_agreement("dynamic"),
                      phase_small_agreement("static")])
-    if not (ok_k and ok_k8 and ok_ps and ok_m and ok_m8 and ok_p and ok_gb
-            and ok_s and ok_s8):
+    if not (ok_k and ok_k8 and ok_ps and ok_m and ok_m8 and ok_p and ok_e
+            and ok_bf and ok_gb and ok_s and ok_s8):
         log(f"chip_smoke: FAILED (kernels {ok_k}, int8 kernels {ok_k8}, "
             f"other presets' kernel shapes {ok_ps}, main path {ok_m}, int8 "
-            f"main path {ok_m8}, other presets' paths {ok_p}, gumbel eval "
-            f"mask {ok_gb}, small-input agreement {ok_s}, int8 small-input "
-            f"agreement {ok_s8})")
+            f"main path {ok_m8}, other presets' paths {ok_p}, streaming "
+            f"eval {ok_e}, bench {ok_bf}, gumbel eval mask {ok_gb}, "
+            f"small-input agreement {ok_s}, int8 small-input agreement "
+            f"{ok_s8})")
         return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")

@@ -20,7 +20,10 @@ product) at small maps and at the main path's (6, 800, 1600), and what it
 refuses; the bf16 and quantizing LayerNorm at each call site's width (LN1
 with its LN(0) row, LN2 with the residual and the stored sum, the sub-LN's
 2730 of 2736 columns in place, and small generic widths), on rows off a
-16-byte boundary (the kernel's 4-byte accesses), and what it refuses.
+16-byte boundary (the kernel's 4-byte accesses), and what it refuses. The
+streaming eval (runtime/eval.streaming_eval) through the captured frame
+against eager infer_step on float32 and uint8 eval frames, and the token
+visualizer's step (infer_step_with_aux) against infer_step.
 
 Every test needs a CUDA card and skips without one. This file imports no
 JAX, so a GPU host without JAX runs it (the tests' conftest.py imports JAX,
@@ -33,6 +36,7 @@ max |err| <= 2^-5 * max |plain| and mean |err| <= 2^-6 * mean |plain|, as
 in chip_smoke.py (bf16 keeps 8 bits; a flipped last bit of an intermediate
 activation can pass through LayerNorm and softmax).
 """
+import numpy as np
 import pytest
 import torch
 
@@ -948,3 +952,65 @@ def test_gumbel_replays_draw_fresh_noise_and_equal_eager(dev):
     assert infer.noise.counter == len(frames) + 2
     assert not torch.equal(first[0], again[0])     # the bank's embeddings
     assert torch.equal(rng, torch.cuda.get_rng_state())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast", [False, True])
+def test_streaming_eval_captured_equals_eager(dev, tmp_path, fast):
+    """streaming_eval over two synthetic scenes (90x160 JPEGs resized to
+    the tiny preset's 64x128, 2 views), through the captured frame and
+    through eager infer_step, writes the same submission bytes; fast:
+    uint8 frames normalized on the card (fast decode), else float32
+    frames normalized on the host. The memory resets at the second scene
+    through the host prev_exists, which picks the backbone graph."""
+    from toc3d_tpu_torch.data.loader import build_eval_frame
+    from toc3d_tpu_torch.data.nuscenes import AugConfig, NuScenesInfos
+    from toc3d_tpu_torch.data.synthetic import make_learnable_dataset
+    from toc3d_tpu_torch.models.detector import (eager_infer_fn, init_state,
+                                                 make_infer_fn)
+    from toc3d_tpu_torch.runtime.eval import streaming_eval, write_submission
+    model = _serving_model("none")
+    infos = NuScenesInfos(make_learnable_dataset(
+        str(tmp_path / "data"), n_scenes=2, frames_per_scene=3, n_cams=2,
+        src_h=90, src_w=160))
+    aug = AugConfig(final_dim=model.cfg.pad_shape, H=90, W=160,
+                    rand_flip=False)
+    pairs = [build_eval_frame(infos, i, aug, fast_decode=fast,
+                              device_normalize=fast)
+             for i in range(len(infos))]
+    assert pairs[0][0]["img"].dtype == (np.uint8 if fast else np.float32)
+    frames, metas = [p[0] for p in pairs], [p[1] for p in pairs]
+    subs = []
+    for name, infer in (("captured", make_infer_fn(model)),
+                        ("eager", eager_infer_fn(model))):
+        res = streaming_eval(infer, lambda: init_state(1, model.cfg,
+                                                       device="cuda"),
+                             frames, metas)
+        assert list(res) == [m["token"] for m in metas]
+        with open(write_submission(res, str(tmp_path / name)), "rb") as f:
+            subs.append(f.read())
+    assert subs[0] == subs[1]
+
+
+@pytest.mark.cuda
+def test_infer_step_with_aux_equals_infer_step(dev):
+    """The token visualizer's step (the collected forward) computes what
+    infer_step computes, bit for bit, and returns one (B*N, h, w, 1) mask
+    per selector."""
+    from toc3d_tpu_torch.models.detector import (infer_step,
+                                                 infer_step_with_aux,
+                                                 init_state,
+                                                 precast_backbone_)
+    model = _serving_model("none")
+    precast_backbone_(model)
+    plain = aux_state = init_state(1, model.cfg, device="cuda")
+    cfg = model.cfg.backbone
+    for f in _host_stream((0.0, 1.0, 1.0)):
+        plain, det = infer_step(model, plain, f)
+        aux_state, aux_det, aux = infer_step_with_aux(model, aux_state, f)
+        for a, b in zip(_outputs((plain, det)), _outputs((aux_state,
+                                                          aux_det))):
+            assert torch.equal(a, b)
+        h, w = (s // cfg.patch_size for s in model.cfg.pad_shape)
+        assert [tuple(m.shape) for m in aux["token_masks"]] == \
+            [(f["img"].shape[1], h, w, 1)] * len(cfg.pruning_loc)

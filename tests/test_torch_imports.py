@@ -1,6 +1,7 @@
 """Import guard: the PyTorch port (toc3d_tpu_torch) imports neither jax nor
-anything of the JAX package, and its modules import without building or
-loading a kernel."""
+anything of the JAX package, its modules import without building or
+loading a kernel, and PIL, cv2 and scipy are imported only where they are
+used, never when a module is imported."""
 import pkgutil
 import subprocess
 import sys
@@ -21,7 +22,11 @@ def _modules():
 def test_port_imports_no_jax():
     names = _modules()
     for mod in ("ops.cuda.vit_block", "ops.cuda.int8", "ops.int8_calib",
-                "bench", "runtime.graphs", "runtime.timer", "ops.consts"):
+                "bench", "runtime.graphs", "runtime.timer", "ops.consts",
+                "data.nuscenes", "data.sampler", "data.loader",
+                "data.synthetic", "runtime.nusc_metrics", "runtime.eval",
+                "runtime.token_vis", "tracking", "tracking.pub_tracker",
+                "tracking.metrics", "tools.test", "tools.track"):
         assert f"toc3d_tpu_torch.{mod}" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"
@@ -30,6 +35,9 @@ def test_port_imports_no_jax():
             "m.startswith(('jax.', 'jaxlib', 'toc3d_tpu.')) or "
             "m == 'toc3d_tpu')\n"
             "assert not bad, bad\n"
+            "lazy = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('PIL', 'cv2', 'scipy'))\n"
+            "assert not lazy, lazy\n"
             "from toc3d_tpu_torch.ops.cuda import build\n"
             "assert not build._LIBS\n"
             "print('ok', len(sys.modules))\n")

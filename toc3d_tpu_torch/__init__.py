@@ -9,9 +9,12 @@ Layout mirrors the JAX package: ``configs/presets.py``, ``layers.py``,
 ``ops/`` (window, rope, resize, gather, posenc, attention and the kernel
 wrappers), ``models/`` (eva_vit, token_select, toc3d_vit, neck,
 petr_transformer, streampetr_head, detector), ``core/`` (coder, boxes),
-``convert.py`` (JAX parameter tree -> state dict) and ``csrc/`` (the CUDA
-sources of the four Hopper kernels, built at first use by
-``ops/cuda/build.py``).
+``data/`` (nuScenes infos, eval frames, the eval sampler, synthetic
+scenes), ``runtime/`` (the captured frame, timing, the streaming eval, the
+detection metrics, the token visualizer), ``tracking/``, ``tools/`` (the
+eval and tracking CLIs), ``convert.py`` (JAX parameter tree or reference
+checkpoint -> state dict) and ``csrc/`` (the CUDA sources of the four
+Hopper kernels, built at first use by ``ops/cuda/build.py``).
 
 Entry points put models and state on ``cuda`` unless the caller passes
 ``device="cpu"``. On the card every kernel launches its CUDA build; the plain

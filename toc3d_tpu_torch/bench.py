@@ -235,6 +235,7 @@ def main(argv=None) -> int:
         return run_sweep(args)
 
     from .configs import get_config
+    from .configs.presets import served_in_bf16
     from .models.detector import (build_detector, eager_infer_fn,
                                   frame_to_device, init_state, make_infer_fn)
     from .ops.int8_calib import attach_act_scales, calibrate_act_scales
@@ -248,8 +249,7 @@ def main(argv=None) -> int:
     label = args.config
     if cuda and cfg.compute_dtype != "bfloat16":
         # the kernels take bf16 activations (the `tiny` preset is f32)
-        cfg = replace(cfg, compute_dtype="bfloat16", head=replace(
-            cfg.head, compute_dtype="bfloat16"))
+        cfg = served_in_bf16(cfg)
         label += "+bf16"
         print(f"{args.config}: served in bf16 on the card (the kernels take "
               "bf16 activations)", flush=True)

@@ -229,3 +229,11 @@ def get_config(name: str, **kw) -> DetectorConfig:
         return toc3d_ratio_sweep(int(digits[0]), int(digits[1]),
                                  int(digits[2]), res1600=res1600, **kw)
     raise KeyError(f"unknown preset {name!r}; have {sorted(PRESETS)}")
+
+
+def served_in_bf16(cfg: DetectorConfig) -> DetectorConfig:
+    """``cfg`` with the backbone and head in bf16, as the card serves an f32
+    config such as ``tiny``: the kernels take bf16 activations."""
+    from dataclasses import replace
+    return replace(cfg, compute_dtype="bfloat16", head=replace(
+        cfg.head, compute_dtype="bfloat16"))

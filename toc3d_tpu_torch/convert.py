@@ -13,6 +13,9 @@ is (in, out) and becomes the torch (out, in) weight; a conv ``w`` is
 in_proj_weight / in_proj_bias; the shared cls/reg branches go to index 0.
 Calibrated int8 activation scales (``img_backbone.act_scales``) become each
 block's ``act_scales`` entry.
+
+``load_reference_checkpoint(path)`` reads a reference ``.pth`` into that
+state dict (runtime/checkpoint.load_torch_state_dict, :37-49).
 """
 from __future__ import annotations
 
@@ -20,6 +23,32 @@ import numpy as np
 import torch
 
 from .ops.cuda.int8 import SITES
+
+
+# the reference head's old parameter names (runtime/checkpoint.py:24-28;
+# StreamPETRHead._load_from_state_dict, streampetr_head.py:539-567)
+LEGACY_RENAMES = {
+    ".self_attn.": ".attentions.0.",
+    ".multihead_attn.": ".attentions.1.",
+    ".decoder.norm.": ".decoder.post_norm.",
+}
+
+
+def load_reference_checkpoint(path: str) -> dict:
+    """A reference checkpoint (.pth) -> the reference-named state dict that
+    ``build_detector(..., state_dict=sd)`` loads: tensors on the CPU, the
+    ``state_dict`` entry unwrapped where the file has one, legacy names
+    renamed. A reference .pth carries non-tensor meta, hence
+    weights_only=False: load only files you trust."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = ckpt.get("state_dict", ckpt)
+    out = {}
+    for k, v in sd.items():
+        for old, new in LEGACY_RENAMES.items():
+            if old in k:
+                k = k.replace(old, new)
+        out[k] = v
+    return out
 
 
 def _t(a):

@@ -375,6 +375,22 @@ def infer_step(model: ToC3DDetector, state: DetectorState, frame,
 
 
 @torch.no_grad()
+def infer_step_with_aux(model: ToC3DDetector, state: DetectorState, frame):
+    """infer_step that also returns the token selectors' masks, for the
+    token visualizer (detector.py:409-427; petr3d.py:562-579): (state',
+    DecodedBoxes, {"token_masks": [(B*N, h, w, 1) per selector]}), eagerly,
+    through the collected forward of toc3d_vit_forward. The ToC3D backbone
+    only; the mask is the noiseless one, as JAX's without a mask_rng."""
+    steady = is_steady(frame)
+    frame = frame_to_device(frame, next(model.parameters()).device)
+    feats, collected = extract_img_feat(model, frame["img"], state.memory,
+                                        frame, steady=steady,
+                                        collect_block_outs=True)
+    state, det = head_step(model, state, feats, frame)
+    return state, det, {"token_masks": collected["token_masks"]}
+
+
+@torch.no_grad()
 def precast_backbone_(model: ToC3DDetector) -> None:
     """Cast the backbone's weight matrices to the compute dtype once
     (detector.py:291-340). The blocks' and the patch embedding's matrices
@@ -507,7 +523,8 @@ def make_infer_fn(model: ToC3DDetector, timer=None, mask_seed: int = 0):
 
 __all__ = ["DetectorConfig", "DetectorState", "DecodedBoxes",
            "FocalHeadConfig", "ToC3DDetector", "build_detector",
-           "init_state", "infer_step", "head_step", "extract_img_feat",
+           "init_state", "infer_step", "infer_step_with_aux", "head_step",
+           "extract_img_feat",
            "make_infer_fn", "eager_infer_fn", "precast_backbone_",
            "MaskNoise", "frame_to_device", "frame_tensors", "is_steady",
            "synthetic_frame"]

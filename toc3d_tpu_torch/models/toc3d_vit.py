@@ -116,7 +116,9 @@ def toc3d_vit_forward(model: ToC3DViT, x, motion_ctx, prev_exists,
     without it the mask is noiseless, as JAX's without a mask_rng.
     collect_block_outs: also return {'inputs': [x_i], 'outputs': [y_i],
     'scores': [scores or None]} per block (toc3d_vit.py:361-362), what
-    ops.int8_calib probes."""
+    ops.int8_calib probes, and 'token_masks': the (BN, h, w, 1) mask of
+    each selector, in selector order (JAX's aux['token_masks'],
+    toc3d_vit.py:284), what the token visualizer draws."""
     cfg = model.cfg
     if quant is not None:
         cfg = replace(cfg, quant=quant)
@@ -129,7 +131,8 @@ def toc3d_vit_forward(model: ToC3DViT, x, motion_ctx, prev_exists,
     scores = None
     ratio = None
     seg = 0
-    collected = {"inputs": [], "outputs": [], "scores": []}
+    collected = {"inputs": [], "outputs": [], "scores": [],
+                 "token_masks": []}
     for i in range(cfg.depth):
         if i in cfg.pruning_loc:
             scfg = cfg.selector_config(seg)
@@ -144,6 +147,8 @@ def toc3d_vit_forward(model: ToC3DViT, x, motion_ctx, prev_exists,
                     noise = mask_noise[seg]
                 masks = soft_mask(pred, noise)
             masks = masks.reshape(bn, h, w, 1)
+            if collect_block_outs:
+                collected["token_masks"].append(masks)
             ratio = scfg.ratio
             seg += 1
         is_global = i in cfg.global_attn_indexes

@@ -1,2 +1,4 @@
-"""Serving runtime of the port: the streaming frame as captured CUDA graphs
-(graphs) and per-stage timing with CUDA events (timer)."""
+"""Runtime of the port: the streaming frame as captured CUDA graphs
+(graphs), per-stage timing with CUDA events (timer), the streaming eval and
+submission writer (eval), the detection metrics (nusc_metrics) and the
+token visualizer (token_vis)."""

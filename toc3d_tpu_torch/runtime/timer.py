@@ -42,16 +42,20 @@ class StageTimer:
             yield
             self._samples[name].append((time.perf_counter() - t0) * 1e3)
 
-    def summary(self) -> dict:
-        """{name: {"mean", "min", "max", "n"}} in ms; waits for the
-        events."""
+    def samples(self) -> dict:
+        """{name: [ms of each span, in order]}; waits for the events."""
         for name, a, b in self._pending:
             b.synchronize()
             self._samples[name].append(a.elapsed_time(b))
         self._pending = []
+        return {name: list(xs) for name, xs in self._samples.items() if xs}
+
+    def summary(self) -> dict:
+        """{name: {"mean", "min", "max", "n"}} in ms; waits for the
+        events."""
         return {name: {"mean": sum(xs) / len(xs), "min": min(xs),
                        "max": max(xs), "n": len(xs)}
-                for name, xs in self._samples.items() if xs}
+                for name, xs in self.samples().items()}
 
 
 def span(timer, name: str):

@@ -1,0 +1,3 @@
+"""Command-line entry points of the port (twins of tools/*.py): ``python3
+-m toc3d_tpu_torch.tools.test`` (streaming eval) and ``python3 -m
+toc3d_tpu_torch.tools.track`` (tracking on a submission)."""
