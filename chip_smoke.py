@@ -84,7 +84,25 @@ Phases, each fatal on failure (exit code != 0):
      --eval) finite and in [0, 1]; prints the readers, eval frames/s, the
      host's ms to build a frame and the card's ms a frame by stage; then
      the bench's ToC3D_faster_1600 frames/s in the same process;
-  9. report: a {"kernels": [...]} JSON line, the nvidia-smi line, and last
+  9. training (phase_train): ToC3D_faster at full width, batch 2 (6 views
+     of 800x320 each), through runtime/train.make_train_step: the
+     Functions of A, B and C at their training shapes (C at every (ws,
+     ratio) with the reference's keep counts, k 128 at ws 16 / .5), and
+     D's at the head's (1860 queries, 6000 and 2628 keys), each forward
+     against its plain version at the kernel bounds (a row each in the
+     kernels line) and its gradients against autograd through the model
+     path at the same bounds; one step with the counts set to 0 just
+     before it and read just after (A 1, B 1, C 18, D 0, G 76, LN 57, the
+     backward none); 30 steps on one synthetic batch (3 to settle):
+     finite, falling losses, no non-finite skip, steps/s, samples/s, peak
+     memory and the ms a step by stage; a capture made before training
+     recaptures on the trained weights and equals eager infer_step bit
+     for bit for 3 frames; a save / load round trip of the train state is
+     exact; a tiny bf16 step on the card against the CPU (each side's
+     distance to an f32 step, the card's at most 1.25 times the CPU's);
+     the trainer CLI (tools.train) for 3 tiny iterations on synthetic
+     scenes, its checkpoint and its eval;
+ 10. report: a {"kernels": [...]} JSON line, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 The kernels' plain versions compute in f32 (TF32 off for matmuls and
 convolutions).
@@ -480,8 +498,8 @@ def phase_kernels(model, results):
     return ok_g and ok_r and ok_all
 
 
-def check_flash(kv, g, reps=20):
-    """Kernel D on q (1,900,256) against k/v (1,kv,256), 8 heads, against
+def check_flash(kv, g, reps=20, nq=900, b=1):
+    """Kernel D on q (b,nq,256) against k/v (b,kv,256), 8 heads, against
     its plain version, timed beside SDPA and the bound. Returns
     (ok, entry)."""
     import torch
@@ -490,20 +508,22 @@ def check_flash(kv, g, reps=20):
     bf = torch.bfloat16
     hd = 8
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    q = (torch.randn(1, 900, 256, device=dev, generator=g)
+    q = (torch.randn(b, nq, 256, device=dev, generator=g)
          * (3 * 32 ** -0.5)).to(bf)
-    k = torch.randn(1, kv, 256, device=dev, generator=g).to(bf)
-    v = torch.randn(1, kv, 256, device=dev, generator=g).to(bf)
-    splits, per = cross_attn.flash_splits(900, kv, hd, 1, sms)
-    blocks = -(-900 // cross_attn.QUERY_TILE) * hd * splits
-    ok, err = compare(f"D flash q (1,900,256) k/v (1,{kv},256), {splits} "
-                      f"splits of {per} key tiles, {blocks} blocks on {sms} "
-                      f"SMs", cross_attn.flash_attention_core(q, k, v, hd),
+    k = torch.randn(b, kv, 256, device=dev, generator=g).to(bf)
+    v = torch.randn(b, kv, 256, device=dev, generator=g).to(bf)
+    splits, per = cross_attn.flash_splits(nq, kv, hd, b, sms)
+    blocks = -(-nq // cross_attn.QUERY_TILE) * hd * splits * b
+    ok, err = compare(f"D flash q ({b},{nq},256) k/v ({b},{kv},256), "
+                      f"{splits} splits of {per} key tiles, {blocks} blocks "
+                      f"on {sms} SMs",
+                      cross_attn.flash_attention_core(q, k, v, hd),
                       cross_attn.flash_attention_plain(q, k, v, hd))
-    sh = lambda t: t.reshape(1, -1, hd, 32).transpose(1, 2)
-    b_ms, b_by = bound(4 * 900 * kv * 256, (900 * 2 + kv * 2) * 256 * 2)
+    sh = lambda t: t.reshape(b, -1, hd, 32).transpose(1, 2)
+    b_ms, b_by = bound(4 * b * nq * kv * 256,
+                       b * (nq * 2 + kv * 2) * 256 * 2)
     entry = dict(
-        shape=f"q (1,900,256) k/v (1,{kv},256) bf16, 8 heads",
+        shape=f"q ({b},{nq},256) k/v ({b},{kv},256) bf16, 8 heads",
         max_abs_err=err,
         ms=cuda_time(lambda: cross_attn.flash_attention_core(q, k, v, hd),
                      reps),
@@ -2051,6 +2071,568 @@ def phase_small_agreement(quant="none", plain=False):
     return ok
 
 
+# ---------------------------------------------------------------------------
+# training (phase_train)
+# ---------------------------------------------------------------------------
+
+TRAIN_PER_STEP = {"A": 1, "B": 1, "C": 18, "D": 0, "B8": 0, "C8": 0,
+                  "H8": 0, "G": 76, "G8": 0, "LN": 57}
+TRAIN_STEPS, TRAIN_SETTLE = 30, 3
+
+
+def train_batch(rng, b, n, h, w, g3=32, g2=32, prev_exists=1.0):
+    """bench.py's synthetic training batch (bench.py:47-84: random
+    normalized views, a fixed rig, 32 3D and 32 2D boxes), numpy."""
+    import numpy as np
+    eye = np.tile(np.eye(4, dtype=np.float32), (b, n, 1, 1))
+    intr = eye.copy()
+    intr[..., 0, 0] = intr[..., 1, 1] = 1.2e3
+    boxes = rng.randn(b, g3, 9).astype(np.float32)
+    boxes[..., 3:6] = np.abs(boxes[..., 3:6]) + 1.0
+    b2d = np.sort(np.abs(rng.rand(b, n, g2, 2, 2)).astype(np.float32) * 300,
+                  axis=-2).reshape(b, n, g2, 4)
+    return {
+        "img": rng.randn(b, n, h, w, 3).astype(np.float32),
+        "intrinsics": intr,
+        "img2lidar": eye + rng.randn(b, n, 4, 4).astype(np.float32) * 1e-3,
+        "timestamp": np.full((b,), 0.5, np.float32),
+        "ego_pose": np.tile(np.eye(4, dtype=np.float32), (b, 1, 1)),
+        "ego_pose_inv": np.tile(np.eye(4, dtype=np.float32), (b, 1, 1)),
+        "prev_exists": np.full((b,), prev_exists, np.float32),
+        "gt_bboxes_3d": boxes,
+        "gt_labels_3d": rng.randint(0, 10, (b, g3)),
+        "gt_valid_3d": np.ones((b, g3), bool),
+        "gt_bboxes_2d": b2d,
+        "gt_labels_2d": rng.randint(0, 10, (b, n, g2)),
+        "gt_centers_2d": rng.rand(b, n, g2, 2).astype(np.float32) * 300,
+        "gt_valid_2d": np.ones((b, n, g2), bool),
+    }
+
+
+def _grad_pairs(tag, fn_out, model_out, inputs, g):
+    """The Function against the model path its backward differentiates, on
+    the same inputs: the model path's forward held to the kernel's output
+    at the kernel bounds (TOL_MAX_REL / TOL_MEAN_REL; C routed by the
+    forward's plan), which is what ties the backward to the kernel; then
+    the Function's vjp of g against autograd through the model path, at
+    the same bounds. The backward is that autograd, so the gradients agree
+    by construction, up to the order of atomic sums. Returns (ok, the
+    largest max |err| of the gradients, how many are bit-equal, the
+    forward's max |err|)."""
+    import torch
+    ok, ferr = compare(f"{tag} model path forward against the kernel",
+                       model_out.detach(), fn_out.detach())
+    gf = torch.autograd.grad(fn_out, inputs, g, allow_unused=True)
+    gm = torch.autograd.grad(model_out, inputs, g, allow_unused=True)
+    worst, equal = 0.0, 0
+    for i, (a, b) in enumerate(zip(gf, gm)):
+        if a is None or b is None:
+            ok &= a is None and b is None
+            continue
+        equal += bool(torch.equal(a, b))
+        err = (a.float() - b.float()).abs()
+        mx = err.max().item()
+        tmax = TOL_MAX_REL * b.float().abs().max().item()
+        tmean = TOL_MEAN_REL * b.float().abs().mean().item()
+        good = math.isfinite(mx) and mx <= tmax and err.mean().item() <= tmean
+        if not good:
+            log(f"check {tag} gradient {i}: max_abs {mx:.6g} (tol "
+                f"{tmax:.6g}) mean_abs {err.mean().item():.6g} (tol "
+                f"{tmean:.6g}) FAIL")
+        ok &= good
+        worst = max(worst, mx)
+    log(f"check {tag} gradients against the model path: {len(inputs)} "
+        f"inputs, {equal} bit-equal, largest max_abs {worst:.6g} "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok, worst, equal, ferr
+
+
+def train_kernel_checks(model, results, g):
+    """Each Function of the training step at its training shapes
+    (ToC3D_faster, batch 2: 12 views of 800x320, 20 x 50 maps): the
+    forward of A, B (ws 16) and C at every (ws, ratio) of the step with
+    the reference's keep counts (k 128 at ws 16 / .5) held to its plain
+    version at the kernel bounds and timed (a row each); D at the head's
+    training shapes (1860 queries: 960 DN, 644 matching, 256 propagated;
+    6000 and 2628 keys). Each Function's model path, the function its
+    backward linearizes, held to the kernel's output on the same inputs
+    (C with the forward's plan), and its gradients to autograd through
+    that path (_grad_pairs), and the backward timed. The LN biases are 0
+    at this seeded init, so B's padded windows (ws 16 on a 20 x 50 map)
+    are the same function on both sides (ops/trainable.py). Returns
+    ok."""
+    import torch
+    from dataclasses import replace
+    from toc3d_tpu_torch.models.eva_vit import make_rope_tables, rope_tensors
+    from toc3d_tpu_torch.ops import trainable
+    from toc3d_tpu_torch.ops.cuda import cross_attn, patch_embed
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    cfg = replace(model.cfg.backbone, mxu_align_k=False)
+    bb = model.img_backbone
+    c, heads = cfg.embed_dim, cfg.num_heads
+    ok_all = True
+    win, glb = make_rope_tables(cfg)
+    rope = {cfg.window_size: rope_tensors(win, dev),
+            cfg.global_window_size: rope_tensors(glb, dev)}
+
+    # A: 12 x 320 x 800 normalized views
+    x_img = torch.randn(12, 320, 800, 3, device=dev, generator=g).to(bf)
+    conv = bb.patch_embed.proj
+    wmat, bias = patch_embed.pack_patch_weight(conv, bf)
+    out = patch_embed.patchify_matmul(x_img, wmat, bias, 16)
+    ok, err = compare("A train (12,320,800,3)->(12,20,50,1024)", out,
+                      patch_embed.patchify_plain(x_img, wmat, bias, 16))
+    m = 12 * 20 * 50
+    b_ms, b_by = bound(2 * m * 768 * c, x_img.numel() * 2 + wmat.numel() * 2
+                       + m * c * 2)
+    xin, wconv, bconv = x_img.permute(0, 3, 1, 2), conv.weight.to(bf), \
+        conv.bias.to(bf)
+    results["A train"] = dict(
+        name="patchify_matmul (training: PatchEmbedFn)", route="cuda",
+        source="toc3d_tpu_torch/csrc/patch_embed.cu",
+        replaces="toc3d_tpu/ops/pallas/patch_embed.py:60",
+        shape="x (12,320,800,3) bf16 -> (12,20,50,1024)", max_abs_err=err,
+        ms=cuda_time(lambda: patch_embed.patchify_matmul(x_img, wmat, bias,
+                                                          16), 20),
+        plain_ms=cuda_time(lambda: patch_embed.patchify_plain(
+            x_img, wmat, bias, 16), 3),
+        library_ms=cuda_time(lambda: torch.nn.functional.conv2d(
+            xin, wconv, bconv, stride=16), 20),
+        bound_ms=b_ms, bound_by=b_by)
+    ok_all &= ok
+    ga = torch.randn(12, 20, 50, c, device=dev, generator=g).to(bf)
+    ins = [conv.weight, conv.bias]
+    ok, _, _, ferr = _grad_pairs("A train", trainable.trainable_patch_embed(
+        conv, x_img, 16), trainable.patch_embed_model(conv, x_img, 16), ins,
+        ga)
+    ok_all &= ok
+    results["A train"]["model_fwd_max_abs_err"] = ferr
+    results["A train"]["bwd_ms"] = cuda_time(lambda: torch.autograd.grad(
+        trainable.trainable_patch_embed(conv, x_img, 16), ins, ga), 5)
+    log(f"time A train: {json.dumps(results['A train'])}")
+    del x_img, xin, out
+
+    # B at ws 16 (block 0) and C at every (ws, ratio) of the step
+    x = (torch.randn(12, 20, 50, c, device=dev, generator=g) * 0.5).to(bf)
+    scores = torch.log(torch.rand(12, 1000, device=dev, generator=g)
+                       * 0.9 + 0.05).to(bf)
+    gy = torch.randn(12, 20, 50, c, device=dev, generator=g).to(bf)
+    for i, ws, ratio in block_shapes(cfg):
+        if ratio is None and i != 0:
+            continue          # the other full blocks run the model path
+        kind = "B" if ratio is None else "C"
+        tag = f"{kind} train ws{ws}" + ("" if ratio is None
+                                        else f" r{ratio}")
+        blk = bb.blocks[i]
+        ok, entry = check_block(tag, blk, x, cfg, ws, rope[ws], scores,
+                                ratio, reps=5)
+        ok_all &= ok
+        params = list(blk.parameters())
+        xg = x.detach().requires_grad_(True)
+        if ratio is None:
+            f = lambda: trainable.trainable_full_block(blk, xg, heads, ws,
+                                                       rope[ws])
+            mdl = lambda: trainable.full_block_model(blk, xg, heads, ws,
+                                                     rope[ws])
+            ins = [xg] + params
+        else:
+            sg = scores.detach().requires_grad_(True)
+            f = lambda: trainable.trainable_compressed_block(
+                blk, xg, sg, heads, ws, ratio, rope[ws], True, True)
+            plan = trainable.compress_plan(sg, 12, 20, 50, ws, ratio, True,
+                                           align_k=False)
+            mdl = lambda: trainable.compressed_block_model(
+                blk, xg, sg, heads, ws, rope[ws], plan)
+            ins = [xg, sg] + params
+        ok, gerr, equal, ferr = _grad_pairs(tag, f(), mdl(), ins, gy)
+        ok_all &= ok
+        entry.update(grad_max_abs_err=gerr, grads_bit_equal=equal,
+                     model_fwd_max_abs_err=ferr,
+                     grads=len(ins),
+                     bwd_ms=cuda_time(lambda: torch.autograd.grad(
+                         f(), ins, gy), 3, warmup=1))
+        results[tag] = dict(
+            name=("fused_full_block (training: FullBlockFn)" if kind == "B"
+                  else "fused_compressed_block (training: "
+                       "CompressedBlockFn)"),
+            route="cuda", source="toc3d_tpu_torch/csrc/vit_block.cu",
+            replaces=BLOCK_ROWS[kind][1], **entry)
+        log(f"time {tag} backward: {entry['bwd_ms']:.3f} ms")
+    del x, scores, gy
+
+    # D at the head's training shapes
+    for kv in (6000, 2628):
+        ok, entry = check_flash(kv, g, reps=10, nq=1860, b=2)
+        ok_all &= ok
+        q = (torch.randn(2, 1860, 256, device=dev, generator=g)
+             * (3 * 32 ** -0.5)).to(bf).requires_grad_(True)
+        k = torch.randn(2, kv, 256, device=dev, generator=g).to(bf) \
+            .requires_grad_(True)
+        v = torch.randn(2, kv, 256, device=dev, generator=g).to(bf) \
+            .requires_grad_(True)
+        gd = torch.randn(2, 1860, 256, device=dev, generator=g).to(bf)
+        ok, gerr, equal, ferr = _grad_pairs(
+            f"D train kv{kv}", cross_attn.flash_attention(q, k, v, 8),
+            cross_attn.attention_core_model(q, k, v, 8), [q, k, v], gd)
+        ok_all &= ok
+        entry.update(grad_max_abs_err=gerr, grads_bit_equal=equal,
+                     model_fwd_max_abs_err=ferr,
+                     bwd_ms=cuda_time(lambda: torch.autograd.grad(
+                         cross_attn.flash_attention(q, k, v, 8), [q, k, v],
+                         gd), 3, warmup=1))
+        results[f"D train kv{kv}"] = dict(
+            name="flash_attention_core (training: FlashAttentionFn)",
+            route="cuda", source="toc3d_tpu_torch/csrc/cross_attn.cu",
+            replaces="toc3d_tpu/ops/pallas/cross_attn.py:118", **entry)
+        log(f"time D train kv{kv} backward: {entry['bwd_ms']:.3f} ms")
+    return ok_all
+
+
+def _tally_train_shapes():
+    """Wrap the kernels the trainable Functions call with a per-shape
+    tally (the kernels' own counters are per kernel). Returns (tally,
+    restore)."""
+    from toc3d_tpu_torch.ops import trainable
+    tally = {}
+    full, comp, patch = (trainable.fused_full_block,
+                         trainable.fused_compressed_block,
+                         trainable.patchify_matmul)
+
+    def full_(blk, x, heads, ws, rope):
+        key = f"B train ws{ws}"
+        tally[key] = tally.get(key, 0) + 1
+        return full(blk, x, heads, ws, rope)
+
+    def comp_(blk, x, scores, heads, ws, ratio, *a, **kw):
+        key = f"C train ws{ws} r{ratio}"
+        tally[key] = tally.get(key, 0) + 1
+        return comp(blk, x, scores, heads, ws, ratio, *a, **kw)
+
+    def patch_(*a, **kw):
+        tally["A train"] = tally.get("A train", 0) + 1
+        return patch(*a, **kw)
+    trainable.fused_full_block = full_
+    trainable.fused_compressed_block = comp_
+    trainable.patchify_matmul = patch_
+
+    def restore():
+        trainable.fused_full_block = full
+        trainable.fused_compressed_block = comp
+        trainable.patchify_matmul = patch
+    return tally, restore
+
+
+def train_small_agreement():
+    """One tiny training step in bf16 on the card against the CPU, by
+    phase_small_agreement's method: the same weights, batch and noise; an
+    f32 step on the CPU is the yardstick. For each loss term and
+    grad_norm, the card's distance |card - f32| / |f32| must be at most
+    1.25 times the largest distance of the CPU's bf16 steps: its own, and
+    FLIPS more on images with about half the values moved one bf16 step
+    (last_bit_steps). Returns ok."""
+    import numpy as np
+    import torch
+    from toc3d_tpu_torch.configs import get_config
+    from toc3d_tpu_torch.configs.presets import served_in_bf16
+    from toc3d_tpu_torch.models.detector import build_detector
+    from toc3d_tpu_torch.runtime import train as tr
+    f32cfg = get_config("tiny")
+    cfg = served_in_bf16(f32cfg)
+    sd = build_detector(cfg, device="cuda", seed=3).state_dict()
+    host = train_batch(np.random.RandomState(2), 1, 2, 64, 128, g3=4, g2=4,
+                       prev_exists=0.0)
+    noise = tr.draw_train_noise(cfg, 1, 2, torch.Generator().manual_seed(6),
+                                "cpu", gt3=4)
+
+    def to(obj, dev):
+        if isinstance(obj, torch.Tensor):
+            return obj.to(dev)
+        if isinstance(obj, (list, tuple)):
+            return type(obj)(*(to(o, dev) for o in obj)) if hasattr(
+                obj, "_fields") else type(obj)(to(o, dev) for o in obj)
+        if isinstance(obj, dict):
+            return {k: to(v, dev) for k, v in obj.items()}
+        return obj
+
+    def run(c, dev, img=None):
+        m = build_detector(c, device=dev, state_dict=sd)
+        tx = tr.make_optimizer(m, total_iters=100)
+        bt = dict(host)
+        if img is not None:
+            bt["img"] = img
+        batch, steady = tr.batch_to_device(bt, dev)
+        _, met = tr.make_train_step(tx)(tr.init_train_state(m, tx, 1),
+                                        batch, to(noise, dev), steady=steady)
+        return {k: float(v) for k, v in met.items()
+                if k != "nonfinite_skips"}
+
+    card, ref = run(cfg, "cuda"), run(f32cfg, "cpu")
+    gen = torch.Generator().manual_seed(8)
+    cpus = [run(cfg, "cpu")] + [
+        run(cfg, "cpu", last_bit_steps(torch.from_numpy(host["img"]),
+                                       gen).numpy())
+        for _ in range(FLIPS)]
+    ok = True
+    for k in sorted(ref):
+        den = abs(ref[k]) or 1.0
+        dc = abs(card[k] - ref[k]) / den
+        dcpu = max(abs(x[k] - ref[k]) / den for x in cpus)
+        good = math.isfinite(card[k]) and dc <= 1.25 * dcpu
+        ok &= good
+        log(f"train tiny bf16 step {k}: f32 {ref[k]:.6g}, card {card[k]:.6g}"
+            f" (distance {dc:.4g}), CPU bf16 distances up to {dcpu:.4g} "
+            f"({1 + FLIPS} steps) {'ok' if good else 'FAIL'}")
+    return ok
+
+
+PORT_KERNELS = ("gemm_sm90_kernel", "patch_im2col_kernel",
+                "window_attention_kernel", "layernorm_kernel",
+                "gather_merge_kernel", "scatter_update_kernel",
+                "flash_partial_kernel", "flash_combine_kernel")
+
+
+def train_profile(run_step, n=2, top=10):
+    """run_step(i) ``n`` times under torch.profiler: the wall ms a step (up
+    to a synchronisation), the device time of the CUDA kernels a step
+    (copies and fills not counted), the idle share (1 - kernel time / wall),
+    the port's kernels' share of the kernel time and the top kernels.
+    Returns the summary dict."""
+    import torch
+    from collections import defaultdict
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in range(n):
+            run_step(i)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    per_kernel = defaultdict(float)
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA \
+                and "Memcpy" not in ev.name and "Memset" not in ev.name:
+            per_kernel[ev.name] += ev.time_range.elapsed_us() / 1e3 / n
+    total = sum(per_kernel.values())
+    ours = sum(ms for k, ms in per_kernel.items()
+               if any(p in k for p in PORT_KERNELS))
+    out = dict(wall_ms=wall, kernel_ms=total,
+               idle_share=max(0.0, 1 - total / wall), port_kernel_ms=ours,
+               top=[(round(ms, 3), k[:90]) for k, ms in sorted(
+                   per_kernel.items(), key=lambda kv: -kv[1])[:top]])
+    log(f"train profile ({n} steps): wall {wall:.3f} ms/step; device "
+        f"kernel time {total:.3f} ms/step; idle share "
+        f"{out['idle_share']:.3f}; the port's kernels {ours:.3f} ms/step; "
+        f"top kernels (ms/step) {out['top']}")
+    return out
+
+
+def train_cli_on_card():
+    """The trainer CLI (toc3d_tpu_torch.tools.train's main, in this process)
+    on the card: the tiny preset (trained in bf16 there) for 3 iterations
+    on learnable synthetic scenes, with a checkpoint and the eval CLI on
+    the final weights. Holds: finite losses logged, no skip, the
+    checkpoint written, the eval's mAP in [0, 1]. Returns ok."""
+    import shutil
+    from toc3d_tpu_torch.data.synthetic import make_learnable_dataset
+    from toc3d_tpu_torch.tools import train as cli
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "train_smoke")
+    shutil.rmtree(os.path.join(root, "cli"), ignore_errors=True)
+    ann = make_learnable_dataset(os.path.join(root, "synth"), src_h=90,
+                                 src_w=160)
+    t0 = time.perf_counter()
+    out = cli.main(["--config", "tiny", "--ann", ann, "--iters", "3",
+                    "--batch-size", "1", "--seq-split-num", "1",
+                    "--log-interval", "1", "--checkpoint-interval", "3",
+                    "--src-h", "90", "--src-w", "160", "--work-dir",
+                    os.path.join(root, "cli"), "--val-ann", ann,
+                    "--eval-limit", "4"])
+    recs = out["records"]
+    ok = ([r["iter"] for r in recs] == [1, 2, 3]
+          and all(math.isfinite(r["total_loss"]) and r["nonfinite_skips"] == 0
+                  for r in recs)
+          and len(out["checkpoints"]) == 1
+          and os.path.exists(out["checkpoints"][0])
+          and 0.0 <= out["evals"][3]["mAP"] <= 1.0)
+    log(f"train CLI on the card (tiny, bf16, 3 iterations, eval on 4 "
+        f"samples): losses {[round(r['total_loss'], 4) for r in recs]}, "
+        f"checkpoint {out['checkpoints']}, mAP {out['evals'][3]['mAP']}, "
+        f"{time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def phase_train(results):
+    """Training of ToC3D_faster at full width on the card
+    (toc3d_tpu_torch.runtime.train.make_train_step), batch 2 (6 views of
+    800x320 each), seeded random weights, bench.py's synthetic batch (32 3D
+    and 32 2D boxes):
+    1. each Function at its training shapes (train_kernel_checks);
+    2. one step with every count set to 0 just before it and read just
+       after: A 1, B 1, C 18, D 0, G 76, LN 57 (the backward launches
+       none), and per shape (_tally_train_shapes);
+    3. 30 steps on the fixed batch (bench.py --train's protocol, the first
+       3 to settle): losses finite, the mean of the last 5 below the mean of
+       the first 5, no non-finite skip; steps/s, samples/s, peak memory and
+       the ms a step by stage (CUDA events: noise draw, pack rebuild,
+       forward, host matching, losses, backward, optimizer), then 2 steps
+       under torch.profiler (train_profile);
+    4. after training: an eval copy captured before it (make_infer_fn)
+       recaptures on the trained weights and equals eager infer_step bit
+       for bit for 3 frames; a save / load round trip of the train state
+       gives equal tensors;
+    5. the tiny step, card against CPU (train_small_agreement);
+    6. the trainer CLI on the card (train_cli_on_card).
+    Returns ok."""
+    import numpy as np
+    import torch
+    from toc3d_tpu_torch.configs import get_config
+    from toc3d_tpu_torch.models.detector import (build_detector, frame_seed,
+                                                 infer_step, init_state,
+                                                 make_infer_fn)
+    from toc3d_tpu_torch.runtime import train as tr
+    from toc3d_tpu_torch.runtime.checkpoint import (load_train_state,
+                                                    save_train_state)
+    from toc3d_tpu_torch.runtime.timer import StageTimer, span
+    dev = torch.device("cuda")
+    cfg = get_config("ToC3D_faster")
+    b, n = 2, 6
+    model = build_detector(cfg, device=dev, seed=0)
+    g = torch.Generator(device=dev).manual_seed(11)
+    ok_k = train_kernel_checks(model, results, g)
+
+    # an eval copy, captured on the weights before training
+    ev = build_detector(cfg, device=dev, state_dict=model.state_dict())
+    infer = make_infer_fn(ev)
+    frames = host_frames(3, 3, cfg.pad_shape)
+    with torch.no_grad():
+        infer(init_state(1, cfg, device=dev), frames[0])
+    before_programs = dict(infer._programs)
+
+    tx = tr.make_optimizer(model, total_iters=1000)
+    state = tr.init_train_state(model, tx, b)
+    step = tr.make_train_step(tx)
+    batch, steady = tr.batch_to_device(
+        train_batch(np.random.RandomState(0), b, n, *cfg.pad_shape), dev)
+    gen = torch.Generator(device=dev)
+    timer = StageTimer(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    totals, skips, tally = [], None, {}
+    t0 = None
+    for i in range(TRAIN_STEPS):
+        if i == TRAIN_SETTLE:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        tm = timer if i >= TRAIN_SETTLE else None
+        with span(tm, "noise draw"):
+            gen.manual_seed(frame_seed(1, i))
+            noise = tr.draw_train_noise(cfg, b, n, gen, dev, gt3=32)
+        if i == 0:
+            for f in counters():
+                f.launches = 0
+            tally, restore = _tally_train_shapes()
+            try:
+                state, m = step(state, batch, noise, steady=steady)
+                torch.cuda.synchronize()
+            finally:
+                restore()
+            launches = {k: f.launches for k, f in zip(KERNELS, counters())}
+        else:
+            state, m = step(state, batch, noise, steady=steady, timer=tm)
+        totals.append(m["total_loss"])
+        skips = m["nonfinite_skips"]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = torch.stack(totals).cpu().numpy().astype(np.float64)
+    timed = TRAIN_STEPS - TRAIN_SETTLE
+    ok_l = all(launches[k] == v for k, v in TRAIN_PER_STEP.items())
+    log(f"train launches in one step: {launches} (expected "
+        f"{TRAIN_PER_STEP}) {'ok' if ok_l else 'FAIL'}; per shape {tally}")
+    for key, nl in tally.items():
+        if key in results:
+            results[key]["launches"] = nl
+    ok_l &= sum(v for k, v in tally.items() if k.startswith("C")) == \
+        launches["C"] and tally.get("B train ws16") == launches["B"] and \
+        all("launches" in results[k] for k in results if " train" in k
+            and not k.startswith("D"))
+    for k in results:
+        if k.startswith("D train"):
+            results[k]["launches"] = launches["D"]
+    first5, last5 = losses[:5].mean(), losses[-5:].mean()
+    ok_s = bool(np.isfinite(losses).all()) and last5 < first5 and \
+        int(skips) == 0
+    stages = timer.summary()
+    log(f"train ToC3D_faster batch {b} x {n} views 800x320, {TRAIN_STEPS} "
+        f"steps on one batch ({TRAIN_SETTLE} to settle): losses "
+        f"{[round(float(v), 4) for v in losses]}; first 5 mean {first5:.4f}"
+        f", last 5 mean {last5:.4f}; nonfinite_skips {int(skips)}; "
+        f"{timed / wall:.4f} steps/s, {b * timed / wall:.4f} samples/s, "
+        f"{wall / timed * 1e3:.3f} ms/step wall; peak memory {peak:.3f} GiB "
+        f"{'ok' if ok_s else 'FAIL'}")
+    log("train ms a step by stage (CUDA events, mean over "
+        f"{timed} steps): " + json.dumps(
+            {k: round(v["mean"], 3) for k, v in stages.items()}))
+    results["train"] = dict(steps_per_s=timed / wall,
+                            samples_per_s=b * timed / wall, peak_gib=peak,
+                            stage_ms={k: v["mean"]
+                                      for k, v in stages.items()})
+
+    def profiled(i):
+        nonlocal state
+        gen.manual_seed(frame_seed(1, TRAIN_STEPS + i))
+        state, _ = step(state, batch, tr.draw_train_noise(
+            cfg, b, n, gen, dev, gt3=32), steady=steady)
+    results["train"]["profile"] = train_profile(profiled)
+
+    # the eval copy recaptures on the trained weights
+    ev.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        _, cap, _ = _stream(infer, init_state(1, cfg, device=dev), frames)
+        _, eag, _ = _stream(lambda s, f: infer_step(ev, s, f),
+                            init_state(1, cfg, device=dev), frames)
+    recaptured = bool(before_programs) and all(
+        infer._programs.get(k) is not v for k, v in before_programs.items())
+    equal = [all(torch.equal(a, b_) for a, b_ in zip(
+        tuple(gs.memory) + tuple(gd), tuple(es.memory) + tuple(ed)))
+        for (gs, gd), (es, ed) in zip(cap, eag)]
+    ok_c = recaptured and all(equal)
+    log(f"train: captured make_infer_fn on the trained weights recaptured "
+        f"{recaptured}, equal to eager infer_step per frame {equal} "
+        f"{'ok' if ok_c else 'FAIL'}")
+    del ev, infer, cap, eag, before_programs
+
+    # save / load round trip
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "train_smoke", "state.pth")
+    save_train_state(state, tx, path)
+    fresh = build_detector(cfg, device=dev, seed=1)
+    ftx = tr.make_optimizer(fresh, total_iters=1000)
+    loaded = load_train_state(path, tr.init_train_state(fresh, ftx, b), ftx)
+    ref_sd = model.state_dict()
+    ok_r = all(torch.equal(v, ref_sd[k])
+               for k, v in fresh.state_dict().items())
+    ok_r &= all(torch.equal(a, b_) for key in ("mu", "nu")
+                for a, b_ in zip(loaded.opt_state[key],
+                                 state.opt_state[key]))
+    ok_r &= all(torch.equal(a, b_) for a, b_ in zip(loaded.memory,
+                                                     state.memory))
+    ok_r &= loaded.step == state.step and torch.equal(
+        loaded.opt_state["count"], state.opt_state["count"])
+    log(f"train: save / load round trip of the train state equal {ok_r}")
+    del fresh, ftx, loaded, model, state, tx
+    torch.cuda.empty_cache()
+    ok_a = train_small_agreement()
+    ok_cli = train_cli_on_card()
+    ok = ok_k and ok_l and ok_s and ok_c and ok_r and ok_a and ok_cli
+    log(f"phase_train: kernels {ok_k}, launches {ok_l}, steps {ok_s}, "
+        f"recapture {ok_c}, save/load {ok_r}, tiny card vs CPU {ok_a}, "
+        f"trainer CLI {ok_cli}")
+    return ok
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2090,19 +2672,22 @@ def main() -> int:
                     phase_small_agreement(plain=True)])
         ok_s8 = all([phase_small_agreement("dynamic"),
                      phase_small_agreement("static")])
+    torch.cuda.empty_cache()
+    ok_t = phase_train(results)
     if not (ok_k and ok_k8 and ok_ps and ok_m and ok_m8 and ok_p and ok_e
-            and ok_bf and ok_gb and ok_s and ok_s8):
+            and ok_bf and ok_gb and ok_s and ok_s8 and ok_t):
         log(f"chip_smoke: FAILED (kernels {ok_k}, int8 kernels {ok_k8}, "
             f"other presets' kernel shapes {ok_ps}, main path {ok_m}, int8 "
             f"main path {ok_m8}, other presets' paths {ok_p}, streaming "
             f"eval {ok_e}, bench {ok_bf}, gumbel eval mask {ok_gb}, "
             f"small-input agreement {ok_s}, int8 small-input agreement "
-            f"{ok_s8})")
+            f"{ok_s8}, training {ok_t})")
         return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+    rows = list(KERNELS) + [r for r in results if " train" in r]
     log(json.dumps({"kernels": [{k: results[r][k] for k in keys}
-                                for r in KERNELS]}))
+                                for r in rows]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

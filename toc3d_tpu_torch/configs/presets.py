@@ -1,8 +1,9 @@
 """Named presets (counterpart of toc3d_tpu/configs/presets.py): the same ten
 names, the ToC3D_ratio* sweep names and apply_overrides. Constants, presets
-and helpers are copied from presets.py:20-245, without the training-only
-fields (grid mask, DN and loss settings, frame-gradient counts, drop-path
-kernels)."""
+and helpers are copied from presets.py:20-245, training fields included
+(grid mask, DN and loss settings, frame-gradient counts); the JAX
+package's fused_blocks switch is not carried (the port always runs its
+kernels on the card)."""
 from __future__ import annotations
 
 from ..models.detector import DetectorConfig, FocalHeadConfig
@@ -51,9 +52,10 @@ def _head(compute_dtype="float32") -> StreamPETRHeadConfig:
         compute_dtype=compute_dtype,
         num_classes=10, in_channels=256, embed_dims=256, stride=16,
         num_query=644, memory_len=1024, topk_proposals=256,
-        num_propagated=256, with_ego_pos=True, LID=True, depth_num=64,
-        depth_start=1.0, position_range=POSITION_RANGE,
-        pc_range=POINT_CLOUD_RANGE,
+        num_propagated=256, with_ego_pos=True, scalar=10, noise_scale=1.0,
+        dn_weight=1.0, split=0.75, LID=True, depth_num=64, depth_start=1.0,
+        position_range=POSITION_RANGE, pc_range=POINT_CLOUD_RANGE,
+        code_weights=(2.0, 2.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0),
         decoder=DecoderConfig(embed_dims=256, num_heads=8, num_layers=6,
                               feedforward_channels=2048, dropout=0.1),
         max_decode=300, post_center_range=POSITION_RANGE)
@@ -70,7 +72,9 @@ def _detector(backbone, pad_shape, compute_dtype="bfloat16",
         head=_head(compute_dtype),
         focal=FocalHeadConfig(num_classes=10, in_channels=256,
                               embed_dims=256, stride=16),
-        stride=16, position_level=0, pad_shape=pad_shape,
+        use_grid_mask=True, aux_2d_only=True, stride=16, position_level=0,
+        num_frame_backbone_grads=1, num_frame_head_grads=1,
+        num_frame_losses=1, pad_shape=pad_shape,
         compute_dtype=compute_dtype)
 
 
@@ -168,6 +172,7 @@ def tiny_test_config(**kw) -> DetectorConfig:
         head=StreamPETRHeadConfig(
             embed_dims=64, in_channels=32, num_query=24, memory_len=32,
             topk_proposals=8, num_propagated=8, depth_num=32, max_decode=16,
+            dn_max_gt=4,
             decoder=DecoderConfig(embed_dims=64, num_heads=2, num_layers=2,
                                   feedforward_channels=128)),
         focal=FocalHeadConfig(num_classes=10, in_channels=32, embed_dims=64),

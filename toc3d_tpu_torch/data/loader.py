@@ -1,6 +1,7 @@
-"""Eval frame builder and the threaded prefetching loader (counterpart of
-toc3d_tpu/data/loader.py: _load_image_bgr :24, _has_cv2 :32,
-_load_transform_fast :40, build_eval_frame :93, PrefetchIterator :263).
+"""Frame and sample builders and the threaded prefetching loader
+(counterpart of toc3d_tpu/data/loader.py: _load_image_bgr :24, _has_cv2
+:32, _load_transform_fast :40, build_eval_frame :93, build_train_sample
+:163, build_train_sequence :243, PrefetchIterator :263).
 
 Frames are numpy dicts, as in the JAX package; ``detector.frame_to_device``
 or the captured frame (runtime/graphs.CapturedInfer) moves them to the
@@ -18,7 +19,9 @@ import numpy as np
 
 from .nuscenes import (NuScenesInfos, AugConfig, sample_augmentation,
                        ida_matrix, transform_image, normalize_image,
-                       pad_to_multiple, IMG_NORM_MEAN)
+                       pad_to_multiple, IMG_NORM_MEAN, filter_invisible,
+                       global_rot_scale_trans, transform_boxes2d)
+from .sampler import pad_gt_2d, pad_gt_3d
 
 
 def _load_image_bgr(path: str) -> np.ndarray:
@@ -158,6 +161,96 @@ def build_eval_frame(infos: NuScenesInfos, index: int, aug: AugConfig,
         "ego2global_translation": info["ego2global_translation"],
     }
     return frame, fmt_meta
+
+
+def build_train_sample(infos: NuScenesInfos, index: int, aug: AugConfig,
+                       rng: np.random.RandomState, max_gt_3d: int = 96,
+                       max_gt_2d: int = 64,
+                       data_root: Optional[str] = None,
+                       pc_range=(-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)) -> Dict:
+    """One augmented training sample (no batch axis) with padded GT, in
+    the train pipeline's order (ToC3D_fast.py:186-205): range and name
+    filter, ResizeCropFlipRot with the 2D GT, GlobalRotScaleTrans,
+    normalize, pad (loader.py:163-240)."""
+    from ..core.boxes import in_range_bev, limit_yaw
+    meta = infos.frame_meta(index)
+    ann = infos.annotations(index)
+    boxes3d, labels3d = ann["gt_bboxes_3d"], ann["gt_labels_3d"]
+    keep = in_range_bev(boxes3d, (pc_range[0], pc_range[1], pc_range[3],
+                                  pc_range[4])) & (labels3d >= 0)
+    boxes3d, labels3d = boxes3d[keep], labels3d[keep]
+    boxes3d = limit_yaw(boxes3d, offset=0.5, period=2 * np.pi)
+
+    resize, resize_dims, crop, flip = sample_augmentation(aug, training=True,
+                                                          rng=rng)
+    ida = ida_matrix(resize, crop, flip)
+    imgs, intrinsics = [], []
+    b2d, l2d, c2d = [], [], []
+    for v, (path, intr) in enumerate(zip(meta["img_paths"],
+                                         meta["intrinsics"])):
+        if data_root is not None and not path.startswith("/"):
+            path = f"{data_root.rstrip('/')}/{path.lstrip('./')}"
+        imgs.append(transform_image(_load_image_bgr(path), resize_dims, crop,
+                                    flip))
+        intr = intr.copy()
+        intr[:3, :3] = ida @ intr[:3, :3]
+        intrinsics.append(intr)
+        bb = ann["bboxes2d"][v].copy()
+        cc = ann["centers2d"][v].copy()
+        ll = ann["labels2d"][v].copy()
+        dd = ann["depths"][v].copy()
+        if len(bb):
+            bb, cc, ll, dd = transform_boxes2d(bb, cc, ll, dd, resize, crop,
+                                               flip, aug.final_dim)
+        if len(bb):
+            bb, cc, ll, dd = filter_invisible(bb, cc, ll, dd, aug.final_dim)
+        b2d.append(bb)
+        l2d.append(ll)
+        c2d.append(cc)
+
+    meta["lidar2img"] = [i @ e for i, e in zip(intrinsics,
+                                               meta["extrinsics"])]
+    meta, boxes3d = global_rot_scale_trans(meta, boxes3d, rng)
+    imgs = [pad_to_multiple(normalize_image(im), 32) for im in imgs]
+    img2lidar = [np.linalg.inv(m).astype(np.float32)
+                 for m in meta["lidar2img"]]
+    gb3, gl3, gv3 = pad_gt_3d(boxes3d, labels3d, max_gt_3d)
+    gb2, gl2, gc2, gv2 = pad_gt_2d(b2d, l2d, c2d, max_gt_2d)
+    return {
+        "img": np.stack(imgs).astype(np.float32),
+        "intrinsics": np.stack(intrinsics).astype(np.float32),
+        "lidar2img": np.stack(meta["lidar2img"]).astype(np.float32),
+        "img2lidar": np.stack(img2lidar),
+        "timestamp": np.float32(meta["timestamp"]),
+        "ego_pose": meta["ego_pose"].astype(np.float32),
+        "ego_pose_inv": meta["ego_pose_inv"].astype(np.float32),
+        "prev_exists": np.float32(infos.prev_exists(index)),
+        "gt_bboxes_3d": gb3,
+        "gt_labels_3d": gl3,
+        "gt_valid_3d": gv3,
+        "gt_bboxes_2d": gb2,
+        "gt_labels_2d": gl2,
+        "gt_centers_2d": gc2,
+        "gt_valid_2d": gv2,
+    }
+
+
+def build_train_sequence(infos: NuScenesInfos, index: int, queue_length: int,
+                         aug: AugConfig, rng: np.random.RandomState,
+                         **kw) -> Dict:
+    """Frames [index - queue_length + 1 .. index] stacked on a T axis, each
+    one's prev_exists from scene continuity (nuscenes_dataset.py:99-133,
+    loader.py:243-260)."""
+    idxs = [max(0, i) for i in range(index - queue_length + 1, index + 1)]
+    samples = []
+    prev_scene = None
+    for i in idxs:
+        s = build_train_sample(infos, i, aug, rng, **kw)
+        scene = infos.infos[i]["scene_token"]
+        s["prev_exists"] = np.float32(scene == prev_scene)
+        prev_scene = scene
+        samples.append(s)
+    return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
 
 
 class PrefetchIterator:

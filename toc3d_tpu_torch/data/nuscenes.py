@@ -1,15 +1,14 @@
-"""nuScenes temporal infos and the deterministic eval preprocessing
-(counterpart of toc3d_tpu/data/nuscenes.py, its eval part: the pose math
-:32-61, AugConfig :63-74, NuScenesInfos :77-188, sample_augmentation :189,
-ida_matrix :214, transform_image :230, normalize_image :246 and
-pad_to_multiple :253; the reference's datasets/nuscenes_dataset.py:165-258
-and pipelines/transform_3d.py).
+"""nuScenes temporal infos and the image preprocessing (counterpart of
+toc3d_tpu/data/nuscenes.py: the pose math :32-61, AugConfig :63-74,
+NuScenesInfos :77-188, sample_augmentation :189, ida_matrix :214,
+transform_image :230, normalize_image :246, pad_to_multiple :253, and the
+train-time augmentations transform_boxes2d :275, filter_invisible :300 and
+global_rot_scale_trans :318; the reference's
+datasets/nuscenes_dataset.py:165-258 and pipelines/transform_3d.py).
 
 Host-side numpy and PIL, as in the JAX package; PIL is imported where an
 image is resized. Timestamps are float32 seconds relative to the first
-sample of the run. The train-time augmentations (2D box transforms, the
-occlusion filter, the global rotation / scale / translation) belong to the
-training slice.
+sample of the run.
 """
 from __future__ import annotations
 
@@ -264,3 +263,79 @@ def pad_to_multiple(img: np.ndarray, divisor: int = 32,
             out[:h, :w] = img
             img = out
     return img
+
+
+def transform_boxes2d(bboxes, centers2d, labels, depths, resize, crop, flip,
+                      final_dim, min_size=2.0):
+    """Resize, crop and flip the 2D GT with the image, dropping boxes under
+    min_size (transform_3d.py:174-208)."""
+    fh, fw = final_dim
+    bboxes = bboxes * resize
+    bboxes[:, [0, 2]] -= crop[0]
+    bboxes[:, [1, 3]] -= crop[1]
+    bboxes[:, [0, 2]] = np.clip(bboxes[:, [0, 2]], 0, fw)
+    bboxes[:, [1, 3]] = np.clip(bboxes[:, [1, 3]], 0, fh)
+    keep = ((bboxes[:, 2] - bboxes[:, 0]) >= min_size) & (
+        (bboxes[:, 3] - bboxes[:, 1]) >= min_size)
+    if flip:
+        x0, x1 = bboxes[:, 0].copy(), bboxes[:, 2].copy()
+        bboxes[:, 2] = fw - x0
+        bboxes[:, 0] = fw - x1
+    bboxes = bboxes[keep]
+    centers2d = centers2d * resize
+    centers2d[:, 0] = np.clip(centers2d[:, 0] - crop[0], 0, fw)
+    centers2d[:, 1] = np.clip(centers2d[:, 1] - crop[1], 0, fh)
+    if flip:
+        centers2d[:, 0] = fw - centers2d[:, 0]
+    return bboxes, centers2d[keep], labels[keep], depths[keep]
+
+
+def filter_invisible(bboxes, centers2d, labels, depths, final_dim):
+    """Depth-sorted occlusion filter (transform_3d.py:211-235): paint the
+    boxes far to near and keep those still visible."""
+    fh, fw = final_dim
+    idx_map = np.zeros((fh, fw), np.int64)
+    tmp = np.zeros_like(bboxes)
+    tmp[:, :2] = np.ceil(bboxes[:, :2])
+    tmp[:, 2:] = np.floor(bboxes[:, 2:])
+    tmp = tmp.astype(np.int64)
+    order = np.argsort(-depths, axis=0, kind="stable")
+    tmp, bboxes = tmp[order], bboxes[order]
+    depths, centers2d, labels = depths[order], centers2d[order], labels[order]
+    for i in range(bboxes.shape[0]):
+        u1, v1, u2, v2 = tmp[i]
+        idx_map[v1:v2, u1:u2] = i
+    vis = np.unique(idx_map).astype(np.int64)
+    return bboxes[vis], centers2d[vis], labels[vis], depths[vis]
+
+
+def global_rot_scale_trans(meta, gt_boxes, rng,
+                           rot_range=(-0.3925, 0.3925),
+                           scale_ratio_range=(0.95, 1.05),
+                           translation_std=(0, 0, 0)):
+    """BEV rotation, scale and translation of lidar2img, ego_pose (and its
+    inverse) and the 3D boxes (transform_3d.py:300-385,
+    reverse_angle=True)."""
+    from ..core.boxes import rotate_boxes_z, scale_boxes, translate_boxes
+    angle = rng.uniform(*rot_range)
+    scale = rng.uniform(*scale_ratio_range)
+    trans = rng.normal(scale=np.asarray(translation_std, np.float64), size=3)
+
+    def rot_mat(a):
+        c, s = np.cos(a), np.sin(a)
+        return np.array([[c, s, 0, 0], [-s, c, 0, 0],
+                         [0, 0, 1, 0], [0, 0, 0, 1]], np.float64)
+
+    mats = [rot_mat(angle),
+            np.diag([scale, scale, scale, 1.0]),
+            np.block([[np.eye(3), np.asarray(trans)[:, None]],
+                      [np.zeros((1, 3)), np.ones((1, 1))]])]
+    for m in mats:
+        m_inv = np.linalg.inv(m)
+        meta["lidar2img"] = [l @ m_inv for l in meta["lidar2img"]]
+        meta["ego_pose"] = meta["ego_pose"] @ m_inv
+        meta["ego_pose_inv"] = m @ meta["ego_pose_inv"]
+    gt_boxes = rotate_boxes_z(gt_boxes, -angle)  # reverse_angle=True
+    gt_boxes = scale_boxes(gt_boxes, scale)
+    gt_boxes = translate_boxes(gt_boxes, trans)
+    return meta, gt_boxes

@@ -35,31 +35,27 @@ from .streampetr_head import (MemoryBank, StreamPETRHead,
                               StreamPETRHeadConfig, head_forward, init_memory)
 from .eva_vit import EVAViT, EVAViTConfig, eva_vit_forward
 from .toc3d_vit import ToC3DViT, ToC3DViTConfig, toc3d_vit_forward
+from .focal_head import FocalHeadConfig, FocalHeadParams
 from .token_select import gumbel_
 
 
 @dataclass(frozen=True)
-class FocalHeadConfig:
-    """Shapes of the 2D auxiliary head (focal_head.py:19-26). Its forward is
-    training only (aux_2d_only); the port holds its parameters so that
-    reference checkpoints load strictly."""
-    num_classes: int = 10
-    in_channels: int = 256
-    embed_dims: int = 256
-    stride: int = 16
-
-
-@dataclass(frozen=True)
 class DetectorConfig:
-    """Field names of detector.py:35-55 that inference reads. backbone: an
-    EVAViTConfig (the plain EVA-02 of the StreamPETR presets) or a
-    ToC3DViTConfig."""
+    """Field names of detector.py:35-55. backbone: an EVAViTConfig (the
+    plain EVA-02 of the StreamPETR presets) or a ToC3DViTConfig. The grid
+    mask, the 2D head and the frame-gradient counts are read by training
+    only (runtime/train.py)."""
     backbone: EVAViTConfig = field(default_factory=ToC3DViTConfig)
     neck: CPFPNConfig = field(default_factory=CPFPNConfig)
     head: StreamPETRHeadConfig = field(default_factory=StreamPETRHeadConfig)
     focal: FocalHeadConfig = field(default_factory=FocalHeadConfig)
+    use_grid_mask: bool = True
+    aux_2d_only: bool = True
     stride: int = 16
     position_level: int = 0
+    num_frame_backbone_grads: int = 1
+    num_frame_head_grads: int = 1
+    num_frame_losses: int = 1
     pad_shape: Tuple[int, int] = (320, 800)
     compute_dtype: str = "float32"   # backbone dtype: 'float32' | 'bfloat16'
 
@@ -73,22 +69,6 @@ class DetectorConfig:
 
 class DetectorState(NamedTuple):
     memory: MemoryBank
-
-
-class FocalHeadParams(nn.Module):
-    """img_roi_head parameters (reference focal_head.py:119-193 names)."""
-
-    def __init__(self, cfg: FocalHeadConfig):
-        super().__init__()
-        e = cfg.embed_dims
-        self.shared_cls = nn.Sequential(
-            nn.Conv2d(cfg.in_channels, e, 3, padding=1), nn.GroupNorm(32, e))
-        self.shared_reg = nn.Sequential(
-            nn.Conv2d(cfg.in_channels, e, 3, padding=1), nn.GroupNorm(32, e))
-        self.cls = nn.Conv2d(e, cfg.num_classes, 1)
-        self.centerness = nn.Conv2d(e, 1, 1)
-        self.ltrb = nn.Conv2d(e, 4, 1)
-        self.center2d = nn.Conv2d(e, 2, 1)
 
 
 # keys of a reference checkpoint that are buffers the port recomputes, or
@@ -211,6 +191,9 @@ def init_weights_(model: ToC3DDetector, g: torch.Generator) -> None:
             lin_.bias.zero_()
     model.pts_bbox_head.cls_branches[0][6].bias.fill_(
         bias_init_with_prob(0.01))
+    roi = model.img_roi_head
+    roi.cls.bias.fill_(bias_init_with_prob(0.01))
+    roi.centerness.bias.fill_(bias_init_with_prob(0.01))
 
 
 def init_state(batch_size: int, cfg: DetectorConfig,
@@ -288,7 +271,8 @@ def _motion_ctx_from_memory(cfg: DetectorConfig, memory: MemoryBank, frame):
 
 def extract_img_feat(model: ToC3DDetector, img, memory: MemoryBank, frame,
                      steady=None, collect_block_outs: bool = False,
-                     quant=None, mask_noise=None):
+                     quant=None, mask_noise=None, train: bool = False,
+                     dp_keep=None, remat: bool = False):
     """img (B, N, H, W, 3) -> neck features (B, N, h, w, C) float32. A uint8
     image is normalized here, on the device (detector.py:142-150). The
     backbone is toc3d_vit_forward, guided by the memory bank, when the
@@ -297,7 +281,10 @@ def extract_img_feat(model: ToC3DDetector, img, memory: MemoryBank, frame,
     backbone's per-block inputs, outputs and scores (toc3d_vit_forward);
     quant overrides the backbone's cfg.quant ('none': the float blocks, as
     calibration runs them); mask_noise: the selectors' Gumbel noise for
-    eval_mask 'gumbel' (MaskNoise)."""
+    eval_mask 'gumbel' (MaskNoise), or training's. train (detector.py:
+    100-240 with an rng; runtime/train.compute_losses): the backbones'
+    training forward with the stochastic-depth keep masks dp_keep and
+    remat; returns (features, {'token_masks': [...]})."""
     from ..configs.presets import IMG_NORM_MEAN, IMG_NORM_STD
     cfg = model.cfg
     b, n, h, w, c = img.shape
@@ -309,12 +296,16 @@ def extract_img_feat(model: ToC3DDetector, img, memory: MemoryBank, frame,
         std = const_vector(IMG_NORM_STD, torch.float32, x.device)
         x = (x.float() - mean) / std
     x = x.to(dtype).contiguous()
+    collected = {"token_masks": []}
     if cfg.is_toc3d:
         feats = toc3d_vit_forward(model.img_backbone, x,
                                   _motion_ctx_from_memory(cfg, memory, frame),
                                   frame["prev_exists"], steady=steady,
                                   collect_block_outs=collect_block_outs,
-                                  quant=quant, mask_noise=mask_noise)
+                                  quant=quant, mask_noise=mask_noise,
+                                  train=train, dp_keep=dp_keep, remat=remat)
+        if collect_block_outs or train:
+            feats, collected = feats
     elif collect_block_outs:
         # as JAX's extract_img_feat (detector.py:221-224), which the static
         # int8 calibration reaches through its collected forward
@@ -322,12 +313,11 @@ def extract_img_feat(model: ToC3DDetector, img, memory: MemoryBank, frame,
             "collecting block outputs targets the ToC3D backbone; the plain "
             "EVA-02 backbone has no collected forward")
     else:
-        feats = eva_vit_forward(model.img_backbone, x, quant=quant)
-    if collect_block_outs:
-        feats, collected = feats
+        feats = eva_vit_forward(model.img_backbone, x, quant=quant,
+                                train=train, dp_keep=dp_keep, remat=remat)
     f = cpfpn_forward(model.img_neck, feats, cfg.neck)[cfg.position_level]
     f = f.reshape(b, n, f.shape[1], f.shape[2], -1).float()
-    return (f, collected) if collect_block_outs else f
+    return (f, collected) if collect_block_outs or train else f
 
 
 def head_step(model: ToC3DDetector, state: DetectorState, feats, frame):

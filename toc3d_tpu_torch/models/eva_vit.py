@@ -6,7 +6,9 @@ Modules carry the reference (mmdet3d) parameter names, so a reference state
 dict loads into them directly. The block forward runs kernel B
 (ops/cuda/vit_block.fused_full_block; B8, fused_full_block_int8, with
 quant='int8') and the patch embedding kernel A
-(ops/cuda/patch_embed.patchify_matmul).
+(ops/cuda/patch_embed.patchify_matmul), each as its autograd Function
+(ops/trainable.py). In training (``train=True``) a block with stochastic
+depth runs the model path instead, as JAX's does (injectable_sites).
 """
 from __future__ import annotations
 
@@ -16,11 +18,14 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 
-from ..ops.cuda.patch_embed import pack_patch_weight, patchify_matmul
+from torch.utils.checkpoint import checkpoint
+
 from ..ops.cuda.int8 import SITES
-from ..ops.cuda.vit_block import fused_full_block, fused_full_block_int8
+from ..ops.cuda.vit_block import fused_full_block_int8
 from ..ops.resize import resize_abs_pos
 from ..ops.rope import build_rope_table
+from ..ops.trainable import (full_block_model, trainable_full_block,
+                             trainable_patch_embed)
 
 LN_EPS = 1e-6
 
@@ -134,21 +139,32 @@ class PatchEmbed(nn.Module):
 
 def patch_embed(pe: PatchEmbed, x, patch_size: int):
     """x: (B, H, W, 3) normalized -> (B, H/ps, W/ps, C) in x.dtype, through
-    kernel A (eva_vit.py:149-173)."""
+    kernel A (eva_vit.py:149-173; PatchEmbedFn)."""
     if x.shape[1] % patch_size or x.shape[2] % patch_size:
         raise ValueError(f"image size {tuple(x.shape[1:3])} must be a "
                          f"multiple of patch_size={patch_size}")
-    wmat, bias = pack_patch_weight(pe.proj, x.dtype)
-    return patchify_matmul(x, wmat, bias, patch_size)
+    return trainable_patch_embed(pe.proj, x, patch_size)
 
 
 def block_forward(blk: Block, x, cfg: EVAViTConfig, window_size: int,
-                  rope_tables):
+                  rope_tables, dp_rate: float = 0.0, dp_keep=None,
+                  remat: bool = False):
     """Plain (non-compressed) EVA block, x: (B, H, W, C), through kernel B
-    (B8 with cfg.quant 'int8'). rope_tables: (cos, sin) tensors on x's
-    device, or None."""
-    fn = fused_full_block_int8 if cfg.quant == "int8" else fused_full_block
-    return fn(blk, x, cfg.num_heads, window_size, rope_tables)
+    (FullBlockFn; B8 with cfg.quant 'int8'). rope_tables: (cos, sin)
+    tensors on x's device, or None. dp_rate > 0 (training, a block with
+    stochastic depth): the model path with the residuals' keep masks
+    ``dp_keep`` ((B,), (B,)), under torch.utils.checkpoint with remat
+    (eva_vit.py:221-266)."""
+    if cfg.quant == "int8":
+        return fused_full_block_int8(blk, x, cfg.num_heads, window_size,
+                                     rope_tables)
+    if dp_rate <= 0.0:
+        return trainable_full_block(blk, x, cfg.num_heads, window_size,
+                                    rope_tables)
+    args = (blk, x, cfg.num_heads, window_size, rope_tables, dp_keep,
+            dp_rate)
+    return checkpoint(full_block_model, *args, use_reentrant=False) \
+        if remat else full_block_model(*args)
 
 
 def rope_tensors(tables, device):
@@ -193,19 +209,32 @@ def embed(model: EVAViT, x, cfg: EVAViTConfig):
     return x
 
 
-def eva_vit_forward(model: EVAViT, x, quant=None):
+def drop_path_rates(cfg: EVAViTConfig):
+    """The linear stochastic-depth ramp over the blocks (eva_vit.py:
+    291-296)."""
+    if cfg.depth == 1:
+        return [0.0]
+    return [cfg.drop_path_rate * i / (cfg.depth - 1)
+            for i in range(cfg.depth)]
+
+
+def eva_vit_forward(model: EVAViT, x, quant=None, train: bool = False,
+                    dp_keep=None, remat: bool = False):
     """x (B, H, W, 3) normalized images in the compute dtype -> features
-    (B, h, w, C) (eva_vit.py:302-334, eval path): kernel A, the position
-    embedding, then ``depth`` blocks through kernel B (B8 with quant
-    'int8'), at window_size or, at global_attn_indexes, global_window_size.
-    quant overrides cfg.quant."""
+    (B, h, w, C) (eva_vit.py:302-334): kernel A, the position embedding,
+    then ``depth`` blocks through kernel B (B8 with quant 'int8'), at
+    window_size or, at global_attn_indexes, global_window_size. quant
+    overrides cfg.quant. train: the blocks with stochastic depth run the
+    model path with their keep masks dp_keep ({block index: masks})."""
     cfg = model.cfg if quant is None else replace(model.cfg, quant=quant)
     rope_win, rope_glb = model.rope(x.device)
     x = embed(model, x, cfg)
+    dprs = drop_path_rates(cfg) if train else [0.0] * cfg.depth
     for i, blk in enumerate(model.blocks):
         is_global = i in cfg.global_attn_indexes
         x = block_forward(
             blk, x, cfg,
             cfg.global_window_size if is_global else cfg.window_size,
-            rope_glb if is_global else rope_win)
+            rope_glb if is_global else rope_win, dprs[i],
+            (dp_keep or {}).get(i), remat)
     return x

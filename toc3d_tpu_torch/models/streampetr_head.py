@@ -1,6 +1,8 @@
-"""StreamPETR head with an explicit temporal memory bank, inference only
-(counterpart of toc3d_tpu/models/streampetr_head.py; reference
-streampetr_head.py:315-680).
+"""StreamPETR head with an explicit temporal memory bank (counterpart of
+toc3d_tpu/models/streampetr_head.py; reference streampetr_head.py:315-680).
+Training adds the FocalHead's token order (``topk_indexes``), the DN
+queries and their attention mask, explicit dropout masks and per-layer
+checkpointing; its bank leaves detached, as JAX's train step detaches it.
 
 As in the JAX package: the bank is an explicit object threaded between
 frames and reset branchlessly by prev_exists; timestamps are f32 seconds
@@ -32,8 +34,9 @@ LN_EPS = 1e-5
 
 @dataclass(frozen=True)
 class StreamPETRHeadConfig:
-    """Field names of streampetr_head.py:47-86 that inference reads (the
-    DN/loss fields are training only)."""
+    """Field names of streampetr_head.py:47-86; with_dn .. split,
+    code_weights and dn_max_gt are read by training only (core/dn.py,
+    models/streampetr_loss.py)."""
     num_classes: int = 10
     in_channels: int = 256
     embed_dims: int = 256
@@ -43,16 +46,26 @@ class StreamPETRHeadConfig:
     topk_proposals: int = 256
     num_propagated: int = 256
     with_ego_pos: bool = True
+    with_dn: bool = True
+    scalar: int = 10                  # number of denoising groups
+    noise_scale: float = 1.0
+    noise_trans: float = 0.0
+    dn_weight: float = 1.0
+    split: float = 0.75
     depth_num: int = 64
     depth_start: float = 1.0
     LID: bool = True
     position_range: Tuple[float, ...] = (-61.2, -61.2, -10.0, 61.2, 61.2, 10.0)
     pc_range: Tuple[float, ...] = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)
     code_size: int = 10
+    code_weights: Tuple[float, ...] = (2.0, 2.0, 1.0, 1.0, 1.0, 1.0, 1.0,
+                                       1.0, 1.0, 1.0)
     decoder: DecoderConfig = field(default_factory=DecoderConfig)
     max_decode: int = 300
     post_center_range: Tuple[float, ...] = (-61.2, -61.2, -10.0, 61.2, 61.2,
                                             10.0)
+    # static DN padding (the reference pads to the batch's max GT count)
+    dn_max_gt: int = 96
     compute_dtype: str = "float32"
 
     @property
@@ -154,7 +167,7 @@ def pre_update_memory(cfg: StreamPETRHeadConfig, head: StreamPETRHead,
     if cfg.num_propagated > 0:
         p = cfg.num_propagated
         pc = const_vector(cfg.pc_range, ref.dtype, ref.device)
-        pseudo = (head.pseudo_reference_points.weight.to(ref.dtype)
+        pseudo = (head.pseudo_reference_points.weight.detach().to(ref.dtype)
                   * (pc[3:6] - pc[0:3]) + pc[0:3])
         ref = torch.cat([ref[:, :p] + (1 - x).reshape(b, 1, 1) * pseudo,
                          ref[:, p:]], dim=1)
@@ -175,13 +188,14 @@ def propagated_queries(cfg: StreamPETRHeadConfig, cls_last):
 
 def post_update_memory(cfg: StreamPETRHeadConfig, bank: MemoryBank,
                        timestamp, ego_pose, all_cls_scores, all_bbox_preds,
-                       outs_dec, rec_ego_pose) -> MemoryBank:
+                       outs_dec, rec_ego_pose, dn_pad: int = 0) -> MemoryBank:
     """Propagate the top-k current queries into the bank and return it to
-    the global frame (streampetr_head.py:227-262)."""
-    cls_last = all_cls_scores[-1]
-    box_last = all_bbox_preds[-1]
-    out_last = outs_dec[-1]
-    topk_idx = propagated_queries(cfg, cls_last)
+    the global frame (streampetr_head.py:227-262); the DN queries (the
+    first dn_pad) stay out, and what enters the bank is detached."""
+    cls_last = all_cls_scores[-1][:, dn_pad:]
+    box_last = all_bbox_preds[-1][:, dn_pad:].detach()
+    out_last = outs_dec[-1][:, dn_pad:].detach()
+    topk_idx = propagated_queries(cfg, cls_last.detach())
     rec_ts = topk_gather(torch.zeros_like(cls_last[..., :1]), topk_idx)
     rec_ref = topk_gather(box_last[..., :3], topk_idx)
     rec_mem = topk_gather(out_last, topk_idx)
@@ -213,24 +227,27 @@ def location_grid(h: int, w: int, stride: int, pad_h: int, pad_w: int,
 
 
 def position_embeding(head: StreamPETRHead, cfg: StreamPETRHeadConfig, data,
-                      centers, embed_dtype=None):
+                      centers, embed_dtype=None, topk_indexes=None):
     """3D position embedding from LID-binned frustum rays
-    (streampetr_head.py:278-335). Returns (pos_embed (B, K, C),
-    cone (B, K, 8))."""
+    (streampetr_head.py:278-335), at the tokens ``topk_indexes`` (B, K, 1)
+    picks when given (training's focal order), else at all N*h*w. Returns
+    (pos_embed (B, K, C), cone (B, K, 8))."""
     eps = 1e-5
     b, n = data["intrinsics"].shape[:2]
     h, w = centers.shape[:2]
     hw = h * w
-    k = n * hw
     pad_h, pad_w = data["pad_shape"]
     dev = centers.device
     intrinsic = torch.stack([data["intrinsics"][..., 0, 0],
                              data["intrinsics"][..., 1, 1]], dim=-1)
     intrinsic = intrinsic.abs() / 1e3
     intrinsic = intrinsic[:, None].expand(b, hw, n, 2).reshape(b, hw * n, 2)
+    intrinsic = topk_gather(intrinsic, topk_indexes)
     centers_px = centers * const_vector((pad_w, pad_h), centers.dtype, dev)
     centers_px = centers_px.reshape(1, 1, hw, 2).expand(b, n, hw, 2)
-    centers_px = centers_px.reshape(b, k, 1, 2)
+    centers_px = topk_gather(centers_px.reshape(b, n * hw, 1, 2),
+                             topk_indexes)
+    k = centers_px.shape[1]
     coords_d = device_const(
         ("lid_depth_bins", cfg.depth_num, cfg.LID, cfg.depth_start,
          cfg.position_range[3]), dev,
@@ -241,7 +258,7 @@ def position_embeding(head: StreamPETRHead, cfg: StreamPETRHeadConfig, data,
     coords = torch.cat([xy * dd.clamp(min=eps), dd, torch.ones_like(dd)],
                        dim=-1)
     img2lidar = data["img2lidar"][:, :, None].expand(b, n, hw, 4, 4)
-    img2lidar = img2lidar.reshape(b, k, 4, 4)
+    img2lidar = topk_gather(img2lidar.reshape(b, n * hw, 4, 4), topk_indexes)
     coords3d = torch.einsum("bkij,bkdj->bkdi", img2lidar, coords)[..., :3]
     pr = const_vector(cfg.position_range, coords3d.dtype, dev)
     coords3d = (coords3d - pr[0:3]) / (pr[3:6] - pr[0:3])
@@ -303,28 +320,43 @@ def temporal_alignment(head: StreamPETRHead, cfg: StreamPETRHeadConfig,
 
 
 def head_forward(head: StreamPETRHead, cfg: StreamPETRHeadConfig, feats,
-                 data, bank: MemoryBank):
-    """One frame (streampetr_head.py:403-502, eval, no DN).
-    feats (B, N, h, w, C) f32 neck features; data: intrinsics, img2lidar,
-    timestamp, ego_pose, ego_pose_inv, prev_exists and 'pad_shape'.
-    Returns (outs dict, new MemoryBank)."""
+                 data, bank: MemoryBank, topk_indexes=None, dn=None,
+                 drop_masks=None, remat: bool = False):
+    """One frame (streampetr_head.py:403-502). feats (B, N, h, w, C) f32
+    neck features; data: intrinsics, img2lidar, timestamp, ego_pose,
+    ego_pose_inv, prev_exists and 'pad_shape'. Returns (outs, new
+    MemoryBank).
+
+    Training passes the memory tokens' FocalHead order ``topk_indexes``
+    (B, K, 1); ``dn`` (core/dn.prepare_for_dn, with
+    'padded_reference_points') puts the DN queries first under their
+    attention mask; the decoder takes the dropout masks ``drop_masks``
+    and, with ``remat``, checkpoints each layer. outs holds every layer's
+    scores and boxes of the matching queries and, with dn, of the DN
+    queries (dn_cls_scores, dn_bbox_preds)."""
     bank = pre_update_memory(cfg, head, bank, data["timestamp"],
                              data["ego_pose_inv"], data["prev_exists"])
     b, n, h, w, c = feats.shape
-    memory = feats.reshape(b, n * h * w, c)
+    memory = topk_gather(feats.reshape(b, n * h * w, c), topk_indexes)
     bf16 = cfg.compute_dtype == "bfloat16"
     if bf16:
         memory = memory.to(torch.bfloat16)
     centers = location_grid(h, w, cfg.stride, *data["pad_shape"],
                             device=feats.device)
     pos_embed, cone = position_embeding(head, cfg, data, centers,
-                                        embed_dtype=memory.dtype)
+                                        embed_dtype=memory.dtype,
+                                        topk_indexes=topk_indexes)
     memory = mlp_relu(head.memory_embed, memory)
     memory = mln(head.spatial_alignment, memory, cone.to(memory.dtype))
     pos_embed = se_linear(head.featurized_pe, pos_embed.to(memory.dtype),
                           memory)
-    reference_points = head.reference_points.weight[None].expand(
-        b, cfg.num_query, 3)
+    if dn is not None:
+        reference_points = dn["padded_reference_points"]
+        attn_mask, pad_size = dn["attn_mask"], dn["pad_size"]
+    else:
+        reference_points = head.reference_points.weight[None].expand(
+            b, cfg.num_query, 3)
+        attn_mask, pad_size = None, 0
     query_pos = mlp_relu(head.query_embedding,
                          pos2posemb3d(reference_points,
                                       num_pos_feats=cfg.embed_dims // 2))
@@ -338,7 +370,8 @@ def head_forward(head: StreamPETRHead, cfg: StreamPETRHeadConfig, feats,
                                            temp_memory, temp_pos))
     outs_dec = decoder_forward(head.transformer.decoder, cfg.decoder, tgt,
                                memory, query_pos, pos_embed, temp_memory,
-                               temp_pos)
+                               temp_pos, attn_mask=attn_mask,
+                               drop_masks=drop_masks, remat=remat)
     outs_dec = torch.nan_to_num(outs_dec.float())
     ref_inv = inverse_sigmoid(reference_points.clamp(0.0, 1.0))
     all_cls, all_box = [], []
@@ -355,6 +388,11 @@ def head_forward(head: StreamPETRHead, cfg: StreamPETRHeadConfig, feats,
     all_bbox_preds = torch.cat([xyz, all_bbox_preds[..., 3:]], dim=-1)
     bank = post_update_memory(cfg, bank, data["timestamp"], data["ego_pose"],
                               all_cls_scores, all_bbox_preds, outs_dec,
-                              rec_ego_pose)
+                              rec_ego_pose, pad_size)
+    if pad_size > 0:
+        return {"all_cls_scores": all_cls_scores[:, :, pad_size:],
+                "all_bbox_preds": all_bbox_preds[:, :, pad_size:],
+                "dn_cls_scores": all_cls_scores[:, :, :pad_size],
+                "dn_bbox_preds": all_bbox_preds[:, :, :pad_size]}, bank
     return {"all_cls_scores": all_cls_scores,
             "all_bbox_preds": all_bbox_preds}, bank

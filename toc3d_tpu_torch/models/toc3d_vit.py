@@ -15,9 +15,10 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 
-from ..ops.cuda.vit_block import (fused_compressed_block,
-                                  fused_compressed_block_int8)
-from .eva_vit import EVAViT, EVAViTConfig, Block, block_forward, embed
+from ..ops.cuda.vit_block import fused_compressed_block_int8
+from ..ops.trainable import trainable_compressed_block
+from .eva_vit import (EVAViT, EVAViTConfig, Block, block_forward,
+                      drop_path_rates, embed)
 from .token_select import (SelectorConfig, Selector, hard_mask,
                            selector_score, soft_mask)
 
@@ -95,7 +96,7 @@ def toc3d_block_forward(blk: Block, x, scores, cfg: ToC3DViTConfig,
     kernel C (C8 with cfg.quant 'int8'). x (BN, H, W, C); scores (BN, H*W)
     (toc3d_vit.py:113-177)."""
     fn = fused_compressed_block_int8 if cfg.quant == "int8" \
-        else fused_compressed_block
+        else trainable_compressed_block
     return fn(
         blk, x, scores, cfg.num_heads, window_size, ratio,
         rope_tables if cfg.rope else None,
@@ -105,29 +106,42 @@ def toc3d_block_forward(blk: Block, x, scores, cfg: ToC3DViTConfig,
 
 def toc3d_vit_forward(model: ToC3DViT, x, motion_ctx, prev_exists,
                       steady=None, collect_block_outs: bool = False,
-                      quant=None, mask_noise=None):
+                      quant=None, mask_noise=None, train: bool = False,
+                      dp_keep=None, remat: bool = False):
     """x (BN, H, W, 3) normalized images in the compute dtype -> features
-    (BN, h, w, C) (toc3d_vit.py:196-369, eval path). motion_ctx: memory-bank
-    views for the selectors; prev_exists (B,); steady: all(prev_exists > 0)
-    if the caller already knows it. quant overrides cfg.quant ('none' runs
-    the float blocks, as calibration does). mask_noise: with eval_mask
-    'gumbel', one f32 Gumbel noise tensor (BN, h*w, 2) per selector, in
-    selector order (toc3d_vit.py:266-270 splits one key per selector);
-    without it the mask is noiseless, as JAX's without a mask_rng.
-    collect_block_outs: also return {'inputs': [x_i], 'outputs': [y_i],
-    'scores': [scores or None]} per block (toc3d_vit.py:361-362), what
-    ops.int8_calib probes, and 'token_masks': the (BN, h, w, 1) mask of
-    each selector, in selector order (JAX's aux['token_masks'],
-    toc3d_vit.py:284), what the token visualizer draws."""
+    (BN, h, w, C) (toc3d_vit.py:196-369). motion_ctx: memory-bank views for
+    the selectors; prev_exists (B,); steady: all(prev_exists > 0) if the
+    caller already knows it. quant overrides cfg.quant ('none' runs the
+    float blocks, as calibration does). mask_noise: one f32 Gumbel noise
+    tensor (BN, h*w, 2) per selector, in selector order
+    (toc3d_vit.py:266-270 splits one key per selector), read with eval_mask
+    'gumbel' and in training; without it the mask is noiseless, as JAX's
+    without a mask_rng. collect_block_outs: also return {'inputs': [x_i],
+    'outputs': [y_i], 'scores': [scores or None]} per block
+    (toc3d_vit.py:361-362), what ops.int8_calib probes, and 'token_masks':
+    the (BN, h, w, 1) mask of each selector, in selector order (JAX's
+    aux['token_masks'], toc3d_vit.py:284), what the token visualizer draws
+    and the token-selection loss reads.
+
+    train (JAX's forward with an rng): the reference's keep counts
+    int(n * ratio), without serving's MXU alignment (toc3d_vit.py:223-231;
+    k 128 at ws 16, ratio .5); the selectors' training blend and the
+    gumbel-softmax mask of ``mask_noise``; the full blocks with stochastic
+    depth on the model path with their keep masks dp_keep ({block index:
+    masks}), under torch.utils.checkpoint with remat (injectable_sites,
+    toc3d_vit.py:184-193). Returns (features, {'token_masks': [...]})."""
     cfg = model.cfg
     if quant is not None:
         cfg = replace(cfg, quant=quant)
+    if train:
+        cfg = replace(cfg, mxu_align_k=False)
     rope_win, rope_glb = model.rope(x.device)
     x = embed(model, x, cfg)
     bn, h, w, c = x.shape
     masks = torch.ones(bn, h, w, 1, dtype=x.dtype, device=x.device)
     if steady is None:
         steady = bool((prev_exists > 0).all())
+    dprs = drop_path_rates(cfg) if train else [0.0] * cfg.depth
     scores = None
     ratio = None
     seg = 0
@@ -138,17 +152,17 @@ def toc3d_vit_forward(model: ToC3DViT, x, motion_ctx, prev_exists,
             scfg = cfg.selector_config(seg)
             scores, pred, _ = selector_score(
                 model.score_predictor[seg], scfg, x, masks, motion_ctx,
-                prev_exists, steady=steady)
-            if cfg.eval_mask == "hard":
+                prev_exists, steady=steady, train_blend=train)
+            if cfg.eval_mask == "hard" and not train:
                 masks = hard_mask(scores, scfg.ratio).to(x.dtype)
             else:
                 noise = None
-                if cfg.eval_mask == "gumbel" and mask_noise is not None:
+                if (train or cfg.eval_mask == "gumbel") and \
+                        mask_noise is not None:
                     noise = mask_noise[seg]
                 masks = soft_mask(pred, noise)
             masks = masks.reshape(bn, h, w, 1)
-            if collect_block_outs:
-                collected["token_masks"].append(masks)
+            collected["token_masks"].append(masks)
             ratio = scfg.ratio
             seg += 1
         is_global = i in cfg.global_attn_indexes
@@ -162,9 +176,12 @@ def toc3d_vit_forward(model: ToC3DViT, x, motion_ctx, prev_exists,
             x = toc3d_block_forward(model.blocks[i], x, scores, cfg, ws,
                                     ratio, tables)
         else:
-            x = block_forward(model.blocks[i], x, cfg, ws, tables)
+            x = block_forward(model.blocks[i], x, cfg, ws, tables, dprs[i],
+                              (dp_keep or {}).get(i), remat)
         if collect_block_outs:
             collected["outputs"].append(x)
     if collect_block_outs:
         return x, collected
+    if train:
+        return x, {"token_masks": collected["token_masks"]}
     return x

@@ -112,11 +112,15 @@ def query_based_score(p: Selector, cfg: SelectorConfig, tokens, queries):
 
 
 def selector_score(p: Selector, cfg: SelectorConfig, tokens_hw, mask,
-                   motion_ctx, prev_exists, steady: Optional[bool] = None):
+                   motion_ctx, prev_exists, steady: Optional[bool] = None,
+                   train_blend: bool = False):
     """tokens_hw (BN, H, W, C); mask (BN, H, W, 1) or None; motion_ctx: the
     memory-bank views (B-leading) and ego_pose_inv; prev_exists (B,).
     steady: whether every lane has prev_exists > 0 (computed here when not
     given; the detector passes it so the host reads it once per frame).
+    train_blend: the training blend of the first-frame fallback, which
+    keeps only channel 0 of the MLP score, broadcast over both channels
+    (token_select.py:210-214; toc3d_utils.py:264-266).
     Returns (scores (BN, H*W), pred (BN, H*W, 2), attn)."""
     bn, h, w, c = tokens_hw.shape
     use_mask = cfg.use_mask and mask is not None
@@ -137,6 +141,8 @@ def selector_score(p: Selector, cfg: SelectorConfig, tokens_hw, mask,
         pe = prev_exists.reshape(b, 1, 1, 1).to(q_score.dtype)
         pe = pe.expand(b, bn // b, 1, 1).reshape(bn, 1, 1)
         mlp_score = score_mlp_forward(p, x)
+        if train_blend:
+            mlp_score = mlp_score[..., :1]
         pred = mlp_score * (1.0 - pe) + q_score * pe
     return pred[..., 0], pred, attn
 

@@ -5,8 +5,10 @@ RoPE, optional index-gathered RoPE) as a plain path — the main path runs it
 inside the block kernels (ops/cuda/vit_block.py).
 mha: batch-first multi-head attention with torch nn.MultiheadAttention
 semantics and parameter layout; its softmax core is the flash kernel
-(ops/cuda/cross_attn.py), the projections are plain matmuls, or int8 linears
-(quant='int8', attention.py:172-180 on quantize_decoder_params weights).
+(ops/cuda/cross_attn.py) as an autograd Function, or, under an attention
+mask (the DN mask) or dropout with explicit masks, written out; the
+projections are plain matmuls, or int8 linears (quant='int8',
+attention.py:172-180 on quantize_decoder_params weights).
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import torch.nn as nn
 
 from ..layers import lin, linear, quantize_linear
 from .cuda import cached_pack, param_key
-from .cuda.cross_attn import flash_attention_core
+from .cuda.cross_attn import flash_attention
 from .rope import apply_rope, apply_rope_select
 
 
@@ -89,12 +91,27 @@ def quantize_mha(attn: MultiheadAttention):
     return cached_pack(attn, "int8", param_key(attn), build)
 
 
+def dropout(x, keep_mask, rate: float):
+    """Dropout with an explicit keep mask (petr_transformer.py:69-74):
+    x / (1 - rate) where kept, else 0, in x's dtype; identity without a
+    mask."""
+    if keep_mask is None or rate <= 0.0:
+        return x
+    return torch.where(keep_mask, x / (1.0 - rate), torch.zeros_like(x))
+
+
 def mha(attn: MultiheadAttention, query, key, value, num_heads: int,
-        quant: str = "none"):
-    """query (B, Q, C), key/value (B, K, C) -> (B, Q, C). Eval decoder
-    attention: no mask, no dropout (attention.py:144-180, fused route).
-    quant 'int8': the four projections are int8 linears; the core stays
-    on the flash kernel."""
+        quant: str = "none", attn_mask=None, drop_mask=None,
+        rate: float = 0.0):
+    """query (B, Q, C), key/value (B, K, C) -> (B, Q, C)
+    (attention.py:132-208). Without a mask and without dropout (eval, and
+    training at dropout 0) the core is kernel D (FlashAttentionFn: the
+    kernel forward, the model path's backward). attn_mask: bool (Q, K) or
+    (B, Q, K), True = masked out (the DN mask); drop_mask: the keep mask of
+    the attention probabilities (B, heads, Q, K), at ``rate``. With either,
+    the core is written out: f32 logits, the mask as the most negative f32,
+    softmax, dropout, then the weights in v.dtype times v. quant 'int8':
+    the four projections are int8 linears (attention.py:172-180)."""
     c = query.shape[-1]
     if quant == "int8":
         pq, pk, pv, po = ((p, None) for p in quantize_mha(attn))
@@ -107,7 +124,17 @@ def mha(attn: MultiheadAttention, query, key, value, num_heads: int,
     q = linear(query, *pq) * scale
     k = linear(key, *pk)
     v = linear(value, *pv)
-    out = flash_attention_core(q.to(v.dtype).contiguous(),
-                               k.to(v.dtype).contiguous(), v.contiguous(),
-                               num_heads)
-    return linear(out, *po)
+    if attn_mask is None and (drop_mask is None or rate <= 0.0):
+        out = flash_attention(q.to(v.dtype), k.to(v.dtype), v, num_heads)
+        return linear(out, *po)
+    qh, kh, vh = (_split_heads(t, num_heads) for t in (q, k, v))
+    logits = qh.float() @ kh.float().transpose(-1, -2)
+    if attn_mask is not None:
+        neg = torch.finfo(torch.float32).min
+        bias = torch.zeros(attn_mask.shape, dtype=torch.float32,
+                           device=logits.device).masked_fill(attn_mask, neg)
+        logits = logits + (bias[None, None] if bias.dim() == 2
+                           else bias[:, None])
+    weights = dropout(torch.softmax(logits, dim=-1), drop_mask, rate)
+    out = weights.to(vh.dtype) @ vh
+    return linear(_merge_heads(out), *po)

@@ -94,3 +94,48 @@ def flash_attention_core(q, k, v, num_heads: int):
 
 
 flash_attention_core.launches = 0
+
+
+def attention_core_model(q, k, v, num_heads: int):
+    """The model path of the attention core (cross_attn.py:167-177,
+    _xla_core): f32 logits of the pre-scaled q against k, softmax, the
+    weights in v.dtype, times v. Differentiable; the backward of
+    ``FlashAttentionFn``."""
+    b, nq, c = q.shape
+    d = c // num_heads
+
+    def sh(t):
+        return t.reshape(b, -1, num_heads, d).transpose(1, 2)
+
+    logits = sh(q).float() @ sh(k).float().transpose(-1, -2)
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    o = w @ sh(v)
+    return o.transpose(1, 2).reshape(b, nq, c)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Trainable kernel D (cross_attn.py:180-203, flash_attention): the
+    forward is ``flash_attention_core`` (the kernel on the card, its plain
+    version on the CPU) and saves only q, k, v; the backward recomputes
+    ``attention_core_model`` at them with autograd and returns its vjp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads: int):
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(q, k, v)
+        return flash_attention_core(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = attention_core_model(*ins, ctx.num_heads)
+            grads = torch.autograd.grad(out, ins, g)
+        return (*grads, None)
+
+
+def flash_attention(q, k, v, num_heads: int):
+    """Differentiable kernel D: q (B, Q, C) pre-scaled, k, v (B, K, C)."""
+    return FlashAttentionFn.apply(q, k, v, num_heads)

@@ -833,13 +833,16 @@ def _compressed_block(name, wts: BlockWeights, x, plan: CompressPlan,
 
 def fused_compressed_block(blk, x, scores, num_heads: int, window_size: int,
                            ratio: float, rope_tables, use_represent: bool,
-                           rope_acc: bool, align_k: bool):
+                           rope_acc: bool, align_k: bool, plan=None):
     """Token-compressed ToC3D block: x (B, H, W, C), scores (B, H*W) ->
-    (B, H, W, C). Math of models/toc3d_vit.toc3d_block_forward."""
+    (B, H, W, C). Math of models/toc3d_vit.toc3d_block_forward. plan: the
+    routing (compress_plan) when the caller has taken it, as the trainable
+    form does, to route its backward the same way."""
     b, h, w, c = x.shape
     wts = pack_block_weights(blk, num_heads, x.dtype)
-    plan = compress_plan(scores, b, h, w, window_size, ratio, use_represent,
-                         align_k)
+    if plan is None:
+        plan = compress_plan(scores, b, h, w, window_size, ratio,
+                             use_represent, align_k)
     rope = rope_tables if rope_acc else None
     if x.device.type == "cpu":
         return compressed_block_plain(wts, x, plan, num_heads, window_size,
