@@ -5,7 +5,8 @@
 Phases, each fatal on failure (exit code != 0):
   1. device: needs torch.cuda; prints the nvidia-smi name / power limit line;
   2. build: compiles every kernel of the main path from toc3d_tpu_torch/csrc
-     (one nvcc per source, in parallel) into build/kernels/;
+     (one nvcc per source, in parallel) into build/kernels/; the native
+     LAP (toc3d_tpu_torch/native/lap.cpp, g++) into build/native/;
   3. check: each kernel (A patch embed: im2col and kernel G's product, B
      full block, C compressed block at each block shape of the frame
      (block_shapes: B at ws 16 and 20, C at each ratio at both), D split-K
@@ -101,8 +102,25 @@ Phases, each fatal on failure (exit code != 0):
      exact; a tiny bf16 step on the card against the CPU (each side's
      distance to an f32 step, the card's at most 1.25 times the CPU's);
      the trainer CLI (tools.train) for 3 tiny iterations on synthetic
-     scenes, its checkpoint and its eval;
- 10. report: a {"kernels": [...]} JSON line, the nvidia-smi line, and last
+     scenes, its checkpoint and its eval; the step's launches include the
+     auction matcher (AU 7: the card's default, one launch a cost
+     tensor), the step's cost tensors are kept, and 6 more steps run with
+     the host LAP ('callback') pinned, so that both matchers' `host
+     matching` ms a step are printed; the tiny card-against-CPU step pins
+     'callback' on both sides;
+ 10. matchers and closed loop (phase_traineval): the auction kernel
+     (csrc/auction.cu) against its plain version, torch.equal, at JAX's
+     test sizes (tests/test_auction.py, tests/test_auction_scale.py: Q 900,
+     G 8 / 32 / 96, padding, near ties) and on the ToC3D_faster step's real
+     cost tensors (six (2, 900, 32), one (12, 1000, 32)), each within
+     JAX's bound of the native LAP's optimum with no query twice; the
+     step's tensors timed (kernel, plain, native LAP with its copies,
+     bound); the closed loop (tools.traineval, tiny, 150 iterations,
+     resumed at 75, evaluated at 0 and 150): resumed, finite metrics in
+     [0, 1], the loss's last 5 below 0.7 of its first 5;
+ 11. report: a {"kernels": [...]} JSON line (the auction's row adds
+     lap_ms, the native LAP's time; no PyTorch call solves an assignment,
+     so its library_ms is null), the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 The kernels' plain versions compute in f32 (TF32 off for matmuls and
 convolutions).
@@ -119,6 +137,7 @@ import time
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 PEAK_INT8_OPS = 1979e12      # H100 SXM dense int8 tensor-core peak
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
+PEAK_F32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
 
 # kernel tolerance on the card, bf16 kernel vs its plain version on the same
 # inputs: max |err| <= 2^-5 * max |plain| and mean |err| <= 2^-6 * mean
@@ -374,11 +393,16 @@ def compressed_block_work_int8(b, h, w, c, hid, ws, k, has_rep, d=64):
 # ---------------------------------------------------------------------------
 
 def phase_build():
+    from toc3d_tpu_torch import native
     from toc3d_tpu_torch.ops.cuda import build
     t0 = time.perf_counter()
     times = build.build_all()
     log(f"build: {time.perf_counter() - t0:.1f} s wall "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in times.items())})")
+    t0 = time.perf_counter()
+    native.get_lap_lib()
+    log(f"build: native LAP {native.library_path().name} "
+        f"{time.perf_counter() - t0:.1f} s")
     for name in times:
         logf = build.BUILD_DIR / f"{name}.log"
         if logf.exists():
@@ -1322,7 +1346,7 @@ def phase_preset_shapes():
     return ok_all
 
 
-KERNELS = ("A", "B", "C", "D", "B8", "C8", "H8", "G", "G8", "LN")
+KERNELS = ("A", "B", "C", "D", "B8", "C8", "H8", "G", "G8", "LN", "AU")
 
 
 def counters():
@@ -1394,7 +1418,7 @@ def _stream(infer, state, frames):
 
 
 def phase_main_path(model, results, label="bf16",
-                    per_frame=(1, 6, 18, 12, 0, 0, 0, 96, 0, 72),
+                    per_frame=(1, 6, 18, 12, 0, 0, 0, 96, 0, 72, 0),
                     record=("A", "B", "C", "D", "G", "LN"),
                     name="ToC3D_faster_1600", n_frames=6, selectors=3,
                     host_checks=True):
@@ -1488,7 +1512,7 @@ def phase_main_path(model, results, label="bf16",
     return ok, dets
 
 
-MAIN_PER_FRAME = (1, 6, 18, 12, 0, 0, 0, 96, 0, 72)
+MAIN_PER_FRAME = (1, 6, 18, 12, 0, 0, 0, 96, 0, 72, 0)
 
 
 def phase_eval(name="ToC3D_faster_1600", scenes=2, frames_per_scene=6,
@@ -1711,7 +1735,7 @@ def phase_main_path_int8(results, bf16_dets):
                   head=replace(cfg.head, decoder=replace(cfg.head.decoder,
                                                          quant="int8")))
     model = build_detector(cfg, device="cuda", seed=0)
-    per_frame = (1, 0, 0, 12, 6, 18, 60, 0, 96, 72)
+    per_frame = (1, 0, 0, 12, 6, 18, 60, 0, 96, 72, 0)
     ok, dets = phase_main_path(model, results, "int8 dynamic", per_frame,
                                ("B8", "C8", "H8", "G8"))
     _against_bf16("int8 dynamic", dets, bf16_dets)
@@ -1741,12 +1765,13 @@ def phase_presets(results):
     from toc3d_tpu_torch.models.detector import build_detector
     ok_all = True
     runs = (("stream_petr_eva_vit_l_1600", "bf16", 6, 0,
-             (1, 24, 0, 12, 0, 0, 0, 96, 0, 72)),
+             (1, 24, 0, 12, 0, 0, 0, 96, 0, 72, 0)),
             ("stream_petr_eva_vit_l_1600", "int8 dynamic", 6, 0,
-             (1, 0, 0, 12, 24, 0, 60, 0, 96, 72)),
-            ("ToC3D_fast", "bf16", 3, 3, (1, 6, 18, 12, 0, 0, 0, 96, 0, 72)),
+             (1, 0, 0, 12, 24, 0, 60, 0, 96, 72, 0)),
+            ("ToC3D_fast", "bf16", 3, 3,
+             (1, 6, 18, 12, 0, 0, 0, 96, 0, 72, 0)),
             ("ToC3D_vit_b_faster", "bf16", 3, 3,
-             (1, 3, 9, 12, 0, 0, 0, 48, 0, 36)))
+             (1, 3, 9, 12, 0, 0, 0, 48, 0, 36, 0)))
     for name, label, n, sel, per_frame in runs:
         cfg = get_config(name)
         if label != "bf16":
@@ -2076,8 +2101,9 @@ def phase_small_agreement(quant="none", plain=False):
 # ---------------------------------------------------------------------------
 
 TRAIN_PER_STEP = {"A": 1, "B": 1, "C": 18, "D": 0, "B8": 0, "C8": 0,
-                  "H8": 0, "G": 76, "G8": 0, "LN": 57}
+                  "H8": 0, "G": 76, "G8": 0, "LN": 57, "AU": 7}
 TRAIN_STEPS, TRAIN_SETTLE = 30, 3
+MATCH_STEPS = 6   # steps timed with the 'callback' matcher pinned
 
 
 def train_batch(rng, b, n, h, w, g3=32, g2=32, prev_exists=1.0):
@@ -2463,26 +2489,50 @@ def train_cli_on_card():
     return ok
 
 
-def phase_train(results):
+def _capture_matching(captured):
+    """Wrap the train step's hungarian_match so that it also keeps a copy
+    of the problems it is given (phase_traineval's real cost tensors).
+    Returns restore."""
+    from toc3d_tpu_torch.runtime import train as tr
+    match = tr.hungarian_match
+
+    def match_(problems, impl=None):
+        captured["problems"] = [(c.detach().clone(), v.detach().clone())
+                                for c, v in problems]
+        return match(problems, impl)
+    tr.hungarian_match = match_
+
+    def restore():
+        tr.hungarian_match = match
+    return restore
+
+
+def phase_train(results, captured):
     """Training of ToC3D_faster at full width on the card
     (toc3d_tpu_torch.runtime.train.make_train_step), batch 2 (6 views of
     800x320 each), seeded random weights, bench.py's synthetic batch (32 3D
     and 32 2D boxes):
     1. each Function at its training shapes (train_kernel_checks);
     2. one step with every count set to 0 just before it and read just
-       after: A 1, B 1, C 18, D 0, G 76, LN 57 (the backward launches
-       none), and per shape (_tally_train_shapes);
+       after: A 1, B 1, C 18, D 0, G 76, LN 57, AU 7 (the auction matcher,
+       the card's default: one launch a cost tensor, six decoder layers
+       and the 2D head; the backward launches none), and per shape
+       (_tally_train_shapes); the step's cost tensors are kept in
+       ``captured`` for phase_traineval;
     3. 30 steps on the fixed batch (bench.py --train's protocol, the first
        3 to settle): losses finite, the mean of the last 5 below the mean of
        the first 5, no non-finite skip; steps/s, samples/s, peak memory and
        the ms a step by stage (CUDA events: noise draw, pack rebuild,
        forward, host matching, losses, backward, optimizer), then 2 steps
-       under torch.profiler (train_profile);
+       under torch.profiler (train_profile), then MATCH_STEPS steps with
+       the 'callback' matcher (the native LAP on the host) pinned, timed
+       the same way;
     4. after training: an eval copy captured before it (make_infer_fn)
        recaptures on the trained weights and equals eager infer_step bit
        for bit for 3 frames; a save / load round trip of the train state
        gives equal tensors;
-    5. the tiny step, card against CPU (train_small_agreement);
+    5. the tiny step, card against CPU (train_small_agreement, both sides
+       on the 'callback' matcher);
     6. the trainer CLI on the card (train_cli_on_card).
     Returns ok."""
     import numpy as np
@@ -2533,12 +2583,15 @@ def phase_train(results):
             for f in counters():
                 f.launches = 0
             tally, restore = _tally_train_shapes()
+            unwrap = _capture_matching(captured)
             try:
                 state, m = step(state, batch, noise, steady=steady)
                 torch.cuda.synchronize()
             finally:
                 restore()
+                unwrap()
             launches = {k: f.launches for k, f in zip(KERNELS, counters())}
+            captured["launches"] = launches["AU"]
         else:
             state, m = step(state, batch, noise, steady=steady, timer=tm)
         totals.append(m["total_loss"])
@@ -2587,6 +2640,34 @@ def phase_train(results):
             cfg, b, n, gen, dev, gt3=32), steady=steady)
     results["train"]["profile"] = train_profile(profiled)
 
+    # the same steps with the host matcher pinned
+    from toc3d_tpu_torch.core.assigner import set_default_impl
+    ctimer = StageTimer(dev)
+    set_default_impl("callback")
+    try:
+        for i in range(MATCH_STEPS + 1):
+            gen.manual_seed(frame_seed(2, i))
+            noise = tr.draw_train_noise(cfg, b, n, gen, dev, gt3=32)
+            if i == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            state, m = step(state, batch, noise, steady=steady,
+                            timer=ctimer if i else None)
+        torch.cuda.synchronize()
+    finally:
+        set_default_impl(None)
+    cwall = (time.perf_counter() - t0) / MATCH_STEPS
+    cstages = ctimer.summary()
+    results["train"]["callback"] = dict(
+        steps_per_s=1 / cwall, stage_ms={k: v["mean"]
+                                         for k, v in cstages.items()})
+    log(f"train matchers, host matching ms a step: 'auction' (default) "
+        f"{stages['host matching']['mean']:.4f} ({timed / wall:.4f} "
+        f"steps/s), 'callback' (native LAP) "
+        f"{cstages['host matching']['mean']:.4f} ({1 / cwall:.4f} steps/s, "
+        f"{MATCH_STEPS} steps); 'callback' ms a step by stage: "
+        + json.dumps({k: round(v["mean"], 3) for k, v in cstages.items()}))
+
     # the eval copy recaptures on the trained weights
     ev.load_state_dict(model.state_dict())
     with torch.no_grad():
@@ -2624,13 +2705,263 @@ def phase_train(results):
     log(f"train: save / load round trip of the train state equal {ok_r}")
     del fresh, ftx, loaded, model, state, tx
     torch.cuda.empty_cache()
-    ok_a = train_small_agreement()
+    from toc3d_tpu_torch.core.assigner import set_default_impl
+    set_default_impl("callback")     # one matcher on both sides
+    try:
+        ok_a = train_small_agreement()
+    finally:
+        set_default_impl(None)
     ok_cli = train_cli_on_card()
     ok = ok_k and ok_l and ok_s and ok_c and ok_r and ok_a and ok_cli
     log(f"phase_train: kernels {ok_k}, launches {ok_l}, steps {ok_s}, "
         f"recapture {ok_c}, save/load {ok_r}, tiny card vs CPU {ok_a}, "
         f"trainer CLI {ok_cli}")
     return ok
+
+
+# ---------------------------------------------------------------------------
+# the matchers and the closed loop (phase_traineval)
+# ---------------------------------------------------------------------------
+
+AUCTION_ROW = dict(name="auction", route="cuda",
+                   source="toc3d_tpu_torch/csrc/auction.cu",
+                   replaces="toc3d_tpu/core/auction.py:103")
+# a bid scans its row once: a subtraction and two comparisons a query
+AUCTION_OPS_PER_VALUE = 3
+# JAX's bounds against the exact LAP (tests/test_auction_scale.py:72-76,
+# 100): relative gap of the total cost, the absolute one at planted near
+# ties, and the share of slots that agree where JAX asks it
+AUCTION_REL_GAP = 1e-4
+AUCTION_AGREE = 0.999
+CLOSEDLOOP_ITERS = 150
+
+
+def auction_realistic_cost(rng, q, g, num_classes=10):
+    """tests/test_auction_scale.realistic_cost in the port's cost terms:
+    focal + L1 costs of a mid-training model, each GT with 2-4
+    near-duplicate competitive queries, background elsewhere. (q, g)
+    numpy."""
+    import numpy as np
+    import torch
+    from toc3d_tpu_torch.core.assigner import focal_cls_cost, l1_cost
+    logits = rng.randn(q, num_classes).astype(np.float32) * 0.5 - 4.0
+    boxes = rng.randn(q, 10).astype(np.float32)
+    gt_labels = rng.randint(0, num_classes, (g,))
+    gt_codes = rng.randn(g, 10).astype(np.float32)
+    for j in range(g):
+        for _ in range(rng.randint(2, 5)):
+            i = rng.randint(0, q)
+            logits[i, gt_labels[j]] = 2.0 + rng.randn() * 0.5
+            boxes[i] = gt_codes[j] + rng.randn(10).astype(np.float32) * 0.05
+    t = lambda a: torch.from_numpy(a)[None]
+    cls_c = focal_cls_cost(t(logits), t(gt_labels), weight=2.0)
+    reg_c = l1_cost(t(boxes) * 0.5, t(gt_codes) * 0.5, 0.25)
+    return (cls_c + reg_c)[0].numpy().astype(np.float32)
+
+
+def auction_cases():
+    """JAX's auction test problems as (tag, cost (B, Q, G), n_valid (B,),
+    kind): kind 'scale' asks the LAP's agreement too, 'ties' the absolute
+    gap bound of planted near ties. tests/test_auction.py: 20 random
+    problems (persons 2-23, objects 32-127) and a padded batch (8, 3, 0
+    valid of 8 at 40 queries); tests/test_auction_scale.py: Q 900 padded
+    to G 96 with 8, 32 and 96 valid (4 problems each) and 32 GTs with
+    planted near ties."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    for trial in range(20):
+        p, o = rng.randint(2, 24), rng.randint(32, 128)
+        cost = rng.randn(p, o).astype(np.float32) * rng.uniform(0.5, 20)
+        yield (f"random {p}x{o}", np.ascontiguousarray(cost.T)[None],
+               np.array([p], np.int32), "random")
+    rng = np.random.RandomState(1)
+    yield ("padded 3x40x8", rng.randn(3, 40, 8).astype(np.float32) * 5,
+           np.array([8, 3, 0], np.int32), "random")
+    for g in (8, 32, 96):
+        rng = np.random.RandomState(g)
+        costs = np.full((4, 900, 96), 1e6, np.float32)
+        for i in range(4):
+            costs[i, :, :g] = auction_realistic_cost(rng, 900, g)
+        yield f"scale 900 G{g}/96", costs, np.full((4,), g, np.int32), \
+            "scale"
+    rng = np.random.RandomState(0)
+    q, g = 900, 32
+    cost = rng.rand(q, g).astype(np.float32) * 10
+    for j in range(0, g, 2):
+        i = rng.randint(0, q)
+        cost[i, j] = 0.0
+        cost[i, j + 1] = 1e-3
+        cost[(i + 1) % q, j + 1] = 2e-3
+    yield "near ties 900x32", cost[None], np.array([g], np.int32), "ties"
+
+
+def check_auction(tag, cost, n_valid, kind):
+    """The kernel against its plain version (torch.equal on the CPU's
+    plain rounds) on one cost tensor (B, Q, G) numpy, and both against the
+    native LAP's optimum: every valid slot assigned, no query twice, the
+    total cost within JAX's bound (relative gap < 1e-4; at planted near
+    ties < 1e-3 + 1e-4 |c|), and for kind 'scale' at least 0.999 of the
+    slots as the LAP's. Returns (ok, stats)."""
+    import numpy as np
+    import torch
+    from toc3d_tpu_torch.core.assigner import lsa_host
+    from toc3d_tpu_torch.core.auction import auction_plain
+    from toc3d_tpu_torch.ops.cuda.auction import auction_match
+    dev_cost = torch.from_numpy(cost).cuda()
+    dev_nv = torch.from_numpy(n_valid).cuda()
+    out = auction_match(dev_cost, dev_nv).cpu()
+    stats = {}
+    plain = auction_plain(torch.from_numpy(cost), torch.from_numpy(n_valid),
+                          stats=stats)
+    equal = torch.equal(out, plain)
+    lap = lsa_host(cost, n_valid)
+    out = out.numpy()
+    ok, worst, agree, total = equal, 0.0, 0, 0
+    for i, nv in enumerate(n_valid):
+        nv = int(nv)
+        m = out[i, :nv]
+        ok &= bool((out[i, nv:] == -1).all())
+        if not nv:
+            continue
+        if (m < 0).any() or len(set(m.tolist())) != nv:
+            ok = False
+            continue
+        cols = np.arange(nv)
+        c_a = float(cost[i, m, cols].astype(np.float64).sum())
+        c_l = float(cost[i, lap[i, :nv], cols].astype(np.float64).sum())
+        gap = c_a - c_l
+        if kind == "ties":
+            ok &= gap < 1e-3 + 1e-4 * abs(c_l)
+        else:
+            rel = gap / max(abs(c_l), 1e-6)
+            worst = max(worst, rel)
+            ok &= rel < AUCTION_REL_GAP
+        agree += int((m == lap[i, :nv]).sum())
+        total += nv
+    share = agree / total if total else 1.0
+    if kind == "scale":
+        ok &= share >= AUCTION_AGREE
+    return ok, dict(equal=equal, rel_gap=worst, agree=share, **stats)
+
+
+def phase_traineval(results, captured):
+    """The training matchers and the closed loop on the card:
+    1. the auction kernel (ops/cuda/auction.auction_match) against its
+       plain version, torch.equal, at JAX's test sizes (auction_cases) and
+       on the real cost tensors of the ToC3D_faster batch-2 step that
+       phase_train captured (six (2, 900, 32) decoder layers and the 2D
+       head's (12, 1000, 32)), each within JAX's bound of the native
+       LAP's optimum with no duplicate (check_auction);
+    2. the step's seven tensors timed: the kernel (one launch a tensor),
+       its plain version on the card, the native LAP with its copies (the
+       'callback' matcher: no PyTorch call solves an assignment, so the
+       kernels line's library_ms is null and this is lap_ms), and the
+       bound (the tensors' bytes, or the bids' scans at the f32 peak);
+    3. the closed loop (toc3d_tpu_torch.tools.traineval's main, in this
+       process) with every count set to 0 just before it and read just
+       after: tiny, 150 iterations, resumed at 75, evaluated at 0 and 150
+       (JAX's smoke recipe, tests/test_traineval_closedloop.py:56-66):
+       resumed, finite metrics in [0, 1], loss_last5_mean < 0.7 x
+       loss_first5_mean; A, B, C, D, G and LN launched, AU three times a
+       step, no int8 kernel.
+    Returns ok."""
+    import shutil
+    import numpy as np
+    import torch
+    from toc3d_tpu_torch.core.assigner import hungarian_match
+    from toc3d_tpu_torch.core.auction import auction_plain
+    from toc3d_tpu_torch.ops.cuda.auction import auction_match
+    from toc3d_tpu_torch.tools import traineval
+
+    ok_k = True
+    for tag, cost, nv, kind in auction_cases():
+        ok, st = check_auction(tag, cost, nv, kind)
+        ok_k &= ok
+        log(f"check auction {tag}: equal to plain {st['equal']}, worst "
+            f"relative gap to the LAP {st['rel_gap']:.3g}, slots as the LAP "
+            f"{st['agree']:.4f}, {st['rounds']} rounds, {st['bids']} bids "
+            f"{'ok' if ok else 'FAIL'}")
+    problems = captured["problems"]
+    step_nv = []
+    for j, (c, v) in enumerate(problems):
+        nv = v.sum(dim=1).to(torch.int32)
+        step_nv.append(nv)
+        ok, st = check_auction(f"step {j} {tuple(c.shape)}",
+                               c.cpu().numpy(), nv.cpu().numpy(), "step")
+        ok_k &= ok
+        st["shape"] = tuple(c.shape)
+        captured.setdefault("stats", []).append(st)
+        log(f"check auction ToC3D_faster step tensor {j} {tuple(c.shape)}: "
+            f"equal to plain {st['equal']}, relative gap to the LAP "
+            f"{st['rel_gap']:.3g}, slots as the LAP {st['agree']:.4f}, "
+            f"{st['rounds']} rounds, {st['bids']} bids "
+            f"{'ok' if ok else 'FAIL'}")
+
+    # the step's seven tensors, timed
+    def kernel():
+        for (c, _), nv in zip(problems, step_nv):
+            auction_match(c, nv)
+    ms = cuda_time(kernel, reps=10)
+    plain_ms = cuda_time(lambda: [auction_plain(c, nv) for (c, _), nv
+                                  in zip(problems, step_nv)], reps=1,
+                         warmup=1)
+    lap_ms = cuda_time(lambda: hungarian_match(problems, impl="callback"),
+                       reps=10)
+    match_ms = cuda_time(lambda: hungarian_match(problems, impl="auction"),
+                         reps=10)
+    nbytes = sum(c.numel() * 4 + c.shape[0] * 4 + c.shape[0] * c.shape[2] * 4
+                 for c, _ in problems)
+    ops = sum(st["bids"] * c.shape[1] * AUCTION_OPS_PER_VALUE
+              for (c, _), st in zip(problems, captured["stats"]))
+    t_mem = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    bound_ms, bound_by = (t_ops, "operations") if t_ops >= t_mem else \
+        (t_mem, "bytes")
+    results["AU"] = dict(
+        AUCTION_ROW, launches=captured["launches"], max_abs_err=0.0, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None, lap_ms=lap_ms,
+        shape=[list(c.shape) for c, _ in problems])
+    log(f"time auction, the ToC3D_faster step's {len(problems)} cost "
+        f"tensors: kernel {ms:.4f} ms ({len(problems)} launches), plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
+        f"{nbytes} bytes, {ops} operations), hungarian_match 'auction' "
+        f"{match_ms:.4f} ms, 'callback' (native LAP, copies included) "
+        f"{lap_ms:.4f} ms")
+
+    # the closed loop
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "traineval_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    for f in counters():
+        f.launches = 0
+    t0 = time.perf_counter()
+    rec = traineval.main(["--config", "tiny", "--iters",
+                          str(CLOSEDLOOP_ITERS), "--eval-points", "1",
+                          "--data-dir", root])["record"]
+    wall = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in zip(KERNELS, counters())}
+    # training and eval run A, B, C, G, LN and the eval's decoder D; the
+    # step's matching the auction, three tensors a step at tiny; no int8
+    ok_n = (all(launches[k] > 0 for k in ("A", "B", "C", "D", "G", "LN"))
+            and launches["AU"] == 3 * CLOSEDLOOP_ITERS
+            and all(launches[k] == 0 for k in ("B8", "C8", "H8", "G8")))
+    log(f"closed loop launches {launches} {'ok' if ok_n else 'FAIL'}")
+    traj = rec["map_trajectory"]
+    ok_l = (rec["resumed"] is True
+            and [p["iter"] for p in traj] == [0, CLOSEDLOOP_ITERS]
+            and all(math.isfinite(p[k]) and 0.0 <= p[k] <= 1.0
+                    for p in traj for k in ("mAP", "NDS", "mAP_present",
+                                            "NDS_present"))
+            and rec["loss_last5_mean"] < 0.7 * rec["loss_first5_mean"]
+            and rec["matcher"] == "auction" and ok_n)
+    log(f"closed loop on the card (tiny, bf16, {CLOSEDLOOP_ITERS} "
+        f"iterations, resumed at {CLOSEDLOOP_ITERS // 2}, matcher "
+        f"{rec['matcher']}): resumed {rec['resumed']}, loss "
+        f"{rec['loss_first5_mean']} -> {rec['loss_last5_mean']}, trajectory "
+        f"{traj}, {wall:.1f} s {'ok' if ok_l else 'FAIL'}")
+    log(f"phase_traineval: auction kernel {ok_k}, closed loop {ok_l}")
+    return ok_k and ok_l
 
 
 def main() -> int:
@@ -2673,21 +3004,25 @@ def main() -> int:
         ok_s8 = all([phase_small_agreement("dynamic"),
                      phase_small_agreement("static")])
     torch.cuda.empty_cache()
-    ok_t = phase_train(results)
+    captured = {}
+    ok_t = phase_train(results, captured)
+    torch.cuda.empty_cache()
+    ok_te = phase_traineval(results, captured)
     if not (ok_k and ok_k8 and ok_ps and ok_m and ok_m8 and ok_p and ok_e
-            and ok_bf and ok_gb and ok_s and ok_s8 and ok_t):
+            and ok_bf and ok_gb and ok_s and ok_s8 and ok_t and ok_te):
         log(f"chip_smoke: FAILED (kernels {ok_k}, int8 kernels {ok_k8}, "
             f"other presets' kernel shapes {ok_ps}, main path {ok_m}, int8 "
             f"main path {ok_m8}, other presets' paths {ok_p}, streaming "
             f"eval {ok_e}, bench {ok_bf}, gumbel eval mask {ok_gb}, "
             f"small-input agreement {ok_s}, int8 small-input agreement "
-            f"{ok_s8}, training {ok_t})")
+            f"{ok_s8}, training {ok_t}, matchers and closed loop {ok_te})")
         return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     rows = list(KERNELS) + [r for r in results if " train" in r]
-    log(json.dumps({"kernels": [{k: results[r][k] for k in keys}
-                                for r in rows]}))
+    log(json.dumps({"kernels": [
+        {k: results[r][k] for k in keys + ("lap_ms",) if k in results[r]}
+        for r in rows]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -168,7 +168,8 @@ def test_tiny_train_step_on_card(dev):
     """The tiny preset in bf16, two steps on the card: finite losses, the
     launches of one step (A 1, B 2: blocks 0 and 1, no stochastic depth
     at tiny, C 2: blocks 2 and 3, G 16, LN 12, D 0: the decoder has
-    dropout), the parameters moved, no skip."""
+    dropout, the auction 3: the two decoder layers' costs and the 2D
+    head's, the card's default matcher), the parameters moved, no skip."""
     from toc3d_tpu_torch.configs import get_config
     from toc3d_tpu_torch.configs.presets import served_in_bf16
     from toc3d_tpu_torch.models.detector import build_detector
@@ -210,7 +211,7 @@ def test_tiny_train_step_on_card(dev):
         state, m = step(state, batch, noise, steady=i > 0)
         torch.cuda.synchronize()
         counts = [f.launches for f in wrappers]
-        assert counts == [1, 2, 2, 0, 0, 0, 0, 16, 0, 12], counts
+        assert counts == [1, 2, 2, 0, 0, 0, 0, 16, 0, 12, 3], counts
         assert all(np.isfinite(float(v)) for v in m.values())
         assert int(m["nonfinite_skips"]) == 0
         batch["prev_exists"][:] = 1.0

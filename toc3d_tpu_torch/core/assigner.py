@@ -1,5 +1,5 @@
 """Hungarian set matching with static padded shapes (counterpart of
-toc3d_tpu/core/assigner.py:90-208).
+toc3d_tpu/core/assigner.py:28-208).
 
   HungarianAssigner3D -> reference hungarian_assigner_3d.py: FocalLossCost
       (2) + BBox3DL1Cost (0.25 over the code-weighted normalized boxes)
@@ -7,14 +7,23 @@ toc3d_tpu/core/assigner.py:90-208).
       (2) + BBoxL1Cost (5, cxcywh) + IoUCost (giou, 2) + L1 on the
       normalized centers (10)
 
-The cost terms are computed on the tensors' device; the assignment itself
-runs on the host with scipy's linear_sum_assignment, as the JAX package's
-'callback' matcher does on the CPU (assigner.py:28-60, 80-88). GT arrays
-are padded to a static G with a validity mask; padded columns cost
-BIG_COST and are left out of the solve. ``hungarian_match`` solves any
-number of cost tensors with one device-to-host copy and one copy back, so
-a train step that matches six decoder layers and the 2D head waits for the
-device once.
+The cost terms are computed on the tensors' device. GT arrays are padded to
+a static G with a validity mask; padded columns cost BIG_COST and are left
+out of the solve. The assignment has two implementations, as in JAX
+(assigner.py:62-88):
+
+  'callback'  the host LAP: every cost tensor of the call goes to the host
+              in one copy, the native solver (native/lap.cpp, one C call a
+              tensor) solves it, and the answers come back in one copy, so
+              a train step that matches six decoder layers and the 2D head
+              waits for the device once. The default for CPU tensors.
+  'auction'   Bertsekas' auction on the device (core/auction.py): one
+              kernel launch a cost tensor, no host read. The default for
+              CUDA tensors, as JAX's is on an accelerator.
+
+``set_default_impl`` pins one for every call; ``lsa_host_scipy`` (scipy's
+linear_sum_assignment, per sample) is kept as the tests' oracle and no path
+calls it.
 """
 from __future__ import annotations
 
@@ -30,9 +39,20 @@ BIG_COST = 1e6
 
 
 def lsa_host(cost: np.ndarray, n_valid: np.ndarray) -> np.ndarray:
-    """Batched linear_sum_assignment on the host (assigner.py:28-60):
-    cost (B, Q, G), n_valid (B,) -> (B, G) int32, for each GT slot its
-    matched query (-1 for padded slots)."""
+    """Batched linear sum assignment on the host (assigner.py:28-60): cost
+    (B, Q, G), n_valid (B,) -> (B, G) int32, for each GT slot its matched
+    query (-1 for padded slots). One call of the native solver for the
+    whole batch (native.lap_batched, on the transposed costs: rows are
+    GTs)."""
+    from ..native import lap_batched
+    cost = np.nan_to_num(np.asarray(cost, np.float32), nan=100.0,
+                         posinf=100.0, neginf=-100.0)
+    return lap_batched(np.swapaxes(cost, 1, 2), np.asarray(n_valid))
+
+
+def lsa_host_scipy(cost: np.ndarray, n_valid: np.ndarray) -> np.ndarray:
+    """``lsa_host`` by per-sample scipy linear_sum_assignment, JAX's
+    fallback (assigner.py:50-60); the tests' oracle only."""
     from scipy.optimize import linear_sum_assignment
     cost = np.nan_to_num(np.asarray(cost, np.float32), nan=100.0,
                          posinf=100.0, neginf=-100.0)
@@ -47,14 +67,31 @@ def lsa_host(cost: np.ndarray, n_valid: np.ndarray) -> np.ndarray:
     return out
 
 
-def hungarian_match(problems):
-    """problems: a list of (cost (B, Q, G), gt_valid (B, G)) on one device.
-    Returns a list of (B, G) int64 tensors there, the matched query of each
-    GT slot, -1 where the slot is invalid. The costs are detached (the
-    reference detaches them too, hungarian_assigner_3d.py:73) and moved to
-    the host in one copy; the answers come back in one copy."""
-    if not problems:
-        return []
+IMPLS = ("callback", "auction")
+_IMPL_OVERRIDE = None
+
+
+def set_default_impl(impl):
+    """Pin the matcher of every ``hungarian_match`` call that names none:
+    'callback', 'auction', or None for the per-device default
+    (assigner.py:65-80)."""
+    global _IMPL_OVERRIDE
+    if impl is not None and impl not in IMPLS:
+        raise ValueError(f"matcher {impl!r}: expected one of {IMPLS}")
+    _IMPL_OVERRIDE = impl
+
+
+def resolve_impl(device=None) -> str:
+    """The pinned matcher, else 'callback' for the CPU and 'auction' for a
+    CUDA device (assigner.py:83-88: callback on CPU, auction on an
+    accelerator)."""
+    if _IMPL_OVERRIDE is not None:
+        return _IMPL_OVERRIDE
+    return "auction" if torch.device(device or "cpu").type == "cuda" \
+        else "callback"
+
+
+def _match_callback(problems):
     dev = problems[0][0].device
     with torch.no_grad():
         flat = torch.cat([t.detach().float().reshape(-1) for c, v in problems
@@ -78,6 +115,36 @@ def hungarian_match(problems):
         res.append(joined[at:at + n].reshape(c.shape[0], c.shape[2]))
         at += n
     return res
+
+
+def _match_auction(problems):
+    from ..ops.cuda.auction import auction_match
+    res = []
+    with torch.no_grad():
+        for c, v in problems:
+            valid = v.detach().bool()
+            m = auction_match(c.detach(), valid.sum(dim=1))
+            res.append(torch.where(valid, m.long(),
+                                   torch.full_like(m, -1, dtype=torch.long)))
+    return res
+
+
+def hungarian_match(problems, impl=None):
+    """problems: a list of (cost (B, Q, G), gt_valid (B, G)) on one device.
+    Returns a list of (B, G) int64 tensors there, the matched query of each
+    GT slot, -1 where the slot is invalid. The costs are detached (the
+    reference detaches them too, hungarian_assigner_3d.py:73). impl:
+    'callback' (the host LAP, one copy each way for the whole list) or
+    'auction' (on the device, one launch a cost tensor on CUDA); None
+    takes ``resolve_impl`` of the tensors' device."""
+    if not problems:
+        return []
+    impl = impl or resolve_impl(problems[0][0].device)
+    if impl == "auction":
+        return _match_auction(problems)
+    if impl != "callback":
+        raise ValueError(f"matcher {impl!r}: expected one of {IMPLS}")
+    return _match_callback(problems)
 
 
 def focal_cls_cost(cls_pred, gt_labels, weight=2.0, alpha=0.25, gamma=2.0,
@@ -142,7 +209,7 @@ def assign_3d(bbox_pred, cls_pred, gt_bboxes, gt_labels, gt_valid,
               match_costs, cls_weight=2.0, reg_weight=0.25,
               with_velo=False):
     """Batched 3D Hungarian assignment -> matched query (B, G), -1
-    invalid (one host round trip)."""
+    invalid (hungarian_match's default matcher)."""
     cost = cost_3d(bbox_pred, cls_pred, gt_bboxes, gt_labels, gt_valid,
                    match_costs, cls_weight, reg_weight, with_velo)
     return hungarian_match([(cost, gt_valid)])[0]
@@ -151,7 +218,7 @@ def assign_3d(bbox_pred, cls_pred, gt_bboxes, gt_labels, gt_valid,
 def assign_2d(bbox_pred, cls_pred, centers_pred, gt_bboxes, gt_labels,
               gt_centers, gt_valid, img_wh):
     """Batched 2D Hungarian assignment -> matched query (B, G), -1
-    invalid (one host round trip)."""
+    invalid (hungarian_match's default matcher)."""
     cost = cost_2d(bbox_pred, cls_pred, centers_pred, gt_bboxes, gt_labels,
                    gt_centers, gt_valid, img_wh)
     return hungarian_match([(cost, gt_valid)])[0]

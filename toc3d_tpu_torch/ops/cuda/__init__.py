@@ -3,7 +3,8 @@ toc3d_tpu/ops/pallas/: patch_embed (patchify_matmul), vit_block
 (fused_full_block, fused_compressed_block and their int8 forms) and
 cross_attn (flash_attention_core); int8 holds the quantization math, the
 int8 GEMM and row quantization those int8 forms and the head's int8
-linears share.
+linears share; auction the training matcher (toc3d_tpu/core/auction.py,
+plain jnp in JAX).
 
 Each wrapper takes its plain PyTorch version only for tensors that lie on the
 CPU; for a CUDA tensor it launches the kernel or raises. Each wrapper counts
@@ -99,10 +100,12 @@ def param_key(module, *extra):
 def counted_wrappers():
     """Every kernel wrapper that counts its launches in ``launches``: A,
     B, C, D, B8, C8, H8, then G (every bf16 matmul of B and C), G8 (every
-    int8 matmul of B8 and C8) and the blocks' LayerNorm."""
-    from . import cross_attn, int8, patch_embed, vit_block
+    int8 matmul of B8 and C8), the blocks' LayerNorm and the training
+    matcher's auction (one launch a cost tensor)."""
+    from . import auction, cross_attn, int8, patch_embed, vit_block
     return (patch_embed.patchify_matmul, vit_block.fused_full_block,
             vit_block.fused_compressed_block, cross_attn.flash_attention_core,
             vit_block.fused_full_block_int8,
             vit_block.fused_compressed_block_int8, int8.int8_linear,
-            vit_block._gemm, int8.gemm_s8_sm90, vit_block.layernorm)
+            vit_block._gemm, int8.gemm_s8_sm90, vit_block.layernorm,
+            auction.auction_match)

@@ -61,6 +61,9 @@ SIGNATURES = {
         "toc3d_flash_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _I, _P],
     },
+    "auction": {
+        "toc3d_auction": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    },
 }
 
 # entry points that return a count (>= 0) or -(CUDA error), not an error

@@ -20,8 +20,10 @@ the grid mask, the selectors' gumbel noise, the DN uniform, the
 stochastic-depth and the dropout keep masks. A test can therefore hand the
 JAX package's own draws across.
 
-The step reads the device once, for the Hungarian matching
-(core/assigner.hungarian_match: every cost of the step in one copy). The
+The Hungarian matching (core/assigner.hungarian_match) runs on the
+device by default for a CUDA model, the auction kernel once a cost tensor,
+so the step reads nothing back; with the 'callback' matcher (the CPU's
+default) it reads the device once, every cost of the step in one copy. The
 optimizer is branchless: a step whose gradient norm is not finite updates
 nothing and counts a skip, decided on the device (skip_on_nonfinite,
 train.py:61-101).

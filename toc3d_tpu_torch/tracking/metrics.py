@@ -1,9 +1,7 @@
 """Self-contained nuScenes tracking metrics (AMOTA / AMOTP / MOTAR); a
-copy of toc3d_tpu/tracking/metrics.py, except that the assignment is
-scipy's linear_sum_assignment (the solver motmetrics, and so the devkit,
-uses; the JAX package prefers its native C++ solver, toc3d_tpu/native,
-and falls back to the same scipy call). Both solve the same problem
-exactly, so they agree wherever the optimal assignment is unique.
+copy of toc3d_tpu/tracking/metrics.py. The assignment is the port's
+native C++ LAP solver (native/lap.cpp, the JAX package's own), as JAX's
+``_hungarian`` uses it (metrics.py:69-91); a build failure raises.
 
 Restates the nuscenes-devkit `tracking_nips_2019` evaluation
 (nuscenes/eval/tracking/{algo,metrics}.py + the motmetrics accumulation it
@@ -73,15 +71,21 @@ def _filter_range(boxes: List[Dict], name_key: str) -> List[Dict]:
 
 def _hungarian(dist: np.ndarray):
     """Small exact LAP on a (possibly infeasible) distance matrix; returns
-    row->col matches with finite cost."""
+    row->col matches with finite cost (metrics.py:69-91): the native
+    solver, on the transpose when rows outnumber columns."""
     if dist.size == 0:
         return []
-    from scipy.optimize import linear_sum_assignment
+    from ..native import lap_batched
     big = 1e6
     cost = np.where(np.isfinite(dist), dist, big).astype(np.float32)
-    rows, cols = linear_sum_assignment(cost)
-    return [(int(i), int(j)) for i, j in zip(rows, cols)
-            if np.isfinite(dist[i, j])]
+    transposed = cost.shape[0] > cost.shape[1]
+    if transposed:
+        cost = np.ascontiguousarray(cost.T)
+    res = lap_batched(cost[None], np.array([cost.shape[0]], np.int32))
+    pairs = [(i, int(j)) for i, j in enumerate(res[0]) if j >= 0]
+    if transposed:
+        pairs = [(j, i) for i, j in pairs]
+    return [(int(i), int(j)) for i, j in pairs if np.isfinite(dist[i, j])]
 
 
 class MotAccumulator:
