@@ -85,6 +85,18 @@ Phases, each fatal on failure (exit code != 0):
      --eval) finite and in [0, 1]; prints the readers, eval frames/s, the
      host's ms to build a frame and the card's ms a frame by stage; then
      the bench's ToC3D_faster_1600 frames/s in the same process;
+  8b. export (phase_export): ToC3D_faster_1600 at full width and depth
+     exported (runtime/export.py: torch.export programs, the kernels as
+     toc3d:: custom ops) twice, bf16 with float32 images and int8
+     dynamic with uint8 images, into a temporary directory deleted after;
+     each artifact loaded in a fresh `python3 -c` with no
+     toc3d_tpu_torch.models module, 3 frames equal bit for bit to
+     make_infer_fn's (boxes, scores, labels, validity, bank) with the
+     launches per frame of phase 5 and 6 (bf16: A 1, B 6, C 18, D 12, G
+     96, LN 72; int8: A 1, B8 6, C8 18, D 12, H8 60, G8 96, LN 72);
+     prints export seconds, artifact bytes, load seconds, the loaded
+     programs' steady ms/frame (eager) beside make_infer_fn's captured
+     ones, the phase's wall time and the nvidia-smi line;
   9. training (phase_train): ToC3D_faster at full width, batch 2 (6 views
      of 800x320 each), through runtime/train.make_train_step: the
      Functions of A, B and C at their training shapes (C at every (ws,
@@ -118,9 +130,11 @@ Phases, each fatal on failure (exit code != 0):
      bound); the closed loop (tools.traineval, tiny, 150 iterations,
      resumed at 75, evaluated at 0 and 150): resumed, finite metrics in
      [0, 1], the loss's last 5 below 0.7 of its first 5;
- 11. report: a {"kernels": [...]} JSON line (the auction's row adds
-     lap_ms, the native LAP's time; no PyTorch call solves an assignment,
-     so its library_ms is null), the nvidia-smi line, and last
+ 11. report: a {"kernels": [...]} JSON line (each row's "op": the
+     toc3d:: custom op it runs as, null for G, G8, LN and AU, which run
+     inside the ops or in training; the auction's row adds lap_ms, the
+     native LAP's time; no PyTorch call solves an assignment, so its
+     library_ms is null), the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 The kernels' plain versions compute in f32 (TF32 off for matmuls and
 convolutions).
@@ -1513,6 +1527,7 @@ def phase_main_path(model, results, label="bf16",
 
 
 MAIN_PER_FRAME = (1, 6, 18, 12, 0, 0, 0, 96, 0, 72, 0)
+INT8_PER_FRAME = (1, 0, 0, 12, 6, 18, 60, 0, 96, 72, 0)
 
 
 def phase_eval(name="ToC3D_faster_1600", scenes=2, frames_per_scene=6,
@@ -1735,7 +1750,7 @@ def phase_main_path_int8(results, bf16_dets):
                   head=replace(cfg.head, decoder=replace(cfg.head.decoder,
                                                          quant="int8")))
     model = build_detector(cfg, device="cuda", seed=0)
-    per_frame = (1, 0, 0, 12, 6, 18, 60, 0, 96, 72, 0)
+    per_frame = INT8_PER_FRAME
     ok, dets = phase_main_path(model, results, "int8 dynamic", per_frame,
                                ("B8", "C8", "H8", "G8"))
     _against_bf16("int8 dynamic", dets, bf16_dets)
@@ -1784,6 +1799,169 @@ def phase_presets(results):
         ok_all &= ok
         del model
         torch.cuda.empty_cache()
+    return ok_all
+
+
+def kernel_ops() -> dict:
+    """The custom op of each kernel of the kernels line, by key (G, G8, LN
+    and AU run inside the ops or in training, and are no op of their
+    own)."""
+    from toc3d_tpu_torch.ops.cuda.library import OPS
+    return {k: op for op, k in OPS.items()}
+
+
+EXPORT_CHECKED = 3   # frames held bit for bit: the first, then two steady
+EXPORT_TIMED = 6     # steady frames timed after them (the last one again)
+
+# run in a fresh interpreter: load an artifact with no model module,
+# stream the saved frames, hold them to make_infer_fn's saved outputs
+EXPORT_CHILD = r"""
+import json, sys, time
+import torch
+from toc3d_tpu_torch.ops.cuda import counted_wrappers
+from toc3d_tpu_torch.runtime.export import load_detector
+art, data = sys.argv[1], sys.argv[2]
+t0 = time.perf_counter()
+det = load_detector(art)
+load_s = time.perf_counter() - t0
+d = torch.load(data, weights_only=True)
+frames = [{k: v.pin_memory() for k, v in f.items()} for f in d["frames"]]
+counters = counted_wrappers()
+for c in counters:
+    c.launches = 0
+state, equal = det.init_state(), []
+for f, ref in zip(frames, d["ref"]):
+    state, out = det(state, f)
+    got = tuple(out) + tuple(state.memory)
+    equal.append(all(torch.equal(a.cpu(), b) for a, b in zip(got, ref)))
+launches = [c.launches for c in counters]
+ms = []
+for _ in range(d["timed"]):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, out = det(state, frames[-1])
+    torch.cuda.synchronize()
+    ms.append((time.perf_counter() - t0) * 1e3)
+mods = sorted(m for m in sys.modules if m.startswith("toc3d_tpu_torch.models"))
+print(json.dumps({"load_s": load_s, "equal": equal, "launches": launches,
+                  "ms": ms, "model_modules": mods}))
+"""
+
+
+def export_frames(seed: int, uint8: bool, n: int, pad_shape, views=6):
+    """n frames of the synthetic stream (prev_exists 0, then 1) on the
+    host: the main path's uint8 views, or seeded normal float32 ones."""
+    import torch
+    frames = host_frames(seed, n, pad_shape)
+    if not uint8:
+        g = torch.Generator().manual_seed(seed)
+        for f in frames:
+            f["img"] = torch.randn(f["img"].shape, generator=g).pin_memory()
+    return frames
+
+
+def phase_export(results):
+    """The export path (runtime/export.py) at full width and depth:
+    ToC3D_faster_1600, 6 views, batch 1, seeded random weights, exported
+    twice (bf16 with float32 images; int8 dynamic, backbone and decoder,
+    with uint8 images) into a temporary directory; each artifact loaded in
+    a fresh `python3 -c` that asserts no toc3d_tpu_torch.models module is
+    loaded, streams 3 frames (the first, two steady) equal bit for bit to
+    make_infer_fn's (boxes, scores, labels, validity, bank) with each
+    kernel's launches per frame (bf16: A 1, B 6, C 18, D 12, G 96, LN 72;
+    int8: A 1, B8 6, C8 18, D 12, H8 60, G8 96, LN 72), then times steady
+    frames (eager) beside make_infer_fn's captured ones. Returns ok."""
+    import shutil
+    import tempfile
+    import torch
+    from dataclasses import replace
+    from toc3d_tpu_torch.configs import get_config
+    from toc3d_tpu_torch.models.detector import (build_detector, init_state,
+                                                 make_infer_fn)
+    from toc3d_tpu_torch.runtime.export import export_detector
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="toc3d_export_")
+    ok_all = True
+    try:
+        for label, int8, per_frame in (
+                ("bf16, float32 images", False, MAIN_PER_FRAME),
+                ("int8 dynamic, uint8 images", True, INT8_PER_FRAME)):
+            cfg = get_config("ToC3D_faster_1600")
+            if int8:
+                cfg = replace(cfg, backbone=replace(cfg.backbone,
+                                                    quant="int8"),
+                              head=replace(cfg.head, decoder=replace(
+                                  cfg.head.decoder, quant="int8")))
+            model = build_detector(cfg, device="cuda", seed=0)
+            art = os.path.join(tmp, "int8" if int8 else "bf16")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            manifest = export_detector(
+                model, art, img_dtype=torch.uint8 if int8 else torch.float32)
+            export_s = time.perf_counter() - t0
+            sizes = {f: os.path.getsize(os.path.join(art, f))
+                     for f in sorted(os.listdir(art))}
+            frames = export_frames(3, int8, EXPORT_CHECKED, cfg.pad_shape)
+            infer = make_infer_fn(model)
+            state = init_state(1, cfg, device="cuda")
+            refs = []
+            for f in frames:
+                state, det = infer(state, f)
+                refs.append([t.cpu() for t in tuple(det) +
+                             tuple(state.memory)])
+            graph_ms = []
+            for _ in range(EXPORT_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, det = infer(state, frames[-1])
+                torch.cuda.synchronize()
+                graph_ms.append((time.perf_counter() - t0) * 1e3)
+            data = os.path.join(tmp, "frames.pt")
+            torch.save({"frames": frames, "ref": refs,
+                        "timed": EXPORT_TIMED}, data)
+            del model, infer, state, det, frames, refs
+            torch.cuda.empty_cache()
+            r = subprocess.run(
+                [sys.executable, "-c", EXPORT_CHILD, art, data], cwd=root,
+                env=dict(os.environ, PYTHONPATH=root), capture_output=True,
+                text=True, timeout=600)
+            lines = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
+            if r.returncode != 0 or not lines:
+                log(f"export {label}: the loading process FAILED (exit "
+                    f"{r.returncode})\n{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+                ok_all = False
+                continue
+            got = json.loads(lines[-1])
+            want = [n * EXPORT_CHECKED for n in per_frame]
+            ok = (all(got["equal"]) and got["launches"] == want
+                  and not got["model_modules"]
+                  and set(manifest["ops"]) <= set(kernel_ops().values()))
+            ok_all &= ok
+            steady, loaded = got["ms"][1:], graph_ms[1:]
+            e_ms = sum(steady) / len(steady)
+            g_ms = sum(loaded) / len(loaded)
+            results.setdefault("export", {})[label] = dict(
+                export_s=export_s, artifact_bytes=sizes,
+                load_s=got["load_s"], loaded_eager_ms=e_ms,
+                captured_ms=g_ms)
+            log(f"export ToC3D_faster_1600 {label}: {export_s:.3f} s to "
+                f"export, artifact {sum(sizes.values())} bytes {sizes}; ops "
+                f"{manifest['ops']}; loaded in a fresh process in "
+                f"{got['load_s']:.3f} s, model modules {got['model_modules']}"
+                f"; equal to make_infer_fn bit for bit per frame "
+                f"{got['equal']}; launches {'/'.join(KERNELS)} "
+                f"{got['launches']} over {EXPORT_CHECKED} frames (want "
+                f"{want}); steady ms/frame: loaded artifact (eager) "
+                f"{[round(t, 3) for t in got['ms']]} mean {e_ms:.3f} "
+                f"({1e3 / e_ms:.4f} frames/s), make_infer_fn captured "
+                f"{[round(t, 3) for t in graph_ms]} mean {g_ms:.3f} "
+                f"({1e3 / g_ms:.4f} frames/s) "
+                f"{'ok' if ok else 'FAIL'}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase_export: {time.perf_counter() - t_phase:.1f} s wall | "
+        f"{nvidia_smi_line()}")
     return ok_all
 
 
@@ -3003,23 +3181,31 @@ def main() -> int:
                     phase_small_agreement(plain=True)])
         ok_s8 = all([phase_small_agreement("dynamic"),
                      phase_small_agreement("static")])
+        torch.cuda.empty_cache()
+        ok_x = phase_export(results)
     torch.cuda.empty_cache()
     captured = {}
     ok_t = phase_train(results, captured)
     torch.cuda.empty_cache()
     ok_te = phase_traineval(results, captured)
     if not (ok_k and ok_k8 and ok_ps and ok_m and ok_m8 and ok_p and ok_e
-            and ok_bf and ok_gb and ok_s and ok_s8 and ok_t and ok_te):
+            and ok_bf and ok_gb and ok_s and ok_s8 and ok_x and ok_t
+            and ok_te):
         log(f"chip_smoke: FAILED (kernels {ok_k}, int8 kernels {ok_k8}, "
             f"other presets' kernel shapes {ok_ps}, main path {ok_m}, int8 "
             f"main path {ok_m8}, other presets' paths {ok_p}, streaming "
             f"eval {ok_e}, bench {ok_bf}, gumbel eval mask {ok_gb}, "
             f"small-input agreement {ok_s}, int8 small-input agreement "
-            f"{ok_s8}, training {ok_t}, matchers and closed loop {ok_te})")
+            f"{ok_s8}, export {ok_x}, training {ok_t}, matchers and closed "
+            f"loop {ok_te})")
         return 1
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+    keys = ("name", "op", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "shape")
     rows = list(KERNELS) + [r for r in results if " train" in r]
+    ops = kernel_ops()
+    for r in rows:
+        results[r]["op"] = ops.get(r.split()[0])
     log(json.dumps({"kernels": [
         {k: results[r][k] for k in keys + ("lap_ms",) if k in results[r]}
         for r in rows]}))

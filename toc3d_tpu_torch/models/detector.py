@@ -21,13 +21,14 @@ from __future__ import annotations
 import math
 import re
 from dataclasses import dataclass, field
-from typing import NamedTuple, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
 from ..core.coder import DecodedBoxes, nms_free_decode, to_bottom_center
+from ..core.state import DetectorState
 from ..ops.consts import const_vector
 from ..runtime.timer import span
 from .neck import CPFPN, CPFPNConfig, cpfpn_forward
@@ -65,10 +66,6 @@ class DetectorConfig:
         (detector.py:53-55); otherwise the plain backbone's forward."""
         return isinstance(self.backbone, ToC3DViTConfig) and bool(
             self.backbone.pruning_loc)
-
-
-class DetectorState(NamedTuple):
-    memory: MemoryBank
 
 
 # keys of a reference checkpoint that are buffers the port recomputes, or
@@ -384,11 +381,12 @@ def infer_step_with_aux(model: ToC3DDetector, state: DetectorState, frame):
 def precast_backbone_(model: ToC3DDetector) -> None:
     """Cast the backbone's weight matrices to the compute dtype once
     (detector.py:291-340). The blocks' and the patch embedding's matrices
-    go into the kernels' packed bf16 copies (pack_block_weights,
-    pack_patch_weight), built here and kept on the modules; the score
-    predictors' matrices are cast in place. Biases, LN parameters and
-    pos_embed stay f32; the cast is the same rounding the per-call casts
-    would do.
+    go into the kernels' packed copies in the compute dtype
+    (pack_block_weights, pack_patch_weight), built here and kept on the
+    modules (every pack a frame reads: runtime/export traces with them as
+    they stand); in bf16 the score predictors' matrices are cast in place.
+    Biases, LN parameters and pos_embed stay f32; the cast is the same
+    rounding the per-call casts would do.
 
     int8 serving (cfg.backbone.quant 'int8'): the blocks' int8 packs
     instead (pack_block_weights_int8, static activation scales where
@@ -409,8 +407,8 @@ def precast_backbone_(model: ToC3DDetector) -> None:
                          "'bfloat16' (the int8 kernels take bf16 "
                          "activations)")
     dtype = torch.bfloat16 if bf16 else torch.float32
+    pack_patch_weight(bb.patch_embed.proj, dtype)
     if bf16:
-        pack_patch_weight(bb.patch_embed.proj, dtype)
         for sel in getattr(bb, "score_predictor", ()):
             for p in sel.parameters():
                 if p.dim() >= 2 and p.dtype == torch.float32:
@@ -418,7 +416,7 @@ def precast_backbone_(model: ToC3DDetector) -> None:
     for blk in bb.blocks:
         if int8:
             pack_block_weights_int8(blk, cfg.backbone.num_heads, dtype)
-        elif bf16:
+        else:
             pack_block_weights(blk, cfg.backbone.num_heads, dtype)
     if cfg.head.decoder.quant == "int8":
         quantize_decoder_params(model.pts_bbox_head.transformer.decoder)

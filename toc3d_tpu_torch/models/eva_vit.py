@@ -192,11 +192,13 @@ class EVAViT(nn.Module):
     def rope(self, device):
         """(window, global) RoPE tables as f32 tensors on ``device``."""
         cache = self.__dict__.setdefault("_rope_cache", {})
-        if device not in cache:
-            win, glb = make_rope_tables(self.cfg)
-            cache[device] = (rope_tensors(win, device),
-                             rope_tensors(glb, device))
-        return cache[device]
+        if device in cache:
+            return cache[device]
+        win, glb = make_rope_tables(self.cfg)
+        tables = (rope_tensors(win, device), rope_tensors(glb, device))
+        if not torch.compiler.is_exporting():   # fake under torch.export
+            cache[device] = tables
+        return tables
 
 
 def embed(model: EVAViT, x, cfg: EVAViTConfig):

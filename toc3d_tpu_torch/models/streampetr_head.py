@@ -13,7 +13,7 @@ relative to a run origin; cls/reg branches are shared across decoder layers
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import NamedTuple, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -27,6 +27,7 @@ from ..ops.gather import memory_refresh, topk_gather
 from ..ops.posenc import (nerf_positional_encoding, pos2posemb1d,
                           pos2posemb3d)
 from ..core.boxes import transform_reference_points
+from ..core.state import MemoryBank
 from .petr_transformer import DecoderConfig, Transformer, decoder_forward
 
 LN_EPS = 1e-5
@@ -71,16 +72,6 @@ class StreamPETRHeadConfig:
     @property
     def position_dim(self) -> int:
         return self.depth_num * 3
-
-
-class MemoryBank(NamedTuple):
-    """Temporal query memory: memory_len slots of (embedding, reference
-    point, relative timestamp, 4x4 ego pose, velocity), global frame."""
-    embedding: torch.Tensor        # (B, L, C)
-    reference_point: torch.Tensor  # (B, L, 3)
-    timestamp: torch.Tensor        # (B, L, 1)
-    egopose: torch.Tensor          # (B, L, 4, 4)
-    velo: torch.Tensor             # (B, L, 2)
 
 
 def init_memory(batch_size: int, cfg: StreamPETRHeadConfig,

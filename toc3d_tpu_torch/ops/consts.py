@@ -21,7 +21,11 @@ def device_const(key, device, build) -> torch.Tensor:
     device = torch.device(device)
     t = _CONSTS.get((key, device))
     if t is None:
-        t = _CONSTS[(key, device)] = build().to(device)
+        t = build().to(device)
+        # under torch.export the tensor is fake: the trace keeps it as a
+        # constant of its program, and the cache never holds it
+        if not torch.compiler.is_exporting():
+            _CONSTS[(key, device)] = t
     return t
 
 

@@ -9,6 +9,14 @@ plain jnp in JAX).
 Each wrapper takes its plain PyTorch version only for tensors that lie on the
 CPU; for a CUDA tensor it launches the kernel or raises. Each wrapper counts
 its launches in an integer attribute ``launches``.
+
+The kernels of the serving path (A, B, C, D, B8, C8, H8) are also
+``torch.library`` custom ops under the namespace ``toc3d`` (``library.OPS``),
+each registered beside its wrapper with three implementations: the chain of
+launches for CUDA tensors (where the wrapper's count ticks), the plain
+version for CPU tensors, and a fake one (shapes, dtypes, strides) for
+tracing. The wrappers call through the ops, so eager, captured and exported
+runs (runtime/export.py) share one code path.
 """
 from __future__ import annotations
 
@@ -72,13 +80,42 @@ def check_res(name: str, res, rows: int, n: int) -> None:
                          f"({rows}, {n})")
 
 
+def check_device(name: str, t) -> None:
+    """Raise unless t lies on the CPU (the plain version) or on a CUDA card
+    (the kernel): no other device has an implementation of the ops."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: expected a CPU or CUDA tensor, got "
+                         f"{t.device}")
+
+
+def exporting() -> bool:
+    """Whether torch.export is tracing the caller: its tensors are fake,
+    with no storage to key on or read."""
+    import torch
+    return torch.compiler.is_exporting()
+
+
+# the module attribute that holds a module's packs: {name: (key, pack)}
+PACK_CACHE = "_toc3d_packed"
+
+
 def cached_pack(module, name: str, key, build):
     """Per-module cache of kernel-ready weights, rebuilt when ``key``
     changes. Callers key on the parameters' storage and version counters,
     so an in-place update or a reload of the module's weights is never
-    served stale packed weights."""
-    cache = module.__dict__.setdefault("_toc3d_packed", {})
+    served stale packed weights. Under torch.export the cached pack is taken
+    as it stands (the exporter builds every pack before the trace and binds
+    it to the program's inputs), and a missing one raises: a pack built
+    inside the trace would be built from fake tensors."""
+    cache = module.__dict__.setdefault(PACK_CACHE, {})
     hit = cache.get(name)
+    if exporting():
+        if hit is None:
+            raise RuntimeError(f"weight pack {name!r} of a "
+                               f"{type(module).__name__} was not built "
+                               "before the export (precast_backbone_ "
+                               "builds them)")
+        return hit[1]
     if hit is not None and hit[0] == key:
         return hit[1]
     value = build()
@@ -90,7 +127,11 @@ def param_key(module, *extra):
     """``extra`` and the storage, version, dtype and device of every
     parameter and buffer of ``module`` and its submodules, in one walk of
     the module tree: any reload, in-place update, cast, replacement or new
-    buffer changes it."""
+    buffer changes it. None under torch.export, whose fake tensors have no
+    storage to key on (cached_pack then takes the pack as it stands); the
+    eager and captured paths keep the full key."""
+    if exporting():
+        return None
     return extra + tuple((t.data_ptr(), t._version, t.dtype, t.device)
                          for m in module.modules()
                          for slots in (m._parameters, m._buffers)
@@ -101,7 +142,9 @@ def counted_wrappers():
     """Every kernel wrapper that counts its launches in ``launches``: A,
     B, C, D, B8, C8, H8, then G (every bf16 matmul of B and C), G8 (every
     int8 matmul of B8 and C8), the blocks' LayerNorm and the training
-    matcher's auction (one launch a cost tensor)."""
+    matcher's auction (one launch a cost tensor). The counts of A-D, B8,
+    C8 and H8 tick in their ops' CUDA implementations, so a loaded
+    exported program's launches count too."""
     from . import auction, cross_attn, int8, patch_embed, vit_block
     return (patch_embed.patchify_matmul, vit_block.fused_full_block,
             vit_block.fused_compressed_block, cross_attn.flash_attention_core,

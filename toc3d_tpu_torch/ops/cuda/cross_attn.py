@@ -17,7 +17,7 @@ import math
 
 import torch
 
-from . import check_cuda
+from . import check_cuda, check_device
 from .build import call, stream_of
 
 KEY_TILE = 64       # keys per tile of the partial kernel
@@ -63,11 +63,23 @@ def flash_attention_plain(q, k, v, num_heads: int):
     return o.to(dt).transpose(1, 2).reshape(b, nq, c)
 
 
-def flash_attention_core(q, k, v, num_heads: int):
-    """q: (B, Q, C) already scaled by d^-0.5; k, v: (B, K, C). Returns
-    (B, Q, C) in v.dtype."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, num_heads)
+@torch.library.custom_op(
+    "toc3d::flash_attention_core", mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, int num_heads) -> Tensor")
+def _flash_op(q, k, v, num_heads):
+    return flash_attention_plain(q, k, v, num_heads).contiguous()
+
+
+@_flash_op.register_fake
+def _flash_fake(q, k, v, num_heads):
+    return q.new_empty(q.shape, dtype=v.dtype)
+
+
+@_flash_op.register_kernel("cuda")
+def _flash_cuda(q, k, v, num_heads):
+    """Kernel D's two launches (partial over the key splits, combine);
+    counted once in ``launches``. The split count reads the card's SM count
+    here, at run time, never at trace time."""
     check_cuda("flash_attention_core", q, k, v, dtype=torch.bfloat16)
     b, nq, c = q.shape
     nk = k.shape[1]
@@ -91,6 +103,14 @@ def flash_attention_core(q, k, v, num_heads: int):
          out.data_ptr(), b, nq, nk, num_heads, d, splits, per, stream_of(q))
     flash_attention_core.launches += 1
     return out
+
+
+def flash_attention_core(q, k, v, num_heads: int):
+    """q: (B, Q, C) already scaled by d^-0.5; k, v: (B, K, C). Returns
+    (B, Q, C) in v.dtype, through the op ``toc3d::flash_attention_core``:
+    kernel D on the card, the plain version on the CPU."""
+    check_device("flash_attention_core", q)
+    return torch.ops.toc3d.flash_attention_core(q, k, v, num_heads)
 
 
 flash_attention_core.launches = 0

@@ -35,7 +35,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from . import check_cuda, check_pairs, check_res, tma_out
+from . import check_cuda, check_device, check_pairs, check_res, tma_out
 from .build import call, stream_of
 
 # static activation-scale sites of a block, in the order of
@@ -241,19 +241,38 @@ def gemm_s8_sm90(aq, xs, wq, ws, bias=None, res=None, out_f32=False,
     return out
 
 
-def int8_linear(x, p: QuantLinear):
-    """The head decoder's int8 linear (layers.py:81-121): row quantization
-    and the int8 GEMM with the head's epilogue on a bf16 CUDA tensor x
-    (..., in) -> (..., out) bf16; the plain version on a CPU tensor."""
-    if x.device.type == "cpu":
-        return int8_linear_plain(x, p)
-    check_cuda("int8_linear", p.w, dtype=torch.int8)
+@torch.library.custom_op(
+    "toc3d::int8_linear", mutates_args=(), device_types="cpu",
+    schema="(Tensor x, Tensor w, Tensor scale, Tensor? bias) -> Tensor")
+def _int8_linear_op(x, w, scale, bias):
+    return int8_linear_plain(x, QuantLinear(w, scale, bias)).contiguous()
+
+
+@_int8_linear_op.register_fake
+def _int8_linear_fake(x, w, scale, bias):
+    return x.new_empty(*x.shape[:-1], w.shape[0])
+
+
+@_int8_linear_op.register_kernel("cuda")
+def _int8_linear_cuda(x, w, scale, bias):
+    """H8's launches: row quantization, then the int8 GEMM with the head's
+    epilogue; counted once in ``launches``."""
+    check_cuda("int8_linear", w, dtype=torch.int8)
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     check_cuda("int8_linear", x2, dtype=torch.bfloat16)
     q, s = row_quant(x2)
-    y = gemm_s8(q, s, p.w, p.scale, p.bias, head=True)
+    y = gemm_s8(q, s, w, scale, bias, head=True)
     int8_linear.launches += 1
-    return y.reshape(*x.shape[:-1], p.w.shape[0])
+    return y.reshape(*x.shape[:-1], w.shape[0])
+
+
+def int8_linear(x, p: QuantLinear):
+    """The head decoder's int8 linear (layers.py:81-121) through the op
+    ``toc3d::int8_linear``: row quantization and the int8 GEMM with the
+    head's epilogue on a bf16 CUDA tensor x (..., in) -> (..., out) bf16;
+    the plain version on a CPU tensor."""
+    check_device("int8_linear", x)
+    return torch.ops.toc3d.int8_linear(x, p.w, p.scale, p.bias)
 
 
 int8_linear.launches = 0

@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from . import cached_pack, check_cuda, check_pairs, param_key
+from . import (cached_pack, check_cuda, check_device, check_pairs,
+               param_key)
 from .build import call, stream_of
 from .vit_block import gemm_bf16_plain
 
@@ -50,10 +51,11 @@ def _check_image(name, x, ps):
     if cin != 3 or hh % ps or ww % ps:
         raise ValueError(f"{name}: image {tuple(x.shape)} must be (B, H, W, "
                          f"3) with H, W multiples of {ps}")
-    if x.device.type == "cpu":
-        return
+
+
+def _check_image_cuda(name, x, ps):
     check_cuda(name, x, dtype=torch.bfloat16)
-    if ww % 8 or (ps * 3) % 8:
+    if x.shape[2] % 8 or (ps * 3) % 8:
         raise ValueError(f"{name} needs W % 8 == 0 and ps*3 % 8 == 0 "
                          "(16-byte image rows and patch runs)")
 
@@ -65,6 +67,7 @@ def patch_im2col(x, patch_size: int):
     _check_image("patch_im2col", x, ps)
     if x.device.type == "cpu":
         return patch_im2col_plain(x, ps)
+    _check_image_cuda("patch_im2col", x, ps)
     b, hh, ww, _ = x.shape
     cols = torch.empty(b * (hh // ps) * (ww // ps), ps * ps * 3,
                        dtype=x.dtype, device=x.device)
@@ -73,22 +76,36 @@ def patch_im2col(x, patch_size: int):
     return cols
 
 
-def patchify_matmul(x, wmat, bias, patch_size: int):
-    """x: (B, H, W, 3) normalized image; wmat: (C, ps*ps*3) from
-    ``pack_patch_weight``; bias: (C,) f32. Returns (B, H/ps, W/ps, C) in
-    x.dtype. On the card: the im2col launch, then kernel G's GEMM into the
+@torch.library.custom_op(
+    "toc3d::patchify_matmul", mutates_args=(), device_types="cpu",
+    schema="(Tensor x, Tensor wmat, Tensor bias, int patch_size) -> Tensor")
+def _patchify_op(x, wmat, bias, patch_size):
+    _check_image("patchify_matmul", x, patch_size)
+    return patchify_plain(x, wmat, bias, patch_size).contiguous()
+
+
+@_patchify_op.register_fake
+def _patchify_fake(x, wmat, bias, patch_size):
+    b, hh, ww, _ = x.shape
+    ps = patch_size
+    return x.new_empty(b, hh // ps, ww // ps, wmat.shape[0])
+
+
+@_patchify_op.register_kernel("cuda")
+def _patchify_cuda(x, wmat, bias, patch_size):
+    """Kernel A's launches: the im2col copy, then kernel G's GEMM into the
     output (C a multiple of 8, for the output's 16-byte TMA rows; the bias
     on 8 bytes, read in pairs); counted once in ``launches``."""
     ps = patch_size
-    _check_image("patchify_matmul", x, ps)
-    if x.device.type == "cpu":
-        return patchify_plain(x, wmat, bias, ps)
+    name = "patchify_matmul"
+    _check_image(name, x, ps)
+    _check_image_cuda(name, x, ps)
     b, hh, ww, _ = x.shape
     c, k = wmat.shape
-    check_cuda("patchify_matmul", wmat, dtype=torch.bfloat16)
-    check_pairs("patchify_matmul", bias, c)
+    check_cuda(name, wmat, dtype=torch.bfloat16)
+    check_pairs(name, bias, c)
     if k != ps * ps * 3 or c % 8:
-        raise ValueError(f"patchify_matmul: weight {tuple(wmat.shape)} must "
+        raise ValueError(f"{name}: weight {tuple(wmat.shape)} must "
                          f"be (C, {ps * ps * 3}) with C % 8 == 0")
     m = b * (hh // ps) * (ww // ps)
     cols = torch.empty(m, k, dtype=x.dtype, device=x.device)
@@ -99,6 +116,15 @@ def patchify_matmul(x, wmat, bias, patch_size: int):
          stream_of(x))
     patchify_matmul.launches += 1
     return out
+
+
+def patchify_matmul(x, wmat, bias, patch_size: int):
+    """x: (B, H, W, 3) normalized image; wmat: (C, ps*ps*3) from
+    ``pack_patch_weight``; bias: (C,) f32. Returns (B, H/ps, W/ps, C) in
+    x.dtype, through the op ``toc3d::patchify_matmul``: on the card kernel
+    A's two launches, on the CPU the plain version."""
+    check_device("patchify_matmul", x)
+    return torch.ops.toc3d.patchify_matmul(x, wmat, bias, patch_size)
 
 
 patchify_matmul.launches = 0

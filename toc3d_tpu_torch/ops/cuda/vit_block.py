@@ -42,8 +42,8 @@ from ...layers import layer_norm
 from ..gather import batch_index_fill, batch_index_select
 from ..rope import rotate_half
 from ..window import pad_hw, window_partition, window_unpartition
-from . import (cached_pack, check_cuda, check_pairs, check_res, param_key,
-               tma_out)
+from . import (cached_pack, check_cuda, check_device, check_pairs,
+               check_res, param_key, tma_out)
 from .build import call, stream_of
 from .int8 import (gemm_s8_sm90, int8_dot, quantize_weight, row_quant,
                    rowquant, statquant)
@@ -784,31 +784,101 @@ def _full_block(name, wts: BlockWeights, x, num_heads: int, ws: int,
     return _mlp_chain(wts, x1, m, c, res=x1).reshape(b, h, w, c)
 
 
-def fused_full_block(blk, x, num_heads: int, window_size: int, rope_tables):
-    """One full EVA-02 block on x: (B, H, W, C) -> (B, H, W, C).
-    blk: models.eva_vit.Block; rope_tables: (cos, sin) (n, d) tensors or
-    None."""
-    wts = pack_block_weights(blk, num_heads, x.dtype)
-    if x.device.type == "cpu":
-        return full_block_plain(wts, x, num_heads, window_size, rope_tables)
-    out = _full_block("fused_full_block", wts, x, num_heads, window_size,
-                      rope_tables)
+# the ops' weights: the pack's 14 tensors (ln1w .. b3), then an int8 pack's
+# four channel-scale vectors (sqkv, so, s12, s3); ``hidden`` and the static
+# activation scales ``act`` go as arguments of their own
+_BLOCK_FIELDS = BlockWeights._fields[:14]
+_SCALE_FIELDS = ("sqkv", "so", "s12", "s3")
+
+
+def _op_weights(wts: BlockWeights):
+    names = _BLOCK_FIELDS + (_SCALE_FIELDS if is_quantized(wts) else ())
+    return [getattr(wts, f) for f in names]
+
+
+def _pack_of(w, hidden: int, act=None) -> BlockWeights:
+    """The BlockWeights of an op's weight list (``_op_weights``)."""
+    quant = dict(zip(_SCALE_FIELDS, w[14:]), act=act) if len(w) > 14 else {}
+    return BlockWeights(*w[:14], hidden, **quant)
+
+
+def _tables(cos, sin):
+    return None if cos is None else (cos, sin)
+
+
+def _rope_ops(rope_tables):
+    return (None, None) if rope_tables is None else tuple(rope_tables)
+
+
+_FULL = "(Tensor x, Tensor[] w, int hidden, {}int num_heads, " \
+    "int window_size, Tensor? cos, Tensor? sin) -> Tensor"
+_COMPRESSED = "(Tensor x, Tensor[] w, int hidden, {}Tensor slow_idx, " \
+    "Tensor fast_idx, Tensor fast_score, bool has_rep, int num_heads, " \
+    "int window_size, Tensor? cos, Tensor? sin) -> Tensor"
+
+
+def _block_fake(x, *args):
+    return x.new_empty(x.shape)
+
+
+@torch.library.custom_op("toc3d::fused_full_block", mutates_args=(),
+                         device_types="cpu", schema=_FULL.format(""))
+def _full_op(x, w, hidden, num_heads, window_size, cos, sin):
+    return full_block_plain(_pack_of(w, hidden), x, num_heads, window_size,
+                            _tables(cos, sin)).contiguous()
+
+
+@torch.library.custom_op("toc3d::fused_full_block_int8", mutates_args=(),
+                         device_types="cpu",
+                         schema=_FULL.format("Tensor? act, "))
+def _full_int8_op(x, w, hidden, act, num_heads, window_size, cos, sin):
+    return full_block_plain(_pack_of(w, hidden, act), x, num_heads,
+                            window_size, _tables(cos, sin)).contiguous()
+
+
+@_full_op.register_kernel("cuda")
+def _full_cuda(x, w, hidden, num_heads, window_size, cos, sin):
+    out = _full_block("fused_full_block", _pack_of(w, hidden), x, num_heads,
+                      window_size, _tables(cos, sin))
     fused_full_block.launches += 1
     return out
 
 
-def fused_full_block_int8(blk, x, num_heads: int, window_size: int,
-                          rope_tables):
-    """Kernel B8: fused_full_block with the int8 pack
-    (pack_block_weights_int8): dynamic per-row activation quantization, or
-    static when the block carries calibrated ``act_scales``."""
-    wts = pack_block_weights_int8(blk, num_heads, x.dtype)
-    if x.device.type == "cpu":
-        return full_block_plain(wts, x, num_heads, window_size, rope_tables)
-    out = _full_block("fused_full_block_int8", wts, x, num_heads, window_size,
-                      rope_tables)
+@_full_int8_op.register_kernel("cuda")
+def _full_int8_cuda(x, w, hidden, act, num_heads, window_size, cos, sin):
+    out = _full_block("fused_full_block_int8", _pack_of(w, hidden, act), x,
+                      num_heads, window_size, _tables(cos, sin))
     fused_full_block_int8.launches += 1
     return out
+
+
+_full_op.register_fake(_block_fake)
+_full_int8_op.register_fake(_block_fake)
+
+
+def fused_full_block(blk, x, num_heads: int, window_size: int, rope_tables):
+    """One full EVA-02 block on x: (B, H, W, C) -> (B, H, W, C), through
+    the op ``toc3d::fused_full_block`` (kernel B on the card, the plain
+    version on the CPU). blk: models.eva_vit.Block; rope_tables: (cos,
+    sin) (n, d) tensors or None."""
+    check_device("fused_full_block", x)
+    wts = pack_block_weights(blk, num_heads, x.dtype)
+    return torch.ops.toc3d.fused_full_block(
+        x, _op_weights(wts), wts.hidden, num_heads, window_size,
+        *_rope_ops(rope_tables))
+
+
+def fused_full_block_int8(blk, x, num_heads: int, window_size: int,
+                          rope_tables):
+    """Kernel B8 (the op ``toc3d::fused_full_block_int8``):
+    fused_full_block with the int8 pack (pack_block_weights_int8): dynamic
+    per-row activation quantization, or static when the block carries
+    calibrated ``act_scales``."""
+    check_device("fused_full_block_int8", x)
+    wts = pack_block_weights_int8(blk, num_heads, x.dtype)
+    return torch.ops.toc3d.fused_full_block_int8(
+        x, _op_weights(wts), wts.hidden, wts.act, num_heads, window_size,
+        *_rope_ops(rope_tables))
 
 
 def _compressed_block(name, wts: BlockWeights, x, plan: CompressPlan,
@@ -831,46 +901,96 @@ def _compressed_block(name, wts: BlockWeights, x, plan: CompressPlan,
     return out
 
 
+def _plan_of(slow_idx, fast_idx, fast_score, has_rep) -> CompressPlan:
+    return CompressPlan(slow_idx, fast_idx, fast_score, slow_idx.shape[1],
+                        has_rep)
+
+
+@torch.library.custom_op("toc3d::fused_compressed_block", mutates_args=(),
+                         device_types="cpu", schema=_COMPRESSED.format(""))
+def _compressed_op(x, w, hidden, slow_idx, fast_idx, fast_score, has_rep,
+                   num_heads, window_size, cos, sin):
+    return compressed_block_plain(
+        _pack_of(w, hidden), x, _plan_of(slow_idx, fast_idx, fast_score,
+                                         has_rep),
+        num_heads, window_size, _tables(cos, sin)).contiguous()
+
+
+@torch.library.custom_op("toc3d::fused_compressed_block_int8",
+                         mutates_args=(), device_types="cpu",
+                         schema=_COMPRESSED.format("Tensor? act, "))
+def _compressed_int8_op(x, w, hidden, act, slow_idx, fast_idx, fast_score,
+                        has_rep, num_heads, window_size, cos, sin):
+    return compressed_block_plain(
+        _pack_of(w, hidden, act), x, _plan_of(slow_idx, fast_idx,
+                                              fast_score, has_rep),
+        num_heads, window_size, _tables(cos, sin)).contiguous()
+
+
+@_compressed_op.register_kernel("cuda")
+def _compressed_cuda(x, w, hidden, slow_idx, fast_idx, fast_score, has_rep,
+                     num_heads, window_size, cos, sin):
+    out = _compressed_block(
+        "fused_compressed_block", _pack_of(w, hidden), x,
+        _plan_of(slow_idx, fast_idx, fast_score, has_rep), num_heads,
+        window_size, _tables(cos, sin))
+    fused_compressed_block.launches += 1
+    return out
+
+
+@_compressed_int8_op.register_kernel("cuda")
+def _compressed_int8_cuda(x, w, hidden, act, slow_idx, fast_idx, fast_score,
+                          has_rep, num_heads, window_size, cos, sin):
+    out = _compressed_block(
+        "fused_compressed_block_int8", _pack_of(w, hidden, act), x,
+        _plan_of(slow_idx, fast_idx, fast_score, has_rep), num_heads,
+        window_size, _tables(cos, sin))
+    fused_compressed_block_int8.launches += 1
+    return out
+
+
+_compressed_op.register_fake(_block_fake)
+_compressed_int8_op.register_fake(_block_fake)
+
+
 def fused_compressed_block(blk, x, scores, num_heads: int, window_size: int,
                            ratio: float, rope_tables, use_represent: bool,
                            rope_acc: bool, align_k: bool, plan=None):
     """Token-compressed ToC3D block: x (B, H, W, C), scores (B, H*W) ->
-    (B, H, W, C). Math of models/toc3d_vit.toc3d_block_forward. plan: the
-    routing (compress_plan) when the caller has taken it, as the trainable
-    form does, to route its backward the same way."""
+    (B, H, W, C), through the op ``toc3d::fused_compressed_block`` (kernel
+    C on the card, the plain version on the CPU). Math of
+    models/toc3d_vit.toc3d_block_forward. The routing (compress_plan, a
+    top-k) stays outside the op, as outside the TPU kernel; plan: the
+    routing when the caller has taken it, as the trainable form does, to
+    route its backward the same way."""
+    check_device("fused_compressed_block", x)
     b, h, w, c = x.shape
     wts = pack_block_weights(blk, num_heads, x.dtype)
     if plan is None:
         plan = compress_plan(scores, b, h, w, window_size, ratio,
                              use_represent, align_k)
-    rope = rope_tables if rope_acc else None
-    if x.device.type == "cpu":
-        return compressed_block_plain(wts, x, plan, num_heads, window_size,
-                                      rope)
-    out = _compressed_block("fused_compressed_block", wts, x, plan,
-                            num_heads, window_size, rope)
-    fused_compressed_block.launches += 1
-    return out
+    return torch.ops.toc3d.fused_compressed_block(
+        x, _op_weights(wts), wts.hidden, plan.slow_idx, plan.fast_idx,
+        plan.fast_score, plan.has_rep, num_heads, window_size,
+        *_rope_ops(rope_tables if rope_acc else None))
 
 
 def fused_compressed_block_int8(blk, x, scores, num_heads: int,
                                 window_size: int, ratio: float, rope_tables,
                                 use_represent: bool, rope_acc: bool,
                                 align_k: bool):
-    """Kernel C8: fused_compressed_block with the int8 pack, dynamic or
-    static as for fused_full_block_int8."""
+    """Kernel C8 (the op ``toc3d::fused_compressed_block_int8``):
+    fused_compressed_block with the int8 pack, dynamic or static as for
+    fused_full_block_int8."""
+    check_device("fused_compressed_block_int8", x)
     b, h, w, c = x.shape
     wts = pack_block_weights_int8(blk, num_heads, x.dtype)
     plan = compress_plan(scores, b, h, w, window_size, ratio, use_represent,
                          align_k)
-    rope = rope_tables if rope_acc else None
-    if x.device.type == "cpu":
-        return compressed_block_plain(wts, x, plan, num_heads, window_size,
-                                      rope)
-    out = _compressed_block("fused_compressed_block_int8", wts, x, plan,
-                            num_heads, window_size, rope)
-    fused_compressed_block_int8.launches += 1
-    return out
+    return torch.ops.toc3d.fused_compressed_block_int8(
+        x, _op_weights(wts), wts.hidden, wts.act, plan.slow_idx,
+        plan.fast_idx, plan.fast_score, plan.has_rep, num_heads,
+        window_size, *_rope_ops(rope_tables if rope_acc else None))
 
 
 fused_full_block.launches = 0
