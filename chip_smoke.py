@@ -130,7 +130,29 @@ Phases, each fatal on failure (exit code != 0):
      bound); the closed loop (tools.traineval, tiny, 150 iterations,
      resumed at 75, evaluated at 0 and 150): resumed, finite metrics in
      [0, 1], the loss's last 5 below 0.7 of its first 5;
- 11. report: a {"kernels": [...]} JSON line (each row's "op": the
+ 11. multi-GPU (phase_parallel; the card's machine has one H100): world
+     size 1 over NCCL in this process (a FileStore rendezvous): one
+     data-parallel step of ToC3D_faster at 800x320, batch 2, its lanes
+     with unequal box counts (dp_train_batch; make_train_step with the
+     process group: normalizer counts summed
+     over the ranks, gradients averaged in 25 MB buckets) against the
+     plain step from the same weights, batch and noise, both under
+     deterministic algorithms, bit for bit in losses, grad_norm,
+     gradients, parameters and bank; the all-reduce's ms a step (CUDA
+     events) and the DP steps/s beside phase_train's; the view-sharded
+     ToC3D_faster_1600 stream (parallel/infer_spmd, the all-gather
+     between the captured programs) for 3 frames in bf16 and int8 dynamic
+     against make_infer_fn bit for bit with the main path's launches a
+     frame; then two spawned ranks sharing the card over gloo: the DP
+     step at batch 1 a rank against one process at batch 2 (within the
+     bounds DP_BATCH2_TOL states, measured on the card, with the routing
+     flips between the two counted) and against each lane stepped alone
+     in one process, normalized by the global batch's counts and the
+     world size (bit for bit), the ranks' parameters equal, and the
+     view-sharded frame at 3 views a rank against make_infer_fn bit for
+     bit, with A 1, B 6, C 18, D 12 a frame on each rank; prints the phase's wall time and the nvidia-smi
+     line;
+ 12. report: a {"kernels": [...]} JSON line (each row's "op": the
      toc3d:: custom op it runs as, null for G, G8, LN and AU, which run
      inside the ops or in training; the auction's row adds lap_ms, the
      native LAP's time; no PyTorch call solves an assignment, so its
@@ -3142,6 +3164,604 @@ def phase_traineval(results, captured):
     return ok_k and ok_l
 
 
+PARALLEL_WORLD = 2          # ranks of the gloo check, sharing the card
+PARALLEL_FRAMES = 3         # view-sharded frames at world 1, bf16 and int8
+PARALLEL_TIMED = 5          # DP steps timed at world 1, after one to settle
+# The two gloo ranks' DP step (batch 1 a rank) against one process's step on
+# the global batch of 2, in bf16 on the card: the products run at other row
+# counts, so cuBLAS rounds them otherwise, and under random weights the
+# token routing's near ties then go either way (routing_flips counts them).
+# Measured by this phase on an NVIDIA H100 80GB HBM3 at 700 W, with the
+# lanes of dp_train_batch: 444 of 1368 windows keep another token set, the
+# total loss 9.0e-3 apart, the worst loss term 0.081 (d1.loss_bbox), the
+# gradient norm 0.115, all gradients as one vector 0.257 (relative L2).
+# The bounds below are about twice those: they catch a gross fault (a loss
+# off by the world size), not a normalizer off by a lane's share of the
+# counts. What holds the normalizers on the card is the check against each
+# lane stepped alone, normalized by the global batch's counts, bit for bit
+# (_against_lanes).
+DP_BATCH2_TOL = {"total_loss": 0.02, "loss": 0.2, "grad_norm": 0.25,
+                 "grad_rel_l2_all": 0.5}
+
+
+def dp_train_batch(rng, b, n, h, w):
+    """train_batch with lanes of unequal counts: lane l keeps 32 - 8 l valid
+    3D boxes (so its DN targets differ too) and, in view v, 32 - 4 l - v
+    valid 2D boxes. A rank that normalized its losses by its own counts,
+    or by the summed counts without the world size, then steps otherwise
+    than one normalized as JAX normalizes the global batch."""
+    bt = train_batch(rng, b, n, h, w)
+    for lane in range(b):
+        bt["gt_valid_3d"][lane, 32 - 8 * lane:] = False
+        for v in range(n):
+            bt["gt_valid_2d"][lane, v, 32 - 4 * lane - v:] = False
+    return bt
+
+
+class RoutingRecorder:
+    """Records the training routing while it is entered: for each call of
+    ops/trainable.compress_plan (kernel C's top-k in CompressedBlockFn), the
+    keep mask of every window (W, ws * ws) and the scores it ranked, one
+    row an image."""
+
+    def __enter__(self):
+        import torch
+        from toc3d_tpu_torch.ops import trainable
+        self.mod, self.orig, self.calls = trainable, trainable.compress_plan, []
+
+        def recording(scores, b, h, w, window_size, *rest):
+            plan = self.orig(scores, b, h, w, window_size, *rest)
+            keep = torch.zeros(plan.slow_idx.shape[0], window_size ** 2,
+                               dtype=torch.bool, device=scores.device)
+            keep.scatter_(1, plan.slow_idx, True)
+            self.calls.append((keep, scores.detach().float().reshape(b, -1)
+                               .clone()))
+            return plan
+        trainable.compress_plan = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.compress_plan = self.orig
+
+
+def routing_flips(batch2, lanes) -> dict:
+    """The keep decisions of one step on the global batch (a RoutingRecorder)
+    against those of each lane stepped alone (one each, in lane order):
+    windows whose kept set differs and tokens that moved, of the windows
+    compared, and the largest difference of the scores ranked; and per
+    routing call, in call order, [windows that differ, windows, largest
+    score difference, largest score]."""
+    if any(len(lane.calls) != len(batch2.calls) for lane in lanes):
+        raise RuntimeError("a lane's step routed another number of times "
+                           "than the global batch's")
+    by_call = []
+    for i, (kb, sb) in enumerate(batch2.calls):
+        row = [0, 0, 0.0, float(sb.abs().max())]
+        for r, lane in enumerate(lanes):
+            kl, sl = lane.calls[i]
+            nw, ni = kl.shape[0], sl.shape[0]
+            diff = kb[r * nw:(r + 1) * nw] != kl
+            row[0] += int(diff.any(1).sum())
+            row[1] += nw
+            row[2] = max(row[2], float(
+                (sb[r * ni:(r + 1) * ni] - sl).abs().max()))
+            row.append(int(diff.sum()) // 2)
+        by_call.append(row[:4] + [sum(row[4:])])
+    return {"routing_windows_flipped": sum(c[0] for c in by_call),
+            "routing_tokens_moved": sum(c[4] for c in by_call),
+            "routing_windows": sum(c[1] for c in by_call),
+            "routing_scores_max_abs_diff": max(c[2] for c in by_call),
+            "routing_by_call": [c[:4] for c in by_call]}
+
+
+class CountsRecorder:
+    """Records what runtime/train._global_counts returns while it is
+    entered (the summed counts and the world size of each DP step), or,
+    given ``counts``, returns those in its place: a single-process step
+    over a one-rank group then normalizes as a rank of ``world`` does."""
+
+    def __init__(self, counts=None, world=None):
+        self.counts, self.world, self.seen = counts, world, []
+
+    def __enter__(self):
+        from toc3d_tpu_torch.runtime import train as tr
+        self.orig = tr._global_counts
+
+        def recording(*args):
+            if self.counts is not None:
+                return self.counts.clone(), self.world
+            counts, world = self.orig(*args)
+            self.seen.append((counts.clone(), world))
+            return counts, world
+        tr._global_counts = recording
+        return self
+
+    def __exit__(self, *exc):
+        from toc3d_tpu_torch.runtime import train as tr
+        tr._global_counts = self.orig
+
+
+def _dp_snapshot(model, state, metrics, grads):
+    """Clones of one DP check's outcome: metrics, parameters, the bank and
+    the gradients the optimizer read."""
+    return {"metrics": {k: v.detach().clone() for k, v in metrics.items()},
+            "params": [p.detach().clone() for p in model.parameters()],
+            "memory": [t.clone() for t in state.memory],
+            "grads": grads}
+
+
+def _dp_step(cfg, model, sd0, batch, steady, b, n, gen_seed, group,
+             timer=None, steps=1, deterministic=False, lanes=None):
+    """From the weights sd0 and a fresh optimizer: ``steps`` steps of
+    make_train_step on ``lanes`` of a global ``batch`` of b lanes (by
+    default all of them, or this rank's when group is given), each step
+    drawing the global batch's noise and keeping those lanes, the
+    gradients the optimizer read recorded on the first; deterministic:
+    under torch.use_deterministic_algorithms (the default backward
+    accumulates the third selector's aggregate gradient with atomics, so
+    two plain steps differ in its last bits). Returns (snapshot, state,
+    step fn)."""
+    import torch
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(deterministic, warn_only=True)
+    try:
+        return _dp_steps(cfg, model, sd0, batch, steady, b, n, gen_seed,
+                         group, timer, steps, lanes)
+    finally:
+        torch.use_deterministic_algorithms(before)
+
+
+def _dp_steps(cfg, model, sd0, batch, steady, b, n, gen_seed, group, timer,
+              steps, lanes):
+    import torch
+    from toc3d_tpu_torch.models.detector import frame_seed
+    from toc3d_tpu_torch.parallel import mesh
+    from toc3d_tpu_torch.runtime import train as tr
+    dev = batch["img"].device
+    model.load_state_dict(sd0)
+    tx = tr.make_optimizer(model, total_iters=1000)
+    if lanes is None:
+        lanes = slice(0, b) if group is None else mesh.local_lanes(b, group)
+    state = tr.init_train_state(model, tx, lanes.stop - lanes.start)
+    if group is not None:
+        mesh.broadcast_train_state(model, state.opt_state, group)
+    grads = []
+    step_orig = tx.step
+
+    def recording(st, gs):
+        if not grads:     # a parameter without a gradient steps on zeros
+            grads.extend(torch.zeros_like(p) if g is None
+                         else g.detach().clone()
+                         for p, g in zip(tx.params, gs))
+        return step_orig(st, gs)
+    tx.step = recording
+    step = tr.make_train_step(tx, group=group)
+    gen = torch.Generator(device=dev)
+    sub = {k: v[lanes] for k, v in batch.items()}
+    for i in range(steps):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        gen.manual_seed(frame_seed(gen_seed, i))
+        noise = tr.noise_lanes(tr.draw_train_noise(cfg, b, n, gen, dev,
+                                                   gt3=32), lanes, n)
+        state, m = step(state, sub, noise, steady=steady,
+                        timer=timer if i else None)
+        if i == 0:
+            snap = _dp_snapshot(model, state, m, grads)
+    if steps > 1:       # the steps after the first, on the host's clock
+        torch.cuda.synchronize()
+        snap["timed_s"] = time.perf_counter() - t0
+    tx.step = step_orig
+    return snap, state, step
+
+
+def _grad_err(got, want):
+    """Gradient agreement: the largest over tensors of max |got - want| /
+    max |want| (and that tensor's index), the largest per-tensor relative
+    L2 error ||got - want|| / ||want||, and the relative L2 error of all
+    gradients as one vector."""
+    worst, at, worst_l2, num, den = 0.0, -1, 0.0, 0.0, 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        d = a.double() - b.double()
+        scale = max(float(b.abs().max()), 1e-30)
+        e = float(d.abs().max()) / scale
+        if e > worst:
+            worst, at = e, i
+        dn, bn = float(d.square().sum()), float(b.double().square().sum())
+        worst_l2 = max(worst_l2, (dn / max(bn, 1e-60)) ** 0.5)
+        num, den = num + dn, den + bn
+    return worst, at, worst_l2, (num / max(den, 1e-60)) ** 0.5
+
+
+def _rel(a, b) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def parallel_world1(results):
+    """World size 1 over NCCL, in this process (a FileStore rendezvous):
+    one DP step of ToC3D_faster at 800x320, batch 2, against the plain
+    make_train_step from the same weights, batch and noise, bit for bit;
+    the gradient all-reduce's ms a step and the DP steps/s; the
+    view-sharded ToC3D_faster_1600 stream (parallel/infer_spmd) in bf16
+    and int8 dynamic against make_infer_fn, bit for bit, with the main
+    path's launches. Returns ok."""
+    import tempfile
+    from dataclasses import replace
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from toc3d_tpu_torch.configs import get_config
+    from toc3d_tpu_torch.models.detector import (build_detector, init_state,
+                                                 make_infer_fn)
+    from toc3d_tpu_torch.parallel import mesh
+    from toc3d_tpu_torch.parallel.infer_spmd import (make_spmd_infer_fn,
+                                                     view_mesh)
+    from toc3d_tpu_torch.runtime import train as tr
+    from toc3d_tpu_torch.runtime.timer import StageTimer
+    store = tempfile.mkdtemp(dir=_build_dir("parallel_smoke"))
+    dev = mesh.init_distributed(f"file://{store}/store", 1, 0, "cuda")
+    group = dist.group.WORLD
+    out = results.setdefault("parallel", {})
+    try:
+        log(f"parallel world 1: backend {dist.get_backend()}, device {dev}")
+        cfg = get_config("ToC3D_faster")
+        b, n = 2, 6
+        model = build_detector(cfg, device=dev, seed=0)
+        sd0 = {k: v.clone() for k, v in model.state_dict().items()}
+        batch, steady = tr.batch_to_device(
+            dp_train_batch(np.random.RandomState(0), b, n, *cfg.pad_shape),
+            dev)
+        plain, _, _ = _dp_step(cfg, model, sd0, batch, steady, b, n, 3,
+                               None, deterministic=True)
+        for f in counters():
+            f.launches = 0
+        dp, _, _ = _dp_step(cfg, model, sd0, batch, steady, b, n, 3, group,
+                            deterministic=True)
+        dp_launches = {k: f.launches for k, f in zip(KERNELS, counters())}
+        timer = StageTimer(dev)
+        timed, _, _ = _dp_step(cfg, model, sd0, batch, steady, b, n, 4,
+                               group, timer, steps=1 + PARALLEL_TIMED)
+        wall = timed["timed_s"]
+        eq = {"metrics": all(torch.equal(v, dp["metrics"][k])
+                             for k, v in plain["metrics"].items()),
+              "params": all(torch.equal(a, c) for a, c in
+                            zip(plain["params"], dp["params"])),
+              "bank": all(torch.equal(a, c) for a, c in
+                          zip(plain["memory"], dp["memory"])),
+              "gradients": all(torch.equal(a, c) for a, c in
+                               zip(plain["grads"], dp["grads"]))}
+        stages = timer.summary()
+        ar = stages["all-reduce"]
+        nbytes = sum(p.numel() * p.element_size()
+                     for p in model.parameters())
+        out["world1"] = dict(allreduce_ms=ar["mean"], allreduce_min=ar["min"],
+                             allreduce_max=ar["max"],
+                             dp_steps_per_s=PARALLEL_TIMED / wall,
+                             grad_bytes=nbytes)
+        ok_t = all(eq.values()) and dp_launches == TRAIN_PER_STEP
+        sps = results.get("train", {}).get("steps_per_s", float("nan"))
+        log(f"parallel world 1 (NCCL): DP step of ToC3D_faster, batch {b} x "
+            f"{n} views 800x320, against the plain make_train_step step, "
+            f"both under deterministic algorithms, bit for bit {eq}, the DP "
+            f"step's launches {dp_launches} (expected {TRAIN_PER_STEP}) "
+            f"{'ok' if ok_t else 'FAIL'}; then, in the default mode, gradient "
+            f"all-reduce ({nbytes / 1e9:.3f} GB of f32 gradients, 25 MB "
+            f"buckets) {ar['mean']:.4f} ms a step (min {ar['min']:.4f}, max "
+            f"{ar['max']:.4f}, {ar['n']} steps, CUDA events); DP "
+            f"{PARALLEL_TIMED / wall:.4f} steps/s over {PARALLEL_TIMED} "
+            f"steps after one to settle, beside phase_train's {sps:.4f}; ms "
+            "a step by stage " + json.dumps({k: round(v["mean"], 3)
+                                             for k, v in stages.items()}))
+        del model, sd0, batch, plain, dp, timed
+        torch.cuda.empty_cache()
+
+        ok_i = True
+        base = get_config("ToC3D_faster_1600")
+        int8 = replace(base, backbone=replace(base.backbone, quant="int8"),
+                       head=replace(base.head, decoder=replace(
+                           base.head.decoder, quant="int8")))
+        for label, icfg, per_frame in (("bf16", base, MAIN_PER_FRAME),
+                                       ("int8 dynamic", int8,
+                                        INT8_PER_FRAME)):
+            model = build_detector(icfg, device=dev, seed=0)
+            frames = host_frames(4, PARALLEL_FRAMES, icfg.pad_shape)
+            _, ref, _ = _stream(make_infer_fn(model),
+                                init_state(1, icfg, device=dev), frames)
+            vm = view_mesh(6)
+            spmd = make_spmd_infer_fn(model, vm)
+            for f in counters():
+                f.launches = 0
+            _, got, ms = _stream(spmd, init_state(1, icfg, device=dev),
+                                 frames)
+            launches = [f.launches for f in counters()]
+            want = [v * len(frames) for v in per_frame]
+            equal = [all(torch.equal(a, c) for a, c in zip(
+                tuple(gs.memory) + tuple(gd), tuple(rs.memory) + tuple(rd)))
+                for (gs, gd), (rs, rd) in zip(got, ref)]
+            ok = all(equal) and launches == want
+            ok_i &= ok
+            out[f"world1 infer {label}"] = dict(ms=ms, launches=launches)
+            log(f"parallel world 1 (NCCL): view-sharded ToC3D_faster_1600 "
+                f"{label} ({vm.view} rank in the view group, 6 views on it, "
+                f"the all-gather between the captured programs), "
+                f"{len(frames)} frames: equal to make_infer_fn bit for bit "
+                f"per frame {equal}; launches {'/'.join(KERNELS)} {launches}"
+                f" (expected {want}); frame ms {[round(t, 3) for t in ms]} "
+                f"{'ok' if ok else 'FAIL'}")
+            del model, ref, got, spmd
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return ok_t and ok_i
+
+
+def parallel_rank(rank, world, store, queue):
+    """One of the ranks that share the card over gloo (a spawned process):
+    the DP step at batch 1 a rank, rank 0 also the single-process steps it
+    is compared with (the batch of 2, each lane alone) and the routing
+    between them; both ranks' parameters compared bit for bit; then the view-sharded ToC3D_faster_1600 frames, 6 / world views a
+    rank, rank 0 against make_infer_fn. Puts its report on ``queue``."""
+    try:
+        queue.put((rank, _parallel_rank(rank, world, store)))
+    except Exception as e:      # reported by the parent, which fails
+        import traceback
+        queue.put((rank, {"error": f"{e!r}\n{traceback.format_exc()}"}))
+
+
+def _parallel_rank(rank, world, store):
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from toc3d_tpu_torch.configs import get_config
+    from toc3d_tpu_torch.models.detector import (build_detector, init_state,
+                                                 make_infer_fn)
+    from toc3d_tpu_torch.parallel import mesh
+    from toc3d_tpu_torch.parallel.infer_spmd import (make_spmd_infer_fn,
+                                                     view_mesh)
+    from toc3d_tpu_torch.runtime import train as tr
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    group = dist.group.WORLD
+    solo = dist.new_group([0])      # rank 0's single-process references
+    dev = torch.device("cuda", 0)
+    rep = {"backend": dist.get_backend()}
+    try:
+        cfg = get_config("ToC3D_faster")
+        b, n = world, 6
+        model = build_detector(cfg, device=dev, seed=0)
+        sd0 = {k: v.clone() for k, v in model.state_dict().items()}
+        batch, steady = tr.batch_to_device(
+            dp_train_batch(np.random.RandomState(0), b, n, *cfg.pad_shape),
+            dev)
+        plain = lane_runs = summed = None
+        if rank == 0:
+            # one process on the global batch, over a group of itself: the
+            # data-parallel code path with nothing to sum, which reads the
+            # global batch's counts (JAX's normalizers) as one process
+            with CountsRecorder() as seen, RoutingRecorder() as rt_b2:
+                plain, _, _ = _dp_step(cfg, model, sd0, batch, steady, b, n,
+                                       3, solo, deterministic=True)
+            summed = seen.seen[0][0]
+            lane_runs, routes = [], []
+            for r in range(world):
+                with CountsRecorder(summed, world), RoutingRecorder() as rt:
+                    lane_runs.append(_dp_step(
+                        cfg, model, sd0, batch, steady, b, n, 3, solo,
+                        deterministic=True, lanes=slice(r, r + 1))[0])
+                routes.append(rt)
+            rep.update(routing_flips(rt_b2, routes))
+            del rt_b2, routes
+        t0 = time.perf_counter()
+        with CountsRecorder() as seen:
+            dp, _, _ = _dp_step(cfg, model, sd0, batch, steady, b, n, 3,
+                                group, deterministic=True)
+        torch.cuda.synchronize()
+        rep["dp_step_s"] = time.perf_counter() - t0
+        rep["dp_counts"] = seen.seen[0][0].tolist()
+        rep["dp_world"] = seen.seen[0][1]
+        if rank == 0:
+            rep["batch2_counts"] = summed.tolist()
+            rep["counts_equal"] = torch_equal(seen.seen[0][0], summed)
+        names = sorted(dp["metrics"])
+        mean = mesh.reduce_mean(torch.stack(
+            [dp["metrics"][k].float() for k in names]), group)
+        norms = mesh.gather_lanes(dp["metrics"]["grad_norm"].reshape(1),
+                                  group)
+        rep["grad_norm_equal"] = bool((norms == norms[0]).all())
+        same = torch.ones((), device=dev)
+        for p in dp["params"]:
+            other = p.clone()
+            dist.broadcast(other, 1, group=group)
+            same *= torch.equal(other, p)
+        rep["params_equal"] = bool(same)
+        if rank == 0:
+            rep.update(_against_batch2(model, names, mean, dp, plain))
+            rep.update(_against_lanes(names, mean, dp, lane_runs, world))
+        del model, sd0, batch, plain, dp, lane_runs, summed, seen
+        torch.cuda.empty_cache()
+
+        icfg = get_config("ToC3D_faster_1600")
+        model = build_detector(icfg, device=dev, seed=0)
+        frames = host_frames(4, 2, icfg.pad_shape)
+        vm = view_mesh(6)
+        spmd = make_spmd_infer_fn(model, vm)
+        for f in counters():
+            f.launches = 0
+        _, got, ms = _stream(spmd, init_state(1, icfg, device=dev), frames)
+        rep["infer_launches"] = {k: f.launches
+                                 for k, f in zip(KERNELS, counters())}
+        rep["infer_ms"], rep["views_per_rank"] = ms, 6 // vm.view
+        if rank == 0:
+            _, ref, _ = _stream(make_infer_fn(model),
+                                init_state(1, icfg, device=dev), frames)
+            rep["infer_bit_equal"] = [all(torch.equal(a, c) for a, c in zip(
+                tuple(gs.memory) + tuple(gd), tuple(rs.memory) + tuple(rd)))
+                for (gs, gd), (rs, rd) in zip(got, ref)]
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return rep
+
+
+def _against_batch2(model, names, mean, dp, plain) -> dict:
+    """The DP step (the ranks' mean of each metric, the averaged
+    gradients) against one process's step on the global batch of 2."""
+    want = {k: float(v) for k, v in plain["metrics"].items()}
+    got = dict(zip(names, (float(v) for v in mean)))
+    errs = {k: _rel(got[k], want[k]) for k in want}
+    losses = {k: v for k, v in errs.items()
+              if k not in ("grad_norm", "nonfinite_skips")}
+    g_err, at, l2, l2_all = _grad_err(dp["grads"], plain["grads"])
+    return {"batch2_loss_rel_err": max(losses.values()),
+            "batch2_worst_loss": max(losses, key=losses.get),
+            "batch2_total_loss_rel_err": errs["total_loss"],
+            "batch2_grad_norm_rel_err": errs["grad_norm"],
+            "batch2_grad_max_err": g_err,
+            "batch2_worst_grad": [k for k, _ in
+                                  model.named_parameters()][at],
+            "batch2_grad_rel_l2_max": l2, "batch2_grad_rel_l2_all": l2_all,
+            "batch2_bank_lane0_equal": [torch_equal(a[0], c[0]) for a, c in
+                                        zip(plain["memory"], dp["memory"])]}
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+    return bool(torch.equal(a, b))
+
+
+def _against_lanes(names, mean, dp, lane_runs, world) -> dict:
+    """The DP step against one process stepping each lane alone at batch 1
+    (the same products, row for row, as each rank's), each lane's losses
+    normalized by the global batch's counts and the world size (the counts
+    read by the one-process step on the global batch, CountsRecorder): the
+    lanes' gradients summed and divided by the world size, their metrics
+    averaged as mesh.reduce_mean averages (each divided, then summed), the
+    gradient norm that of the averaged gradients. The lanes' counts differ
+    (dp_train_batch), so a rank that normalized otherwise differs here.
+    Returns whether metrics, gradients and the rank's bank lane are
+    equal."""
+    import torch
+    grads = [sum(gs) / world for gs in zip(*(run["grads"]
+                                            for run in lane_runs))]
+    # the norm AdamW.step takes of the averaged gradients
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    want = [norm if k == "grad_norm" else
+            sum(run["metrics"][k].float() / world for run in lane_runs)
+            for k in names]
+    bad = [k for k, a, c in zip(names, mean, want) if not torch.equal(a, c)]
+    return {"lanes_metrics_equal": not bad, "lanes_metrics_differ": bad,
+            "lanes_grads_equal": all(torch.equal(a, c) for a, c in
+                                     zip(dp["grads"], grads)),
+            "lanes_bank_equal": all(torch.equal(a, c) for a, c in
+                                    zip(dp["memory"],
+                                        lane_runs[0]["memory"]))}
+
+
+def parallel_two_ranks(results):
+    """Two ranks spawned on the one card over gloo (the card's machine has
+    one H100 and NCCL refuses two ranks on one device): the multi-rank
+    logic with the kernels in it, not a speed figure."""
+    import tempfile
+    import torch.multiprocessing as mp
+    store = os.path.join(tempfile.mkdtemp(dir=_build_dir("parallel_smoke")),
+                         "store")
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=parallel_rank,
+                         args=(r, PARALLEL_WORLD, store, queue))
+             for r in range(PARALLEL_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        reps = dict(queue.get(timeout=600) for _ in procs)
+    finally:
+        for p in procs:
+            p.join(60)
+            if p.is_alive():
+                p.kill()
+    wall = time.perf_counter() - t0
+    results.setdefault("parallel", {})["two_ranks"] = reps
+    for r in sorted(reps):
+        log(f"parallel {PARALLEL_WORLD} ranks on the card over gloo, rank "
+            f"{r}: {json.dumps(reps[r], default=str)}")
+    if any("error" in rep for rep in reps.values()):
+        return False
+    r0 = reps[0]
+    tol = DP_BATCH2_TOL
+    ok_b2 = (r0["batch2_total_loss_rel_err"] <= tol["total_loss"]
+             and r0["batch2_loss_rel_err"] <= tol["loss"]
+             and r0["batch2_grad_norm_rel_err"] <= tol["grad_norm"]
+             and r0["batch2_grad_rel_l2_all"] <= tol["grad_rel_l2_all"])
+    ok_ln = (r0["lanes_metrics_equal"] and r0["lanes_grads_equal"]
+             and r0["lanes_bank_equal"] and r0["counts_equal"]
+             and all(rep["dp_world"] == PARALLEL_WORLD
+                     for rep in reps.values()))
+    ok_eq = all(rep["params_equal"] and rep["grad_norm_equal"]
+                for rep in reps.values())
+    want = {"A": 2, "B": 12, "C": 36, "D": 24}
+    ok_i = all(all(rep["infer_launches"][k] == v for k, v in want.items())
+               for rep in reps.values()) and all(r0["infer_bit_equal"])
+    log(f"parallel {PARALLEL_WORLD} ranks over gloo on one card, {wall:.1f} "
+        f"s: DP step of ToC3D_faster at batch 1 a rank (deterministic "
+        f"algorithms) against one process at batch 2: total loss (the "
+        f"ranks' mean) rel err {r0['batch2_total_loss_rel_err']:.3e}, worst "
+        f"loss term {r0['batch2_loss_rel_err']:.3e} "
+        f"({r0['batch2_worst_loss']}), grad_norm "
+        f"{r0['batch2_grad_norm_rel_err']:.3e}, gradients relative L2 "
+        f"{r0['batch2_grad_rel_l2_all']:.3e} (worst tensor "
+        f"{r0['batch2_grad_rel_l2_max']:.3e}, {r0['batch2_worst_grad']}), "
+        f"bounds {tol} {'ok' if ok_b2 else 'FAIL'}; the routing of the "
+        f"lanes stepped alone against the batch-2 step's: "
+        f"{r0['routing_windows_flipped']} of {r0['routing_windows']} windows "
+        f"keep another set, {r0['routing_tokens_moved']} tokens moved, "
+        f"scores {r0['routing_scores_max_abs_diff']:.3e} apart at most "
+        f"(by call, [windows that differ, windows, largest score "
+        f"difference, largest score]: {r0['routing_by_call']}); the "
+        f"lanes' counts summed by the all-reduce {r0['dp_counts']} against "
+        f"the batch-2 step's {r0['batch2_counts']}, equal "
+        f"{r0['counts_equal']}; against each lane stepped alone in one "
+        f"process, normalized by those counts and the world size: metrics, "
+        f"gradients, bank bit for bit "
+        f"{[r0['lanes_metrics_equal'], r0['lanes_grads_equal'], r0['lanes_bank_equal']]}"
+        f" {'ok' if ok_ln else 'FAIL'}; parameters and grad_norm equal on "
+        f"both ranks {'ok' if ok_eq else 'FAIL'}; view-sharded "
+        f"ToC3D_faster_1600, {r0['views_per_rank']} views a rank, 2 frames: "
+        f"launches A/B/C/D a rank "
+        f"{[[rep['infer_launches'][k] for k in 'ABCD'] for rep in reps.values()]}"
+        f" (expected {list(want.values())}), against make_infer_fn bit for "
+        f"bit {r0['infer_bit_equal']} {'ok' if ok_i else 'FAIL'}")
+    return ok_b2 and ok_ln and ok_eq and ok_i
+
+
+def _build_dir(name: str) -> str:
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        name)
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def phase_parallel(results):
+    """Multi-GPU paths of the port on a one-card machine (parallel/): world
+    size 1 over NCCL (parallel_world1), then two ranks sharing the card
+    over gloo (parallel_two_ranks). Prints the phase's wall time and the
+    nvidia-smi line. Returns ok."""
+    import torch
+    t0 = time.perf_counter()
+    ok1 = parallel_world1(results)
+    torch.cuda.empty_cache()
+    ok2 = parallel_two_ranks(results)
+    wall = time.perf_counter() - t0
+    results.setdefault("parallel", {})["wall_s"] = wall
+    log(f"phase_parallel: world 1 over NCCL {ok1}, {PARALLEL_WORLD} ranks "
+        f"over gloo {ok2}, {wall:.1f} s wall | {nvidia_smi_line()}")
+    return ok1 and ok2
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3188,16 +3808,18 @@ def main() -> int:
     ok_t = phase_train(results, captured)
     torch.cuda.empty_cache()
     ok_te = phase_traineval(results, captured)
+    torch.cuda.empty_cache()
+    ok_pl = phase_parallel(results)
     if not (ok_k and ok_k8 and ok_ps and ok_m and ok_m8 and ok_p and ok_e
             and ok_bf and ok_gb and ok_s and ok_s8 and ok_x and ok_t
-            and ok_te):
+            and ok_te and ok_pl):
         log(f"chip_smoke: FAILED (kernels {ok_k}, int8 kernels {ok_k8}, "
             f"other presets' kernel shapes {ok_ps}, main path {ok_m}, int8 "
             f"main path {ok_m8}, other presets' paths {ok_p}, streaming "
             f"eval {ok_e}, bench {ok_bf}, gumbel eval mask {ok_gb}, "
             f"small-input agreement {ok_s}, int8 small-input agreement "
             f"{ok_s8}, export {ok_x}, training {ok_t}, matchers and closed "
-            f"loop {ok_te})")
+            f"loop {ok_te}, multi-GPU {ok_pl})")
         return 1
     keys = ("name", "op", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

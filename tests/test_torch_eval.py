@@ -453,7 +453,8 @@ def test_eval_cli_loads_a_reference_checkpoint(tiny_pkl, tmp_path):
 
 def test_eval_cli_defaults_to_cuda_and_refuses(tiny_pkl, monkeypatch):
     """The default device is cuda; without a card it raises, and so does
-    --distributed (not ported yet)."""
+    --distributed without a rendezvous (no torchrun environment, no
+    --dist-coordinator), on the card's default device and on the CPU."""
     from toc3d_tpu_torch.tools import track as track_cli
     assert eval_cli.parse_args(["--config", "tiny", "--ann", "x"]).device \
         == "cuda"
@@ -462,6 +463,11 @@ def test_eval_cli_defaults_to_cuda_and_refuses(tiny_pkl, monkeypatch):
         eval_cli.main(["--config", "tiny", "--ann", tiny_pkl])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         track_cli.main(["--results", "r.json", "--ann", tiny_pkl])
-    with pytest.raises(NotImplementedError):
+    for var in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        eval_cli.main(["--config", "tiny", "--ann", tiny_pkl,
+                       "--distributed"])
+    with pytest.raises(RuntimeError, match="no rendezvous"):
         eval_cli.main(["--config", "tiny", "--ann", tiny_pkl, "--device",
                        "cpu", "--distributed"])

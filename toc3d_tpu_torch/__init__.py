@@ -11,8 +11,9 @@ wrappers), ``models/`` (eva_vit, token_select, toc3d_vit, neck,
 petr_transformer, streampetr_head, detector), ``core/`` (coder, boxes),
 ``data/`` (nuScenes infos, eval frames, the eval sampler, synthetic
 scenes), ``runtime/`` (the captured frame, timing, the streaming eval, the
-detection metrics, the token visualizer), ``tracking/``, ``tools/`` (the
-eval and tracking CLIs), ``convert.py`` (JAX parameter tree or reference
+detection metrics, the token visualizer), ``parallel/`` (data-parallel
+training and view-sharded inference over torch.distributed),
+``tracking/``, ``tools/`` (the eval and tracking CLIs), ``convert.py`` (JAX parameter tree or reference
 checkpoint -> state dict) and ``csrc/`` (the CUDA sources of the four
 Hopper kernels, built at first use by ``ops/cuda/build.py``).
 

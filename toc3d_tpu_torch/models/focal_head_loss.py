@@ -55,11 +55,15 @@ def scatter_rows(matched, values, q: int, fill):
 
 
 def focal_head_loss(cfg, outs, gt_bboxes2d, gt_labels2d, gt_centers2d,
-                    gt_valid2d, pad_shape, matched=None):
+                    gt_valid2d, pad_shape, matched=None, num_pos=None,
+                    world=1):
     """outs: focal_head_forward's dict; GT padded per view (V, G, ...);
     pad_shape (pad_h, pad_w); matched: the 2D assignment (V, G) when the
     caller has solved it (runtime/train.compute_losses solves every
-    assignment of a step at once), else solved here."""
+    assignment of a step at once), else solved here. num_pos: under data
+    parallelism the positives summed over the ``world`` ranks (each
+    rank's loss is then W * its sum / max(global count, 1)); None counts
+    this batch's."""
     cls_scores = outs["enc_cls_scores"].float()
     bbox_preds = outs["enc_bbox_preds"].float()
     centers_pred = outs["pred_centers2d"].float()
@@ -78,7 +82,9 @@ def focal_head_loss(cfg, outs, gt_bboxes2d, gt_labels2d, gt_centers2d,
     bbox_t = scatter_rows(matched, gt_cxcywh.float(), q, 0.0)
     ctr_t = scatter_rows(matched, gt_ctr_n.float(), q, 0.0)
     pos_w = scatter_rows(matched, gt_valid2d.float(), q, 0.0)
-    num_pos = pos_w.sum().clamp(min=1.0)
+    if num_pos is None:
+        num_pos = pos_w.sum()
+    num_pos = num_pos.clamp(min=1.0) / world
 
     pred_xyxy = cxcywh_to_xyxy(bbox_preds) * factor
     gt_xyxy = cxcywh_to_xyxy(bbox_t) * factor

@@ -1,7 +1,8 @@
 """Streaming evaluation and the nuScenes submission writer (counterpart of
 toc3d_tpu/runtime/eval.py: velocity_attribute :44, CLASS_RANGE :64, the
 quaternion helpers :71-84, detections_to_nusc_annos :87, write_submission
-:142, streaming_eval :163, evaluate_submission :222).
+:142, streaming_eval :163, gather_results_multihost :195,
+evaluate_submission :222).
 
 Parity targets, as in the JAX package:
   streaming test loop          -> reference petr3d.py:507-594 +
@@ -17,8 +18,8 @@ Parity targets, as in the JAX package:
 The loop drives the port's ``infer(state, frame)``
 (models/detector.make_infer_fn: on the card the captured frame, which reads
 ``steady`` from the host ``prev_exists``, so the loop sets it on the host
-frame before the call). The multi-process gather waits for the multi-GPU
-slice.
+frame before the call). ``gather_results_multihost`` joins the ranks'
+results of a distributed eval (tools/test.py --distributed).
 """
 from __future__ import annotations
 
@@ -202,6 +203,42 @@ def streaming_eval(infer, init_state_fn, frames, metas,
         if progress_every and (i + 1) % progress_every == 0:
             print(f"eval: {i + 1} samples")
     return results
+
+
+def gather_results_multihost(results: Dict[str, List[Dict]],
+                             group=None) -> Dict:
+    """Merge the ranks' eval results (the reference pickles each rank's
+    part and joins them in rank order, core/apis/test.py:116-160; with
+    contiguous chunks of scenes per rank a dict union keeps the global
+    order). The same fixed-size exchange as JAX's: gather the blobs'
+    lengths, pad each JSON blob to the longest, gather the blobs, join the
+    dicts in rank order. Every rank gets the union; without a process group
+    (or in a world of one) the results come back as they are. The
+    exchange's tensors lie where the group's backend reduces: the current
+    card for NCCL, the host for gloo."""
+    import torch
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_world_size(group) == 1:
+        return results
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if dist.get_backend(group) == "nccl" else torch.device("cpu")
+    world = dist.get_world_size(group)
+    raw = json.dumps(results).encode()
+    n = torch.tensor([len(raw)], dtype=torch.int64, device=dev)
+    lengths = [torch.empty_like(n) for _ in range(world)]
+    dist.all_gather(lengths, n, group=group)
+    lengths = [int(t) for t in lengths]
+    padded = torch.zeros(max(lengths), dtype=torch.uint8)
+    padded[:len(raw)] = torch.frombuffer(bytearray(raw), dtype=torch.uint8)
+    padded = padded.to(dev)
+    blobs = [torch.empty_like(padded) for _ in range(world)]
+    dist.all_gather(blobs, padded, group=group)
+    merged = {}
+    for blob, size in zip(blobs, lengths):
+        merged.update(json.loads(blob[:size].cpu().numpy().tobytes()
+                                 .decode()))
+    return merged
 
 
 def evaluate_submission(result_path: str, data_root: str,

@@ -155,6 +155,11 @@ class CapturedInfer:
             return self._feats.copy_(feats)
         return fn
 
+    def _exchange(self):
+        """Between the two programs, outside the graphs: nothing here; the
+        view-sharded frame gathers the ranks' features
+        (parallel/infer_spmd.ShardedCapturedInfer)."""
+
     def _head(self):
         return head_step(self.model, DetectorState(self._bank), self._feats,
                          self._frame)
@@ -176,6 +181,7 @@ class CapturedInfer:
             else ("backbone+neck",)
         with span(self.timer, "backbone+neck"):
             self._run(key, self._backbone(steady))
+        self._exchange()
         with span(self.timer, "head+decode"):
             new_state, det = self._run("head+decode", self._head)
             return (DetectorState(MemoryBank(*(t.clone()

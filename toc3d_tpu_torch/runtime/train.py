@@ -20,6 +20,20 @@ the grid mask, the selectors' gumbel noise, the DN uniform, the
 stochastic-depth and the dropout keep masks. A test can therefore hand the
 JAX package's own draws across.
 
+Data parallelism (``make_train_step(tx, group=...)``, parallel/mesh.py):
+each rank holds its lanes of the global batch and of the memory bank, and
+draws the global batch's TrainNoise from the shared seed, keeping its own
+lanes (``noise_lanes``), so a world of N at batch b computes what one
+process computes at batch N * b. JAX normalizes the losses by counts over
+the global batch; here the counts that couple a batch's lanes (each
+decoder layer's positives, the DN targets, the 2D positives, the
+token-selection elements) go into one vector and one all-reduce a step,
+and each rank's loss is W * (its sum) / max(global count, 1). The
+gradients are then averaged over the ranks between the backward and the
+optimizer (mesh.GradReducer), which equals JAX's pmean; the gradient norm,
+the clip and the non-finite skip read the averaged gradients, so every
+rank decides alike and the parameters stay equal.
+
 The Hungarian matching (core/assigner.hungarian_match) runs on the
 device by default for a CUDA model, the auction kernel once a cost tensor,
 so the step reads nothing back; with the 'callback' matcher (the CPU's
@@ -35,6 +49,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.assigner import cost_2d, cost_3d, hungarian_match
 from ..core.dn import dn_reference_points, draw_dn_noise, prepare_for_dn
@@ -42,12 +57,12 @@ from ..core.losses import token_selection_loss
 from ..models.detector import ToC3DDetector, extract_img_feat
 from ..models.eva_vit import drop_path_rates
 from ..models.focal_head import focal_head_forward
-from ..models.focal_head_loss import focal_head_loss
+from ..models.focal_head_loss import focal_head_loss, scatter_rows
 from ..models.grid_mask import GridDraw, draw_grid, grid_mask
 from ..models.petr_transformer import draw_drop_masks, drop_mask_shapes
 from ..models.streampetr_head import (MemoryBank, head_forward, init_memory,
                                       location_grid)
-from ..models.streampetr_loss import streampetr_loss
+from ..models.streampetr_loss import positives, streampetr_loss
 from ..models.token_select import gumbel_
 from ..ops.consts import const_vector
 from .timer import span
@@ -115,6 +130,22 @@ def draw_train_noise(cfg, batch_size: int, views: int,
         drop_mask_shapes(cfg.head.decoder, batch_size, nq, nks, nkc),
         generator, device)
     return TrainNoise(grid, gumbel, dn, dp, dropout)
+
+
+def noise_lanes(noise: TrainNoise, lanes: slice, views: int) -> TrainNoise:
+    """The draws of lanes ``lanes`` of a global batch's TrainNoise (views
+    images a lane): a data-parallel rank draws the whole batch's noise
+    from the shared seed and keeps its own lanes. The grid mask is one
+    draw for the whole batch and is kept as it is."""
+    vs = slice(lanes.start * views, lanes.stop * views)
+    return TrainNoise(
+        noise.grid,
+        None if noise.gumbel is None else [g[vs] for g in noise.gumbel],
+        noise.dn[lanes],
+        {i: tuple(k[vs] for k in keep)
+         for i, keep in noise.drop_path.items()},
+        None if noise.dropout is None else
+        [{k: m[lanes] for k, m in d.items()} for d in noise.dropout])
 
 
 # ---------------------------------------------------------------------------
@@ -333,10 +364,28 @@ def batch_to_device(batch, device):
 # loss assembly (one frame: the shipped ToC3D regime)
 # ---------------------------------------------------------------------------
 
+def _global_counts(outs, outs_roi, matched, batch, gt2_valid, dn, group):
+    """The counts that couple a batch's lanes, summed over the ranks in one
+    all-reduce: each decoder layer's positives, the DN targets, the 2D
+    positives; and the number of ranks. The token-selection loss needs
+    none: its weight is all ones, so its count is the mask's size, the
+    same on every rank, and its local mean is already the global
+    batch's."""
+    q3 = outs["all_cls_scores"].shape[2]
+    local = [positives(m, batch["gt_valid_3d"], q3) for m in matched[:-1]]
+    local.append(dn["known_valid"].float().sum())
+    local.append(scatter_rows(matched[-1], gt2_valid.float(),
+                              outs_roi["enc_cls_scores"].shape[1],
+                              0.0).sum())
+    counts = torch.stack(local)
+    dist.all_reduce(counts, op=dist.ReduceOp.SUM, group=group)
+    return counts, dist.get_world_size(group)
+
+
 def compute_losses(model: ToC3DDetector, memory: MemoryBank, batch,
                    noise: TrainNoise, remat: bool = True,
                    with_losses: bool = True, backbone_grad: bool = True,
-                   steady=None, timer=None):
+                   steady=None, timer=None, group=None):
     """One frame's losses (train.py:173-262). batch, B-leading tensors on
     the model's device: img (B, N, H, W, 3), intrinsics / img2lidar (B, N,
     4, 4), timestamp (B,), ego_pose / ego_pose_inv (B, 4, 4), prev_exists
@@ -344,8 +393,10 @@ def compute_losses(model: ToC3DDetector, memory: MemoryBank, batch,
     gt_valid_3d (B, G3), gt_bboxes_2d (B, N, G2, 4) xyxy px, gt_labels_2d
     (B, N, G2), gt_centers_2d (B, N, G2, 2), gt_valid_2d (B, N, G2).
     steady: all(prev_exists > 0) when the caller knows it from the host.
-    timer: the spans 'forward', 'host matching' and 'losses'. Returns
-    (total, (loss dict, new bank)); the new bank is not detached here."""
+    timer: the spans 'forward', 'host matching' and 'losses'. group: the
+    data-parallel process group, whose ranks' counts normalize the losses
+    (_global_counts); None normalizes by this batch's. Returns (total,
+    (loss dict, new bank)); the new bank is not detached here."""
     cfg = model.cfg
     with span(timer, "forward"):
         img = batch["img"]
@@ -399,13 +450,21 @@ def compute_losses(model: ToC3DDetector, memory: MemoryBank, batch,
     with span(timer, "host matching"):
         matched = hungarian_match(problems)
     with span(timer, "losses"):
-        losses = streampetr_loss(hc, outs, batch["gt_bboxes_3d"],
-                                 batch["gt_labels_3d"], batch["gt_valid_3d"],
-                                 dn=dn, matched=matched[:-1])
+        world, c3, c2 = 1, None, None
+        if group is not None:
+            counts, world = _global_counts(outs, outs_roi, matched, batch,
+                                           gt2["valid"], dn, group)
+            k = len(matched)          # the layers' and the DN counts
+            c3, c2 = counts[:k], counts[k]
+        losses = streampetr_loss(
+            hc, outs, batch["gt_bboxes_3d"], batch["gt_labels_3d"],
+            batch["gt_valid_3d"], dn=dn, matched=matched[:-1], counts=c3,
+            world=world)
         losses.update(focal_head_loss(cfg.focal, outs_roi, gt2["bboxes"],
                                       gt2["labels"], gt2["centers"],
                                       gt2["valid"], cfg.pad_shape,
-                                      matched=matched[-1]))
+                                      matched=matched[-1], num_pos=c2,
+                                      world=world))
         if aux["token_masks"]:
             masks = torch.stack([m[..., 0] for m in aux["token_masks"]])
             losses["semantic_loss"] = token_selection_loss(
@@ -417,7 +476,7 @@ def compute_losses(model: ToC3DDetector, memory: MemoryBank, batch,
 
 def compute_losses_multiframe(model: ToC3DDetector, memory: MemoryBank,
                               batch, noises, remat: bool = True,
-                              steady=None, timer=None):
+                              steady=None, timer=None, group=None):
     """Sliding-window multi-frame training (train.py:265-313; reference
     petr3d.py:262-308): batch arrays carry a T axis after B; noises: a
     TrainNoise per frame; steady: per frame, or None. The last
@@ -436,7 +495,8 @@ def compute_losses_multiframe(model: ToC3DDetector, memory: MemoryBank,
             total, (ld, memory) = compute_losses(
                 model, memory, frame, noises[t], remat=remat,
                 with_losses=loss_frame, backbone_grad=bb_grad,
-                steady=None if steady is None else steady[t], timer=timer)
+                steady=None if steady is None else steady[t], timer=timer,
+                group=group)
         if not grad_frame:
             memory = MemoryBank(*(m.detach() for m in memory))
         if loss_frame:
@@ -446,7 +506,8 @@ def compute_losses_multiframe(model: ToC3DDetector, memory: MemoryBank,
     return sum(totals), (losses, memory)
 
 
-def make_train_step(tx: AdamW, remat: bool = True, multiframe: bool = False):
+def make_train_step(tx: AdamW, remat: bool = True, multiframe: bool = False,
+                    group=None):
     """train_step(state, batch, noise, steady=None, timer=None) -> (state,
     metrics) (train.py:408-446): rebuild the kernels' weight packs, the
     losses, their backward, the optimizer. noise: the frame's TrainNoise
@@ -454,8 +515,22 @@ def make_train_step(tx: AdamW, remat: bool = True, multiframe: bool = False):
     metrics: every loss, total_loss, grad_norm and nonfinite_skips, as 0-d
     tensors on the device (nothing is read back). timer
     (runtime/timer.StageTimer): the spans 'pack rebuild', 'forward', 'host
-    matching', 'losses', 'backward' and 'optimizer'."""
+    matching', 'losses', 'backward', 'all-reduce' (with a group) and
+    'optimizer'.
+
+    group: a data-parallel process group (parallel/mesh.py). The batch,
+    the noise and state.memory are then this rank's lanes, the losses are
+    normalized by the ranks' summed counts, and the gradients are averaged
+    over the ranks in ~25 MB buckets (mesh.BUCKET_BYTES) before the
+    optimizer reads them. The metrics stay this rank's: each loss is W
+    times its share, so their mean over the ranks (mesh.reduce_mean, read
+    at the log interval) is the global batch's loss; grad_norm and
+    nonfinite_skips are the same on every rank."""
     loss_fn = compute_losses_multiframe if multiframe else compute_losses
+    reducer = None
+    if group is not None:
+        from ..parallel.mesh import GradReducer
+        reducer = GradReducer(tx.params, group)
 
     def train_step(state: TrainState, batch, noise, steady=None,
                    timer=None):
@@ -466,11 +541,15 @@ def make_train_step(tx: AdamW, remat: bool = True, multiframe: bool = False):
             p.grad = None
         total, (losses, new_memory) = loss_fn(
             model, state.memory, batch, noise, remat=remat, steady=steady,
-            timer=timer)
+            timer=timer, group=group)
         with span(timer, "backward"):
             total.backward()
+        grads = [p.grad for p in tx.params]
+        if reducer is not None:
+            with span(timer, "all-reduce"):
+                grads = reducer.reduce(grads)
         with span(timer, "optimizer"):
-            grad_norm = tx.step(state.opt_state, [p.grad for p in tx.params])
+            grad_norm = tx.step(state.opt_state, grads)
         for p in tx.params:
             p.grad = None
         metrics = {k: v.detach() for k, v in losses.items()}

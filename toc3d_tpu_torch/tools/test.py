@@ -18,8 +18,22 @@ as ``tiny``) is served in bf16 on the card, as the bench serves it.
 ``--checkpoint x.pth`` loads a reference checkpoint
 (convert.load_reference_checkpoint); an orbax directory is the JAX
 package's own format and raises. Without a checkpoint the weights are
-random, seeded 0. The multi-GPU eval (``--distributed``) waits for the
-multi-GPU slice and raises NotImplementedError.
+random, seeded 0.
+
+``--distributed`` (or the ``--dist-*`` flags) evaluates on several
+processes, one device each (tools/test.py:116-128): under torchrun
+
+    torchrun --nproc_per_node=N -m toc3d_tpu_torch.tools.test \
+        --distributed --config ... --ann ...
+
+or with ``--dist-coordinator host:port --dist-num-processes N
+--dist-process-id I`` on each process. On the card each rank runs on
+``cuda:LOCAL_RANK`` over NCCL; ``--device cpu`` joins over gloo; nothing
+falls back from one to the other. Each rank streams one contiguous chunk of
+whole scenes, the results are gathered (runtime/eval.
+gather_results_multihost), and only rank 0 writes the submission and scores
+it. Called with a process group already joined (the trainer's periodic
+eval), it evaluates over that group.
 
 ``main(argv)`` returns a summary for callers in the same process: the
 submission's path, its metrics, the host's ms to build each frame, the
@@ -67,7 +81,8 @@ def parse_args(argv=None):
                          " toc3d_utils.py:146-147) seeded by --ref-parity-seed")
     ap.add_argument("--ref-parity-seed", type=int, default=0)
     ap.add_argument("--distributed", action="store_true",
-                    help="multi-process eval (not ported yet: raises)")
+                    help="multi-process eval over torchrun's environment "
+                         "(NCCL on the card, gloo with --device cpu)")
     ap.add_argument("--dist-coordinator", default=None)
     ap.add_argument("--dist-num-processes", type=int, default=None)
     ap.add_argument("--dist-process-id", type=int, default=None)
@@ -92,12 +107,12 @@ def eval_aug(cfg, src_h: int, src_w: int):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    if (args.distributed or args.dist_coordinator
-            or args.dist_num_processes or args.dist_process_id is not None):
-        raise NotImplementedError(
-            "multi-GPU eval (--distributed) is not ported yet")
+    distributed = (args.distributed or args.dist_coordinator
+                   or args.dist_num_processes
+                   or args.dist_process_id is not None)
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     from ..bench import fetch_start, fetch_wait
     from ..configs import apply_overrides, get_config
@@ -107,8 +122,9 @@ def main(argv=None) -> dict:
     from ..models.detector import (build_detector, infer_step_with_aux,
                                    init_state, make_infer_fn)
     from ..runtime import nusc_metrics
-    from ..runtime.eval import evaluate_submission, sample_annos, \
-        write_submission
+    from ..runtime.eval import (evaluate_submission,
+                                gather_results_multihost, sample_annos,
+                                write_submission)
     from ..runtime.timer import StageTimer
 
     device = torch.device(args.device)
@@ -116,6 +132,15 @@ def main(argv=None) -> dict:
     if cuda and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the eval runs on the card "
                            "(pass --device cpu for a CPU run)")
+    world, rank, owned = 1, 0, False
+    if distributed:
+        if not dist.is_initialized():
+            from ..parallel.mesh import init_distributed
+            device = init_distributed(args.dist_coordinator,
+                                      args.dist_num_processes,
+                                      args.dist_process_id, args.device)
+            owned = True
+        world, rank = dist.get_world_size(), dist.get_rank()
     cfg = get_config(args.config)
     if args.cfg_options:
         cfg = apply_overrides(cfg, args.cfg_options)
@@ -147,8 +172,22 @@ def main(argv=None) -> dict:
 
     build_ms = []
 
+    # contiguous chunks of whole scenes per rank (streaming needs whole
+    # scenes; contiguity keeps the gathered results in the global order)
+    sample_range = range(n)
+    if distributed:
+        scene_of = [infos.infos[i]["scene_token"] for i in range(n)]
+        starts = [0] + [i for i in range(1, n)
+                        if scene_of[i] != scene_of[i - 1]]
+        per = -(-len(starts) // world)
+        lo = starts[rank * per] if rank * per < len(starts) else n
+        hi = starts[(rank + 1) * per] if (rank + 1) * per < len(starts) \
+            else n
+        sample_range = range(lo, hi)
+        print(f"process {rank}/{world}: samples [{lo}, {hi})")
+
     def frames():
-        for i in range(n):
+        for i in sample_range:
             t0 = time.perf_counter()
             out = build_eval_frame(infos, i, aug, args.data_root,
                                    fast_decode=args.fast_decode,
@@ -194,12 +233,20 @@ def main(argv=None) -> dict:
         results[pending[1]["token"]] = sample_annos(fetch_wait(pending[0]),
                                                     pending[1])
 
+    stage_ms = timer.samples() if timer is not None else {}
+    if distributed:
+        results = gather_results_multihost(results)
+        if owned:
+            dist.destroy_process_group()
+        if rank != 0:
+            return {"path": None, "results": results, "metrics": None,
+                    "build_ms": build_ms, "done_at": done_at,
+                    "stage_ms": stage_ms}
     path = write_submission(results, args.work_dir)
     print("wrote", path)
     if timed:
         print(f"speed: {timed / t_total:.3f} frames/s "
               f"({1000 * t_total / timed:.1f} ms/frame, warmup 200)")
-    stage_ms = timer.samples() if timer is not None else {}
     for name, xs in stage_ms.items():
         print(f"  {name:14s} {'device' if cuda else 'host'} ms/frame mean "
               f"{sum(xs) / len(xs):.3f} (n {len(xs)})")

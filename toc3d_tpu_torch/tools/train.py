@@ -21,8 +21,27 @@ Every --log-interval steps one JSON line goes to <work-dir>/train.log.json.
 The default device is the card; without one it raises (``--device cpu``
 runs on the CPU, for tests). On the card an f32 config (such as ``tiny``)
 trains in bf16, as the eval CLI serves it: the kernels take bf16
-activations. The multi-GPU run (``--distributed``) waits for the
-multi-GPU slice and raises NotImplementedError.
+activations.
+
+``--distributed`` trains data-parallel (tools/train.py:121-134, 163-170,
+211-216, 260-280), one process a device, under torchrun
+
+    torchrun --nproc_per_node=N -m toc3d_tpu_torch.tools.train \
+        --distributed --config ToC3D_faster --ann ... --batch-size 2
+
+or with ``--dist-coordinator host:port --dist-num-processes N
+--dist-process-id I`` on each process. On the card each rank trains on
+``cuda:LOCAL_RANK`` over NCCL (``--device cpu``: gloo; nothing falls back
+from one to the other). --batch-size is each rank's, the global batch is
+batch x world; rank 0's weights and optimizer state are broadcast at the
+start, the sampler gives each rank its lanes (num_replicas, rank), the
+augmentation draws come from --seed + rank, every rank draws the global
+batch's noise and keeps its lanes, and the gradients are averaged over the
+ranks each step (runtime/train.make_train_step). The logged metrics are
+the ranks' mean; only rank 0 writes the log, the checkpoints (the bank's
+lanes gathered in rank order) and the final weights; --resume-from gives
+each rank its lanes. The periodic eval runs distributed over the same
+ranks.
 
 ``main(argv)`` returns a summary: the logged records, the checkpoints
 written, the final weights' path and the eval results.
@@ -65,7 +84,13 @@ def parse_args(argv=None):
                     help="no torch.utils.checkpoint on the droppath blocks "
                          "and the decoder layers")
     ap.add_argument("--distributed", action="store_true",
-                    help="multi-process training (not ported yet: raises)")
+                    help="data-parallel training over torchrun's "
+                         "environment (NCCL on the card, gloo with "
+                         "--device cpu)")
+    ap.add_argument("--dist-coordinator", default=None,
+                    help="host:port for a manual multi-process rendezvous")
+    ap.add_argument("--dist-num-processes", type=int, default=None)
+    ap.add_argument("--dist-process-id", type=int, default=None)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; without a card, cuda "
                          "raises")
@@ -86,19 +111,28 @@ def train_aug(cfg, src_h: int, src_w: int):
                                  cfg.pad_shape[0] / src_h * 1.2))
 
 
-def run_eval(args, model, step: int) -> dict:
+def run_eval(args, model, step: int, device, distributed=False) -> dict:
     """The eval CLI (tools/test.py) on the model's weights of the moment:
     they are written as a checkpoint it loads, so every eval builds and
-    captures its model anew."""
+    captures its model anew. Distributed, rank 0 writes the checkpoint and
+    every rank evaluates its chunk of scenes; the metrics are rank 0's
+    (None elsewhere)."""
+    import torch.distributed as dist
+
     from ..runtime.checkpoint import save_params
     from . import test
-    path = save_params(model, os.path.join(args.work_dir,
-                                           f"eval_iter_{step}.pth"))
+    path = os.path.join(args.work_dir, f"eval_iter_{step}.pth")
+    if not distributed or dist.get_rank() == 0:
+        save_params(model, path)
+    if distributed:
+        dist.barrier()
     argv = ["--config", args.config, "--ann", args.val_ann, "--checkpoint",
             path, "--work-dir", os.path.join(args.work_dir,
                                              f"eval_iter_{step}"),
             "--src-h", str(args.src_h), "--src-w", str(args.src_w),
-            "--device", args.device]
+            "--device", str(device)]
+    if distributed:
+        argv += ["--distributed"]
     if args.data_root:
         argv += ["--data-root", args.data_root]
     if args.eval_limit:
@@ -107,6 +141,8 @@ def run_eval(args, model, step: int) -> dict:
         argv += ["--cfg-options", *args.cfg_options]
     out = test.main(argv)
     m = out["metrics"]
+    if m is None:
+        return None
     print(f"[eval @ iter {step}] " + json.dumps(
         {"mAP": round(m["mAP"], 4), "NDS": round(m["NDS"], 4)}))
     return m
@@ -114,11 +150,12 @@ def run_eval(args, model, step: int) -> dict:
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    if args.distributed:
-        raise NotImplementedError(
-            "multi-GPU training (--distributed) is not ported yet")
+    distributed = (args.distributed or args.dist_coordinator
+                   or args.dist_num_processes
+                   or args.dist_process_id is not None)
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     from ..configs import apply_overrides, get_config
     from ..configs.presets import served_in_bf16
@@ -129,15 +166,29 @@ def main(argv=None) -> dict:
     from ..models.detector import build_detector, frame_seed
     from ..runtime.checkpoint import (load_train_state, save_params,
                                       save_train_state)
+    from ..parallel import mesh
     from ..runtime.train import (batch_to_device, draw_train_noise,
                                  init_train_state, make_lr_schedule,
-                                 make_optimizer, make_train_step)
+                                 make_optimizer, make_train_step,
+                                 noise_lanes)
 
     device = torch.device(args.device)
     cuda = device.type == "cuda"
     if cuda and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: training runs on the card "
                            "(pass --device cpu for a CPU run)")
+    group = None
+    if distributed:
+        device = mesh.init_distributed(args.dist_coordinator,
+                                       args.dist_num_processes,
+                                       args.dist_process_id, args.device)
+        group = dist.group.WORLD
+    world, rank = mesh.world_size(group), mesh.rank(group)
+    lead = rank == 0
+    global_batch = args.batch_size * world
+    if distributed:
+        print(f"process {rank}/{world} on {device}, global batch "
+              f"{global_batch}")
     cfg = get_config(args.config)
     if args.cfg_options:
         cfg = apply_overrides(cfg, args.cfg_options)
@@ -156,14 +207,17 @@ def main(argv=None) -> dict:
                            seed=args.seed)
     tx = make_optimizer(model, base_lr=args.lr, total_iters=args.iters)
     state = init_train_state(model, tx, args.batch_size)
+    if group is not None:
+        mesh.broadcast_train_state(model, state.opt_state, group)
     if args.resume_from:
-        state = load_train_state(args.resume_from, state, tx)
+        state = load_train_state(args.resume_from, state, tx, group)
         print(f"resumed from {args.resume_from} at step {state.step}")
-    step_fn = make_train_step(tx, remat=not args.no_remat)
+    step_fn = make_train_step(tx, remat=not args.no_remat, group=group)
 
     sampler = InfiniteGroupEachSampleInBatchSampler(
-        infos.flag, args.batch_size, seed=args.seed)
-    rng = np.random.RandomState(args.seed)
+        infos.flag, args.batch_size, num_replicas=world, rank=rank,
+        seed=args.seed)
+    rng = np.random.RandomState(args.seed + rank)
 
     def batches():
         for idxs in sampler:
@@ -171,7 +225,8 @@ def main(argv=None) -> dict:
                 infos, i, aug, rng, max_gt_3d=cfg.head.dn_max_gt,
                 data_root=args.data_root) for i in idxs])
 
-    os.makedirs(args.work_dir, exist_ok=True)
+    if lead:
+        os.makedirs(args.work_dir, exist_ok=True)
     log_json = os.path.join(args.work_dir, "train.log.json")
     lr_sched = make_lr_schedule(args.lr, total_iters=args.iters)
     gen = torch.Generator(device=device)
@@ -182,9 +237,17 @@ def main(argv=None) -> dict:
         batch, steady = batch_to_device(next(it), device)
         views = batch["img"].shape[1]
         gen.manual_seed(frame_seed(args.seed, step))
-        noise = draw_train_noise(cfg, args.batch_size, views, gen, device)
+        noise = draw_train_noise(cfg, global_batch, views, gen, device)
+        if group is not None:
+            noise = noise_lanes(noise, mesh.local_lanes(global_batch, group),
+                                views)
         state, metrics = step_fn(state, batch, noise, steady=steady)
         if (step + 1) % args.log_interval == 0:
+            if group is not None:
+                names = sorted(metrics)
+                mean = mesh.reduce_mean(torch.stack(
+                    [metrics[k].float() for k in names]), group)
+                metrics = dict(zip(names, mean.unbind()))
             metrics = {k: float(v) for k, v in metrics.items()}
             dt = (time.time() - t0) / args.log_interval
             t0 = time.time()
@@ -196,20 +259,29 @@ def main(argv=None) -> dict:
                    "lr": float(lr_sched(step + 1)), "time": round(dt, 4)}
             rec.update({k: round(v, 6) for k, v in metrics.items()})
             records.append(rec)
-            with open(log_json, "a") as f:
-                f.write(json.dumps(rec) + "\n")
+            if lead:
+                with open(log_json, "a") as f:
+                    f.write(json.dumps(rec) + "\n")
         if args.val_ann and args.eval_interval and \
                 (step + 1) % args.eval_interval == 0:
-            evals[step + 1] = run_eval(args, model, step + 1)
+            evals[step + 1] = run_eval(args, model, step + 1, device,
+                                       distributed)
         if (step + 1) % args.checkpoint_interval == 0:
             path = save_train_state(state, tx, os.path.join(
-                args.work_dir, f"iter_{step + 1}.pth"))
+                args.work_dir, f"iter_{step + 1}.pth"), group)
             checkpoints.append(path)
-            print("saved", path)
-    final = save_params(model, os.path.join(args.work_dir, "final.pth"))
-    print("saved", final)
+            if lead:
+                print("saved", path)
+    final = os.path.join(args.work_dir, "final.pth")
+    if lead:
+        save_params(model, final)
+        print("saved", final)
     if args.val_ann:
-        evals[args.iters] = run_eval(args, model, args.iters)
+        evals[args.iters] = run_eval(args, model, args.iters, device,
+                                     distributed)
+    if group is not None:
+        dist.barrier()
+        dist.destroy_process_group()
     return {"records": records, "checkpoints": checkpoints, "final": final,
             "evals": evals, "state": state}
 
