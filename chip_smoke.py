@@ -45,7 +45,14 @@ Phases, each fatal on failure (exit code != 0):
      the CPU as a small-input agreement check;
   6. int8: the int8 blocks B8 (ws 16, 20) and C8 (the six main-path
      shapes), dynamic and with static scales (check_block), and the head's
-     int8 linear H8, checked and timed as in 3-4; the int8 main path
+     int8 linear H8 (csrc/int8_linear.cu, one launch a call) at its five
+     main-path shapes (check_h8: S1 (900, 256) -> 256 24 launches a frame,
+     S2 (1668, 256) -> 256 12, S3 (30000, 256) -> 256 12, S4 (900, 256) ->
+     2048 6, S5 (900, 2048) -> 256 6), torch.equal to its plain version and
+     to the old row quantization + mma.sync tile, each timed as CUDA-graph
+     replays beside the old tile, torch._int_mm and its bound, the
+     per-frame sums against the 0.1405 ms bound and the graph's floor for
+     one launch; the int8 main path
      (backbone and decoder quant 'int8') streamed for 6 frames with
      per-row (dynamic) activation scales, then calibrated on 2 frames and
      streamed again with static scales, each captured and eager as in 5
@@ -209,6 +216,34 @@ def cuda_time(fn, reps: int, warmup: int = 2) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def graph_time(fn, reps: int = 20, replays: int = 10) -> float:
+    """Device ms per call of fn: ``reps`` calls captured in one CUDA graph
+    and replayed ``replays`` times, so that launches follow each other as
+    in the captured frame, with no host launch cost (a small kernel's eager
+    time is the host's); a call that allocates takes the graph's pool."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / (replays * reps)
 
 
 def host_us(fn, calls: int = 500) -> float:
@@ -1000,7 +1035,8 @@ def phase_rows(model, results):
     dynamic and static, within one int8 step (mean <= 1e-2, scales within
     2^-7); each timed beside its bound, its plain version and, for a site
     that one call computes, F.layer_norm. Then the window attention of B
-    and C and the row quantization of B8 / C8's proj_in site and of H8,
+    and C and the row quantization of B8 / C8's proj_in site and of the
+    head's 30000 image tokens (the input of H8's oracle, the old tile),
     timed beside their bounds (SDPA on windowed q / k / v for the
     attention), and the per-frame bounds of the three families."""
     import torch
@@ -1086,8 +1122,9 @@ def phase_rows(model, results):
         log(f"time window attention: {json.dumps(entry)}")
         del qkv, out, qs, ks, vs
 
-    # row quantization alone: the proj_in site of B8 / C8 and H8's largest
-    # input (the decoder's 30000 image tokens of width 256)
+    # row quantization alone: the proj_in site of B8 / C8, and the decoder's
+    # 30000 image tokens of width 256 (H8 quantizes inside its own kernel;
+    # row quantization there feeds its oracle, the mma.sync tile)
     for rows, n in ((30000, c), (rows_c, c), (30000, 256)):
         x = torch.randn(rows, n, device=dev, generator=g).to(bf)
         for mode in ("dynamic", "static"):
@@ -1116,9 +1153,8 @@ def phase_kernels_int8(model, results):
     """Check and time B8 and C8 at every main-path shape, with per-row
     (dynamic) activation scales and with static site scales (calibrated on
     the same input by the plain probes of ops/int8_calib), and the head's
-    int8 linear H8 at its largest main-path shape."""
+    int8 linear H8 at its five main-path shapes (check_h8)."""
     import torch
-    from toc3d_tpu_torch.layers import quantize_linear
     from toc3d_tpu_torch.models.eva_vit import make_rope_tables, rope_tensors
     from toc3d_tpu_torch.ops.cuda import int8
     dev = torch.device("cuda")
@@ -1144,29 +1180,113 @@ def phase_kernels_int8(model, results):
             keep_row(results, key, entry, BLOCK_ROWS[key][0],
                      "toc3d_tpu_torch/csrc/vit_block.cu", BLOCK_ROWS[key][1])
     del x, scores
+    return check_h8(model, results) and ok_all
 
-    # H8: the decoder's cross-attention key projection, 6 x 50 x 100 image
-    # tokens of width 256 (the largest of the head's int8 linears)
-    xk = torch.randn(1, 30000, 256, device=dev, generator=g).to(bf)
-    lin = model.pts_bbox_head.transformer.decoder.layers[0].attentions[1]
-    w = lin.attn.in_proj_weight
-    p = quantize_linear(w[256:512], lin.attn.in_proj_bias[256:512])
-    ok, err = compare("H8 int8 linear (1,30000,256)->256",
-                      int8.int8_linear(xk, p), int8.int8_linear_plain(xk, p))
-    ok_all &= ok
-    m = 30000
-    b_ms, b_by = bound_int8(2 * m * 256 * 256, 0,
-                            m * 256 * 2 * 2 + 256 * 256 + 256 * 8)
+
+# kernel H8's five main-path shapes (ToC3D_faster_1600 in int8: 6 decoder
+# layers, 900 queries, 768 memory entries, 6 x 50 x 100 image tokens, width
+# 256, FFN 2048): name -> (rows, in, out, launches a frame, the decoder
+# layer's linear that has the shape)
+H8_SHAPES = {
+    "S1": (900, 256, 256, 24, "self q (and self o, cross q, cross o)"),
+    "S2": (1668, 256, 256, 12, "self k (and self v)"),
+    "S3": (30000, 256, 256, 12, "cross k (and cross v)"),
+    "S4": (900, 256, 2048, 6, "FFN in"),
+    "S5": (900, 2048, 256, 6, "FFN out"),
+}
+H8_FRAME_BOUND_MS = 0.1405   # the five shapes' bounds, launches a frame
+
+
+def h8_bytes(m, k, n):
+    """What H8 must move for x (m, k) @ w (n, k)^T: x and y in bf16, the
+    int8 weight, the f32 channel scales and bias."""
+    return m * k * 2 + n * k + m * n * 2 + n * 8
+
+
+def check_h8(model, results):
+    """Kernel H8 at its five main-path shapes with the first decoder layer's
+    weights (seeded random) on seeded random bf16 rows spanning three
+    decades: bit for bit (torch.equal) against its plain version and
+    against the old two launches (row quantization, then the mma.sync tile
+    with the head's epilogue); timed as CUDA-graph replays (the small
+    shapes' eager calls measure the host) beside the old tile, its plain
+    version (eager), torch._int_mm (_lib_qmm, a graph) and its bound, with
+    each shape's launches a frame; the per-frame sums against the 0.1405 ms
+    bound; the graph's floor for one launch (an empty kernel's replay)."""
+    import torch
+    from toc3d_tpu_torch.layers import quantize_linear
+    from toc3d_tpu_torch.ops.cuda import int8
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(14)
+    layer = model.pts_bbox_head.transformer.decoder.layers[0]
+    sa, ca = layer.attentions[0].attn, layer.attentions[1].attn
+    lins = {"S1": (sa.in_proj_weight[:256], sa.in_proj_bias[:256]),
+            "S2": (sa.in_proj_weight[256:512], sa.in_proj_bias[256:512]),
+            "S3": (ca.in_proj_weight[256:512], ca.in_proj_bias[256:512]),
+            "S4": (layer.ffns[0].layers[0][0].weight,
+                   layer.ffns[0].layers[0][0].bias),
+            "S5": (layer.ffns[0].layers[1].weight,
+                   layer.ffns[0].layers[1].bias)}
+    floor = graph_time(lambda: torch.cuda._sleep(0), 50)
+    log(f"H8: the graph's floor for one launch (an empty kernel's replay): "
+        f"{floor:.6f} ms")
+    ok_all, rows, err = True, [], 0.0
+    frame = dict(ms=0.0, old_ms=0.0, plain_ms=0.0, library_ms=0.0)
+    for name, (m, k, n, per_frame, what) in H8_SHAPES.items():
+        x = (torch.randn(m, k, device=dev, generator=g)
+             * torch.logspace(-2, 1, m, device=dev)[:, None]).to(
+                 torch.bfloat16)
+        p = quantize_linear(*lins[name])
+        plan = int8.h8_plan(m, n, k, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        out = int8.int8_linear(x, p)
+        ref = int8.int8_linear_plain(x, p)
+        old = int8.gemm_s8(*int8.row_quant(x), p.w, p.scale, p.bias,
+                           head=True)
+        torch.cuda.synchronize()
+        eq_plain, eq_old = torch.equal(out, ref), torch.equal(out, old)
+        ok_all &= eq_plain and eq_old
+        e = (out.float() - ref.float()).abs().max().item()
+        err = max(err, e)
+        b_ms, b_by = bound_int8(2 * m * k * n, 0, h8_bytes(m, k, n))
+        row = dict(
+            shape=f"{name} x ({m},{k}) bf16 -> {n}: {what}",
+            launches_per_frame=per_frame,
+            plan=f"BN {plan.bn}, grid {plan.grid}, tiles {plan.tiles}",
+            equal_to_plain=eq_plain, equal_to_old_tile=eq_old,
+            max_abs_err=e,
+            ms=graph_time(lambda: int8.int8_linear(x, p)),
+            old_ms=graph_time(lambda: int8.gemm_s8(
+                *int8.row_quant(x), p.w, p.scale, p.bias, head=True)),
+            plain_ms=cuda_time(lambda: int8.int8_linear_plain(x, p), 3),
+            library_ms=graph_time(lambda: _lib_qmm(x, p.w, p.scale,
+                                                    p.bias)),
+            bound_ms=b_ms, bound_by=b_by)
+        row["of_bound"] = b_ms / row["ms"]
+        for key in frame:
+            frame[key] += per_frame * row[key]
+        rows.append(row)
+        log(f"{'check' if eq_plain and eq_old else 'FAIL'} H8 {name}: "
+            f"{json.dumps(row)}")
+    bound_sum = sum(f * bound_int8(2 * m * k * n, 0, h8_bytes(m, k, n))[0]
+                    for m, k, n, f, _ in H8_SHAPES.values())
+    if abs(bound_sum - H8_FRAME_BOUND_MS) > 5e-5:
+        log(f"FAIL H8: the per-frame bound {bound_sum} is not "
+            f"{H8_FRAME_BOUND_MS} ms")
+        ok_all = False
+    frame["bound_ms"] = bound_sum
+    log(f"H8 per frame (60 launches): {json.dumps(frame)}; the old tile's "
+        f"two launches {frame['old_ms']:.6f} ms")
+    s3 = rows[2]
     results["H8"] = dict(
         name="int8_linear", route="cuda",
-        source="toc3d_tpu_torch/csrc/vit_block.cu",
+        source="toc3d_tpu_torch/csrc/int8_linear.cu",
         replaces="toc3d_tpu/layers.py:110",
-        shape="x (1,30000,256) bf16 -> 256, int8 weights",
-        max_abs_err=err, ms=cuda_time(lambda: int8.int8_linear(xk, p), 20),
-        plain_ms=cuda_time(lambda: int8.int8_linear_plain(xk, p), 5),
-        library_ms=cuda_time(lambda: _lib_qmm(xk, p.w, p.scale, p.bias), 20),
-        bound_ms=b_ms, bound_by=b_by)
-    log(f"time H8: {json.dumps(results['H8'])}")
+        shape=s3["shape"] + " (the row's times; shapes: all five)",
+        max_abs_err=err, ms=s3["ms"], plain_ms=s3["plain_ms"],
+        library_ms=s3["library_ms"], bound_ms=s3["bound_ms"],
+        bound_by=s3["bound_by"], shapes=rows, frame=frame,
+        graph_floor_ms=floor)
     return ok_all
 
 
@@ -3823,7 +3943,7 @@ def main() -> int:
         return 1
     keys = ("name", "op", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "shape")
+            "library_ms", "shape", "shapes", "frame")
     rows = list(KERNELS) + [r for r in results if " train" in r]
     ops = kernel_ops()
     for r in rows:

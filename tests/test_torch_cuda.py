@@ -15,7 +15,9 @@ with every epilogue (K not a multiple of the 64-deep tile, M = 1); kernel
 G8, the int8 TMA + wgmma GEMM of B8 and C8, bit for bit that GEMM at every
 block epilogue and both scale kinds (ragged M and N, K tails, K 2736), and
 the operands it refuses; the quantizing LayerNorm and row quantization, and
-the head's int8 linear. The patch embedding A (im2col, then kernel G's
+the head's int8 linear (kernel H8, one launch a call) at small shapes and
+at its five main-path shapes, bit for bit the plain version and row
+quantization + the mma.sync tile, and the widths it refuses. The patch embedding A (im2col, then kernel G's
 product) at small maps and at the main path's (6, 800, 1600), and what it
 refuses; the bf16 and quantizing LayerNorm at each call site's width (LN1
 with its LN(0) row, LN2 with the residual and the stored sum, the sub-LN's
@@ -634,6 +636,51 @@ def test_int8_linear_kernel(dev, shape):
                         torch.randn(96, device=dev, generator=g))
     out = _counted(int8.int8_linear, x, p)
     assert torch.equal(out, int8.int8_linear_plain(x, p))
+
+
+# the five shapes of the head's int8 linears on the main path
+# (ToC3D_faster_1600: 900 queries, 768 memory entries, 6 x 50 x 100 image
+# tokens, width 256, FFN 2048): (rows, in, out)
+H8_SHAPES = {"S1 q/o": (900, 256, 256), "S2 self k/v": (1668, 256, 256),
+             "S3 cross k/v": (30000, 256, 256), "S4 ffn in": (900, 256, 2048),
+             "S5 ffn out": (900, 2048, 256)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(H8_SHAPES))
+def test_int8_linear_kernel_main_shapes(dev, name):
+    """Kernel H8 at each main-path shape, one launch a call: bit for bit the
+    plain version and the old two launches (row quantization, then the
+    mma.sync tile with the head's epilogue), on rows spanning three
+    decades."""
+    m, k, n = H8_SHAPES[name]
+    g = torch.Generator(device=dev).manual_seed(m + n + k)
+    x = (torch.randn(m, k, device=dev, generator=g)
+         * torch.logspace(-2, 1, m, device=dev)[:, None]).to(BF)
+    p = quantize_linear(torch.randn(n, k, device=dev, generator=g) * 0.05,
+                        torch.randn(n, device=dev, generator=g))
+    out = _counted(int8.int8_linear, x, p)
+    assert torch.equal(out, int8.int8_linear_plain(x, p))
+    q, s = int8.row_quant(x)
+    assert torch.equal(out, int8.gemm_s8(q, s, p.w, p.scale, p.bias,
+                                         head=True))
+    nob = int8.QuantLinear(p.w, p.scale, None)
+    assert torch.equal(int8.int8_linear(x, nob), int8.int8_linear_plain(x, nob))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(40, 64), (64, 60), (2064, 64), (8, 64)])
+def test_int8_linear_refuses_what_it_does_not_take(dev, k, n):
+    """in a multiple of 16 from 16 to 2048 and out a multiple of 8, or the
+    wrapper raises before it launches: no route to the plain version or to
+    the old tile."""
+    g = torch.Generator(device=dev).manual_seed(k + n)
+    x = torch.randn(5, k, device=dev, generator=g).to(BF)
+    p = quantize_linear(torch.randn(n, k, device=dev, generator=g), None)
+    before = int8.int8_linear.launches
+    with pytest.raises(ValueError):
+        int8.int8_linear(x, p)
+    assert int8.int8_linear.launches == before
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,64 @@ __device__ __forceinline__ float bfr(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
+// bf16 pair (element c in the low half, c + 1 in the high) <-> f32 pair
+__device__ __forceinline__ float2 unpack_bf16(unsigned u) {
+  return make_float2(__uint_as_float(u << 16),
+                     __uint_as_float(u & 0xffff0000u));
+}
+
+// int8 quantization of the TPU kernels' _rowquant / _statquant (and of the
+// head's _int8_matmul): round half to even (rintf), clip to +-127; shared by
+// the quantizing LayerNorm, row quantization and the head's int8 linear so
+// that all round at the same points
+__device__ __forceinline__ signed char quant8(float v) {
+  return static_cast<signed char>(
+      static_cast<int>(fminf(fmaxf(rintf(v), -127.f), 127.f)));
+}
+
+// the two int8 values of a bf16 pair, as the 2 bytes of a char2 store
+__device__ __forceinline__ unsigned quant8x2(unsigned pair, float inv) {
+  const float2 f = unpack_bf16(pair);
+  return static_cast<unsigned char>(quant8(f.x * inv)) |
+         static_cast<unsigned>(static_cast<unsigned char>(quant8(f.y * inv)))
+             << 8;
+}
+
+// quant8 off the conversion pipe (which does 16 results a clock on an SM,
+// and would bound a kernel that quantizes every element it reads): clip
+// first, so that NaN gives -127 and +-inf +-127 as quant8 does, then round
+// half to even by adding 1.5 * 2^23 in f32 (every sum lies in [2^23, 2^24),
+// where the f32 step is 1); the low byte of the sum's bits is the int8 value
+// in two's complement. Equal to quant8(v) for every float v.
+__device__ __forceinline__ unsigned quant8_bits(float v) {
+  return __float_as_uint(
+      __fadd_rn(fminf(fmaxf(v, -127.f), 127.f), 12582912.f));
+}
+
+// the four int8 values of two bf16 pairs (elements 0-3 in bytes 0-3), each
+// quant8(x * inv) with the product rounded on its own
+__device__ __forceinline__ unsigned quant8x4(unsigned p01, unsigned p23,
+                                             float inv) {
+  const float2 a = unpack_bf16(p01), b = unpack_bf16(p23);
+  const unsigned lo = __byte_perm(quant8_bits(__fmul_rn(a.x, inv)),
+                                  quant8_bits(__fmul_rn(a.y, inv)), 0x0040);
+  const unsigned hi = __byte_perm(quant8_bits(__fmul_rn(b.x, inv)),
+                                  quant8_bits(__fmul_rn(b.y, inv)), 0x0040);
+  return __byte_perm(lo, hi, 0x5410);
+}
+
+// the multiplier that quantizes a row: 1 / s for a static scale s, else
+// 127 / max(amax, 1e-6), an IEEE division (no fast math in the build flags);
+// the row's scale a * (1/127) goes to *scale_out, written by the row's
+// thread 0
+__device__ __forceinline__ float quant_inv(const float* sscale, float amax,
+                                           float* scale_out, int t) {
+  if (sscale) return 1.0f / sscale[0];
+  const float a = fmaxf(amax, 1e-6f);
+  if (t == 0) *scale_out = a * (1.0f / 127.0f);
+  return 127.0f / a;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

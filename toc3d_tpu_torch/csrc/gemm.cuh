@@ -1,8 +1,11 @@
-// Tiled int8 tensor-core GEMM with fused epilogues, behind the head's int8
-// linears (vit_block.cu, H8, with head). The block matmuls, bf16 and int8,
-// and the patch embedding's product run on gemm_sm90.cuh's TMA + wgmma
-// kernel, whose epilogues keep epilogue2's rounding points; the card tests
-// hold its int8 form to this tile bit for bit.
+// Tiled int8 tensor-core GEMM with fused epilogues (vit_block.cu ::
+// toc3d_gemm_s8), on no main path: the oracle of the Hopper kernels. The
+// block matmuls, bf16 and int8, and the patch embedding's product run on
+// gemm_sm90.cuh's TMA + wgmma kernel, whose epilogues keep epilogue2's
+// rounding points, and the head's int8 linears on int8_linear.cu's kernel
+// (H8, the head epilogue); the card tests and chip_smoke.py hold kernel G8
+// to this tile, and H8 to row quantization and this tile with head, bit for
+// bit. Its Args and epilogue order are the ones gemm_sm90.cuh builds on.
 //
 //   C[m, n] = epilogue( sum_k A[m, k] * B[n, k] )
 //

@@ -68,7 +68,8 @@
 //     staging buffers to TMA stores, which clip rows and columns past M and
 //     N and drain while the next tile's main loop runs, so the tensor cores
 //     do not wait for the output's memory traffic.
-// The head's int8 linears (H8) stay on gemm.cuh's mma.sync tile.
+// The head's int8 linears (H8) run on int8_linear.cu's kernel, which takes
+// this file's TMA, barrier, descriptor and wgmma helpers and tensor maps.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums (the encoder is fetched at
@@ -254,6 +255,47 @@ __device__ __forceinline__ void wgmma(int (&d)[BN / 2], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// the s32 fragments of the narrower tiles of the head's int8 linear (H8,
+// int8_linear.cu): m64n64k32 (32 registers) and m64n128k32 (64), laid out
+// as m64n256's first columns
+#define G90_DREGS32                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "                                     \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "                                \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "                              \
+  "%24, %25, %26, %27, %28, %29, %30, %31}"
+#define G90_DREGS64                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "                                     \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "                                \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "                              \
+  "%24, %25, %26, %27, %28, %29, %30, %31, "                              \
+  "%32, %33, %34, %35, %36, %37, %38, %39, "                              \
+  "%40, %41, %42, %43, %44, %45, %46, %47, "                              \
+  "%48, %49, %50, %51, %52, %53, %54, %55, "                              \
+  "%56, %57, %58, %59, %60, %61, %62, %63}"
+
+__device__ __forceinline__ void wgmma(int (&d)[32], uint64_t da, uint64_t db,
+                                      int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " G90_DREGS32
+      ", %32, %33, p;\n}\n"
+      : G90_D8("+r", 0), G90_D8("+r", 8), G90_D8("+r", 16), G90_D8("+r", 24)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma(int (&d)[64], uint64_t da, uint64_t db,
+                                      int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " G90_DREGS64
+      ", %64, %65, p;\n}\n"
+      : G90_D8("+r", 0), G90_D8("+r", 8), G90_D8("+r", 16), G90_D8("+r", 24),
+        G90_D8("+r", 32), G90_D8("+r", 40), G90_D8("+r", 48), G90_D8("+r", 56)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+#undef G90_DREGS64
+#undef G90_DREGS32
 #undef G90_D128
 #undef G90_D8
 #undef G90_DREGS
@@ -600,11 +642,14 @@ inline EncodeTiled encoder() {
 // what a tensor map of a row-major (rows, cols) matrix of 1-, 2- or 4-byte
 // elements with row stride ld elements, read or written in 128-byte
 // swizzled boxes of box_cols x box_rows (box_cols * elsize = 128 bytes, one
-// swizzle row), depends on; 40 bytes, no padding
+// swizzle row), depends on; with flat, boxes of box_cols x box_rows as they
+// lie (rows of box_cols * elsize bytes, a multiple of 16, no swizzle); 48
+// bytes, no padding (flat and unused are 0 where a key leaves them out)
 struct MapKey {
   const void* base;
   long long ld;
   int type, elsize, rows, cols, box_cols, box_rows;
+  int flat, unused;
   bool operator==(const MapKey& o) const {
     return memcmp(this, &o, sizeof(MapKey)) == 0;
   }
@@ -631,7 +676,9 @@ inline int encode(CUtensorMap* map, const MapKey& k) {
   const cuuint32_t unit[2] = {1, 1};
   CUresult r = enc(map, static_cast<CUtensorMapDataType>(k.type), 2,
                    const_cast<void*>(k.base), dims, strides, box, unit,
-                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE,
+                   k.flat ? CU_TENSOR_MAP_SWIZZLE_NONE
+                          : CU_TENSOR_MAP_SWIZZLE_128B,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);

@@ -41,8 +41,9 @@
 //                         and ffn_in sites
 //   rowquant_kernel       the same quantization of a bf16 matrix: the
 //                         proj_in site (the merged attention output, whole
-//                         only after every head has run) and the inputs of
-//                         the head decoder's int8 linears
+//                         only after every head has run); the head
+//                         decoder's int8 linears quantize their input inside
+//                         their own kernel (int8_linear.cu, H8)
 //   window_attention_kernel  one (window, head) per block: stages the
 //                         window's k/v rows (by window geometry, or dense
 //                         for compressed rows) in shared memory with
@@ -135,12 +136,6 @@ constexpr int ln_min_blocks(int data) {
   return data <= 16 ? 4 : data <= 32 ? 3 : 2;
 }
 
-// bf16 pair (element c in the low half, c + 1 in the high) <-> f32 pair
-__device__ __forceinline__ float2 unpack_bf16(unsigned u) {
-  return make_float2(__uint_as_float(u << 16),
-                     __uint_as_float(u & 0xffff0000u));
-}
-
 // VEC bf16 (VEC / 2 pairs) of row p from column c: one access of 2 * VEC
 // bytes where the access lies below n, else pair by pair below n, zero past
 // n or for a row past valid_rows
@@ -186,30 +181,6 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-__device__ __forceinline__ signed char quant8(float v) {
-  return static_cast<signed char>(
-      static_cast<int>(fminf(fmaxf(rintf(v), -127.f), 127.f)));
-}
-
-// the two int8 values of a bf16 pair, as the 2 bytes of a char2 store
-__device__ __forceinline__ unsigned quant8x2(unsigned pair, float inv) {
-  const float2 f = unpack_bf16(pair);
-  return static_cast<unsigned char>(quant8(f.x * inv)) |
-         static_cast<unsigned>(static_cast<unsigned char>(quant8(f.y * inv)))
-             << 8;
-}
-
-// the multiplier that quantizes a row: 1 / s for a static scale s, else
-// 127 / max(amax, 1e-6) (the row's scale a * (1/127) goes to *scale_out,
-// written by the row's thread 0)
-__device__ __forceinline__ float quant_inv(const float* sscale, float amax,
-                                           float* scale_out, int t) {
-  if (sscale) return 1.0f / sscale[0];
-  const float a = fmaxf(amax, 1e-6f);
-  if (t == 0) *scale_out = a * (1.0f / 127.0f);
-  return 127.0f / a;
 }
 
 // the total of v over the row's WPR warps (a sum, or with MAX a max): a
@@ -486,7 +457,7 @@ TOC3D_EXPORT int toc3d_rowquant(const void* x, int ldx, int rows, int n,
 }
 
 // ---------------------------------------------------------------------------
-// GEMM (gemm_sm90.cuh: G bf16, G8 int8; gemm.cuh: the head's int8 linears)
+// GEMM (gemm_sm90.cuh: G bf16, G8 int8; gemm.cuh: the mma.sync oracle)
 // ---------------------------------------------------------------------------
 
 // bf16 x bf16 -> f32 GEMM on the TMA + wgmma kernel (kernel G)
@@ -539,9 +510,10 @@ static gemm::Args s8_args(const void* A, int lda, const void* xs, int xs_row,
   return a;
 }
 
-// int8 x int8 -> int32 GEMM on gemm.cuh's mma.sync tile (the head's int8
-// linears, H8), dequantized by xs (per row, or one static scale when xs_row
-// is 0) and ws (per output channel) before the epilogue
+// int8 x int8 -> int32 GEMM on gemm.cuh's mma.sync tile (on no main path:
+// the oracle of G8 and, with head, of H8), dequantized by xs (per row, or one
+// static scale when xs_row is 0) and ws (per output channel) before the
+// epilogue
 TOC3D_EXPORT int toc3d_gemm_s8(const void* A, int lda, const void* xs,
                                int xs_row, const void* B, int ldb,
                                const void* ws, const void* bias,

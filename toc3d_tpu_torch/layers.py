@@ -8,9 +8,9 @@ Conventions, as in the JAX package:
   dtype (layers.py:134-142).
 * int8 serving (layers.py:81-121): ``quantize_linear`` packs a weight per
   output channel into a ``QuantLinear``; ``linear`` given such a pack takes
-  the int8 route (ops/cuda/int8.int8_linear: dynamic per-row activation
-  quantization and the int8 GEMM kernel on the card, its plain version on
-  the CPU).
+  the int8 route (ops/cuda/int8.int8_linear: kernel H8 on the card, one
+  launch that quantizes the rows dynamically and runs the int8 product; its
+  plain version on the CPU).
 """
 from __future__ import annotations
 

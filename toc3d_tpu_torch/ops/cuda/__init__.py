@@ -2,9 +2,9 @@
 toc3d_tpu/ops/pallas/: patch_embed (patchify_matmul), vit_block
 (fused_full_block, fused_compressed_block and their int8 forms) and
 cross_attn (flash_attention_core); int8 holds the quantization math, the
-int8 GEMM and row quantization those int8 forms and the head's int8
-linears share; auction the training matcher (toc3d_tpu/core/auction.py,
-plain jnp in JAX).
+int8 GEMM G8 and row quantization of those int8 forms, and kernel H8, the
+head's int8 linears (csrc/int8_linear.cu); auction the training matcher
+(toc3d_tpu/core/auction.py, plain jnp in JAX).
 
 Each wrapper takes its plain PyTorch version only for tensors that lie on the
 CPU; for a CUDA tensor it launches the kernel or raises. Each wrapper counts

@@ -61,6 +61,10 @@ SIGNATURES = {
         "toc3d_flash_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _I, _P],
     },
+    "int8_linear": {
+        "toc3d_int8_linear": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _P],
+    },
     "auction": {
         "toc3d_auction": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     },

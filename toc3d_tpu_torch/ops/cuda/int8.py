@@ -1,8 +1,11 @@
-"""int8 quantization, the int8 GEMMs and row quantization (kernels of
-csrc/vit_block.cu): kernel G8 (``gemm_s8_sm90``, the TMA + wgmma GEMM of
-csrc/gemm_sm90.cuh) behind the weight matmuls of the int8 blocks B8 and C8
-(ops/cuda/vit_block.py), and ``gemm_s8`` (csrc/gemm.cuh's mma.sync tile)
-behind the head decoder's int8 linears (H8); row quantization serves both.
+"""int8 quantization and the int8 kernels: kernel G8 (``gemm_s8_sm90``, the
+TMA + wgmma GEMM of csrc/gemm_sm90.cuh, built in csrc/vit_block.cu) behind
+the weight matmuls of the int8 blocks B8 and C8 (ops/cuda/vit_block.py),
+fed by row quantization (``row_quant``) at their proj_in site; kernel H8
+(``int8_linear``, csrc/int8_linear.cu: one wgmma launch a call, the row
+quantization of its input fused) behind the head decoder's int8 linears;
+and ``gemm_s8``, csrc/gemm.cuh's mma.sync tile, on no main path: the
+bit-for-bit oracle that the card tests and chip_smoke.py hold G8 and H8 to.
 
 Plain versions of toc3d_tpu/ops/pallas/vit_block.py :: quantize_block_params
 (:201, the weight half), _rowquant (:247), _statquant (:259) and _qmm
@@ -49,6 +52,110 @@ class QuantLinear(NamedTuple):
     w: torch.Tensor
     scale: torch.Tensor
     bias: Optional[torch.Tensor]
+
+
+# kernel H8's tile and shared-memory plan (csrc/int8_linear.cu, namespace
+# h8): 64-row tiles, K in blocks of 128 (one 128-byte swizzle row of int8,
+# one x chunk of 128 bf16 in one TMA box), BN from H8_BNS
+H8_BM, H8_KB, H8_BNS, H8_K_MAX = 64, 128, (128, 256), 2048
+H8_X_BYTES = H8_BM * H8_KB * 2       # one bf16 x chunk
+H8_STREAM_BUFS = 4                   # x chunk buffers above K 256
+H8_STREAM_SLOTS = 4                  # quantized k block slots above K 256
+H8_STAGE_OUT = 64 * 128              # one output staging buffer
+H8_MAX_BARS = 48
+H8_BN_MAX = 256
+H8_SMEM_MAX = 232448                 # a block's shared memory on sm_90
+
+
+class H8Plan(NamedTuple):
+    """One H8 launch: bn columns a tile, ``grid`` blocks over ``tiles``
+    tiles (``tiles_n`` along N; block b takes tiles b, b + grid, ...),
+    ``nkb`` k blocks of 128, ``nas`` slots of quantized k blocks, ``nxb`` x
+    chunk buffers, ``wst`` weight stages (each a ring); ``panel`` (K <= 256:
+    a tile's x chunks read once, kept in registers between the amax and the
+    quantizing pass) and ``resident`` (the weight tile loaded once a block)
+    as the kernel derives them; ``smem`` its dynamic shared memory in
+    bytes."""
+    bn: int
+    grid: int
+    tiles_n: int
+    tiles: int
+    nkb: int
+    nas: int
+    nxb: int
+    wst: int
+    panel: bool
+    resident: bool
+    smem: int
+
+
+def h8_bars(nas, nxb, wst):
+    """An H8 launch's barriers (int8_linear.cu bars): weight stages full, x
+    buffers full and free, k block slots quantized and free, the rows'
+    scales of two tiles free."""
+    return wst + 2 * nxb + 2 * nas + 2
+
+
+def h8_smem(bn, nas, nxb, wst):
+    """Dynamic shared memory of an H8 launch (int8_linear.cu smem_bytes)."""
+    return (1024 + wst * bn * H8_KB + nas * H8_BM * H8_KB
+            + nxb * H8_X_BYTES + 4 * H8_STAGE_OUT + 2 * H8_BM * 4
+            + 2 * H8_BN_MAX * 4 + h8_bars(nas, nxb, wst) * 8)
+
+
+def h8_plan(m: int, n: int, k: int, sms: int) -> H8Plan:
+    """The launch of kernel H8 for x (m, k) @ w (n, k)^T on ``sms`` SMs.
+    BN (split between the two consumer warpgroups): the smallest of H8_BNS
+    whose tiles fit in one wave, else the smallest that covers N (at most
+    256) on a persistent grid whose size is a multiple of the column tiles,
+    so that a block keeps one weight tile.
+    K <= 256: every k block of a tile in its slot and the weight tile
+    resident, and with several tiles a block, the slots of two tiles and x
+    buffers for three, so that the quantizer runs a tile ahead. Above: 4
+    slots, 4 x buffers and as many weight stages as fit. Raises ValueError
+    for a width the kernel does not take: k a multiple of 16 from 16 to
+    H8_K_MAX, n a positive multiple of 8 (16-byte output rows for the TMA
+    store)."""
+    if k % 16 or not 16 <= k <= H8_K_MAX or n <= 0 or n % 8 or m < 0:
+        raise ValueError(f"int8_linear: unsupported shape ({m}, {k}) -> {n}"
+                         f" (in a multiple of 16 from 16 to {H8_K_MAX}, out "
+                         "a multiple of 8)")
+    rows = -(-m // H8_BM)
+    bn = next((b for b in H8_BNS if rows * -(-n // b) <= sms), None)
+    if bn is None:
+        bn = next((b for b in H8_BNS if b >= n), H8_BNS[-1])
+    tiles_n = -(-n // bn)
+    tiles = rows * tiles_n
+    grid = tiles if tiles <= sms else max(sms // tiles_n, 1) * tiles_n
+    nkb = -(-k // H8_KB)
+    panel = k <= 2 * H8_KB
+    several = tiles > grid
+
+    def fits(nas, nxb, wst):
+        return (h8_smem(bn, nas, nxb, wst) <= H8_SMEM_MAX
+                and h8_bars(nas, nxb, wst) <= H8_MAX_BARS)
+
+    wst = nkb
+    if panel:
+        nas, nxb = nkb * (2 if several else 1), nkb * (3 if several else 1)
+        while not fits(nas, nxb, wst) and nxb > nkb:
+            nxb -= 1
+        while not fits(nas, nxb, wst) and wst > 1:
+            wst -= 1
+    else:
+        nas, nxb = min(nkb, H8_STREAM_SLOTS), H8_STREAM_BUFS
+        while not fits(nas, nxb, wst):
+            if wst > 4:
+                wst -= 1
+            elif nxb > 2:
+                nxb -= 1
+            elif wst > 2:
+                wst -= 1
+            else:
+                nas -= 1
+    resident = wst >= nkb and (tiles <= grid or grid % tiles_n == 0)
+    return H8Plan(bn, grid, tiles_n, tiles, nkb, nas, nxb, wst, panel,
+                  resident, h8_smem(bn, nas, nxb, wst))
 
 
 def _div(a, b):
@@ -163,15 +270,14 @@ def row_quant(x, static_scale=None):
 
 def gemm_s8(aq, xs, wq, ws, bias=None, res=None, out_f32=False, gate=False,
             head=False, out=None):
-    """The int8 GEMM of the head's int8 linears (H8, ``int8_linear``) on
-    csrc/gemm.cuh's mma.sync tile, the only caller on the main path: aq (M,
+    """The int8 GEMM on csrc/gemm.cuh's mma.sync tile, on no main path: the
+    oracle that kernel G8 (``gemm_s8_sm90``) and, after ``row_quant``,
+    kernel H8 (``int8_linear``) are held to bit for bit on the card. aq (M,
     K) int8 @ wq (N, K)^T, dequantized by xs (M,) row scales or a
     1-element static scale and ws (N,) channel scales, then the epilogue
     (head: the head's product order and bias rounding; or bias, residual,
-    SwiGLU gate or f32 out, the blocks' epilogues that kernel G8 computes
-    bit for bit the same, and against which the card tests hold it).
-    Returns ``out`` ((M, N) bf16, (M, N) f32 with out_f32, (M, N/2) bf16
-    with gate). The weight matmuls of B8 and C8 run on ``gemm_s8_sm90``."""
+    SwiGLU gate or f32 out, the blocks' epilogues). Returns ``out`` ((M, N)
+    bf16, (M, N) f32 with out_f32, (M, N/2) bf16 with gate)."""
     check_cuda("gemm_s8", aq, wq, dtype=torch.int8)
     check_cuda("gemm_s8", xs, ws, dtype=torch.float32, aligned=False)
     m, k = aq.shape
@@ -255,22 +361,39 @@ def _int8_linear_fake(x, w, scale, bias):
 
 @_int8_linear_op.register_kernel("cuda")
 def _int8_linear_cuda(x, w, scale, bias):
-    """H8's launches: row quantization, then the int8 GEMM with the head's
-    epilogue; counted once in ``launches``."""
-    check_cuda("int8_linear", w, dtype=torch.int8)
+    """H8's one launch (csrc/int8_linear.cu), on the plan of ``h8_plan``;
+    counted in ``launches``."""
+    name = "int8_linear"
+    check_cuda(name, w, dtype=torch.int8)
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    check_cuda("int8_linear", x2, dtype=torch.bfloat16)
-    q, s = row_quant(x2)
-    y = gemm_s8(q, s, w, scale, bias, head=True)
-    int8_linear.launches += 1
-    return y.reshape(*x.shape[:-1], w.shape[0])
+    check_cuda(name, x2, dtype=torch.bfloat16)
+    m, k = x2.shape
+    n = w.shape[0]
+    if w.dim() != 2 or w.shape[1] != k:
+        raise ValueError(f"{name}: weight {tuple(w.shape)} for input width "
+                         f"{k}")
+    plan = h8_plan(m, n, k, torch.cuda.get_device_properties(
+        x2.device).multi_processor_count)
+    check_pairs(name, scale, n)
+    if bias is not None:
+        check_pairs(name, bias, n)
+    y = torch.empty(m, n, dtype=torch.bfloat16, device=x2.device)
+    if m:
+        call("int8_linear", "toc3d_int8_linear", x2.data_ptr(), w.data_ptr(),
+             scale.data_ptr(), None if bias is None else bias.data_ptr(),
+             y.data_ptr(), m, n, k, plan.bn, plan.grid, plan.nas, plan.nxb,
+             plan.wst, stream_of(x2))
+        int8_linear.launches += 1
+    return y.reshape(*x.shape[:-1], n)
 
 
 def int8_linear(x, p: QuantLinear):
-    """The head decoder's int8 linear (layers.py:81-121) through the op
-    ``toc3d::int8_linear``: row quantization and the int8 GEMM with the
-    head's epilogue on a bf16 CUDA tensor x (..., in) -> (..., out) bf16;
-    the plain version on a CPU tensor."""
+    """Kernel H8, the head decoder's int8 linear (layers.py:81-121), through
+    the op ``toc3d::int8_linear``: on a bf16 CUDA tensor x (..., in) one
+    launch of csrc/int8_linear.cu (the rows' quantization, the s8 wgmma
+    product and the head's epilogue) -> (..., out) bf16; the plain version
+    on a CPU tensor. The widths it takes (``h8_plan``): in a multiple of 16
+    from 16 to 2048, out a multiple of 8; any other raises ValueError."""
     check_device("int8_linear", x)
     return torch.ops.toc3d.int8_linear(x, p.w, p.scale, p.bias)
 

@@ -37,13 +37,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # kernel-name substring -> family, first match wins: kernel G
 # (gemm90::gemm_sm90_kernel) carries every bf16 matmul of B and C and the
 # patch embedding A's product, kernel G8 (gemm90::gemm_s8_sm90_kernel) every
-# int8 matmul of B8 and C8, gemm.cuh's mma.sync tile (gemm::gemm_kernel) the
-# head's int8 linears; A's other launch is its im2col copy
-FAMILIES = (("gemm_s8_sm90_kernel", "GEMM s8 wgmma G8 (B8, C8)"),
+# int8 matmul of B8 and C8, kernel H8 (h8::int8_linear_kernel) the head's
+# int8 linears with their row quantization; gemm.cuh's mma.sync tile
+# (gemm::gemm_kernel) runs on no main path, so its bucket should stay empty;
+# A's other launch is its im2col copy
+FAMILIES = (("int8_linear_kernel", "int8 linear wgmma H8 (quantizing)"),
+            ("gemm_s8_sm90_kernel", "GEMM s8 wgmma G8 (B8, C8)"),
             ("gemm_sm90_kernel", "GEMM bf16 wgmma (A, B, C)"),
-            ("gemm_kernel", "GEMM mma.sync (H8)"),
+            ("gemm_kernel", "GEMM mma.sync (gemm_s8, no main path)"),
             ("patch_im2col_kernel", "patch im2col (A)"),
-            ("rowquant_kernel", "row quantization (B8, C8, H8)"),
+            ("rowquant_kernel", "row quantization (B8, C8)"),
             ("window_attention_kernel", "window attention (B, C)"),
             ("layernorm_kernel", "LayerNorm (B, C, B8, C8)"),
             ("gather_merge_kernel", "gather/merge (C)"),
