@@ -127,6 +127,22 @@ Phases, each fatal on failure (exit code != 0):
      the host LAP ('callback') pinned, so that both matchers' `host
      matching` ms a step are printed; the tiny card-against-CPU step pins
      'callback' on both sides;
+  9b. training at 1600x800 (phase_train_1600): ToC3D_faster_1600 at full
+     width and depth, batch 2 of 6 views at 1600x800: A, B (ws 16) and C
+     at every (ws, ratio) at the step's shapes, 12 views (60000 rows) and
+     the default view scan's chunks of 2, each against its plain version
+     at the kernel bounds and timed (rows "A train1600 x12", ...); one
+     step under the default policy (the view scan on, a view a chunk)
+     with the counts set to 0 just before it and read just after (A 6, B
+     6, C 108, D 0, G 456, LN 342, AU 7) and its device memory by stage;
+     13 more steps with finite, falling losses and no skip (steps/s,
+     samples/s, peak memory, ms a step by stage); the backbone's own
+     peak in each regime; then view scan off, a chunk of 3 views and attn
+     chunk 32 unscanned, each with its launches (view scan off and attn
+     chunk 32: A 1, B 1, C 18; chunk 3: A 2, B 2, C 36), peak memory and
+     steps/s, an out-of-memory error of these three printed as that
+     regime's result; last 2 default steps under the profiler and 3
+     timed after it; prints the phase's seconds;
  10. matchers and closed loop (phase_traineval): the auction kernel
      (csrc/auction.cu) against its plain version, torch.equal, at JAX's
      test sizes (tests/test_auction.py, tests/test_auction_scale.py: Q 900,
@@ -170,6 +186,7 @@ convolutions).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -2428,31 +2445,10 @@ MATCH_STEPS = 6   # steps timed with the 'callback' matcher pinned
 
 def train_batch(rng, b, n, h, w, g3=32, g2=32, prev_exists=1.0):
     """bench.py's synthetic training batch (bench.py:47-84: random
-    normalized views, a fixed rig, 32 3D and 32 2D boxes), numpy."""
-    import numpy as np
-    eye = np.tile(np.eye(4, dtype=np.float32), (b, n, 1, 1))
-    intr = eye.copy()
-    intr[..., 0, 0] = intr[..., 1, 1] = 1.2e3
-    boxes = rng.randn(b, g3, 9).astype(np.float32)
-    boxes[..., 3:6] = np.abs(boxes[..., 3:6]) + 1.0
-    b2d = np.sort(np.abs(rng.rand(b, n, g2, 2, 2)).astype(np.float32) * 300,
-                  axis=-2).reshape(b, n, g2, 4)
-    return {
-        "img": rng.randn(b, n, h, w, 3).astype(np.float32),
-        "intrinsics": intr,
-        "img2lidar": eye + rng.randn(b, n, 4, 4).astype(np.float32) * 1e-3,
-        "timestamp": np.full((b,), 0.5, np.float32),
-        "ego_pose": np.tile(np.eye(4, dtype=np.float32), (b, 1, 1)),
-        "ego_pose_inv": np.tile(np.eye(4, dtype=np.float32), (b, 1, 1)),
-        "prev_exists": np.full((b,), prev_exists, np.float32),
-        "gt_bboxes_3d": boxes,
-        "gt_labels_3d": rng.randint(0, 10, (b, g3)),
-        "gt_valid_3d": np.ones((b, g3), bool),
-        "gt_bboxes_2d": b2d,
-        "gt_labels_2d": rng.randint(0, 10, (b, n, g2)),
-        "gt_centers_2d": rng.rand(b, n, g2, 2).astype(np.float32) * 300,
-        "gt_valid_2d": np.ones((b, n, g2), bool),
-    }
+    normalized views, a fixed rig, 32 3D and 32 2D boxes), numpy; the
+    port's bench builds it (toc3d_tpu_torch.bench.make_train_batch)."""
+    from toc3d_tpu_torch.bench import make_train_batch
+    return make_train_batch(rng, b, n, h, w, g3, g2, prev_exists)
 
 
 def _grad_pairs(tag, fn_out, model_out, inputs, g):
@@ -2493,6 +2489,40 @@ def _grad_pairs(tag, fn_out, model_out, inputs, g):
     return ok, worst, equal, ferr
 
 
+def train_patch_row(tag, conv, x_img):
+    """Kernel A (PatchEmbedFn's forward) on the views x_img (V, H, W, 3)
+    bf16 against its plain version at the kernel bounds, timed beside
+    F.conv2d and its bound. Returns (ok, the kernels-line row)."""
+    import torch
+    from toc3d_tpu_torch.ops.cuda import patch_embed
+    bf = torch.bfloat16
+    v, h, w, _ = x_img.shape
+    c = conv.out_channels
+    wmat, bias = patch_embed.pack_patch_weight(conv, bf)
+    shape = f"x ({v},{h},{w},3) bf16 -> ({v},{h // 16},{w // 16},{c})"
+    out = patch_embed.patchify_matmul(x_img, wmat, bias, 16)
+    ok, err = compare(f"{tag} {shape}", out,
+                      patch_embed.patchify_plain(x_img, wmat, bias, 16))
+    del out
+    m = v * (h // 16) * (w // 16)
+    b_ms, b_by = bound(2 * m * 768 * c, x_img.numel() * 2 + wmat.numel() * 2
+                       + m * c * 2)
+    xin, wconv, bconv = x_img.permute(0, 3, 1, 2), conv.weight.to(bf), \
+        conv.bias.to(bf)
+    return ok, dict(
+        name="patchify_matmul (training: PatchEmbedFn)", route="cuda",
+        source="toc3d_tpu_torch/csrc/patch_embed.cu",
+        replaces="toc3d_tpu/ops/pallas/patch_embed.py:60",
+        shape=shape, max_abs_err=err,
+        ms=cuda_time(lambda: patch_embed.patchify_matmul(x_img, wmat, bias,
+                                                          16), 20),
+        plain_ms=cuda_time(lambda: patch_embed.patchify_plain(
+            x_img, wmat, bias, 16), 3),
+        library_ms=cuda_time(lambda: torch.nn.functional.conv2d(
+            xin, wconv, bconv, stride=16), 20),
+        bound_ms=b_ms, bound_by=b_by)
+
+
 def train_kernel_checks(model, results, g):
     """Each Function of the training step at its training shapes
     (ToC3D_faster, batch 2: 12 views of 800x320, 20 x 50 maps): the
@@ -2511,7 +2541,7 @@ def train_kernel_checks(model, results, g):
     from dataclasses import replace
     from toc3d_tpu_torch.models.eva_vit import make_rope_tables, rope_tensors
     from toc3d_tpu_torch.ops import trainable
-    from toc3d_tpu_torch.ops.cuda import cross_attn, patch_embed
+    from toc3d_tpu_torch.ops.cuda import cross_attn
     dev = torch.device("cuda")
     bf = torch.bfloat16
     cfg = replace(model.cfg.backbone, mxu_align_k=False)
@@ -2525,27 +2555,7 @@ def train_kernel_checks(model, results, g):
     # A: 12 x 320 x 800 normalized views
     x_img = torch.randn(12, 320, 800, 3, device=dev, generator=g).to(bf)
     conv = bb.patch_embed.proj
-    wmat, bias = patch_embed.pack_patch_weight(conv, bf)
-    out = patch_embed.patchify_matmul(x_img, wmat, bias, 16)
-    ok, err = compare("A train (12,320,800,3)->(12,20,50,1024)", out,
-                      patch_embed.patchify_plain(x_img, wmat, bias, 16))
-    m = 12 * 20 * 50
-    b_ms, b_by = bound(2 * m * 768 * c, x_img.numel() * 2 + wmat.numel() * 2
-                       + m * c * 2)
-    xin, wconv, bconv = x_img.permute(0, 3, 1, 2), conv.weight.to(bf), \
-        conv.bias.to(bf)
-    results["A train"] = dict(
-        name="patchify_matmul (training: PatchEmbedFn)", route="cuda",
-        source="toc3d_tpu_torch/csrc/patch_embed.cu",
-        replaces="toc3d_tpu/ops/pallas/patch_embed.py:60",
-        shape="x (12,320,800,3) bf16 -> (12,20,50,1024)", max_abs_err=err,
-        ms=cuda_time(lambda: patch_embed.patchify_matmul(x_img, wmat, bias,
-                                                          16), 20),
-        plain_ms=cuda_time(lambda: patch_embed.patchify_plain(
-            x_img, wmat, bias, 16), 3),
-        library_ms=cuda_time(lambda: torch.nn.functional.conv2d(
-            xin, wconv, bconv, stride=16), 20),
-        bound_ms=b_ms, bound_by=b_by)
+    ok, results["A train"] = train_patch_row("A train", conv, x_img)
     ok_all &= ok
     ga = torch.randn(12, 20, 50, c, device=dev, generator=g).to(bf)
     ins = [conv.weight, conv.bias]
@@ -2557,7 +2567,7 @@ def train_kernel_checks(model, results, g):
     results["A train"]["bwd_ms"] = cuda_time(lambda: torch.autograd.grad(
         trainable.trainable_patch_embed(conv, x_img, 16), ins, ga), 5)
     log(f"time A train: {json.dumps(results['A train'])}")
-    del x_img, xin, out
+    del x_img
 
     # B at ws 16 (block 0) and C at every (ws, ratio) of the step
     x = (torch.randn(12, 20, 50, c, device=dev, generator=g) * 0.5).to(bf)
@@ -2635,29 +2645,32 @@ def train_kernel_checks(model, results, g):
     return ok_all
 
 
-def _tally_train_shapes():
+def _tally_train_shapes(tag="train", views=False):
     """Wrap the kernels the trainable Functions call with a per-shape
-    tally (the kernels' own counters are per kernel). Returns (tally,
-    restore)."""
+    tally (the kernels' own counters are per kernel), keyed "A {tag}",
+    "B {tag} ws{ws}", "C {tag} ws{ws} r{ratio}", with " x{views}" after
+    the key when ``views``. Returns (tally, restore)."""
     from toc3d_tpu_torch.ops import trainable
     tally = {}
     full, comp, patch = (trainable.fused_full_block,
                          trainable.fused_compressed_block,
                          trainable.patchify_matmul)
 
-    def full_(blk, x, heads, ws, rope):
-        key = f"B train ws{ws}"
+    def count(key, x):
+        key += f" x{x.shape[0]}" if views else ""
         tally[key] = tally.get(key, 0) + 1
+
+    def full_(blk, x, heads, ws, rope):
+        count(f"B {tag} ws{ws}", x)
         return full(blk, x, heads, ws, rope)
 
     def comp_(blk, x, scores, heads, ws, ratio, *a, **kw):
-        key = f"C train ws{ws} r{ratio}"
-        tally[key] = tally.get(key, 0) + 1
+        count(f"C {tag} ws{ws} r{ratio}", x)
         return comp(blk, x, scores, heads, ws, ratio, *a, **kw)
 
-    def patch_(*a, **kw):
-        tally["A train"] = tally.get("A train", 0) + 1
-        return patch(*a, **kw)
+    def patch_(x, *a, **kw):
+        count(f"A {tag}", x)
+        return patch(x, *a, **kw)
     trainable.fused_full_block = full_
     trainable.fused_compressed_block = comp_
     trainable.patchify_matmul = patch_
@@ -2738,7 +2751,7 @@ PORT_KERNELS = ("gemm_sm90_kernel", "patch_im2col_kernel",
                 "flash_partial_kernel", "flash_combine_kernel")
 
 
-def train_profile(run_step, n=2, top=10):
+def train_profile(run_step, n=2, top=10, tag="train"):
     """run_step(i) ``n`` times under torch.profiler: the wall ms a step (up
     to a synchronisation), the device time of the CUDA kernels a step
     (copies and fills not counted), the idle share (1 - kernel time / wall),
@@ -2767,7 +2780,7 @@ def train_profile(run_step, n=2, top=10):
                idle_share=max(0.0, 1 - total / wall), port_kernel_ms=ours,
                top=[(round(ms, 3), k[:90]) for k, ms in sorted(
                    per_kernel.items(), key=lambda kv: -kv[1])[:top]])
-    log(f"train profile ({n} steps): wall {wall:.3f} ms/step; device "
+    log(f"{tag} profile ({n} steps): wall {wall:.3f} ms/step; device "
         f"kernel time {total:.3f} ms/step; idle share "
         f"{out['idle_share']:.3f}; the port's kernels {ours:.3f} ms/step; "
         f"top kernels (ms/step) {out['top']}")
@@ -3036,6 +3049,351 @@ def phase_train(results, captured):
     log(f"phase_train: kernels {ok_k}, launches {ok_l}, steps {ok_s}, "
         f"recapture {ok_c}, save/load {ok_r}, tiny card vs CPU {ok_a}, "
         f"trainer CLI {ok_cli}")
+    return ok
+
+
+# ---------------------------------------------------------------------------
+# training at 1600x800 (phase_train_1600)
+# ---------------------------------------------------------------------------
+
+# one step of ToC3D_faster_1600 at batch 2 under the default policy (the
+# view scan on, a chunk of 1 view: 6 chunks of 2 rows); unscanned, one
+# chunk of 12 rows (A 1, B 1, C 18, G 76, LN 57, as phase_train's)
+TRAIN1600_PER_STEP = {"A": 6, "B": 6, "C": 108, "D": 0, "B8": 0, "C8": 0,
+                      "H8": 0, "G": 456, "G8": 0, "LN": 342, "AU": 7}
+TRAIN1600_SETTLE, TRAIN1600_TIMED = 3, 10
+REGIME_TIMED = 3     # steps timed in each other regime, after its first
+# (label, make_train_step's options, views a chunk): JAX's bench flags
+# --view-scan off, --view-chunk 3 and --attn-chunk 32 (unscanned by the
+# policy)
+TRAIN1600_REGIMES = (("view scan off", dict(view_scan=False), 6),
+                     ("view chunk 3", dict(view_scan=3), 3),
+                     ("attn chunk 32", dict(attn_chunk=32), 6))
+
+
+def _per_step(views_a_chunk: int) -> dict:
+    """The launches of one step whose backbone runs 6 / views_a_chunk
+    chunks of views."""
+    nc = 6 // views_a_chunk
+    return {k: (v if k in ("D", "AU") else v // 6 * nc)
+            for k, v in TRAIN1600_PER_STEP.items()}
+
+
+def train1600_kernel_checks(model, results, g):
+    """A, B (ws 16) and C at every (ws, ratio) of the step, with the
+    reference's keep counts, each forward against its plain version at the
+    kernel bounds and timed beside its library yardstick and bound, at the
+    step's 1600x800 shapes (50 x 100 maps): 12 views (batch 2 unscanned:
+    60000 rows, 336 windows at ws 16, 180 at ws 20) and 2 (a chunk of the
+    default view scan). Rows "A train1600 x12", "B train1600 ws16 x2", ...,
+    each with the regime whose step launches it (its launches are set
+    there). Returns ok."""
+    import torch
+    from dataclasses import replace
+    from toc3d_tpu_torch.models.eva_vit import make_rope_tables, rope_tensors
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    cfg = replace(model.cfg.backbone, mxu_align_k=False)
+    bb = model.img_backbone
+    c = cfg.embed_dim
+    win, glb = make_rope_tables(cfg)
+    rope = {cfg.window_size: rope_tensors(win, dev),
+            cfg.global_window_size: rope_tensors(glb, dev)}
+    ok_all = True
+    for v, regime in ((12, "view scan off"), (2, "view scan (default)")):
+        x_img = torch.randn(v, 800, 1600, 3, device=dev, generator=g).to(bf)
+        tag = f"A train1600 x{v}"
+        ok, results[tag] = train_patch_row(tag, bb.patch_embed.proj, x_img)
+        log(f"time {tag}: {json.dumps(results[tag])}")
+        ok_all &= ok
+        del x_img
+        x = (torch.randn(v, 50, 100, c, device=dev, generator=g)
+             * 0.5).to(bf)
+        scores = torch.log(torch.rand(v, 5000, device=dev, generator=g)
+                           * 0.9 + 0.05).to(bf)
+        for i, ws, ratio in block_shapes(cfg):
+            if ratio is None and i != 0:
+                continue      # the other full blocks run the model path
+            kind = "B" if ratio is None else "C"
+            tag = f"{kind} train1600 ws{ws}" + (
+                "" if ratio is None else f" r{ratio}") + f" x{v}"
+            ok, entry = check_block(tag, bb.blocks[i], x, cfg, ws, rope[ws],
+                                    scores, ratio, reps=5)
+            ok_all &= ok
+            results[tag] = dict(
+                name=("fused_full_block (training: FullBlockFn)"
+                      if kind == "B" else "fused_compressed_block "
+                      "(training: CompressedBlockFn)"),
+                route="cuda", source="toc3d_tpu_torch/csrc/vit_block.cu",
+                replaces=BLOCK_ROWS[kind][1], **entry)
+        for tag in results:
+            if tag.startswith(("A train1600", "B train1600", "C train1600")) \
+                    and tag.endswith(f" x{v}"):
+                results[tag].update(launches=0, regime=regime)
+        del x, scores
+        torch.cuda.empty_cache()
+    return ok_all
+
+
+class MemorySpans:
+    """A stand-in for runtime/timer.StageTimer that reads, for each span of
+    a step, the peak of allocated device memory inside it (the device
+    synchronised and the peak reset at the span's start) and the memory
+    allocated at its start, in GiB."""
+
+    def __init__(self):
+        self.peaks, self.start = {}, {}
+
+    @contextlib.contextmanager
+    def span(self, name):
+        import torch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.start[name] = torch.cuda.memory_allocated() / 2**30
+        yield
+        torch.cuda.synchronize()
+        self.peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+
+    def line(self) -> str:
+        return json.dumps({k: [round(self.start[k], 3), round(v, 3)]
+                           for k, v in self.peaks.items()})
+
+
+def backbone_peak(model, memory, batch, steady, noise, **opts):
+    """The backbone alone in training (extract_img_feat(train=True) with
+    ``opts``: view_scan, attn_chunk), forward and backward of a loss of its
+    features and token masks against its parameters: the device memory
+    allocated before it and the peak above that, in GiB, and its ms (host
+    clock to a synchronisation)."""
+    import torch
+    from toc3d_tpu_torch.models.detector import extract_img_feat
+    params = [p for p in model.img_backbone.parameters()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    f, aux = extract_img_feat(model, batch["img"], memory, batch,
+                              steady=steady, mask_noise=noise.gumbel,
+                              train=True, dp_keep=noise.drop_path,
+                              remat=True, **opts)
+    loss = f.square().mean() + sum(m.float().mean()
+                                   for m in aux["token_masks"])
+    torch.autograd.grad(loss, params, allow_unused=True)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return dict(start_gib=start / 2**30,
+                peak_above_gib=(torch.cuda.max_memory_allocated() - start)
+                / 2**30, ms=ms)
+
+
+def _train_run(step, state, batch, steady, noise_at, steps, timer=None,
+               settle=0):
+    """``steps`` train steps; the first ``settle`` untimed. Returns (state,
+    the total losses (numpy), skips, wall s of the timed steps)."""
+    import numpy as np
+    import torch
+    totals, m = [], None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        if i == settle:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, m = step(state, batch, noise_at(i), steady=steady,
+                        timer=timer if i >= settle else None)
+        totals.append(m["total_loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (state, torch.stack(totals).cpu().numpy().astype(np.float64),
+            int(m["nonfinite_skips"]), wall)
+
+
+def phase_train_1600(results):
+    """Training of ToC3D_faster_1600 at full width and depth on the card,
+    batch 2 of 6 views at 1600x800, seeded random weights, bench.py's
+    synthetic batch (train_batch):
+    (a) A, B and C at the step's 1600x800 shapes (train1600_kernel_checks);
+    (b) one step under the default policy (the view scan on, a view a
+        chunk) with every count set to 0 just before it and read just
+        after: A 6, B 6, C 108, D 0, G 456, LN 342, AU 7, and per shape;
+        the device memory allocated at the start of each stage of that
+        step and its peak inside the stage (MemorySpans);
+    (c) TRAIN1600_SETTLE + TRAIN1600_TIMED more steps: every loss of the
+        run finite, the mean of its last 5 below the mean of its first 5,
+        no non-finite skip; steps/s, samples/s, peak memory (over (b) and
+        (c)) and the ms a step by stage (CUDA events);
+    then the backbone alone under the default and each other regime
+        (backbone_peak), the part of the step the view scan bounds;
+    (d) each of TRAIN1600_REGIMES, on the same state: its first step with
+        the counts set to 0 and read after and its memory by stage, then
+        REGIME_TIMED timed steps; peak memory and steps/s. An
+        out-of-memory error of such a regime
+        is caught and printed as its result; the default regime has no
+        such catch;
+    (e) 2 default steps under torch.profiler (train_profile: kernel time,
+        idle share), last, as a profiler session slows the launches that
+        follow it in the process, then REGIME_TIMED default steps timed
+        after it.
+    Prints the phase's seconds. Returns ok."""
+    import gc
+    import numpy as np
+    import torch
+    from toc3d_tpu_torch.configs import get_config
+    from toc3d_tpu_torch.models.detector import build_detector, frame_seed
+    from toc3d_tpu_torch.runtime import train as tr
+    from toc3d_tpu_torch.runtime.timer import StageTimer
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = get_config("ToC3D_faster_1600")
+    b, n = 2, 6
+    model = build_detector(cfg, device=dev, seed=0)
+    with torch.no_grad():
+        ok_k = train1600_kernel_checks(
+            model, results, torch.Generator(device=dev).manual_seed(12))
+    torch.cuda.empty_cache()
+    tx = tr.make_optimizer(model, total_iters=1000)
+    state = tr.init_train_state(model, tx, b)
+    batch, steady = tr.batch_to_device(
+        train_batch(np.random.RandomState(0), b, n, *cfg.pad_shape), dev)
+    gen = torch.Generator(device=dev)
+
+    def noise_from(seed):
+        def at(i):
+            gen.manual_seed(frame_seed(seed, i))
+            return tr.draw_train_noise(cfg, b, n, gen, dev, gt3=32)
+        return at
+
+    def counted_step(step, st, noise, views_a_chunk):
+        """One step with the counts set to 0 before it and read after, its
+        memory read by stage (MemorySpans); the peak is reset after it."""
+        for f in counters():
+            f.launches = 0
+        tally, restore = _tally_train_shapes("train1600", views=True)
+        mem = MemorySpans()
+        try:
+            st, m = step(st, batch, noise, steady=steady, timer=mem)
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        got = {k: f.launches for k, f in zip(KERNELS, counters())}
+        want = _per_step(views_a_chunk)
+        ok = got == want and sum(
+            v for k, v in tally.items() if k.startswith("C")) == got["C"]
+        for key, nl in tally.items():
+            if key in results:
+                results[key]["launches"] = nl
+        torch.cuda.reset_peak_memory_stats()
+        return st, m, got, want, tally, ok, mem
+
+    # (b) + (c): the default policy
+    step = default_step = tr.make_train_step(tx)
+    at = noise_from(1)
+    state, m0, got, want, tally, ok_l, mem = counted_step(step, state, at(0),
+                                                         1)
+    ok_l &= tr.auto_view_scan(cfg)
+    log(f"train1600 launches in one step (view scan, a view a chunk): "
+        f"{got} (expected {want}) {'ok' if ok_l else 'FAIL'}; per shape "
+        f"{tally}; GiB allocated at the start of each stage and its peak: "
+        f"{mem.line()}")
+    timer = StageTimer(dev)
+    state, losses, skips, wall = _train_run(
+        step, state, batch, steady, lambda i: at(1 + i),
+        TRAIN1600_SETTLE + TRAIN1600_TIMED, timer, TRAIN1600_SETTLE)
+    losses = np.concatenate([[float(m0["total_loss"])], losses])
+    peak = max(torch.cuda.max_memory_allocated() / 2**30,
+               *mem.peaks.values())
+    first5, last5 = losses[:5].mean(), losses[-5:].mean()
+    ok_s = bool(np.isfinite(losses).all()) and last5 < first5 and skips == 0
+    sps = TRAIN1600_TIMED / wall
+    stages = {k: v["mean"] for k, v in timer.summary().items()}
+    log(f"train1600 ToC3D_faster_1600 batch {b} x {n} views 1600x800, view "
+        f"scan (a view a chunk), {len(losses)} steps on one batch: losses "
+        f"{[round(float(v), 4) for v in losses]}; first 5 mean "
+        f"{first5:.4f}, last 5 mean {last5:.4f}; nonfinite_skips {skips}; "
+        f"{sps:.4f} steps/s, {b * sps:.4f} samples/s, "
+        f"{wall / TRAIN1600_TIMED * 1e3:.3f} ms/step wall "
+        f"({TRAIN1600_TIMED} timed); peak memory {peak:.3f} GiB "
+        f"{'ok' if ok_s else 'FAIL'}")
+    log("train1600 ms a step by stage (CUDA events, mean over "
+        f"{TRAIN1600_TIMED} steps): "
+        + json.dumps({k: round(v, 3) for k, v in stages.items()}))
+    out = results["train1600"] = dict(
+        default=dict(steps_per_s=sps, samples_per_s=b * sps, peak_gib=peak,
+                     stage_ms=stages, launches=got, stage_peak_gib=mem.peaks))
+
+
+    # the backbone alone under each regime: what the view scan bounds
+    noise = noise_from(3)(0)
+    alone = {label: backbone_peak(model, state.memory, batch, steady, noise,
+                                  **opts)
+             for label, opts in [("view scan (default)", dict(view_scan=True))]
+             + [(label, opts) for label, opts, _ in TRAIN1600_REGIMES]}
+    del noise
+    out["backbone_alone"] = alone
+    log("train1600 the backbone alone, forward and backward (GiB allocated "
+        "before it, peak above that, ms): " + json.dumps(
+            {k: [round(v["start_gib"], 3), round(v["peak_above_gib"], 3),
+                 round(v["ms"], 1)] for k, v in alone.items()}))
+
+    # (d): the other regimes on the same state
+    ok_r = True
+    for label, opts, views_a_chunk in TRAIN1600_REGIMES:
+        step = tr.make_train_step(tx, **opts)
+        at = noise_from(2)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem = None
+        try:
+            state, m0, got, want, tally, ok_c, mem = counted_step(
+                step, state, at(0), views_a_chunk)
+            state, losses, skips, wall = _train_run(
+                step, state, batch, steady, lambda i: at(1 + i),
+                REGIME_TIMED)
+        except torch.cuda.OutOfMemoryError as e:
+            rec = dict(oom=str(e).splitlines()[0][:200],
+                       peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            log(f"train1600 regime {label}: out of memory "
+                f"({rec['oom']}); peak before it {rec['peak_gib']:.3f} GiB")
+        else:
+            peak = max(torch.cuda.max_memory_allocated() / 2**30,
+                       *mem.peaks.values())
+            good = ok_c and bool(np.isfinite(losses).all()) and skips == 0
+            rec = dict(steps_per_s=REGIME_TIMED / wall,
+                       samples_per_s=b * REGIME_TIMED / wall, peak_gib=peak,
+                       launches=got, stage_peak_gib=mem.peaks)
+            log(f"train1600 regime {label}: launches {got} (expected "
+                f"{want}), per shape {tally}; GiB at the start of each "
+                f"stage and its peak {mem.line()}; {REGIME_TIMED} steps "
+                f"{rec['steps_per_s']:.4f} steps/s, "
+                f"{rec['samples_per_s']:.4f} samples/s, peak memory "
+                f"{peak:.3f} GiB, losses "
+                f"{[round(float(v), 4) for v in losses]} "
+                f"{'ok' if good else 'FAIL'}")
+            ok_r &= good
+        out[label] = rec
+        gc.collect()
+
+    # (e): the default step under the profiler, then timed after it
+    def profiled(i):
+        nonlocal state
+        state, _ = default_step(state, batch, at(100 + i), steady=steady)
+    at = noise_from(4)
+    out["default"]["profile"] = train_profile(profiled, tag="train1600")
+    state, losses, skips, wall = _train_run(
+        default_step, state, batch, steady, lambda i: at(200 + i),
+        REGIME_TIMED + 1, settle=1)
+    out["default"]["steps_per_s_after_profiler"] = REGIME_TIMED / wall
+    log(f"train1600 default after a profiler session: "
+        f"{REGIME_TIMED / wall:.4f} steps/s ({REGIME_TIMED} steps; "
+        f"{TRAIN1600_TIMED} before it: {sps:.4f})")
+    del model, state, tx, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    ok = ok_k and ok_l and ok_s and ok_r
+    log(f"phase_train_1600: kernels {ok_k}, launches {ok_l}, steps {ok_s}, "
+        f"regimes {ok_r}; {out['wall_s']:.1f} s | {nvidia_smi_line()}")
     return ok
 
 
@@ -3927,23 +4285,26 @@ def main() -> int:
     captured = {}
     ok_t = phase_train(results, captured)
     torch.cuda.empty_cache()
+    ok_t16 = phase_train_1600(results)
+    torch.cuda.empty_cache()
     ok_te = phase_traineval(results, captured)
     torch.cuda.empty_cache()
     ok_pl = phase_parallel(results)
     if not (ok_k and ok_k8 and ok_ps and ok_m and ok_m8 and ok_p and ok_e
             and ok_bf and ok_gb and ok_s and ok_s8 and ok_x and ok_t
-            and ok_te and ok_pl):
+            and ok_t16 and ok_te and ok_pl):
         log(f"chip_smoke: FAILED (kernels {ok_k}, int8 kernels {ok_k8}, "
             f"other presets' kernel shapes {ok_ps}, main path {ok_m}, int8 "
             f"main path {ok_m8}, other presets' paths {ok_p}, streaming "
             f"eval {ok_e}, bench {ok_bf}, gumbel eval mask {ok_gb}, "
             f"small-input agreement {ok_s}, int8 small-input agreement "
-            f"{ok_s8}, export {ok_x}, training {ok_t}, matchers and closed "
-            f"loop {ok_te}, multi-GPU {ok_pl})")
+            f"{ok_s8}, export {ok_x}, training {ok_t}, training at "
+            f"1600x800 {ok_t16}, matchers and closed loop {ok_te}, "
+            f"multi-GPU {ok_pl})")
         return 1
     keys = ("name", "op", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "shape", "shapes", "frame")
+            "library_ms", "shape", "shapes", "frame", "regime")
     rows = list(KERNELS) + [r for r in results if " train" in r]
     ops = kernel_ops()
     for r in rows:

@@ -83,8 +83,31 @@ def _with_droppath(cfg, rate=0.1):
         cfg.backbone, drop_path_rate=rate))
 
 
-def jax_noise(jcfg, key, b, n):
-    """JAX's draws of compute_losses(rng=key) as the port's TrainNoise."""
+def _backbone_draws(bb, rng, bn, hw):
+    """The backbone's draws from one key (toc3d_vit.py:266-268, :354):
+    the gumbel noise per selector and the stochastic-depth keep masks per
+    full block, for bn rows, numpy."""
+    gumbel, dp = [], {}
+    dprs = drop_path_rates(bb)
+    for i in range(bb.depth):
+        if i in bb.pruning_loc:
+            rng, sel = jax.random.split(rng)
+            gumbel.append(np.array(jax.random.gumbel(sel, (bn, hw, 2),
+                                                     jnp.float32)))
+        if not bb.block_is_accelerated(i) and dprs[i] > 0:
+            brng = jax.random.fold_in(rng, 1000 + i)
+            dp[i] = tuple(np.array(jax.random.bernoulli(
+                jax.random.fold_in(brng, j), 1 - dprs[i], (bn, 1, 1, 1)))
+                .reshape(bn) for j in (0, 1))
+    return gumbel, dp
+
+
+def jax_noise(jcfg, key, b, n, view_scan=False):
+    """JAX's draws of compute_losses(rng=key) as the port's TrainNoise.
+    view_scan (True or the views a chunk, cs): JAX's scanned backbone
+    draws each chunk's noise from its own key, jax.random.split(k_sel,
+    n // cs) (detector.py:171), for the chunk's b x cs rows, b-major; they
+    are placed here in the port's b-major rows of the whole batch."""
     T = lambda a: torch.from_numpy(np.array(a))
     k_mask, k_sel, k_dn, k_drop = jax.random.split(key, 4)
     h, w = jcfg.pad_shape
@@ -94,18 +117,19 @@ def jax_noise(jcfg, key, b, n):
                     T(int(d)), T(int(jax.random.randint(k_sh, (), 0, d))),
                     T(int(jax.random.randint(k_sw, (), 0, d))))
     bb = jcfg.backbone
-    bn, hw = b * n, (h // bb.patch_size) * (w // bb.patch_size)
-    rng, gumbel, dp = k_sel, [], {}
-    dprs = drop_path_rates(bb)
-    for i in range(bb.depth):
-        if i in bb.pruning_loc:
-            rng, sel = jax.random.split(rng)
-            gumbel.append(T(jax.random.gumbel(sel, (bn, hw, 2), jnp.float32)))
-        if not bb.block_is_accelerated(i) and dprs[i] > 0:
-            brng = jax.random.fold_in(rng, 1000 + i)
-            dp[i] = tuple(T(jax.random.bernoulli(
-                jax.random.fold_in(brng, j), 1 - dprs[i], (bn, 1, 1, 1)))
-                .reshape(bn) for j in (0, 1))
+    hw = (h // bb.patch_size) * (w // bb.patch_size)
+    cs = n if not view_scan else 1 if view_scan is True else view_scan
+    keys = list(jax.random.split(k_sel, n // cs)) if view_scan else [k_sel]
+    chunks = [_backbone_draws(bb, k, b * cs, hw) for k in keys]
+
+    def rows(parts):
+        # (b x cs) rows a chunk -> (b, chunk, cs) -> the batch's b-major rows
+        st = np.stack([p.reshape((b, cs) + p.shape[1:]) for p in parts], 1)
+        return T(st.reshape((b * n,) + st.shape[3:]))
+    gumbel = [rows([c[0][s] for c in chunks])
+              for s in range(len(chunks[0][0]))]
+    dp = {i: tuple(rows([c[1][i][j] for c in chunks]) for j in (0, 1))
+          for i in chunks[0][1]}
     hc = jcfg.head
     dn = T(jax.random.uniform(k_dn, (b, hc.scalar, hc.dn_max_gt, 3),
                               jnp.float32, -1.0, 1.0))

@@ -1,12 +1,15 @@
-"""Streaming inference benchmark of the PyTorch port on one GPU (the
-inference protocol of bench.py:249-390 and its sweep, :181-230, ported;
-training and the view and attention chunking are not).
+"""Benchmark of the PyTorch port on one GPU: streaming inference (the
+protocol of bench.py:249-390 and its sweep, :181-230) and training
+(bench.py --train, :86-178).
 
     python3 -m toc3d_tpu_torch.bench [--config ToC3D_faster_1600]
         [--warmup 200] [--frames 100] [--batch 1] [--int8 [--int8-calib N]]
         [--eager] [--device cuda]
     python3 -m toc3d_tpu_torch.bench --sweep [--warmup 200] [--frames 100]
         [--int8] [--eager]
+    python3 -m toc3d_tpu_torch.bench --train [--config ToC3D_faster_1600]
+        [--batch N] [--frames F] [--view-scan auto|on|off] [--view-chunk N]
+        [--attn-chunk N] [--queue-length T] [--no-remat] [--device cuda]
 
 --config takes every preset of configs/presets.py and the ToC3D_ratio*
 speed-sweep names (ToC3D_ratio543, ToC3D_ratio543_1600).
@@ -35,6 +38,22 @@ and for ViT-B at 800x320) in its own process, with the same options, and
 prints the nvidia-smi line and one table: ms/frame, frames/s, the speedup
 over the family's StreamPETR baseline and the peak device memory, beside
 the paper's A100 latency of the same config. It writes no file.
+
+--train times the full train step (runtime/train.make_train_step: grid
+mask, the backbone with token selection, the 2D head, DN, the matching,
+the losses, the backward, AdamW) on one fixed synthetic batch
+(make_train_batch, bench.py:64-84; 6 views at the preset's pad shape,
+--batch lanes, seeded random weights), as bench.py does: 3 steps to settle,
+then max(frames // 2, 50) timed steps, the device read only every 10 steps.
+The view scan follows --view-scan / --view-chunk (auto: JAX's policy, on at
+1600x800 unless --attn-chunk is given), --attn-chunk chunks the backbone's
+model-path attention, --queue-length T > 1 trains on T consecutive frames
+(compute_losses_multiframe), --no-remat drops the droppath blocks' and
+decoder layers' checkpoints. Its last line is bench.py's JSON record
+(metric, value in steps/s, unit, vs_baseline, steps, nonfinite_skips,
+loss_finite, loss_first5_mean, loss_last5_mean, loss_decreasing,
+loss_trace_every5) with peak_gib and nvidia_smi added; on the CPU (for
+tests) both are null.
 """
 from __future__ import annotations
 
@@ -93,6 +112,35 @@ def make_frame(rng, b, n, h, w, prev_exists, pin: bool):
     }
     frame = {k: torch.from_numpy(v) for k, v in frame.items()}
     return {k: v.pin_memory() for k, v in frame.items()} if pin else frame
+
+
+def make_train_batch(rng, b, n, h, w, g3=32, g2=32, prev_exists=1.0):
+    """bench.py's synthetic training batch (make_train_batch, :64-84):
+    random normalized views, a fixed rig, g3 3D and g2 2D boxes a lane,
+    numpy."""
+    eye = np.tile(np.eye(4, dtype=np.float32), (b, n, 1, 1))
+    intr = eye.copy()
+    intr[..., 0, 0] = intr[..., 1, 1] = 1.2e3
+    boxes = rng.randn(b, g3, 9).astype(np.float32)
+    boxes[..., 3:6] = np.abs(boxes[..., 3:6]) + 1.0
+    b2d = np.sort(np.abs(rng.rand(b, n, g2, 2, 2)).astype(np.float32) * 300,
+                  axis=-2).reshape(b, n, g2, 4)
+    return {
+        "img": rng.randn(b, n, h, w, 3).astype(np.float32),
+        "intrinsics": intr,
+        "img2lidar": eye + rng.randn(b, n, 4, 4).astype(np.float32) * 1e-3,
+        "timestamp": np.full((b,), 0.5, np.float32),
+        "ego_pose": np.tile(np.eye(4, dtype=np.float32), (b, 1, 1)),
+        "ego_pose_inv": np.tile(np.eye(4, dtype=np.float32), (b, 1, 1)),
+        "prev_exists": np.full((b,), prev_exists, np.float32),
+        "gt_bboxes_3d": boxes,
+        "gt_labels_3d": rng.randint(0, 10, (b, g3)),
+        "gt_valid_3d": np.ones((b, g3), bool),
+        "gt_bboxes_2d": b2d,
+        "gt_labels_2d": rng.randint(0, 10, (b, n, g2)),
+        "gt_centers_2d": rng.rand(b, n, g2, 2).astype(np.float32) * 300,
+        "gt_valid_2d": np.ones((b, n, g2), bool),
+    }
 
 
 def schedule(i: int):
@@ -202,6 +250,117 @@ def run_sweep(args) -> int:
     return 0 if all(v is not None for v in results.values()) else 1
 
 
+def train_label(args, cfg_label: str, batch: int, view_scan, attn_chunk):
+    """bench.py's metric name of a training run (:156-161)."""
+    vscan = view_scan if isinstance(view_scan, int) and \
+        not isinstance(view_scan, bool) else bool(view_scan)
+    return (f"{cfg_label} train step/s (batch {batch})"
+            + (f"+vscan{vscan}" if vscan else "")
+            + (f"+achunk{attn_chunk}" if attn_chunk else "")
+            + (f"+queue{args.queue_length}" if args.queue_length > 1 else "")
+            + ("+noremat" if args.no_remat else ""))
+
+
+def bench_train(args, cuda: bool) -> int:
+    """bench.py's bench_train (:86-178) on the port; prints its JSON record
+    last. Non-zero if a loss or the gradient norm is not finite."""
+    from .configs import get_config
+    from .configs.presets import served_in_bf16
+    from .models.detector import build_detector, frame_seed
+    from .runtime.train import (auto_view_scan, batch_to_device,
+                                draw_train_noise, init_train_state,
+                                make_optimizer, make_train_step)
+    from .tools.train import step_options
+
+    smi = None
+    if cuda:
+        smi = nvidia_smi_line()
+        print(smi, flush=True)
+        from .ops.cuda import build
+        build.build_all()
+    cfg = get_config(args.config)
+    label = args.config
+    if cuda and cfg.compute_dtype != "bfloat16":
+        cfg = served_in_bf16(cfg)
+        label += "+bf16"
+    b, n, qlen = args.batch, VIEWS, args.queue_length
+    h, w = cfg.pad_shape
+    opts = step_options(args)
+    if opts["view_scan"] is None:
+        opts["view_scan"] = auto_view_scan(cfg) and opts["attn_chunk"] is None
+    dev = torch.device(args.device)
+    model = build_detector(cfg, device=dev, seed=0)
+    tx = make_optimizer(model, total_iters=1000)
+    state = init_train_state(model, tx, b)
+    step = make_train_step(tx, remat=not args.no_remat,
+                           multiframe=qlen > 1, **opts)
+    rng = np.random.RandomState(0)
+    if qlen > 1:
+        # T consecutive frames a lane (petr3d.py:262-308)
+        frames = [make_train_batch(rng, b, n, h, w) for _ in range(qlen)]
+        host = {k: np.stack([f[k] for f in frames], axis=1)
+                for k in frames[0]}
+        batch, _ = batch_to_device(host, dev)
+        steady = None
+    else:
+        batch, steady = batch_to_device(make_train_batch(rng, b, n, h, w),
+                                        dev)
+    gen = torch.Generator(device=dev)
+
+    def run(i):
+        nonlocal state
+        gen.manual_seed(frame_seed(1, i))
+        noise = [draw_train_noise(cfg, b, n, gen, dev, gt3=32)
+                 for _ in range(max(qlen, 1))]
+        state, m = step(state, batch, noise if qlen > 1 else noise[0],
+                        steady=steady)
+        return m
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    for i in range(3):                     # settle
+        m = run(i)
+    m["total_loss"].item()
+    iters = max(args.frames // 2, 50)
+    trace = []
+    t0 = time.perf_counter()
+    for i in range(iters):
+        m = run(3 + i)
+        trace.append((m["total_loss"], m["grad_norm"]))
+        if (i + 1) % 10 == 0:
+            m["total_loss"].item()         # bound the queue
+    losses = torch.stack([t[0] for t in trace]).double().cpu().numpy()
+    gnorms = torch.stack([t[1] for t in trace]).double().cpu().numpy()
+    dt = time.perf_counter() - t0
+    skips = int(m["nonfinite_skips"])
+    first5, last5 = losses[:5].mean(), losses[-5:].mean()
+    finite = bool(np.isfinite(losses).all() and np.isfinite(gnorms).all())
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
+    where = torch.cuda.get_device_name(0) if cuda else "cpu"
+    print(f"{label} training on {where}: batch {b}, {n} views {w}x{h}, "
+          f"view_scan {opts['view_scan']}, attn_chunk {opts['attn_chunk']}, "
+          f"{iters} timed steps in {dt:.3f} s, "
+          f"{b * iters / dt:.4f} samples/s"
+          + ("" if peak is None else f", peak device memory {peak:.3f} GiB"))
+    print(json.dumps({
+        "metric": train_label(args, label, b, opts["view_scan"],
+                              opts["attn_chunk"]),
+        "value": round(iters / dt, 4),
+        "unit": "steps/s",
+        "vs_baseline": None,
+        "steps": iters,
+        "nonfinite_skips": skips,
+        "loss_finite": finite,
+        "loss_first5_mean": round(float(first5), 4),
+        "loss_last5_mean": round(float(last5), 4),
+        "loss_decreasing": bool(last5 < first5),
+        "loss_trace_every5": [round(float(x), 3) for x in losses[::5]],
+        "peak_gib": None if peak is None else round(peak, 3),
+        "nvidia_smi": smi,
+    }))
+    return 0 if finite else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", default="ToC3D_faster_1600")
@@ -221,6 +380,25 @@ def main(argv=None) -> int:
     ap.add_argument("--sweep", action="store_true",
                     help="bench every config of SWEEP_FAMILIES, one process "
                          "each, and print the table")
+    ap.add_argument("--train", action="store_true",
+                    help="bench the full train step (steps/s) instead of "
+                         "inference")
+    ap.add_argument("--view-scan", choices=("auto", "on", "off"),
+                    default="auto",
+                    help="with --train: the backbone over chunks of views "
+                         "(auto: on at 1600x800 unless --attn-chunk)")
+    ap.add_argument("--view-chunk", type=int, default=0,
+                    help="with --train: views a chunk (overrides "
+                         "--view-scan; must divide 6)")
+    ap.add_argument("--attn-chunk", type=int, default=0,
+                    help="with --train: the backbone's model-path attention "
+                         "over chunks of this many windows")
+    ap.add_argument("--queue-length", type=int, default=0,
+                    help="with --train: train on this many consecutive "
+                         "frames (losses from the last num_frame_losses)")
+    ap.add_argument("--no-remat", action="store_true",
+                    help="with --train: no checkpoint on the droppath "
+                         "blocks and the decoder layers")
     args = ap.parse_args(argv)
     if args.int8_calib and not args.int8:
         ap.error("--int8-calib requires --int8")
@@ -233,6 +411,10 @@ def main(argv=None) -> int:
         if args.int8_calib:
             ap.error("--sweep takes no --int8-calib")
         return run_sweep(args)
+    if args.train:
+        if args.int8 or args.eager:
+            ap.error("--train takes no --int8 or --eager")
+        return bench_train(args, cuda)
 
     from .configs import get_config
     from .configs.presets import served_in_bf16

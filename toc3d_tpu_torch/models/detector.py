@@ -266,10 +266,28 @@ def _motion_ctx_from_memory(cfg: DetectorConfig, memory: MemoryBank, frame):
     }
 
 
+def _view_chunks(t, b: int, nc: int):
+    """(B*N, ...) rows, b-major -> nc chunks of (B*N/nc, ...) rows, each
+    b-major within itself (detector.py:166-170): the selector broadcasts
+    the B-leading motion queries over bn // b contiguous rows. Each chunk
+    is a contiguous copy, as the kernels take their input."""
+    r = t.reshape((b, nc, -1) + t.shape[1:])
+    return [r[:, i].reshape((-1,) + t.shape[1:]).contiguous()
+            for i in range(nc)]
+
+
+def _unchunk_views(chunks, b: int):
+    """The inverse of _view_chunks: the chunks' rows back in b-major order
+    (detector.py:188-196)."""
+    st = torch.stack([c.reshape((b, -1) + c.shape[1:]) for c in chunks], 1)
+    return st.reshape((-1,) + st.shape[3:])
+
+
 def extract_img_feat(model: ToC3DDetector, img, memory: MemoryBank, frame,
                      steady=None, collect_block_outs: bool = False,
                      quant=None, mask_noise=None, train: bool = False,
-                     dp_keep=None, remat: bool = False):
+                     dp_keep=None, remat: bool = False, view_scan=False,
+                     attn_chunk=None):
     """img (B, N, H, W, 3) -> neck features (B, N, h, w, C) float32. A uint8
     image is normalized here, on the device (detector.py:142-150). The
     backbone is toc3d_vit_forward, guided by the memory bank, when the
@@ -281,7 +299,17 @@ def extract_img_feat(model: ToC3DDetector, img, memory: MemoryBank, frame,
     eval_mask 'gumbel' (MaskNoise), or training's. train (detector.py:
     100-240 with an rng; runtime/train.compute_losses): the backbones'
     training forward with the stochastic-depth keep masks dp_keep and
-    remat; returns (features, {'token_masks': [...]})."""
+    remat; returns (features, {'token_masks': [...]}).
+
+    view_scan (detector.py:104-200): True or an int cs that divides N (else
+    ValueError): the backbone runs over N / cs chunks of B x cs views (True:
+    cs 1), each chunk's rows b-major, and the features and token masks are
+    put back in b-major order before the neck. The backbone never mixes
+    views, so it is the same function: each chunk reads its own rows of
+    mask_noise and dp_keep, and each Function's and checkpoint's backward
+    recomputes only its chunk's rows, which bounds the backward's
+    transients. attn_chunk: the model path's attention over chunks of that
+    many windows (ops/attention.py)."""
     from ..configs.presets import IMG_NORM_MEAN, IMG_NORM_STD
     cfg = model.cfg
     b, n, h, w, c = img.shape
@@ -293,25 +321,50 @@ def extract_img_feat(model: ToC3DDetector, img, memory: MemoryBank, frame,
         std = const_vector(IMG_NORM_STD, torch.float32, x.device)
         x = (x.float() - mean) / std
     x = x.to(dtype).contiguous()
-    collected = {"token_masks": []}
-    if cfg.is_toc3d:
-        feats = toc3d_vit_forward(model.img_backbone, x,
-                                  _motion_ctx_from_memory(cfg, memory, frame),
-                                  frame["prev_exists"], steady=steady,
-                                  collect_block_outs=collect_block_outs,
-                                  quant=quant, mask_noise=mask_noise,
-                                  train=train, dp_keep=dp_keep, remat=remat)
-        if collect_block_outs or train:
-            feats, collected = feats
-    elif collect_block_outs:
-        # as JAX's extract_img_feat (detector.py:221-224), which the static
-        # int8 calibration reaches through its collected forward
+    if collect_block_outs and (view_scan or not cfg.is_toc3d):
+        # as JAX's extract_img_feat (detector.py:155-159, :221-224), which
+        # the static int8 calibration reaches through its collected forward
         raise NotImplementedError(
-            "collecting block outputs targets the ToC3D backbone; the plain "
-            "EVA-02 backbone has no collected forward")
+            "collecting block outputs targets the unscanned ToC3D backbone; "
+            "the plain EVA-02 backbone and view_scan have no collected "
+            "forward")
+    motion_ctx = _motion_ctx_from_memory(cfg, memory, frame) \
+        if cfg.is_toc3d else None
+
+    def backbone(xs, noise, keep):
+        if cfg.is_toc3d:
+            out = toc3d_vit_forward(
+                model.img_backbone, xs, motion_ctx, frame["prev_exists"],
+                steady=steady, collect_block_outs=collect_block_outs,
+                quant=quant, mask_noise=noise, train=train, dp_keep=keep,
+                remat=remat, attn_chunk=attn_chunk)
+            return out if collect_block_outs or train \
+                else (out, {"token_masks": []})
+        return eva_vit_forward(model.img_backbone, xs, quant=quant,
+                               train=train, dp_keep=keep, remat=remat,
+                               attn_chunk=attn_chunk), {"token_masks": []}
+
+    if view_scan:
+        cs = 1 if view_scan is True else int(view_scan)
+        if n % cs:
+            raise ValueError(
+                f"view_scan chunk {cs} must divide the view count {n}")
+        nc = n // cs
+        if cfg.is_toc3d and steady is None:
+            steady = bool((frame["prev_exists"] > 0).all())
+        rows = lambda t: _view_chunks(t, b, nc)
+        noise = None if mask_noise is None else [rows(t) for t in mask_noise]
+        keep = {i: [rows(k) for k in pair]
+                for i, pair in (dp_keep or {}).items()}
+        outs = [backbone(xc, None if noise is None else [t[j] for t in noise],
+                         {i: (k0[j], k1[j]) for i, (k0, k1) in keep.items()})
+                for j, xc in enumerate(rows(x))]
+        feats = _unchunk_views([o[0] for o in outs], b)
+        collected = {"token_masks": [
+            _unchunk_views(list(ms), b)
+            for ms in zip(*(o[1]["token_masks"] for o in outs))]}
     else:
-        feats = eva_vit_forward(model.img_backbone, x, quant=quant,
-                                train=train, dp_keep=dp_keep, remat=remat)
+        feats, collected = backbone(x, mask_noise, dp_keep)
     f = cpfpn_forward(model.img_neck, feats, cfg.neck)[cfg.position_level]
     f = f.reshape(b, n, f.shape[1], f.shape[2], -1).float()
     return (f, collected) if collect_block_outs or train else f

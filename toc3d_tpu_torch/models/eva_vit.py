@@ -148,21 +148,22 @@ def patch_embed(pe: PatchEmbed, x, patch_size: int):
 
 def block_forward(blk: Block, x, cfg: EVAViTConfig, window_size: int,
                   rope_tables, dp_rate: float = 0.0, dp_keep=None,
-                  remat: bool = False):
+                  remat: bool = False, attn_chunk=None):
     """Plain (non-compressed) EVA block, x: (B, H, W, C), through kernel B
     (FullBlockFn; B8 with cfg.quant 'int8'). rope_tables: (cos, sin)
     tensors on x's device, or None. dp_rate > 0 (training, a block with
     stochastic depth): the model path with the residuals' keep masks
     ``dp_keep`` ((B,), (B,)), under torch.utils.checkpoint with remat
-    (eva_vit.py:221-266)."""
+    (eva_vit.py:221-266). attn_chunk: the model path's attention over
+    chunks of that many windows (ops/attention.py; training)."""
     if cfg.quant == "int8":
         return fused_full_block_int8(blk, x, cfg.num_heads, window_size,
                                      rope_tables)
     if dp_rate <= 0.0:
         return trainable_full_block(blk, x, cfg.num_heads, window_size,
-                                    rope_tables)
+                                    rope_tables, attn_chunk)
     args = (blk, x, cfg.num_heads, window_size, rope_tables, dp_keep,
-            dp_rate)
+            dp_rate, attn_chunk)
     return checkpoint(full_block_model, *args, use_reentrant=False) \
         if remat else full_block_model(*args)
 
@@ -221,13 +222,14 @@ def drop_path_rates(cfg: EVAViTConfig):
 
 
 def eva_vit_forward(model: EVAViT, x, quant=None, train: bool = False,
-                    dp_keep=None, remat: bool = False):
+                    dp_keep=None, remat: bool = False, attn_chunk=None):
     """x (B, H, W, 3) normalized images in the compute dtype -> features
     (B, h, w, C) (eva_vit.py:302-334): kernel A, the position embedding,
     then ``depth`` blocks through kernel B (B8 with quant 'int8'), at
     window_size or, at global_attn_indexes, global_window_size. quant
     overrides cfg.quant. train: the blocks with stochastic depth run the
-    model path with their keep masks dp_keep ({block index: masks})."""
+    model path with their keep masks dp_keep ({block index: masks}).
+    attn_chunk: see block_forward."""
     cfg = model.cfg if quant is None else replace(model.cfg, quant=quant)
     rope_win, rope_glb = model.rope(x.device)
     x = embed(model, x, cfg)
@@ -238,5 +240,5 @@ def eva_vit_forward(model: EVAViT, x, quant=None, train: bool = False,
             blk, x, cfg,
             cfg.global_window_size if is_global else cfg.window_size,
             rope_glb if is_global else rope_win, dprs[i],
-            (dp_keep or {}).get(i), remat)
+            (dp_keep or {}).get(i), remat, attn_chunk)
     return x

@@ -91,23 +91,25 @@ class ToC3DViT(EVAViT):
 
 
 def toc3d_block_forward(blk: Block, x, scores, cfg: ToC3DViTConfig,
-                        window_size: int, ratio: float, rope_tables):
+                        window_size: int, ratio: float, rope_tables,
+                        attn_chunk=None):
     """Slow/fast token routing inside one window-attention block through
     kernel C (C8 with cfg.quant 'int8'). x (BN, H, W, C); scores (BN, H*W)
-    (toc3d_vit.py:113-177)."""
-    fn = fused_compressed_block_int8 if cfg.quant == "int8" \
-        else trainable_compressed_block
-    return fn(
-        blk, x, scores, cfg.num_heads, window_size, ratio,
-        rope_tables if cfg.rope else None,
-        use_represent=cfg.use_represent_tokens, rope_acc=cfg.rope_acc,
-        align_k=cfg.mxu_align_k)
+    (toc3d_vit.py:113-177). attn_chunk: the backward's attention over
+    chunks of that many windows (CompressedBlockFn; training)."""
+    args = (blk, x, scores, cfg.num_heads, window_size, ratio,
+            rope_tables if cfg.rope else None)
+    kw = dict(use_represent=cfg.use_represent_tokens, rope_acc=cfg.rope_acc,
+              align_k=cfg.mxu_align_k)
+    if cfg.quant == "int8":
+        return fused_compressed_block_int8(*args, **kw)
+    return trainable_compressed_block(*args, **kw, attn_chunk=attn_chunk)
 
 
 def toc3d_vit_forward(model: ToC3DViT, x, motion_ctx, prev_exists,
                       steady=None, collect_block_outs: bool = False,
                       quant=None, mask_noise=None, train: bool = False,
-                      dp_keep=None, remat: bool = False):
+                      dp_keep=None, remat: bool = False, attn_chunk=None):
     """x (BN, H, W, 3) normalized images in the compute dtype -> features
     (BN, h, w, C) (toc3d_vit.py:196-369). motion_ctx: memory-bank views for
     the selectors; prev_exists (B,); steady: all(prev_exists > 0) if the
@@ -129,7 +131,10 @@ def toc3d_vit_forward(model: ToC3DViT, x, motion_ctx, prev_exists,
     gumbel-softmax mask of ``mask_noise``; the full blocks with stochastic
     depth on the model path with their keep masks dp_keep ({block index:
     masks}), under torch.utils.checkpoint with remat (injectable_sites,
-    toc3d_vit.py:184-193). Returns (features, {'token_masks': [...]})."""
+    toc3d_vit.py:184-193). Returns (features, {'token_masks': [...]}).
+    attn_chunk: the model path's attention over chunks of that many
+    windows, in the droppath blocks and in the Functions' backward
+    (ops/attention.py)."""
     cfg = model.cfg
     if quant is not None:
         cfg = replace(cfg, quant=quant)
@@ -174,10 +179,10 @@ def toc3d_vit_forward(model: ToC3DViT, x, motion_ctx, prev_exists,
             collected["scores"].append(scores if accelerated else None)
         if accelerated:
             x = toc3d_block_forward(model.blocks[i], x, scores, cfg, ws,
-                                    ratio, tables)
+                                    ratio, tables, attn_chunk)
         else:
             x = block_forward(model.blocks[i], x, cfg, ws, tables, dprs[i],
-                              (dp_keep or {}).get(i), remat)
+                              (dp_keep or {}).get(i), remat, attn_chunk)
         if collect_block_outs:
             collected["outputs"].append(x)
     if collect_block_outs:

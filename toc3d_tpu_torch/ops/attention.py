@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..layers import lin, linear, quantize_linear
 from .cuda import cached_pack, param_key
@@ -31,10 +32,31 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(b, n, h * d)
 
 
+def _sdpa(q, k, v, scale, dtype):
+    """softmax(q kᵀ scale) v with f32 logits, the probabilities and the
+    output in ``dtype`` (attention.py:46-52)."""
+    logits = (q * scale).float() @ k.float().transpose(-1, -2)
+    w = torch.softmax(logits, dim=-1).to(dtype)
+    return (w.float() @ v.float()).to(dtype)
+
+
+def _sdpa_chunked(q, k, v, scale, dtype, chunk: int):
+    """_sdpa over chunks of ``chunk`` windows, each under
+    torch.utils.checkpoint (attention.py:56-79): one chunk's f32 logits and
+    probabilities exist at a time, in the forward and in the backward. The
+    last chunk may be shorter; within a chunk the formulation is _sdpa's."""
+    return torch.cat([checkpoint(_sdpa, qc, kc, vc, scale, dtype,
+                                 use_reentrant=False)
+                      for qc, kc, vc in zip(q.split(chunk), k.split(chunk),
+                                            v.split(chunk))])
+
+
 def eva_attention_preproj(attn, x, num_heads: int, rope_tables=None,
-                          select_idx=None):
+                          select_idx=None, attn_chunk=None):
     """eva_attention up to the merged attention output before the
-    O-projection (the int8 blocks' proj_in site, int8_calib.py:50-66)."""
+    O-projection (the int8 blocks' proj_in site, int8_calib.py:50-66).
+    attn_chunk: with more windows than that, the softmax core runs over
+    chunks of attn_chunk windows (_sdpa_chunked; attention.py:118-119)."""
     b, n, c = x.shape
     q = _split_heads(linear(x, attn.q_proj.weight, attn.q_bias), num_heads)
     k = _split_heads(linear(x, attn.k_proj.weight), num_heads)
@@ -48,16 +70,19 @@ def eva_attention_preproj(attn, x, num_heads: int, rope_tables=None,
             q = apply_rope(q, cos, sin).to(v.dtype)
             k = apply_rope(k, cos, sin).to(v.dtype)
     scale = (c // num_heads) ** -0.5
-    logits = (q * scale).float() @ k.float().transpose(-1, -2)
-    w = torch.softmax(logits, dim=-1).to(x.dtype)
-    return _merge_heads((w.float() @ v.float()).to(x.dtype))
+    if attn_chunk and b > attn_chunk:
+        return _merge_heads(_sdpa_chunked(q, k, v, scale, x.dtype,
+                                          attn_chunk))
+    return _merge_heads(_sdpa(q, k, v, scale, x.dtype))
 
 
-def eva_attention(attn, x, num_heads: int, rope_tables=None, select_idx=None):
+def eva_attention(attn, x, num_heads: int, rope_tables=None, select_idx=None,
+                  attn_chunk=None):
     """x: (B, N, C); attn: models.eva_vit.Attention. rope_tables: (cos, sin)
     tensors or None; select_idx: (B, N) table rows for the compressed path
-    (attention.py:81-126)."""
-    out = eva_attention_preproj(attn, x, num_heads, rope_tables, select_idx)
+    (attention.py:81-126); attn_chunk: see eva_attention_preproj."""
+    out = eva_attention_preproj(attn, x, num_heads, rope_tables, select_idx,
+                                attn_chunk)
     return lin(attn.proj, out)
 
 

@@ -53,10 +53,12 @@ def drop_path(x, keep, rate: float):
 
 
 def full_block_model(blk, x, num_heads: int, window_size: int, rope_tables,
-                     dp_keep=None, dp_rate: float = 0.0):
+                     dp_keep=None, dp_rate: float = 0.0, attn_chunk=None):
     """JAX's _block_forward_xla (eva_vit.py:269-288) over the block's
     parameters: x (B, H, W, C) -> (B, H, W, C). dp_keep: the two residuals'
-    keep masks ((B,), (B,)) of stochastic depth at dp_rate, or None."""
+    keep masks ((B,), (B,)) of stochastic depth at dp_rate, or None.
+    attn_chunk: the attention's softmax core over chunks of that many
+    windows (ops/attention.py)."""
     b, h, w, c = x.shape
     ws = window_size
     shortcut = x
@@ -64,7 +66,7 @@ def full_block_model(blk, x, num_heads: int, window_size: int, rope_tables,
     xw, padded = window_partition(hdn, ws)
     nw = xw.shape[0]
     a = eva_attention(blk.attn, xw.reshape(nw, ws * ws, c), num_heads,
-                      rope_tables)
+                      rope_tables, attn_chunk=attn_chunk)
     a = window_unpartition(a.reshape(nw, ws, ws, c), ws, padded, (h, w))
     k0, k1 = dp_keep if dp_keep is not None else (None, None)
     x = shortcut + drop_path(a, k0, dp_rate)
@@ -83,13 +85,14 @@ def _fill(xw, slow, fast, slow_idx, fast_idx):
 
 
 def compressed_block_model(blk, x, scores, num_heads: int, window_size: int,
-                           rope_tables, plan):
+                           rope_tables, plan, attn_chunk=None):
     """JAX's toc3d_block_forward (toc3d_vit.py:113-177) over the block's
     parameters, routed by ``plan`` (the forward's CompressPlan): x (B, H,
     W, C), scores (B, H*W) -> (B, H, W, C). The gradient reaches the
     scores through the representative token's weights (merge_tokens over
     the fast tokens' scores). rope_tables: the (cos, sin) pair when the
-    block applies RoPE at the selected positions (rope_acc), else None."""
+    block applies RoPE at the selected positions (rope_acc), else None.
+    attn_chunk: as full_block_model's."""
     b, h, w, c = x.shape
     ws = window_size
     n = ws * ws
@@ -112,7 +115,7 @@ def compressed_block_model(blk, x, scores, num_heads: int, window_size: int,
                                 dim=1)
     shortcut = slow
     raw1 = eva_attention(blk.attn, ln(blk.norm1, slow, LN_EPS), num_heads,
-                         rope_tables, sel_idx)
+                         rope_tables, sel_idx, attn_chunk)
     slow = shortcut + raw1
     m = blk.mlp
     raw2 = swiglu(ln(blk.norm2, slow, LN_EPS), m.w1, m.w2, m.w3, m.ffn_ln,
@@ -150,11 +153,14 @@ def _vjp(fn, inputs, params, needs, g):
 
 
 class FullBlockFn(torch.autograd.Function):
-    """Kernel B with the model path's backward (vit_block.py:964-986)."""
+    """Kernel B with the model path's backward (vit_block.py:964-986); the
+    backward's attention runs over chunks of attn_chunk windows when it is
+    set (the kernel has no probabilities to chunk)."""
 
     @staticmethod
-    def forward(ctx, x, blk, num_heads, window_size, rope_tables, *params):
-        ctx.args = (blk, num_heads, window_size, rope_tables)
+    def forward(ctx, x, blk, num_heads, window_size, rope_tables, attn_chunk,
+                *params):
+        ctx.args = (blk, num_heads, window_size, rope_tables, attn_chunk)
         ctx.params = params
         ctx.save_for_backward(x)
         return fused_full_block(blk, x, num_heads, window_size, rope_tables)
@@ -162,11 +168,12 @@ class FullBlockFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
-        blk, heads, ws, rope = ctx.args
-        needs = (ctx.needs_input_grad[0],) + ctx.needs_input_grad[5:]
-        grads = _vjp(lambda xx: full_block_model(blk, xx, heads, ws, rope),
-                     [x], ctx.params, needs, g)
-        return (grads[0], None, None, None, None, *grads[1:])
+        blk, heads, ws, rope, chunk = ctx.args
+        needs = (ctx.needs_input_grad[0],) + ctx.needs_input_grad[6:]
+        grads = _vjp(lambda xx: full_block_model(
+            blk, xx, heads, ws, rope, attn_chunk=chunk), [x], ctx.params,
+            needs, g)
+        return (grads[0], None, None, None, None, None, *grads[1:])
 
 
 class CompressedBlockFn(torch.autograd.Function):
@@ -174,16 +181,17 @@ class CompressedBlockFn(torch.autograd.Function):
     the gradient reaches the parameters, x and the scores. The forward
     takes the top-k once (compress_plan; training passes align_k False, the
     reference's counts, toc3d_vit.py:223-231) and the backward routes by
-    the same plan."""
+    the same plan; its attention is chunked as FullBlockFn's."""
 
     @staticmethod
     def forward(ctx, x, scores, blk, num_heads, window_size, ratio,
-                rope_tables, use_represent, rope_acc, align_k, *params):
+                rope_tables, use_represent, rope_acc, align_k, attn_chunk,
+                *params):
         b, h, w, _ = x.shape
         plan = compress_plan(scores, b, h, w, window_size, ratio,
                              use_represent, align_k)
         ctx.args = (blk, num_heads, window_size,
-                    rope_tables if rope_acc else None, plan)
+                    rope_tables if rope_acc else None, plan, attn_chunk)
         ctx.params = params
         ctx.save_for_backward(x, scores)
         return fused_compressed_block(blk, x, scores, num_heads, window_size,
@@ -193,13 +201,13 @@ class CompressedBlockFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, scores = ctx.saved_tensors
-        blk, heads, ws, rope, plan = ctx.args
-        needs = ctx.needs_input_grad[:2] + ctx.needs_input_grad[10:]
+        blk, heads, ws, rope, plan, chunk = ctx.args
+        needs = ctx.needs_input_grad[:2] + ctx.needs_input_grad[11:]
         grads = _vjp(lambda xx, ss: compressed_block_model(
-            blk, xx, ss, heads, ws, rope, plan), [x, scores], ctx.params,
-            needs, g)
+            blk, xx, ss, heads, ws, rope, plan, chunk), [x, scores],
+            ctx.params, needs, g)
         return (grads[0], grads[1], None, None, None, None, None, None,
-                None, None, *grads[2:])
+                None, None, None, *grads[2:])
 
 
 class PatchEmbedFn(torch.autograd.Function):
@@ -223,21 +231,22 @@ class PatchEmbedFn(torch.autograd.Function):
 
 
 def trainable_full_block(blk, x, num_heads: int, window_size: int,
-                         rope_tables):
+                         rope_tables, attn_chunk=None):
     """Kernel B, differentiable (FullBlockFn)."""
     return FullBlockFn.apply(x, blk, num_heads, window_size, rope_tables,
-                             *blk.parameters())
+                             attn_chunk, *blk.parameters())
 
 
 def trainable_compressed_block(blk, x, scores, num_heads: int,
                                window_size: int, ratio: float, rope_tables,
                                use_represent: bool, rope_acc: bool,
-                               align_k: bool = False):
+                               align_k: bool = False, attn_chunk=None):
     """Kernel C, differentiable in the parameters, x and the scores
     (CompressedBlockFn)."""
     return CompressedBlockFn.apply(x, scores, blk, num_heads, window_size,
                                    ratio, rope_tables, use_represent,
-                                   rope_acc, align_k, *blk.parameters())
+                                   rope_acc, align_k, attn_chunk,
+                                   *blk.parameters())
 
 
 def trainable_patch_embed(conv, x, patch_size: int):

@@ -34,6 +34,13 @@ optimizer (mesh.GradReducer), which equals JAX's pmean; the gradient norm,
 the clip and the non-finite skip read the averaged gradients, so every
 rank decides alike and the parameters stay equal.
 
+At 1600x800 the backbone runs over chunks of views by default
+(``auto_view_scan``, JAX's rule; ``make_train_step(view_scan=...)``), and
+``attn_chunk`` runs its model-path attention over checkpointed chunks of
+windows (models/detector.extract_img_feat, ops/attention.py): each chunk
+reads its own rows of the step's TrainNoise, so both compute what the plain
+step computes.
+
 The Hungarian matching (core/assigner.hungarian_match) runs on the
 device by default for a CUDA model, the auction kernel once a cost tensor,
 so the step reads nothing back; with the 'callback' matcher (the CPU's
@@ -385,7 +392,8 @@ def _global_counts(outs, outs_roi, matched, batch, gt2_valid, dn, group):
 def compute_losses(model: ToC3DDetector, memory: MemoryBank, batch,
                    noise: TrainNoise, remat: bool = True,
                    with_losses: bool = True, backbone_grad: bool = True,
-                   steady=None, timer=None, group=None):
+                   steady=None, timer=None, group=None, view_scan=False,
+                   attn_chunk=None):
     """One frame's losses (train.py:173-262). batch, B-leading tensors on
     the model's device: img (B, N, H, W, 3), intrinsics / img2lidar (B, N,
     4, 4), timestamp (B,), ego_pose / ego_pose_inv (B, 4, 4), prev_exists
@@ -395,8 +403,10 @@ def compute_losses(model: ToC3DDetector, memory: MemoryBank, batch,
     steady: all(prev_exists > 0) when the caller knows it from the host.
     timer: the spans 'forward', 'host matching' and 'losses'. group: the
     data-parallel process group, whose ranks' counts normalize the losses
-    (_global_counts); None normalizes by this batch's. Returns (total,
-    (loss dict, new bank)); the new bank is not detached here."""
+    (_global_counts); None normalizes by this batch's. view_scan,
+    attn_chunk: the backbone over chunks of views, its model-path attention
+    over chunks of windows (models/detector.extract_img_feat). Returns
+    (total, (loss dict, new bank)); the new bank is not detached here."""
     cfg = model.cfg
     with span(timer, "forward"):
         img = batch["img"]
@@ -408,7 +418,8 @@ def compute_losses(model: ToC3DDetector, memory: MemoryBank, batch,
             feats, aux = extract_img_feat(
                 model, img, memory, batch, steady=steady,
                 mask_noise=noise.gumbel, train=True,
-                dp_keep=noise.drop_path, remat=remat)
+                dp_keep=noise.drop_path, remat=remat, view_scan=view_scan,
+                attn_chunk=attn_chunk)
         fh, fw = feats.shape[2], feats.shape[3]
         locs = location_grid(fh, fw, cfg.stride, *cfg.pad_shape,
                              device=feats.device)
@@ -476,7 +487,8 @@ def compute_losses(model: ToC3DDetector, memory: MemoryBank, batch,
 
 def compute_losses_multiframe(model: ToC3DDetector, memory: MemoryBank,
                               batch, noises, remat: bool = True,
-                              steady=None, timer=None, group=None):
+                              steady=None, timer=None, group=None,
+                              view_scan=False, attn_chunk=None):
     """Sliding-window multi-frame training (train.py:265-313; reference
     petr3d.py:262-308): batch arrays carry a T axis after B; noises: a
     TrainNoise per frame; steady: per frame, or None. The last
@@ -496,7 +508,7 @@ def compute_losses_multiframe(model: ToC3DDetector, memory: MemoryBank,
                 model, memory, frame, noises[t], remat=remat,
                 with_losses=loss_frame, backbone_grad=bb_grad,
                 steady=None if steady is None else steady[t], timer=timer,
-                group=group)
+                group=group, view_scan=view_scan, attn_chunk=attn_chunk)
         if not grad_frame:
             memory = MemoryBank(*(m.detach() for m in memory))
         if loss_frame:
@@ -506,8 +518,16 @@ def compute_losses_multiframe(model: ToC3DDetector, memory: MemoryBank,
     return sum(totals), (losses, memory)
 
 
+def auto_view_scan(cfg) -> bool:
+    """The default view_scan policy, JAX's (train.py:396-403): scan the
+    backbone over views above 500 000 pixels a view (1600x800: on;
+    800x320: off), so one command trains alike in both packages."""
+    h, w = cfg.pad_shape
+    return h * w > 500_000
+
+
 def make_train_step(tx: AdamW, remat: bool = True, multiframe: bool = False,
-                    group=None):
+                    group=None, view_scan=None, attn_chunk=None):
     """train_step(state, batch, noise, steady=None, timer=None) -> (state,
     metrics) (train.py:408-446): rebuild the kernels' weight packs, the
     losses, their backward, the optimizer. noise: the frame's TrainNoise
@@ -525,7 +545,13 @@ def make_train_step(tx: AdamW, remat: bool = True, multiframe: bool = False,
     optimizer reads them. The metrics stay this rank's: each loss is W
     times its share, so their mean over the ranks (mesh.reduce_mean, read
     at the log interval) is the global batch's loss; grad_norm and
-    nonfinite_skips are the same on every rank."""
+    nonfinite_skips are the same on every rank; each rank scans its own
+    lanes.
+
+    view_scan: True or an int (views a chunk) runs the backbone over chunks
+    of views; None is auto_view_scan(cfg) unless attn_chunk is set
+    (train.py:422-423). attn_chunk: the model path's attention over chunks
+    of that many windows (extract_img_feat)."""
     loss_fn = compute_losses_multiframe if multiframe else compute_losses
     reducer = None
     if group is not None:
@@ -539,9 +565,12 @@ def make_train_step(tx: AdamW, remat: bool = True, multiframe: bool = False,
             build_train_packs(model)
         for p in tx.params:
             p.grad = None
+        scan = view_scan
+        if scan is None:
+            scan = auto_view_scan(model.cfg) and attn_chunk is None
         total, (losses, new_memory) = loss_fn(
             model, state.memory, batch, noise, remat=remat, steady=steady,
-            timer=timer, group=group)
+            timer=timer, group=group, view_scan=scan, attn_chunk=attn_chunk)
         with span(timer, "backward"):
             total.backward()
         grads = [p.grad for p in tx.params]

@@ -5,7 +5,8 @@ single-frame training with the batch-lane scene sampler.
         --ann data/nuscenes/nuscenes2d_temporal_infos_train.pkl \\
         --data-root data/nuscenes --iters 42195 --batch-size 2 \\
         [--load-from ckpt.pth] [--resume-from work_dirs/x/iter_100.pth] \\
-        [--val-ann val.pkl --eval-interval N] [--device cuda]
+        [--val-ann val.pkl --eval-interval N] [--view-scan auto|on|off]
+        [--view-chunk N] [--attn-chunk N] [--no-remat] [--device cuda]
 
 Runner of the reference (tools/train.py, core/apis/mmdet_train.py):
 AdamW with the backbone at lr x0.1, warmup then cosine, grad clip 35,
@@ -17,6 +18,15 @@ one prefetch thread; each step draws its noise from a generator seeded by
 would. The sampler and the augmentation draws restart from --seed on
 --resume-from (as tools/train.py's do), so the batches differ.
 Every --log-interval steps one JSON line goes to <work-dir>/train.log.json.
+
+At 1600x800 (ToC3D_faster_1600) the step runs the backbone over chunks of
+views by default (--view-scan auto, JAX's policy: on above 500 000 pixels a
+view unless --attn-chunk is given); --view-chunk N scans chunks of N views,
+--attn-chunk N runs the backbone's model-path attention over chunks of N
+windows (runtime/train.make_train_step, tools/train.py:102-120). JAX's
+--split-step is not ported: the kernels' autograd Functions already give
+its contract (the kernel forward, the model path's backward), so passing
+it is an error.
 
 The default device is the card; without one it raises (``--device cpu``
 runs on the CPU, for tests). On the card an f32 config (such as ``tiny``)
@@ -83,6 +93,21 @@ def parse_args(argv=None):
     ap.add_argument("--no-remat", action="store_true",
                     help="no torch.utils.checkpoint on the droppath blocks "
                          "and the decoder layers")
+    ap.add_argument("--view-scan", choices=("auto", "on", "off"),
+                    default="auto",
+                    help="run the backbone over chunks of views (auto: on "
+                         "above 500 000 pixels a view, i.e. at 1600x800, "
+                         "unless --attn-chunk is given)")
+    ap.add_argument("--view-chunk", type=int, default=0,
+                    help="views a chunk of the view scan (overrides "
+                         "--view-scan; must divide the view count)")
+    ap.add_argument("--attn-chunk", type=int, default=0,
+                    help="run the backbone's model-path attention over "
+                         "chunks of this many windows, each under "
+                         "torch.utils.checkpoint")
+    ap.add_argument("--split-step", action="store_true",
+                    help="not ported (an error): the kernels' autograd "
+                         "Functions give the two-program step's contract")
     ap.add_argument("--distributed", action="store_true",
                     help="data-parallel training over torchrun's "
                          "environment (NCCL on the card, gloo with "
@@ -94,7 +119,23 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; without a card, cuda "
                          "raises")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.split_step:
+        ap.error("--split-step is not ported: the kernels' autograd "
+                 "Functions already run the kernel forward and the model "
+                 "path's backward in one step (make_split_train_step's "
+                 "contract)")
+    return args
+
+
+def step_options(args) -> dict:
+    """make_train_step's view_scan and attn_chunk from the flags
+    (tools/train.py:192-207): --view-chunk overrides --view-scan; auto
+    (None) leaves the policy to make_train_step."""
+    vs = {"auto": None, "on": True, "off": False}[args.view_scan]
+    if args.view_chunk:
+        vs = args.view_chunk
+    return {"view_scan": vs, "attn_chunk": args.attn_chunk or None}
 
 
 def train_aug(cfg, src_h: int, src_w: int):
@@ -212,7 +253,8 @@ def main(argv=None) -> dict:
     if args.resume_from:
         state = load_train_state(args.resume_from, state, tx, group)
         print(f"resumed from {args.resume_from} at step {state.step}")
-    step_fn = make_train_step(tx, remat=not args.no_remat, group=group)
+    step_fn = make_train_step(tx, remat=not args.no_remat, group=group,
+                              **step_options(args))
 
     sampler = InfiniteGroupEachSampleInBatchSampler(
         infos.flag, args.batch_size, num_replicas=world, rank=rank,
