@@ -97,13 +97,23 @@ Phases, each fatal on failure (exit code != 0):
      toc3d:: custom ops) twice, bf16 with float32 images and int8
      dynamic with uint8 images, into a temporary directory deleted after;
      each artifact loaded in a fresh `python3 -c` with no
-     toc3d_tpu_torch.models module, 3 frames equal bit for bit to
-     make_infer_fn's (boxes, scores, labels, validity, bank) with the
-     launches per frame of phase 5 and 6 (bf16: A 1, B 6, C 18, D 12, G
-     96, LN 72; int8: A 1, B8 6, C8 18, D 12, H8 60, G8 96, LN 72);
-     prints export seconds, artifact bytes, load seconds, the loaded
-     programs' steady ms/frame (eager) beside make_infer_fn's captured
-     ones, the phase's wall time and the nvidia-smi line;
+     toc3d_tpu_torch.models module, 3 frames through the loaded
+     detector's call (its programs replayed as captured CUDA graphs)
+     equal bit for bit to make_infer_fn's (boxes, scores, labels,
+     validity, bank) with the launches per frame of phase 5 and 6 (bf16:
+     A 1, B 6, C 18, D 12, G 96, LN 72; int8: A 1, B8 6, C8 18, D 12, H8
+     60, G8 96, LN 72), and the same 3 frames through its eager run
+     (ExportedDetector.eager) equal too; prints export seconds, artifact
+     bytes, load seconds, the loaded programs' steady ms/frame captured
+     and eager beside make_infer_fn's captured ones, the phase's wall time
+     and the nvidia-smi line;
+  8c. warm start (phase_pretrained): ToC3D_faster_1600 on the card, one
+     frame captured and replayed through make_infer_fn, then a seeded
+     synthetic EVA-02 checkpoint at full width (24 blocks, a 32 x 32 + cls
+     pos_embed) merged by runtime/checkpoint.load_backbone_pretrained
+     (patch_embed, pos_embed and all 24 blocks loaded); the same frame
+     again, recaptured: different from before and equal bit for bit to
+     eager infer_step, with the main path's launches on its replay;
   9. training (phase_train): ToC3D_faster at full width, batch 2 (6 views
      of 800x320 each), through runtime/train.make_train_step: the
      Functions of A, B and C at their training shapes (C at every (ws,
@@ -1973,7 +1983,9 @@ EXPORT_CHECKED = 3   # frames held bit for bit: the first, then two steady
 EXPORT_TIMED = 6     # steady frames timed after them (the last one again)
 
 # run in a fresh interpreter: load an artifact with no model module,
-# stream the saved frames, hold them to make_infer_fn's saved outputs
+# stream the saved frames through the loaded detector's call (captured
+# graphs) and through its eager run, hold both to make_infer_fn's saved
+# outputs, and time steady frames of each
 EXPORT_CHILD = r"""
 import json, sys, time
 import torch
@@ -1994,16 +2006,30 @@ for f, ref in zip(frames, d["ref"]):
     got = tuple(out) + tuple(state.memory)
     equal.append(all(torch.equal(a.cpu(), b) for a, b in zip(got, ref)))
 launches = [c.launches for c in counters]
-ms = []
-for _ in range(d["timed"]):
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state, out = det(state, frames[-1])
-    torch.cuda.synchronize()
-    ms.append((time.perf_counter() - t0) * 1e3)
+estate, eager_equal = det.init_state(), []
+for f, ref in zip(frames, d["ref"]):
+    estate, out = det.eager(estate, f)
+    got = tuple(out) + tuple(estate.memory)
+    eager_equal.append(all(torch.equal(a.cpu(), b) for a, b in zip(got, ref)))
+
+
+def timed(run, state):
+    ms = []
+    for _ in range(d["timed"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, out = run(state, frames[-1])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+ms, eager_ms = timed(det, state), timed(det.eager, estate)
 mods = sorted(m for m in sys.modules if m.startswith("toc3d_tpu_torch.models"))
-print(json.dumps({"load_s": load_s, "equal": equal, "launches": launches,
-                  "ms": ms, "model_modules": mods}))
+print(json.dumps({"load_s": load_s, "equal": equal,
+                  "eager_equal": eager_equal, "launches": launches,
+                  "ms": ms, "eager_ms": eager_ms, "programs": sorted(
+                      det._graphs), "model_modules": mods}))
 """
 
 
@@ -2025,11 +2051,13 @@ def phase_export(results):
     twice (bf16 with float32 images; int8 dynamic, backbone and decoder,
     with uint8 images) into a temporary directory; each artifact loaded in
     a fresh `python3 -c` that asserts no toc3d_tpu_torch.models module is
-    loaded, streams 3 frames (the first, two steady) equal bit for bit to
-    make_infer_fn's (boxes, scores, labels, validity, bank) with each
-    kernel's launches per frame (bf16: A 1, B 6, C 18, D 12, G 96, LN 72;
-    int8: A 1, B8 6, C8 18, D 12, H8 60, G8 96, LN 72), then times steady
-    frames (eager) beside make_infer_fn's captured ones. Returns ok."""
+    loaded, streams 3 frames (the first, two steady) through the loaded
+    detector's call (captured graphs) equal bit for bit to make_infer_fn's
+    (boxes, scores, labels, validity, bank) with each kernel's launches per
+    frame (bf16: A 1, B 6, C 18, D 12, G 96, LN 72; int8: A 1, B8 6, C8
+    18, D 12, H8 60, G8 96, LN 72), and through its eager run, equal too,
+    then times steady frames of both beside make_infer_fn's captured ones.
+    Returns ok."""
     import shutil
     import tempfile
     import torch
@@ -2093,35 +2121,154 @@ def phase_export(results):
                 continue
             got = json.loads(lines[-1])
             want = [n * EXPORT_CHECKED for n in per_frame]
-            ok = (all(got["equal"]) and got["launches"] == want
+            ok = (all(got["equal"]) and all(got["eager_equal"])
+                  and got["launches"] == want
+                  and got["programs"] == ["backbone_first",
+                                          "backbone_steady", "head"]
                   and not got["model_modules"]
                   and set(manifest["ops"]) <= set(kernel_ops().values()))
             ok_all &= ok
-            steady, loaded = got["ms"][1:], graph_ms[1:]
-            e_ms = sum(steady) / len(steady)
-            g_ms = sum(loaded) / len(loaded)
+
+            def mean(ms):
+                return sum(ms[1:]) / len(ms[1:])
+            c_ms, e_ms, g_ms = (mean(got["ms"]), mean(got["eager_ms"]),
+                                mean(graph_ms))
             results.setdefault("export", {})[label] = dict(
                 export_s=export_s, artifact_bytes=sizes,
-                load_s=got["load_s"], loaded_eager_ms=e_ms,
-                captured_ms=g_ms)
+                load_s=got["load_s"], loaded_captured_ms=c_ms,
+                loaded_eager_ms=e_ms, captured_ms=g_ms)
             log(f"export ToC3D_faster_1600 {label}: {export_s:.3f} s to "
                 f"export, artifact {sum(sizes.values())} bytes {sizes}; ops "
                 f"{manifest['ops']}; loaded in a fresh process in "
                 f"{got['load_s']:.3f} s, model modules {got['model_modules']}"
-                f"; equal to make_infer_fn bit for bit per frame "
-                f"{got['equal']}; launches {'/'.join(KERNELS)} "
+                f", graphs {got['programs']}; equal to make_infer_fn bit for "
+                f"bit per frame: captured {got['equal']}, eager "
+                f"{got['eager_equal']}; launches {'/'.join(KERNELS)} "
                 f"{got['launches']} over {EXPORT_CHECKED} frames (want "
-                f"{want}); steady ms/frame: loaded artifact (eager) "
-                f"{[round(t, 3) for t in got['ms']]} mean {e_ms:.3f} "
+                f"{want}); steady ms/frame (frames 1-{EXPORT_TIMED - 1}): "
+                f"loaded artifact captured "
+                f"{[round(t, 3) for t in got['ms']]} mean {c_ms:.3f} "
+                f"({1e3 / c_ms:.4f} frames/s), loaded artifact eager "
+                f"{[round(t, 3) for t in got['eager_ms']]} mean {e_ms:.3f} "
                 f"({1e3 / e_ms:.4f} frames/s), make_infer_fn captured "
                 f"{[round(t, 3) for t in graph_ms]} mean {g_ms:.3f} "
-                f"({1e3 / g_ms:.4f} frames/s) "
+                f"({1e3 / g_ms:.4f} frames/s); loaded captured / "
+                f"make_infer_fn {c_ms / g_ms:.4f} "
                 f"{'ok' if ok else 'FAIL'}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"phase_export: {time.perf_counter() - t_phase:.1f} s wall | "
         f"{nvidia_smi_line()}")
     return ok_all
+
+
+PRETRAINED_GRID = 32   # the synthetic checkpoint's pos_embed: 32 x 32 + cls
+
+
+def pretrained_checkpoint(vit, seed: int, grid: int = PRETRAINED_GRID):
+    """A seeded synthetic EVA-02 backbone checkpoint on the card, named as
+    the public one (patch_embed.proj, pos_embed, blocks.{i}), at the widths
+    and depth of ``vit`` (an EVAViTConfig) with a pos_embed of grid x grid
+    + cls; matrices N(0, 0.02), LayerNorm scales 1 + N(0, 0.02), the rest
+    N(0, 0.02), as an initialized backbone."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c, hid, ps = vit.embed_dim, int(vit.embed_dim * vit.mlp_ratio), \
+        vit.patch_size
+
+    def draw(name, *shape):
+        v = torch.randn(shape, generator=g, device="cuda") * 0.02
+        return v + 1.0 if name.endswith(("norm1.weight", "norm2.weight",
+                                          "ffn_ln.weight")) else v
+    block = {"norm1.weight": (c,), "norm1.bias": (c,),
+             "attn.q_proj.weight": (c, c), "attn.q_bias": (c,),
+             "attn.k_proj.weight": (c, c), "attn.v_proj.weight": (c, c),
+             "attn.v_bias": (c,), "attn.proj.weight": (c, c),
+             "attn.proj.bias": (c,), "norm2.weight": (c,),
+             "norm2.bias": (c,), "mlp.w1.weight": (hid, c),
+             "mlp.w1.bias": (hid,), "mlp.w2.weight": (hid, c),
+             "mlp.w2.bias": (hid,), "mlp.w3.weight": (c, hid),
+             "mlp.w3.bias": (c,), "mlp.ffn_ln.weight": (hid,),
+             "mlp.ffn_ln.bias": (hid,)}
+    sd = {"patch_embed.proj.weight": draw("w", c, 3, ps, ps),
+          "patch_embed.proj.bias": draw("b", c),
+          "pos_embed": draw("w", 1, grid * grid + 1, c)}
+    for i in range(vit.depth):
+        for k, shape in block.items():
+            sd[f"blocks.{i}.{k}"] = draw(k, *shape)
+    return sd
+
+
+def phase_pretrained(results):
+    """The warm start (runtime/checkpoint.load_backbone_pretrained) on the
+    card: ToC3D_faster_1600 with seeded random weights, one frame (pinned
+    host memory, prev_exists 0) through make_infer_fn twice (its first use,
+    then a replay); a seeded synthetic EVA-02 checkpoint at full width with
+    a 32 x 32 + cls pos_embed merged into the model, whose report must
+    list pos_embed, patch_embed and all 24 blocks as loaded; the same frame
+    from a fresh state twice again: the programs are packed and captured
+    anew, both results differ from the frame before the merge and equal
+    eager infer_step's bit for bit (boxes, scores, labels, validity,
+    bank), and the replay launches the main path's per-frame counts.
+    Returns ok."""
+    import torch
+    from toc3d_tpu_torch.configs import get_config
+    from toc3d_tpu_torch.models.detector import (build_detector, infer_step,
+                                                 init_state, make_infer_fn)
+    from toc3d_tpu_torch.runtime.checkpoint import load_backbone_pretrained
+    t0 = time.perf_counter()
+    cfg = get_config("ToC3D_faster_1600")
+    model = build_detector(cfg, device="cuda", seed=0)
+    infer = make_infer_fn(model)
+    frame = host_frames(11, 1, cfg.pad_shape)[0]
+
+    def outputs(run):
+        state, det = run(init_state(1, cfg, device="cuda"), frame)
+        return tuple(det) + tuple(state.memory)
+    outputs(infer)
+    before = outputs(infer)
+    programs = dict(infer._programs)
+    ck = pretrained_checkpoint(cfg.backbone, 13)
+    torch.cuda.synchronize()
+    t_merge = time.perf_counter()
+    report = load_backbone_pretrained(model, ck)
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t_merge
+    del ck
+    want_loaded = ["pos_embed", "patch_embed"] + [
+        f"blocks.{i}" for i in range(cfg.backbone.depth)]
+    first = outputs(infer)
+    for f in counters():
+        f.launches = 0
+    replay = outputs(infer)
+    launches = [f.launches for f in counters()]
+    eager = outputs(lambda s, f: infer_step(model, s, f))
+    recaptured = sorted(map(str, infer._programs)) == sorted(
+        map(str, programs)) and all(infer._programs[k] is not p
+                                    for k, p in programs.items())
+    same = [all(torch.equal(a, b) for a, b in zip(got, eager))
+            for got in (first, replay)]
+    differs = not torch.equal(replay[1], before[1]) and \
+        not torch.equal(replay[0], before[0])
+    finite = all(bool(torch.isfinite(t).all()) for t in
+                 (replay[0], replay[1], eager[4]))
+    ok = (report == {"loaded": want_loaded, "missing": []} and recaptured
+          and all(same) and differs and finite
+          and launches == list(MAIN_PER_FRAME))
+    results["pretrained"] = dict(merge_s=merge_s, loaded=len(
+        report["loaded"]), missing=report["missing"])
+    log(f"warm start ToC3D_faster_1600: a synthetic EVA-02 checkpoint "
+        f"({cfg.backbone.depth} blocks of width {cfg.backbone.embed_dim}, "
+        f"pos_embed {PRETRAINED_GRID}x{PRETRAINED_GRID} + cls) merged in "
+        f"{merge_s:.3f} s: loaded {len(report['loaded'])} "
+        f"{report['loaded'][:3]}..., missing {report['missing']}; programs "
+        f"captured anew {recaptured}; the frame after the merge differs "
+        f"from the one before {differs}, finite {finite}; equal to eager "
+        f"infer_step bit for bit (first use, replay) {same}; replay "
+        f"launches {'/'.join(KERNELS)} {launches} (want "
+        f"{list(MAIN_PER_FRAME)}); {time.perf_counter() - t0:.1f} s "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok
 
 
 def phase_gumbel():
@@ -4281,6 +4428,8 @@ def main() -> int:
                      phase_small_agreement("static")])
         torch.cuda.empty_cache()
         ok_x = phase_export(results)
+        torch.cuda.empty_cache()
+        ok_pt = phase_pretrained(results)
     torch.cuda.empty_cache()
     captured = {}
     ok_t = phase_train(results, captured)
@@ -4291,14 +4440,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     ok_pl = phase_parallel(results)
     if not (ok_k and ok_k8 and ok_ps and ok_m and ok_m8 and ok_p and ok_e
-            and ok_bf and ok_gb and ok_s and ok_s8 and ok_x and ok_t
-            and ok_t16 and ok_te and ok_pl):
+            and ok_bf and ok_gb and ok_s and ok_s8 and ok_x and ok_pt
+            and ok_t and ok_t16 and ok_te and ok_pl):
         log(f"chip_smoke: FAILED (kernels {ok_k}, int8 kernels {ok_k8}, "
             f"other presets' kernel shapes {ok_ps}, main path {ok_m}, int8 "
             f"main path {ok_m8}, other presets' paths {ok_p}, streaming "
             f"eval {ok_e}, bench {ok_bf}, gumbel eval mask {ok_gb}, "
             f"small-input agreement {ok_s}, int8 small-input agreement "
-            f"{ok_s8}, export {ok_x}, training {ok_t}, training at "
+            f"{ok_s8}, export {ok_x}, warm start {ok_pt}, training {ok_t}, "
+            f"training at "
             f"1600x800 {ok_t16}, matchers and closed loop {ok_te}, "
             f"multi-GPU {ok_pl})")
         return 1

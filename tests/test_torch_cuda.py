@@ -24,8 +24,9 @@ with its LN(0) row, LN2 with the residual and the stored sum, the sub-LN's
 2730 of 2736 columns in place, and small generic widths), on rows off a
 16-byte boundary (the kernel's 4-byte accesses), and what it refuses. The
 streaming eval (runtime/eval.streaming_eval) through the captured frame
-against eager infer_step on float32 and uint8 eval frames, and the token
-visualizer's step (infer_step_with_aux) against infer_step.
+against eager infer_step on float32 and uint8 eval frames, the token
+visualizer's step (infer_step_with_aux) against infer_step, and the loaded
+export's captured and eager runs against make_infer_fn.
 
 Every test needs a CUDA card and skips without one. This file imports no
 JAX, so a GPU host without JAX runs it (the tests' conftest.py imports JAX,
@@ -966,6 +967,51 @@ def test_plain_backbone_frame_captured_once_equals_eager(dev):
     for t, (a, b) in enumerate(zip(got, _eager_stream(model, frames))):
         for x, y in zip(a, b):
             assert torch.equal(x, y), f"frame {t}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["none", "dynamic", "static"])
+def test_loaded_export_captured_equals_eager_and_make_infer_fn(dev, tmp_path,
+                                                              quant):
+    """The loaded artifact (runtime/export.load_detector) on the card: its
+    call replays its programs as captured CUDA graphs (backbone_first,
+    backbone_steady and head, each captured once), its eager run launches
+    them op by op, and both equal make_infer_fn bit for bit over a stream
+    with a reset, in bf16 and int8 (dynamic, static) on uint8 frames. A
+    replayed frame launches what an eager frame launches."""
+    from toc3d_tpu_torch.models.detector import init_state, make_infer_fn
+    from toc3d_tpu_torch.ops.cuda import counted_wrappers
+    from toc3d_tpu_torch.runtime.export import export_detector, load_detector
+    model = _serving_model(quant)
+    export_detector(model, str(tmp_path), batch_size=1, num_views=2,
+                    img_dtype=torch.uint8)
+    det = load_detector(str(tmp_path))
+    frames = _host_stream()
+    ref = make_infer_fn(model)
+    s_ref = init_state(1, model.cfg, device="cuda")
+    s_cap, s_eag, captured = det.init_state(), det.init_state(), {}
+    for t, f in enumerate(frames):
+        s_ref, d_ref = ref(s_ref, f)
+        s_cap, d_cap = det(s_cap, f)
+        s_eag, d_eag = det.eager(s_eag, f)
+        for name, prog in det._graphs.items():
+            assert captured.setdefault(name, prog) is prog, (t, name)
+        want = _outputs((s_ref, d_ref))
+        for run, got in (("captured", _outputs((s_cap, d_cap))),
+                         ("eager", _outputs((s_eag, d_eag)))):
+            for x, y in zip(got, want):
+                assert torch.equal(x, y), f"{run}, frame {t}"
+    assert sorted(det._graphs) == ["backbone_first", "backbone_steady",
+                                   "head"]
+    counters = counted_wrappers()
+    before = [c.launches for c in counters]
+    det(s_cap, frames[-1])
+    replayed = [c.launches - n for c, n in zip(counters, before)]
+    before = [c.launches for c in counters]
+    det.eager(s_eag, frames[-1])
+    eager = [c.launches - n for c, n in zip(counters, before)]
+    assert replayed == eager
+    assert replayed[0] > 0 and replayed[3] > 0      # A and D
 
 
 # two selectors, so the first one's mask shapes the second one's scores

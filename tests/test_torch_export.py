@@ -12,7 +12,13 @@ labels and validity equal, near-tied ranks in either order), the int8
 backbone (B8 / C8, dynamic and calibrated static),
 ``torch.library.opcheck`` of every ``toc3d::`` op's CPU implementation
 against its fake one at small shapes, the export CLI's self-check, and the
-weight packs taken as they stand under a trace.
+weight packs taken as they stand under a trace. The served detector's CUDA
+path (captured graphs, runtime/capture.py): its frame checks, its programs
+captured once and kept (with CPU stand-ins for the CUDA graph API, as
+tests/test_torch_serving.py does), no host-sync node in a loaded program,
+and its modules loaded with no model module; on the CPU a call is the
+eager run. The card tests of the captured loaded programs are in
+tests/test_torch_cuda.py.
 """
 import json
 import os
@@ -37,6 +43,7 @@ from toc3d_tpu.runtime.checkpoint import convert_detector_checkpoint
 from test_full_converter import build_reference_state_dict
 from test_parity_detector import make_frames
 from test_torch_presets import _compare as compare_with_ties
+from test_torch_serving import cuda_standins  # noqa: F401  (a fixture)
 
 from toc3d_tpu_torch.configs import get_config
 from toc3d_tpu_torch.layers import quantize_linear
@@ -349,3 +356,110 @@ def test_export_cli_selfcheck(tmp_path, capsys):
     assert line["export_s"] > 0
     assert set(line["artifact_bytes"]) == set(os.listdir(out))
     assert "# selfcheck OK (bit-identical)" in text
+
+
+# ---------------------------------------------------------------------------
+# the served detector's CUDA path, rehearsed on the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def served(artifact):
+    return load_detector(artifact[3], device="cpu")
+
+
+def test_call_is_eager_on_cpu(served):
+    """On the CPU there is nothing to capture: a call is the eager run."""
+    det = served
+    s_call, s_eager = det.init_state(), det.init_state()
+    for i, frame in enumerate(_frames(17)):
+        s_call, d_call = det(s_call, frame)
+        s_eager, d_eager = det.eager(s_eager, frame)
+        _equal(d_call, s_call, d_eager, s_eager, f"frame {i}")
+
+
+@pytest.mark.parametrize("key,bad", [
+    ("img", lambda v: v[:, :1]),                     # one view of two
+    ("img", lambda v: v.astype(np.float64)),
+    ("img", lambda v: v.astype(np.uint8)),
+    ("intrinsics", lambda v: v[..., :3, :3]),
+    ("timestamp", lambda v: v.astype(np.float16)),
+    ("prev_exists", lambda v: np.concatenate([v, v])),   # batch 2 of 1
+])
+def test_frame_of_another_shape_or_dtype_raises(served, key, bad):
+    """A replay runs none of the loaded programs' own input checks: the
+    host holds each frame to the manifest's shapes and dtypes first, on
+    the eager run and on the replayed one."""
+    det = served
+    frame = dict(_frames(19, t_total=1)[0])
+    frame[key] = bad(frame[key])
+    with pytest.raises(ValueError, match=key):
+        det(det.init_state(), frame)
+    with pytest.raises(ValueError, match=key):
+        det._replay(det.init_state(), frame)
+
+
+def test_replayed_programs_are_captured_once_and_kept(artifact,
+                                                      cuda_standins):
+    """The CUDA path with CPU stand-ins for the graph API (a capture runs
+    its function, a replay does nothing): over a stream with a scene reset
+    each program (backbone_first, backbone_steady, head) is captured once,
+    at its first use, into the buffers of the first frame's layout; the
+    first frame's result (its programs' eager first runs) is eager's. A
+    frame laid out with other strides drops the graphs and captures anew
+    on new buffers."""
+    _, _, _, out, _ = artifact
+    det = load_detector(out, device="cpu")
+    frames = _frames(23, t_total=5)
+    frames[3]["prev_exists"][:] = 0.0
+    state, seen = det.init_state(), {}
+    for t, frame in enumerate(frames):
+        state, boxes = det._replay(state, frame)
+        if t == 0:
+            s_ref, d_ref = det.eager(det.init_state(), frame)
+            _equal(boxes, state, d_ref, s_ref, "frame 0")
+            buffers = dict(det._frame_buf)
+        for name, prog in det._graphs.items():
+            assert seen.setdefault(name, prog) is prog, (t, name)
+        assert all(det._frame_buf[k] is v for k, v in buffers.items())
+    assert sorted(seen) == ["backbone_first", "backbone_steady", "head"]
+    f = dict(frames[4])
+    f["img"] = torch.from_numpy(f["img"]).transpose(2, 3).contiguous() \
+        .transpose(2, 3)
+    det._replay(state, f)
+    assert det._frame_buf["img"] is not buffers["img"]
+    assert det._frame_buf["img"].stride() == f["img"].stride()
+    assert all(det._graphs[n] is not seen[n] for n in det._graphs)
+
+
+def test_programs_hold_no_host_sync(served):
+    """A graph capture fails on a host synchronisation: no loaded program
+    reads a device value on the host (.item(), a data-dependent shape)."""
+    syncs = {"aten._local_scalar_dense", "aten.item", "aten.nonzero",
+             "aten.masked_select", "aten.unique", "aten._unique2",
+             "aten.unique_consecutive", "aten.unique_dim"}
+    assert len(served._programs) == 3
+    for name, (prog, _) in served._programs.items():
+        called = {str(n.target).rsplit(".", 1)[0] for n in prog.graph.nodes
+                  if n.op == "call_function"}
+        assert "toc3d.flash_attention_core" in called or "backbone" in name
+        assert not called & syncs, (name, called & syncs)
+
+
+def test_capture_and_export_import_no_model_module():
+    """runtime/capture.py and runtime/export.py (and the counters a capture
+    reads) load in a fresh interpreter without any toc3d_tpu_torch.models
+    module."""
+    code = (
+        "import sys\n"
+        "from toc3d_tpu_torch.runtime import capture, export\n"
+        "from toc3d_tpu_torch.ops.cuda import counted_wrappers, library\n"
+        "assert len(counted_wrappers()) == 11\n"
+        "mods = [m for m in sys.modules\n"
+        "        if m.startswith('toc3d_tpu_torch.models')]\n"
+        "assert not mods, mods\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip().endswith("ok")

@@ -26,7 +26,9 @@ def test_port_imports_no_jax():
                 "data.nuscenes", "data.sampler", "data.loader",
                 "data.synthetic", "runtime.nusc_metrics", "runtime.eval",
                 "runtime.token_vis", "tracking", "tracking.pub_tracker",
-                "tracking.metrics", "tools.test", "tools.track"):
+                "tracking.metrics", "tools.test", "tools.track",
+                "runtime.capture", "runtime.export", "runtime.checkpoint",
+                "data.convert", "tools.create_data_nusc", "tools.visualize"):
         assert f"toc3d_tpu_torch.{mod}" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"

@@ -19,11 +19,16 @@ save gathers the lanes to every rank in rank order and only the group's
 rank 0 writes, so the file is the one a single process at the global batch
 would write; a load reads it on rank 0, broadcasts the parameters, the
 optimizer state and the bank, and each rank keeps its own lanes.
+
+``load_backbone_pretrained`` merges a public backbone checkpoint (EVA-02,
+SAM, MAE or ViTDet naming) into a fresh detector, the warm start the paper
+trains from (toc3d_tpu/runtime/checkpoint.py:311-365).
 """
 from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -110,3 +115,88 @@ def load_train_state(path: str, state, tx, group=None):
         lanes = mesh.local_lanes(len(memory[0]), group)
         memory = [t[lanes].contiguous() for t in memory]
     return type(state)(state.model, opt, MemoryBank(*memory), step)
+
+
+# ---------------------------------------------------------------------------
+# public pretrained backbone warm start (EVA-02 / SAM / MAE / ViTDet)
+# ---------------------------------------------------------------------------
+
+# prefix rewrites of the reference's warm-start shims (tools/train.py:
+# 260-340): SAM image_encoder, ViTDet backbone.net, bare MAE keys; applied
+# to each key in this order, each at most once
+PRETRAINED_PREFIX_REWRITES = (
+    ("image_encoder.", "img_backbone."),
+    ("backbone.net.", "img_backbone."),
+    ("module.", ""),
+)
+
+# the keys of a block that JAX's convert_eva_block always reads: a block
+# loads only when all are present
+_BLOCK_KEYS = ("norm1.weight", "norm1.bias", "attn.q_proj.weight",
+               "attn.q_bias", "attn.k_proj.weight", "attn.v_proj.weight",
+               "attn.v_bias", "attn.proj.weight", "norm2.weight",
+               "norm2.bias", "mlp.w1.weight", "mlp.w2.weight",
+               "mlp.w3.weight", "mlp.ffn_ln.weight", "mlp.ffn_ln.bias")
+# the linears' biases, read where present: JAX's linear without one adds
+# none, a zero bias here
+_BLOCK_BIASES = ("attn.proj.bias", "mlp.w1.bias", "mlp.w2.bias",
+                 "mlp.w3.bias")
+
+
+def _f32(v) -> torch.Tensor:
+    """A checkpoint value (tensor or array) as an f32 tensor."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().to(torch.float32)
+    return torch.from_numpy(np.asarray(v, np.float32))
+
+
+def _merge(module, sd, prefix, required, optional=()) -> bool:
+    """Copy ``sd[prefix + name]`` into each parameter ``name`` of
+    ``module`` when every ``required`` name is present (an ``optional`` one
+    that is absent is zeroed); False, and nothing written, otherwise."""
+    if not all(prefix + k in sd for k in required):
+        return False
+    for k in required + optional:
+        p = module.get_parameter(k)
+        if prefix + k in sd:
+            p.copy_(_f32(sd[prefix + k]))
+        else:
+            p.zero_()
+    return True
+
+
+@torch.no_grad()
+def load_backbone_pretrained(model, state_dict) -> dict:
+    """Merge a public backbone checkpoint (EVA-02 / SAM / MAE / ViTDet
+    naming; tensors or numpy arrays) into ``model``, a detector, in place
+    and non-strict: what converts is taken, the rest (selectors, neck,
+    head, absent blocks) keeps its init. Returns {"loaded": [...],
+    "missing": [...]}, JAX's report (checkpoint.py:322-365): ``pos_embed``
+    is loaded when present and never missing; ``patch_embed`` and each of
+    the model's blocks are loaded or missing, a block whole or not at all.
+    A ``pos_embed`` of another grid replaces the parameter at its own shape
+    (the forward resamples it, ops/resize.resize_abs_pos). The copies
+    change the model's weight key (ops.cuda.param_key), so the weight
+    packs are rebuilt and the captured frame captured again."""
+    sd = {}
+    for k, v in state_dict.items():
+        for old, new in PRETRAINED_PREFIX_REWRITES:
+            if k.startswith(old):
+                k = new + k[len(old):]
+        if not k.startswith("img_backbone."):
+            k = "img_backbone." + k     # MAE checkpoints use bare keys
+        sd[k] = v
+    bb = model.img_backbone
+    loaded, missing = [], []
+    if "img_backbone.pos_embed" in sd:
+        dev = bb.patch_embed.proj.weight.device
+        bb.pos_embed = torch.nn.Parameter(_f32(
+            sd["img_backbone.pos_embed"]).to(dev, copy=True))
+        loaded.append("pos_embed")
+    (loaded if _merge(bb.patch_embed.proj, sd,
+                      "img_backbone.patch_embed.proj.", ("weight",),
+                      ("bias",)) else missing).append("patch_embed")
+    for i, blk in enumerate(bb.blocks):
+        (loaded if _merge(blk, sd, f"img_backbone.blocks.{i}.", _BLOCK_KEYS,
+                          _BLOCK_BIASES) else missing).append(f"blocks.{i}")
+    return {"loaded": loaded, "missing": missing}

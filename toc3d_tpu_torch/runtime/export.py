@@ -33,8 +33,12 @@ Artifact layout (one directory):
                        features, the programs and their weight names, the
                        toc3d ops they call, versions
 
-``load_detector`` imports only the op registry (ops/cuda/library.py) and
-``torch.export.load``; nothing under ``toc3d_tpu_torch/models``.
+``load_detector`` imports only the op registry (ops/cuda/library.py), the
+capture machinery (runtime/capture.py) and ``torch.export.load``; nothing
+under ``toc3d_tpu_torch/models``. On CUDA the loaded detector replays its
+programs as captured CUDA graphs (ExportedDetector), the counterpart of
+JAX's jit of its deserialized programs (toc3d_tpu/runtime/export.py:
+222-223); ``ExportedDetector.eager`` runs them op by op.
 """
 from __future__ import annotations
 
@@ -51,6 +55,7 @@ from torch.utils._pytree import tree_leaves
 from ..core.coder import DecodedBoxes
 from ..core.state import DetectorState, MemoryBank
 from ..ops.cuda import PACK_CACHE
+from .capture import run_captured
 
 FORMAT = "toc3d_tpu_torch.export.v1"
 
@@ -327,12 +332,27 @@ def export_detector(model, out_dir: str, batch_size: int = 1,
 
 class ExportedDetector:
     """A served detector: ``make_infer_fn``'s results, rebuilt from the
-    artifact with no model code. The loaded programs run eagerly (each op
-    and kernel launched from the host; the kernels' launch counters tick).
+    artifact with no model code.
 
         det = ExportedDetector(path)
         state = det.init_state()
         state, boxes = det(state, frame)   # frame: dict of numpy / tensors
+
+    On CUDA a call replays captured CUDA graphs, as make_infer_fn's
+    runtime/graphs.CapturedInfer does: one graph per backbone program (the
+    host picks it from ``prev_exists``) and one for the head, in one memory
+    pool. Each call checks the frame against the manifest's shapes and
+    dtypes on the host (a replay runs no Python, so the loaded programs'
+    own input checks no longer run), copies it and the memory bank into
+    static buffers (without blocking the host from pinned memory), replays
+    the backbone graph, which writes one features buffer, then the head
+    graph, which reads it, and returns the state and boxes cloned out of the
+    graphs' outputs. A program's first use runs eagerly on a side stream
+    and is then captured (runtime/capture.py); the weights are the loaded
+    tensors, at fixed addresses for the detector's life. A capture or
+    replay that fails raises. ``eager(state, frame)`` runs the loaded
+    programs op by op (each op and kernel launched from the host), as
+    ``infer_step`` runs the model; on the CPU a call is that eager run.
     """
 
     def __init__(self, path: str, device="cuda"):
@@ -355,42 +375,108 @@ class ExportedDetector:
         mem = torch.load(os.path.join(path, m["memory"]),
                          map_location=self.device, weights_only=True)
         self._mem0 = MemoryBank(**mem)
-        self._dtypes = {k: getattr(torch, s["dtype"])
-                        for k, s in m["frame_specs"].items()}
+        self._specs = {k: (tuple(s["shape"]), getattr(torch, s["dtype"]))
+                       for k, s in m["frame_specs"].items()}
+        self._layout = None
 
     def init_state(self) -> DetectorState:
         return DetectorState(MemoryBank(*(t.clone() for t in self._mem0)))
 
     def _frame(self, frame):
+        """The frame's tensors where they lie, each checked against the
+        manifest's shape and dtype (ValueError)."""
         out = {}
         for k in FRAME_KEYS:
             v = frame[k]
             t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
                 np.ascontiguousarray(v))
-            if (t.dtype == torch.uint8) != (self._dtypes[k] == torch.uint8):
-                raise ValueError(f"frame[{k!r}]: {t.dtype} for a program "
-                                 f"exported with {self._dtypes[k]}")
-            out[k] = t.to(self.device, self._dtypes[k], non_blocking=True)
+            shape, dtype = self._specs[k]
+            if tuple(t.shape) != shape or t.dtype != dtype:
+                raise ValueError(f"frame[{k!r}]: {tuple(t.shape)} "
+                                 f"{t.dtype} for a program exported with "
+                                 f"{shape} {dtype}")
+            out[k] = t
         return out
 
-    @torch.no_grad()
-    def __call__(self, state: DetectorState, frame) -> Tuple[DetectorState,
-                                                             DecodedBoxes]:
-        """One frame. The host reads ``prev_exists`` where it lies (no
-        device read for a numpy array or a host tensor) to pick the
-        backbone program."""
+    def _backbone_name(self, frame) -> str:
+        """The host reads ``prev_exists`` where it lies (no device read for
+        a numpy array or a host tensor) to pick the backbone program."""
         if "backbone" in self._programs:
-            name = "backbone"
-        else:
-            steady = bool((frame["prev_exists"] > 0).all())
-            name = "backbone_steady" if steady else "backbone_first"
-        frame = self._frame(frame)
+            return "backbone"
+        steady = bool((frame["prev_exists"] > 0).all())
+        return "backbone_steady" if steady else "backbone_first"
+
+    @torch.no_grad()
+    def eager(self, state: DetectorState, frame) -> Tuple[DetectorState,
+                                                          DecodedBoxes]:
+        """One frame through the loaded programs, op by op."""
+        name = self._backbone_name(frame)
+        frame = {k: t.to(self.device, non_blocking=True)
+                 for k, t in self._frame(frame).items()}
         mem = tuple(state.memory)
         bb, w = self._programs[name]
         feats = bb(w, frame["img"], mem, frame)
         hd, w = self._programs["head"]
         mem, det = hd(w, mem, feats, frame)
         return DetectorState(MemoryBank(*mem)), DecodedBoxes(*det)
+
+    def _buffers(self, frame, bank):
+        """Static input buffers laid out as this frame's tensors and this
+        bank's (runtime/graphs.CapturedInfer._buffers); another layout
+        drops the graphs captured on the old buffers."""
+        layout = tuple((k, t.stride()) for k, t in frame.items()) + tuple(
+            tuple(t.shape) for t in bank)
+        if layout == self._layout:
+            return
+        self._layout = layout
+        self._graphs = {}
+        self._stream = torch.cuda.Stream(self.device)
+        self._pool = torch.cuda.graph_pool_handle()
+        dev = self.device
+        self._frame_buf = {k: torch.empty_strided(t.shape, t.stride(),
+                                                  dtype=t.dtype, device=dev)
+                           for k, t in frame.items()}
+        self._bank = tuple(torch.empty(t.shape, dtype=t.dtype, device=dev)
+                           for t in bank)
+        self._feats = None
+
+    def _backbone(self, name):
+        def fn():
+            f = self._frame_buf
+            bb, w = self._programs[name]
+            feats = bb(w, f["img"], self._bank, f)
+            if self._feats is None:     # first eager run: the static output
+                self._feats = torch.empty_like(feats)
+            return self._feats.copy_(feats)
+        return fn
+
+    def _head(self):
+        hd, w = self._programs["head"]
+        return hd(w, self._bank, self._feats, self._frame_buf)
+
+    @torch.no_grad()
+    def __call__(self, state: DetectorState, frame) -> Tuple[DetectorState,
+                                                             DecodedBoxes]:
+        """One frame: replayed graphs on CUDA, the eager run on the
+        CPU."""
+        if self.device.type != "cuda":
+            return self.eager(state, frame)
+        return self._replay(state, frame)
+
+    def _replay(self, state, frame):
+        name = self._backbone_name(frame)
+        frame = self._frame(frame)
+        self._buffers(frame, state.memory)
+        for k, t in frame.items():
+            self._frame_buf[k].copy_(t, non_blocking=True)
+        for buf, t in zip(self._bank, state.memory):
+            buf.copy_(t, non_blocking=True)
+        run_captured(self._graphs, name, self._backbone(name), self._stream,
+                     self._pool, self.device)
+        mem, det = run_captured(self._graphs, "head", self._head,
+                                self._stream, self._pool, self.device)
+        return (DetectorState(MemoryBank(*(t.clone() for t in mem))),
+                DecodedBoxes(*(t.clone() for t in det)))
 
 
 def load_detector(path: str, device="cuda") -> ExportedDetector:

@@ -26,24 +26,20 @@ out of the graph's outputs, so results a caller holds are never overwritten
 by a later replay.
 
 A program's first use runs eagerly on a side stream and is that frame's
-result; it also does what a capture cannot: the kernels' shared-memory
-attributes and tensor maps, the cached constants and weight packs, the
-libraries' handles and workspaces. The program is then captured on the same
-stream. The three graphs share one memory pool: they never run at once,
-and their outputs stay referenced, so no live tensor is reused.
+result, then the program is captured on the same stream
+(runtime/capture.py). The three graphs share one memory pool: they never
+run at once, and their outputs stay referenced, so no live tensor is
+reused.
 
 The graphs read the weight packs that ``precast_backbone_`` and
 ``cached_pack`` built, at the addresses they had at capture. Every call
 therefore compares the model's weight key (``ops.cuda.param_key``: each
 parameter's and buffer's storage and version) with the one the graphs were
-captured under; a ``load_state_dict``, ``attach_act_scales`` or in-place
-update changes it, and the programs are packed and captured again. So does
+captured under; a ``load_state_dict``, ``attach_act_scales``,
+``runtime/checkpoint.load_backbone_pretrained`` or in-place update changes
+it, and the programs are packed and captured again. So does
 a frame or bank of other shapes. A capture or replay that fails raises;
-nothing falls back to eager execution.
-
-Launch counters: a replay runs no Python wrapper, so each program records
-every counter's change while it is captured (the capture itself launches
-nothing, and the counters are put back) and adds that change on each
+nothing falls back to eager execution. Launch counters tick on every
 replay.
 """
 from __future__ import annotations
@@ -54,22 +50,9 @@ from ..models.detector import (DetectorState, MaskNoise, extract_img_feat,
                                frame_tensors, head_step, is_steady,
                                precast_backbone_)
 from ..models.streampetr_head import MemoryBank
-from ..ops.cuda import counted_wrappers, param_key
+from ..ops.cuda import param_key
+from .capture import run_captured
 from .timer import span
-
-
-class _Program:
-    """One captured graph, its output and the launches each replay
-    makes."""
-
-    def __init__(self, graph, out, launches):
-        self.graph, self.out, self.launches = graph, out, launches
-
-    def replay(self):
-        self.graph.replay()
-        for f, n in self.launches:
-            f.launches += n
-        return self.out
 
 
 class CapturedInfer:
@@ -122,28 +105,9 @@ class CapturedInfer:
 
     def _run(self, name, fn):
         """Replay program ``name``; at its first use run ``fn`` eagerly (the
-        frame's result) and capture it."""
-        prog = self._programs.get(name)
-        if prog is not None:
-            return prog.replay()
-        main = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(main)
-        with torch.cuda.stream(self.stream):
-            out = fn()
-        main.wait_stream(self.stream)
-        counters = counted_wrappers()
-        before = [f.launches for f in counters]
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph, pool=self._pool, stream=self.stream):
-                captured = fn()
-        finally:
-            launches = [(f, f.launches - n) for f, n in zip(counters, before)]
-            for f, n in zip(counters, before):
-                f.launches = n
-        self._programs[name] = _Program(
-            graph, captured, [(f, n) for f, n in launches if n])
-        return out
+        frame's result) and capture it (runtime/capture.py)."""
+        return run_captured(self._programs, name, fn, self.stream,
+                            self._pool, self.device)
 
     def _backbone(self, steady):
         def fn():

@@ -3,6 +3,9 @@
 toc3d_tpu_torch.tools.track`` (tracking on a submission), ``python3 -m
 toc3d_tpu_torch.tools.train`` (training), ``python3 -m
 toc3d_tpu_torch.tools.traineval`` (the closed loop), ``python3 -m
-toc3d_tpu_torch.tools.export`` (the serving artifact) and ``python3 -m
-toc3d_tpu_torch.tools.dryrun`` (the multi-process dry run); the eval and
-the trainer take ``--distributed``."""
+toc3d_tpu_torch.tools.export`` (the serving artifact), ``python3 -m
+toc3d_tpu_torch.tools.dryrun`` (the multi-process dry run), ``python3 -m
+toc3d_tpu_torch.tools.create_data_nusc`` (nuScenes info pkls from the raw
+tables) and ``python3 -m toc3d_tpu_torch.tools.visualize`` (detections
+drawn on the cameras and a BEV panel); the eval and the trainer take
+``--distributed``."""

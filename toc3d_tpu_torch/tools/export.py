@@ -17,10 +17,11 @@ synthetic frames with ``--int8-calib N``. ``--uint8-img``: the programs
 take raw uint8 frames, normalized on the device.
 
 ``--selfcheck`` reloads the artifact and streams 3 frames (the first, then
-two steady ones) through it and through ``make_infer_fn`` in this process;
-boxes, scores, labels, validity and the memory bank must be equal bit for
-bit, else the exit code is 1. Prints one JSON line: the export's seconds and
-the artifact's bytes by file.
+two steady ones) through its call (captured graphs on the card), through
+its eager run and through ``make_infer_fn`` in this process; boxes,
+scores, labels, validity and the memory bank of both must equal
+make_infer_fn's bit for bit, else the exit code is 1. Prints one JSON
+line: the export's seconds and the artifact's bytes by file.
 """
 from __future__ import annotations
 
@@ -61,9 +62,10 @@ def parse_args(argv=None):
 
 def selfcheck(model, out: str, batch: int, views: int, uint8: bool,
               device) -> bool:
-    """Stream 3 frames (prev_exists 0, 1, 1) through the reloaded artifact
-    and through make_infer_fn(model); True when every output and the bank
-    are equal bit for bit. Prints one line a frame."""
+    """Stream 3 frames (prev_exists 0, 1, 1) through the reloaded artifact,
+    its call (captured graphs on CUDA) and its eager run, and through
+    make_infer_fn(model); True when both give every output and the bank
+    equal bit for bit to make_infer_fn's. Prints one line a frame."""
     import numpy as np
     import torch
     from ..bench import make_frame
@@ -71,8 +73,8 @@ def selfcheck(model, out: str, batch: int, views: int, uint8: bool,
     from ..runtime.export import load_detector
     det = load_detector(out, device)
     ref = make_infer_fn(model)
-    s_exp, s_ref = det.init_state(), init_state(batch, model.cfg,
-                                                device=device)
+    s_exp, s_eag = det.init_state(), det.init_state()
+    s_ref = init_state(batch, model.cfg, device=device)
     h, w = model.cfg.pad_shape
     rng = np.random.RandomState(0)
     ok = True
@@ -82,13 +84,17 @@ def selfcheck(model, out: str, batch: int, views: int, uint8: bool,
             frame["img"] = torch.from_numpy(
                 rng.randn(batch, views, h, w, 3).astype(np.float32))
         s_exp, d_exp = det(s_exp, frame)
+        s_eag, d_eag = det.eager(s_eag, frame)
         s_ref, d_ref = ref(s_ref, frame)
-        same = [torch.equal(a, b) for a, b in zip(
-            tuple(d_exp) + tuple(s_exp.memory),
-            tuple(d_ref) + tuple(s_ref.memory))]
-        ok &= all(same)
+        want = tuple(d_ref) + tuple(s_ref.memory)
+        same = {run: [torch.equal(a, b) for a, b in zip(
+            tuple(d) + tuple(s.memory), want)]
+            for run, d, s in (("call", d_exp, s_exp),
+                              ("eager", d_eag, s_eag))}
+        ok &= all(same["call"]) and all(same["eager"])
         print(f"# frame {i}: exported equals make_infer_fn "
-              f"(boxes, scores, labels, valid, bank) {same}", flush=True)
+              f"(boxes, scores, labels, valid, bank): call {same['call']}, "
+              f"eager {same['eager']}", flush=True)
     print(f"# selfcheck {'OK (bit-identical)' if ok else 'FAILED'}",
           flush=True)
     return ok
