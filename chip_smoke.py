@@ -80,6 +80,25 @@ Phases, each fatal on failure (exit code != 0):
      untouched; the tiny small-input agreement with the plain backbone
      (the card and the CPU's own bf16 stream each against an f32 run: the
      card's distance at most 1.25 times the CPU's);
+  7b. the modules outside the shipped configs (phase_alt_modules):
+     ToC3D_faster_1600 with backbone.pruning_score_type=score streamed
+     for 10 frames (A 1, B 6, C 18, D 12, G 96, LN 72 a frame, captured
+     against eager bit for bit) beside the 'attention' path streamed the
+     same way; PETRHeadDN at full width (900 queries, 6 layers, feats
+     (1, 6, 50, 100, 256)) without DN (D 12: 6 at 900 keys, 6 at 30000)
+     and with DN (D 6, the masked self-attention written out), and the
+     PETR encoder (2 layers over 6000 tokens, D 2), each against the same
+     call with a plain f32 attention core at the kernel tolerance; D at
+     q 900 / k 900 against its plain version, timed by graph replay
+     beside SDPA and its bound (the kernels line's "D kv900" row);
+     VoVNet V-99-eSE (6 views at 320x800 and 800x1600) and ViTSimpleFPN
+     (scales 4, 2, 1, 0.5 on (6, 50, 100, 1024)) in bf16 against f32
+     (VoVNet at twice the kernel tolerance), shapes, finite, ms beside the
+     convolutions' operation bound, peak memory; the host-pipeline twin
+     (tools/host_pipeline_bench.py) for 24 frames: host, infer and
+     end-to-end frames/s and the overlap, and whether e2e stayed within
+     the host's rate (else it is no steady reading); the phase's wall
+     time and the nvidia-smi line;
   8. streaming eval (phase_eval): ToC3D_faster_1600 at full width through
      the eval CLI (toc3d_tpu_torch.tools.test's main, in this process) on 2
      learnable synthetic scenes x 6 frames of six 1600x900 JPEGs, the exact
@@ -620,9 +639,11 @@ def phase_kernels(model, results):
     return ok_g and ok_r and ok_all
 
 
-def check_flash(kv, g, reps=20, nq=900, b=1):
+def check_flash(kv, g, reps=20, nq=900, b=1, graphed=False):
     """Kernel D on q (b,nq,256) against k/v (b,kv,256), 8 heads, against
-    its plain version, timed beside SDPA and the bound. Returns
+    its plain version, timed beside SDPA and the bound: eagerly (CUDA
+    events), or with ``graphed`` by graph replay (graph_time), as a call
+    too small for its eager time to be the card's is. Returns
     (ok, entry)."""
     import torch
     from toc3d_tpu_torch.ops.cuda import cross_attn
@@ -644,18 +665,20 @@ def check_flash(kv, g, reps=20, nq=900, b=1):
     sh = lambda t: t.reshape(b, -1, hd, 32).transpose(1, 2)
     b_ms, b_by = bound(4 * b * nq * kv * 256,
                        b * (nq * 2 + kv * 2) * 256 * 2)
+    timed = graph_time if graphed else cuda_time
     entry = dict(
         shape=f"q ({b},{nq},256) k/v ({b},{kv},256) bf16, 8 heads",
         max_abs_err=err,
-        ms=cuda_time(lambda: cross_attn.flash_attention_core(q, k, v, hd),
-                     reps),
-        plain_ms=cuda_time(lambda: cross_attn.flash_attention_plain(
+        ms=timed(lambda: cross_attn.flash_attention_core(q, k, v, hd),
+                 reps),
+        plain_ms=timed(lambda: cross_attn.flash_attention_plain(
             q, k, v, hd), 3),
-        library_ms=cuda_time(
+        library_ms=timed(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 sh(q), sh(k), sh(v), scale=1.0), reps),
         bound_ms=b_ms, bound_by=b_by)
-    log(f"time D kv{kv}: {json.dumps(entry)}")
+    log(f"time D kv{kv}{' (graph replay)' if graphed else ''}: "
+        f"{json.dumps(entry)}")
     return ok, entry
 
 
@@ -1678,6 +1701,10 @@ def phase_main_path(model, results, label="bf16",
         calls_e = host_calls(lambda: infer_step(model, eager_state, steady))
         key_us = host_us(lambda: param_key(model), calls=200)
     h, w = model.cfg.pad_shape
+    steady_ms = lambda ms: sum(ms[2:]) / len(ms[2:])
+    results.setdefault("paths", {})[f"{name} {label}"] = dict(
+        eager_ms=steady_ms(eager_ms), captured_ms=steady_ms(graph_ms),
+        eager_peak_gib=eager_peak, captured_peak_gib=graph_peak)
     for run, ms, peak, calls in (("eager infer_step", eager_ms, eager_peak,
                                   calls_e),
                                  ("captured make_infer_fn", graph_ms,
@@ -1685,7 +1712,7 @@ def phase_main_path(model, results, label="bf16",
         log(f"main path {name} {label}, {run}, {len(frames)} x {w}x{h} "
             f"uint8 host frames, batch 1: frame ms "
             f"{[round(t, 3) for t in ms]}; steady mean "
-            f"{sum(ms[2:]) / len(ms[2:]):.3f} ms/frame over frames 2-"
+            f"{steady_ms(ms):.3f} ms/frame over frames 2-"
             f"{len(frames) - 1}; peak memory {peak:.3f} GiB; one more steady "
             f"frame: {calls}")
     log(f"main path {name} {label}: launches {'/'.join(KERNELS)} "
@@ -1969,6 +1996,297 @@ def phase_presets(results):
         del model
         torch.cuda.empty_cache()
     return ok_all
+
+
+# the new row of the kernels line: kernel D at the DN head's self-attention
+# (q 900, k 900); the main path launches D at 30000 and 1668 keys only
+D900_ROW = "D kv900"
+# frames of each selector's run in phase_alt_modules: the steady mean is
+# over frames 2 on, after the first frame and the steady program's capture
+ALT_FRAMES = 10
+# bf16 against f32 of VoVNet V-99-eSE: twice the kernel tolerance, as it
+# stacks 99 bf16 convolutions (2 x 128 x 256 on the CPU: max 0.0105 and
+# mean 0.0042 of the f32 run's max and mean |value|). ViTSimpleFPN (two
+# to three convolutions), and the DN head and the encoder with kernel D
+# against the same call with a plain f32 attention core, are held to the
+# kernel tolerance itself.
+VOVNET_TOL_SCALE = 2.0
+
+
+@contextlib.contextmanager
+def attention_core(fn):
+    """ops.attention.mha's attention core (kernel D's differentiable
+    wrapper) replaced by fn(q, k, v, heads) inside the block, for the
+    checks only."""
+    from toc3d_tpu_torch.ops import attention
+    orig = attention.flash_attention
+    attention.flash_attention = fn
+    try:
+        yield
+    finally:
+        attention.flash_attention = orig
+
+
+def plain_f32_core(q, k, v, heads):
+    """The attention core in f32 (flash_attention_plain on f32 inputs: no
+    bf16 rounding of the probabilities), cast back to v's dtype."""
+    from toc3d_tpu_torch.ops.cuda.cross_attn import flash_attention_plain
+    return flash_attention_plain(q.float(), k.float(), v.float(),
+                                 heads).to(v.dtype)
+
+
+def _against_plain_core(tag, run, keys):
+    """run() with kernel D and again with plain_f32_core: launches of D in
+    the first, the key count of each core call, and each of ``keys`` of the
+    outputs (a dict, or one tensor) against the plain run at the kernel
+    tolerance. Returns (ok, kernel outputs, launches, key counts, ms
+    of the kernel run)."""
+    import torch
+    from toc3d_tpu_torch.ops import attention
+    from toc3d_tpu_torch.ops.cuda import cross_attn
+    kernel, seen = attention.flash_attention, []
+
+    def record(q, k, v, heads):
+        seen.append(k.shape[1])
+        return kernel(q, k, v, heads)
+    with attention_core(record):
+        cross_attn.flash_attention_core.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        launches = cross_attn.flash_attention_core.launches
+    ms = cuda_time(run, 3, warmup=1)
+    with attention_core(plain_f32_core):
+        ref = run()
+    ok = True
+    for k in keys:
+        a, b = (out[k], ref[k]) if isinstance(out, dict) else (out, ref)
+        ok &= compare(f"{tag} {k} (kernel D against the f32 core)", a,
+                      b)[0]
+        ok &= bool(torch.isfinite(a).all())
+    return ok, out, launches, seen, ms
+
+
+@contextlib.contextmanager
+def conv_flops():
+    """Count the operations of every F.conv2d / F.conv_transpose2d call in
+    the block (2 per multiply-add, from the shapes); yields a one-element
+    list that holds the sum."""
+    import torch.nn.functional as F
+    conv, convt, total = F.conv2d, F.conv_transpose2d, [0]
+
+    def counted(x, w, *a, **kw):
+        y = conv(x, w, *a, **kw)
+        total[0] += 2 * y.numel() * w[0].numel()
+        return y
+
+    def counted_t(x, w, *a, **kw):
+        total[0] += 2 * x.numel() * w[0].numel()
+        return convt(x, w, *a, **kw)
+    F.conv2d, F.conv_transpose2d = counted, counted_t
+    try:
+        yield total
+    finally:
+        F.conv2d, F.conv_transpose2d = conv, convt
+
+
+def _bf16_against_f32(tag, fn, x, shapes, scale):
+    """fn(x) in bf16 against fn(x) in f32 on the card (TF32 off): output
+    shapes, finite, within the kernel tolerance times ``scale``. Prints the
+    bf16 call's ms (3 calls after one to warm up) beside the bound of its
+    convolutions' operations, and both runs' peak memory. Returns ok."""
+    import torch
+    peaks = []
+    for dt in (torch.float32, torch.bfloat16):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with conv_flops() as flops:
+            outs = fn(x.to(dt))
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        if dt == torch.float32:
+            ref = outs
+    xb = x.to(torch.bfloat16)
+    ms = cuda_time(lambda: fn(xb), 3, warmup=1)
+    log(f"{tag}: bf16 {ms:.3f} ms a call, the convolutions' "
+        f"{flops[0] / 1e12:.4f} TFLOP over the bf16 peak "
+        f"{flops[0] / PEAK_BF16_FLOPS * 1e3:.4f} ms; peak memory f32 "
+        f"{peaks[0]:.3f} GiB, bf16 {peaks[1]:.3f} GiB; outputs "
+        f"{[tuple(o.shape) for o in outs]}")
+    ok = [tuple(o.shape) for o in outs] == shapes
+    for i, (o, r) in enumerate(zip(outs, ref)):
+        ok &= bool(torch.isfinite(o).all())
+        ok &= compare(f"{tag} output {i} bf16 against f32", o, r, scale)[0]
+    return ok
+
+
+def phase_alt_modules(results):
+    """The modules outside the shipped configs, on the card at full width:
+    ToC3D_faster_1600 with the 'score' selector (ALT_FRAMES frames through
+    phase_main_path, captured against eager, A 1, B 6, C 18, D 12, G 96,
+    LN 72 a frame, its ms/frame beside the 'attention' path's, streamed
+    the same way just before it); PETRHeadDN (900
+    queries, 6 layers, feats (1, 6, 50, 100, 256)) without DN (12 D
+    launches: 6 at 900 keys, 6 at 30000) and with DN (6: the masked
+    self-attention is written out), each against the same call with a
+    plain f32 attention core; D at q 900 / k 900 against its plain version
+    and timed (a row of the kernels line); the PETR encoder (2 layers over
+    6000 tokens) the same way; VoVNet V-99-eSE (6 views at 320x800 and
+    800x1600) and ViTSimpleFPN (scales 4, 2, 1, 0.5 on (6, 50, 100, 1024))
+    in bf16 against f32; the host-pipeline twin for 24 frames. Prints the
+    phase's wall time and the nvidia-smi line. Returns ok."""
+    import torch
+    from toc3d_tpu_torch.configs import apply_overrides, get_config
+    from toc3d_tpu_torch.core.dn import (draw_dn_noise, dn_reference_points,
+                                         prepare_for_dn)
+    from toc3d_tpu_torch.models.detector import build_detector, build_module
+    from toc3d_tpu_torch.models.petr_head_dn import (build_petr_head_dn,
+                                                     petr_head_dn_config,
+                                                     petr_head_dn_forward)
+    from toc3d_tpu_torch.models.petr_transformer import (DecoderConfig,
+                                                         Encoder,
+                                                         encoder_forward)
+    from toc3d_tpu_torch.models.vit_simple_fpn import (
+        ViTSimpleFPN, ViTSimpleFPNConfig, vit_simple_fpn_forward)
+    from toc3d_tpu_torch.models.vovnet import (VoVNet, VoVNetConfig,
+                                               vovnet_forward)
+    from toc3d_tpu_torch.tools import host_pipeline_bench
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(23)
+    bf = torch.bfloat16
+    oks = {}
+
+    # the 'score' selector on the main path's preset, beside 'attention'
+    # streamed the same way just before it; the steady mean over
+    # ALT_FRAMES - 2 frames
+    for score_type in ("attention", "score"):
+        cfg = apply_overrides(get_config("ToC3D_faster_1600"),
+                              [f"backbone.pruning_score_type={score_type}"])
+        model = build_detector(cfg, device="cuda", seed=0)
+        oks[score_type], _ = phase_main_path(
+            model, results, f"bf16 {score_type}", MAIN_PER_FRAME, (),
+            n_frames=ALT_FRAMES, host_checks=False)
+        del model
+        torch.cuda.empty_cache()
+    att, sc = (results["paths"][f"ToC3D_faster_1600 bf16 {t}"]
+               for t in ("attention", "score"))
+    log(f"selector score_type 'score' against 'attention', {ALT_FRAMES} "
+        f"frames each, steady ms/frame (frames 2-{ALT_FRAMES - 1}) captured "
+        f"{sc['captured_ms']:.3f} against "
+        f"{att['captured_ms']:.3f}, eager {sc['eager_ms']:.3f} against "
+        f"{att['eager_ms']:.3f}")
+
+    # PETRHeadDN at full width, without and with DN
+    hcfg = petr_head_dn_config(compute_dtype="bfloat16")
+    head = build_petr_head_dn(hcfg, "cuda", seed=0)
+    feats = torch.randn(1, 6, 50, 100, 256, device=dev, generator=g)
+    frame = host_frames(4, 1)[0]
+    data = {"intrinsics": frame["intrinsics"].to(dev),
+            "img2lidar": frame["img2lidar"].to(dev), "pad_shape": (800, 1600)}
+    keys = ("all_cls_scores", "all_bbox_preds")
+    ok, out, n_d, seen, ms = _against_plain_core(
+        "PETRHeadDN", lambda: petr_head_dn_forward(head, hcfg, feats, data),
+        keys)
+    ok &= (n_d == 12 and sorted(seen) == [900] * 6 + [30000] * 6
+           and tuple(out["all_cls_scores"].shape) == (6, 1, 900, 10))
+    log(f"PETRHeadDN (900 queries, 6 layers, feats (1,6,50,100,256) bf16) "
+        f"without DN: {ms:.3f} ms a call, D launches {n_d} at keys "
+        f"{sorted(seen)}: {'ok' if ok else 'FAIL'}")
+    oks["head"] = ok
+    n900 = seen.count(900)
+    gt = hcfg.dn_max_gt
+    boxes = torch.rand(1, gt, 9, device=dev, generator=g)
+    boxes[..., :3] = boxes[..., :3] * 80 - 40
+    boxes[..., 3:6] = boxes[..., 3:6] * 4 + 0.5
+    dn = prepare_for_dn(hcfg, boxes, torch.randint(0, 10, (1, gt), device=dev,
+                                                   generator=g),
+                        torch.ones(1, gt, dtype=torch.bool, device=dev),
+                        draw_dn_noise(hcfg, 1, g, dev))
+    dn_head = {"padded_reference_points": dn_reference_points(
+        dn, head.reference_points.weight, 1), "attn_mask": dn["attn_mask"],
+        "pad_size": dn["pad_size"]}
+    pad = dn["pad_size"]
+    ok, out, n_d, seen, ms = _against_plain_core(
+        "PETRHeadDN with DN",
+        lambda: petr_head_dn_forward(head, hcfg, feats, data, dn=dn_head),
+        keys + ("dn_cls_scores", "dn_bbox_preds"))
+    ok &= (n_d == 6 and seen == [30000] * 6
+           and tuple(out["dn_cls_scores"].shape) == (6, 1, pad, 10)
+           and tuple(out["dn_bbox_preds"].shape) == (6, 1, pad, 10))
+    log(f"PETRHeadDN with DN ({gt} boxes, {pad} DN queries): {ms:.3f} ms a "
+        f"call, D launches {n_d} at keys {seen}: {'ok' if ok else 'FAIL'}")
+    oks["head dn"] = ok
+    del head, feats, out
+    ok, entry = check_flash(900, g, graphed=True)
+    results[D900_ROW] = dict(
+        name="flash_attention_core", route="cuda",
+        source="toc3d_tpu_torch/csrc/cross_attn.cu",
+        replaces="toc3d_tpu/ops/pallas/cross_attn.py:118", launches=n900,
+        frame="PETRHeadDN call (its self-attention; 0 on the main path)",
+        **entry)
+    oks["D kv900"] = ok
+
+    # the PETR encoder: 2 layers over 6 views of 20 x 50 tokens
+    ecfg = DecoderConfig()
+    enc = build_module(lambda: Encoder(ecfg, 2), "cuda", seed=0)
+    x = (torch.randn(1, 6000, 256, device=dev, generator=g)).to(bf)
+    pos = (torch.randn(1, 6000, 256, device=dev, generator=g)).to(bf)
+    ok, out, n_d, seen, ms = _against_plain_core(
+        "PETR encoder", lambda: encoder_forward(enc, ecfg, x, pos), ("x",))
+    ok &= n_d == 2 and seen == [6000, 6000]
+    log(f"PETR encoder (2 layers, (1, 6000, 256) bf16): {ms:.3f} ms a call, "
+        f"D launches {n_d} at keys {seen}: {'ok' if ok else 'FAIL'}")
+    oks["encoder"] = ok
+    del enc, x, pos, out
+
+    # VoVNet V-99-eSE and ViTSimpleFPN, bf16 against f32
+    vov = build_module(lambda: VoVNet(VoVNetConfig("V-99-eSE")), "cuda",
+                       seed=0)
+    for h, w in ((320, 800), (800, 1600)):
+        img = torch.randn(6, h, w, 3, device=dev, generator=g)
+        oks[f"vovnet {w}x{h}"] = _bf16_against_f32(
+            f"VoVNet V-99-eSE 6 x {w}x{h}",
+            lambda t: vovnet_forward(vov, t), img,
+            [(6, h // 16, w // 16, 768), (6, h // 32, w // 32, 1024)],
+            VOVNET_TOL_SCALE)
+    del vov, img
+    fcfg = ViTSimpleFPNConfig(1024, 256, (4.0, 2.0, 1.0, 0.5), 4)
+    fpn = build_module(lambda: ViTSimpleFPN(fcfg), "cuda", seed=0)
+    x = torch.randn(6, 50, 100, 1024, device=dev, generator=g)
+    oks["fpn"] = _bf16_against_f32(
+        "ViTSimpleFPN (6, 50, 100, 1024) scales 4/2/1/0.5",
+        lambda t: vit_simple_fpn_forward(fpn, t), x,
+        [(6, 200, 400, 256), (6, 100, 200, 256), (6, 50, 100, 256),
+         (6, 25, 50, 256)], 1.0)
+    del fpn, x
+    torch.cuda.empty_cache()
+
+    # the host-pipeline twin, a short run
+    rec = host_pipeline_bench.main(
+        ["--config", "ToC3D_faster_1600", "--frames", "24", "--warmup", "8",
+         "--distinct", "4", "--host-probe", "8"])
+    fps = {k: 1e3 / rec[f"{k}_ms"] for k in ("host_fast_u8", "infer_u8",
+                                              "e2e_fast")}
+    oks["host pipeline"] = all(math.isfinite(v) and v > 0
+                               for v in fps.values())
+    # one prefetch thread: in steady state e2e is no faster than the host
+    # alone; a faster reading means the timed frames began on a filled
+    # queue, and its e2e and overlap are no steady reading
+    steady = fps["e2e_fast"] <= fps["host_fast_u8"]
+    log(f"host pipeline ToC3D_faster_1600 (24 timed frames, 8 warm-up, 4 "
+        f"distinct sets of six 1600x900 JPEGs): host (fast, uint8) "
+        f"{fps['host_fast_u8']:.3f} frames/s, infer {fps['infer_u8']:.3f}, "
+        f"e2e {fps['e2e_fast']:.3f}; overlap {rec['overlap_eff_fast']}, "
+        f"host-bound {rec['host_bound']}; e2e within the host rate "
+        f"{steady}" + ("" if steady else " (e2e and overlap not steady: "
+                                         "not a reading)"))
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    results.setdefault("paths", {})["alt_modules_wall_s"] = wall
+    bad = [k for k, v in oks.items() if not v]
+    log(f"phase_alt_modules: {wall:.1f} s wall, failed {bad or 'none'} | "
+        f"{nvidia_smi_line()}")
+    return not bad
 
 
 def kernel_ops() -> dict:
@@ -4419,6 +4737,8 @@ def main() -> int:
         del bf16_dets
         torch.cuda.empty_cache()
         ok_p = phase_presets(results)
+        torch.cuda.empty_cache()
+        ok_am = phase_alt_modules(results)
         ok_e = phase_eval()
         ok_bf = phase_bench_fps()
         ok_gb = phase_gumbel()
@@ -4439,12 +4759,13 @@ def main() -> int:
     ok_te = phase_traineval(results, captured)
     torch.cuda.empty_cache()
     ok_pl = phase_parallel(results)
-    if not (ok_k and ok_k8 and ok_ps and ok_m and ok_m8 and ok_p and ok_e
-            and ok_bf and ok_gb and ok_s and ok_s8 and ok_x and ok_pt
+    if not (ok_k and ok_k8 and ok_ps and ok_m and ok_m8 and ok_p and ok_am
+            and ok_e and ok_bf and ok_gb and ok_s and ok_s8 and ok_x and ok_pt
             and ok_t and ok_t16 and ok_te and ok_pl):
         log(f"chip_smoke: FAILED (kernels {ok_k}, int8 kernels {ok_k8}, "
             f"other presets' kernel shapes {ok_ps}, main path {ok_m}, int8 "
-            f"main path {ok_m8}, other presets' paths {ok_p}, streaming "
+            f"main path {ok_m8}, other presets' paths {ok_p}, modules "
+            f"outside the shipped configs {ok_am}, streaming "
             f"eval {ok_e}, bench {ok_bf}, gumbel eval mask {ok_gb}, "
             f"small-input agreement {ok_s}, int8 small-input agreement "
             f"{ok_s8}, export {ok_x}, warm start {ok_pt}, training {ok_t}, "
@@ -4455,7 +4776,8 @@ def main() -> int:
     keys = ("name", "op", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape", "shapes", "frame", "regime")
-    rows = list(KERNELS) + [r for r in results if " train" in r]
+    rows = list(KERNELS) + [D900_ROW] + [r for r in results
+                                         if " train" in r]
     ops = kernel_ops()
     for r in rows:
         results[r]["op"] = ops.get(r.split()[0])

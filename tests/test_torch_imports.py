@@ -28,7 +28,10 @@ def test_port_imports_no_jax():
                 "runtime.token_vis", "tracking", "tracking.pub_tracker",
                 "tracking.metrics", "tools.test", "tools.track",
                 "runtime.capture", "runtime.export", "runtime.checkpoint",
-                "data.convert", "tools.create_data_nusc", "tools.visualize"):
+                "data.convert", "tools.create_data_nusc", "tools.visualize",
+                "models.common", "models.petr_head_dn", "models.vovnet",
+                "models.vit_simple_fpn", "ops.rel_pos",
+                "tools.host_pipeline_bench"):
         assert f"toc3d_tpu_torch.{mod}" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"

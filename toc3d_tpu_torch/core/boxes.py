@@ -37,6 +37,39 @@ def transform_reference_points(reference_points, egopose):
     return torch.einsum("bij,bnj->bni", egopose, pts)[..., :3]
 
 
+def gravity_center(boxes: np.ndarray) -> np.ndarray:
+    """(N, >=7) bottom-center boxes -> (N, 3) gravity centers
+    (boxes.py:67-71)."""
+    out = boxes[:, :3].copy()
+    out[:, 2] = boxes[:, 2] + boxes[:, 5] * 0.5
+    return out
+
+
+def boxes_with_gravity_center(boxes: np.ndarray) -> np.ndarray:
+    """(N, D) bottom-center boxes -> (N, D) with the center z, the loss and
+    assignment target layout (boxes.py:74-79)."""
+    out = boxes.copy()
+    out[:, 2] = boxes[:, 2] + boxes[:, 5] * 0.5
+    return out
+
+
+def flip_boxes(boxes: np.ndarray, direction="horizontal") -> np.ndarray:
+    """Flip in BEV (lidar_box3d.py:143-166): 'horizontal' mirrors y and the
+    yaw, 'vertical' mirrors x and takes pi - yaw; velocities follow."""
+    out = boxes.copy()
+    if direction == "horizontal":
+        out[:, 1] = -boxes[:, 1]
+        out[:, 6] = -boxes[:, 6]
+        if boxes.shape[1] == 9:
+            out[:, 8] = -boxes[:, 8]
+    elif direction == "vertical":
+        out[:, 0] = -boxes[:, 0]
+        out[:, 6] = -boxes[:, 6] + np.pi
+        if boxes.shape[1] == 9:
+            out[:, 7] = -boxes[:, 7]
+    return out
+
+
 def rotate_boxes_z(boxes: np.ndarray, angle: float) -> np.ndarray:
     """Rotate LiDAR boxes around z by ``angle`` (lidar_box3d.py:91-141)."""
     rot_sin, rot_cos = np.sin(angle), np.cos(angle)

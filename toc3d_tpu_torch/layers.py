@@ -83,6 +83,26 @@ def swiglu(x, w1: nn.Linear, w2: nn.Linear, w3: nn.Linear,
     return lin(w3, hidden)
 
 
+def conv2d(mod: nn.Conv2d, x):
+    """Channel-last convolution of x (B, H, W, C) by ``mod`` with its own
+    stride and padding, in x's dtype (layers.py:179-189: weight and bias
+    cast to x's dtype). The NCHW view of x keeps the channels-last strides,
+    which the convolution keeps, so neither permute copies."""
+    b = None if mod.bias is None else mod.bias.to(x.dtype)
+    y = F.conv2d(x.permute(0, 3, 1, 2), mod.weight.to(x.dtype), b,
+                 stride=mod.stride, padding=mod.padding)
+    return y.permute(0, 2, 3, 1)
+
+
+def conv_transpose2d(mod: nn.ConvTranspose2d, x):
+    """Channel-last transposed convolution (layers.py:201-208), in x's
+    dtype."""
+    b = None if mod.bias is None else mod.bias.to(x.dtype)
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), mod.weight.to(x.dtype), b,
+                           stride=mod.stride)
+    return y.permute(0, 2, 3, 1)
+
+
 def mlp_relu(layers, x):
     """Linear -> ReLU -> ... -> Linear over the Linear modules of
     ``layers`` (an nn.Sequential whose odd slots hold the activations)."""

@@ -116,14 +116,25 @@ def build_detector(cfg: DetectorConfig, device="cuda", state_dict=None,
     """The detector on ``device``, with weights from ``state_dict`` or, when
     none is given, random weights drawn from a generator seeded by
     ``seed``."""
+    return build_module(lambda: ToC3DDetector(cfg), device, state_dict, seed,
+                        init_weights_)
+
+
+def build_module(make, device="cuda", state_dict=None, seed: int = 0,
+                 init=None) -> nn.Module:
+    """``make()`` built on ``device`` in eval mode, with the weights of
+    ``state_dict`` (loaded strictly) or random weights drawn by
+    ``init(module, generator)`` (init_module_weights_ by default) from a
+    generator seeded by ``seed``."""
     with torch.device("meta"):
-        model = ToC3DDetector(cfg)
-    model = model.to_empty(device=device)
+        module = make()
+    module = module.to_empty(device=device)
     if state_dict is not None:
-        model.load_state_dict(state_dict, strict=True)
+        module.load_state_dict(state_dict, strict=True)
     else:
-        init_weights_(model, torch.Generator(device=device).manual_seed(seed))
-    return model.eval()
+        g = torch.Generator(device=device).manual_seed(seed)
+        (init or init_module_weights_)(module, g)
+    return module.eval()
 
 
 def _uniform_(t, bound, g):
@@ -144,20 +155,30 @@ def _trunc_normal_(t, std, g):
 
 
 @torch.no_grad()
-def init_weights_(model: ToC3DDetector, g: torch.Generator) -> None:
-    """Random weights with the JAX package's init distributions
-    (layers.py:30-78, eva_vit.py:96-118, streampetr_head.py:130-176)."""
-    from ..layers import MLN, bias_init_with_prob
+def init_module_weights_(model: nn.Module, g: torch.Generator) -> None:
+    """The JAX package's default init distributions (layers.py:30-78) on
+    every Linear, convolution, norm, Embedding, MLN and MultiheadAttention
+    of ``model``: torch's kaiming-uniform with fan_in = kh * kw * c_in
+    (ConvTranspose2d too), norms at weight 1 and bias 0, frozen BatchNorm
+    statistics at mean 0 and variance 1."""
+    from ..layers import MLN
     from ..ops.attention import MultiheadAttention
+    from .common import LayerNorm2d
     for mod in model.modules():
-        if isinstance(mod, (nn.Linear, nn.Conv2d)):
+        if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
             fan_in = mod.weight[0].numel()
+            if isinstance(mod, nn.ConvTranspose2d):
+                fan_in = mod.weight.shape[0] * mod.weight[0, 0].numel()
             _uniform_(mod.weight, math.sqrt(3.0 / fan_in), g)
             if mod.bias is not None:
                 _uniform_(mod.bias, 1.0 / math.sqrt(fan_in), g)
-        elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
+        elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm, LayerNorm2d,
+                              nn.BatchNorm2d)):
             mod.weight.fill_(1.0)
             mod.bias.fill_(0.0)
+            if isinstance(mod, nn.BatchNorm2d):
+                mod.running_mean.fill_(0.0)
+                mod.running_var.fill_(1.0)
         elif isinstance(mod, nn.Embedding):
             mod.weight.uniform_(0.0, 1.0, generator=g)
     for mod in model.modules():
@@ -170,6 +191,28 @@ def init_weights_(model: ToC3DDetector, g: torch.Generator) -> None:
             c = mod.in_proj_weight.shape[1]
             _uniform_(mod.in_proj_weight, math.sqrt(6.0 / (2 * c)), g)
             mod.in_proj_bias.zero_()
+
+
+@torch.no_grad()
+def init_head_weights_(head: StreamPETRHead, g: torch.Generator) -> None:
+    """The head's own init after init_module_weights_
+    (streampetr_head.py:130-176): xavier-uniform FFN weights with zero
+    biases, the classifier's prior-probability bias."""
+    from ..layers import bias_init_with_prob
+    for layer in head.transformer.decoder.layers:
+        for lin_ in (layer.ffns[0].layers[0][0], layer.ffns[0].layers[1]):
+            fi, fo = lin_.in_features, lin_.out_features
+            _uniform_(lin_.weight, math.sqrt(6.0 / (fi + fo)), g)
+            lin_.bias.zero_()
+    head.cls_branches[0][6].bias.fill_(bias_init_with_prob(0.01))
+
+
+@torch.no_grad()
+def init_weights_(model: ToC3DDetector, g: torch.Generator) -> None:
+    """Random weights with the JAX package's init distributions
+    (layers.py:30-78, eva_vit.py:96-118, streampetr_head.py:130-176)."""
+    from ..layers import bias_init_with_prob
+    init_module_weights_(model, g)
     bb = model.img_backbone
     if hasattr(bb, "pos_embed"):
         _trunc_normal_(bb.pos_embed, 0.02, g)
@@ -181,13 +224,7 @@ def init_weights_(model: ToC3DDetector, g: torch.Generator) -> None:
                 lin_.bias.zero_()
         a.q_bias.zero_()
         a.v_bias.zero_()
-    for layer in model.pts_bbox_head.transformer.decoder.layers:
-        for lin_ in (layer.ffns[0].layers[0][0], layer.ffns[0].layers[1]):
-            fi, fo = lin_.in_features, lin_.out_features
-            _uniform_(lin_.weight, math.sqrt(6.0 / (fi + fo)), g)
-            lin_.bias.zero_()
-    model.pts_bbox_head.cls_branches[0][6].bias.fill_(
-        bias_init_with_prob(0.01))
+    init_head_weights_(model.pts_bbox_head, g)
     roi = model.img_roi_head
     roi.cls.bias.fill_(bias_init_with_prob(0.01))
     roi.centerness.bias.fill_(bias_init_with_prob(0.01))

@@ -1,6 +1,7 @@
 """EVA-02 ViT backbone (counterpart of toc3d_tpu/models/eva_vit.py;
 reference eva_vit.py, eva_utils.py): the plain backbone that the StreamPETR
-presets run, and the pieces the ToC3D backbone (models/toc3d_vit.py) shares.
+presets run, the pieces the ToC3D backbone (models/toc3d_vit.py) shares,
+and ViTDet's ResBottleneck block (unused by the shipped configs).
 
 Modules carry the reference (mmdet3d) parameter names, so a reference state
 dict loads into them directly. The block forward runs kernel B
@@ -17,8 +18,11 @@ from typing import Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from torch.utils.checkpoint import checkpoint
+
+from ..layers import conv2d
 
 from ..ops.cuda.int8 import SITES
 from ..ops.cuda.vit_block import fused_full_block_int8
@@ -26,6 +30,7 @@ from ..ops.resize import resize_abs_pos
 from ..ops.rope import build_rope_table
 from ..ops.trainable import (full_block_model, trainable_full_block,
                              trainable_patch_embed)
+from .common import LayerNorm2d
 
 LN_EPS = 1e-6
 
@@ -166,6 +171,41 @@ def block_forward(blk: Block, x, cfg: EVAViTConfig, window_size: int,
             dp_rate, attn_chunk)
     return checkpoint(full_block_model, *args, use_reentrant=False) \
         if remat else full_block_model(*args)
+
+
+class ResBottleneck(nn.Module):
+    """ViTDet's residual bottleneck block (eva_vit.py:176-204; reference
+    eva_vit.py:122-180): conv1 1x1 -> norm1 -> GELU -> conv2 3x3 -> norm2 ->
+    GELU -> conv3 1x1 -> norm3, added to the input; bottleneck dim // 2,
+    convolutions without bias, LayerNorm2d over the channels. norm3 starts
+    at zero (init_res_bottleneck_), so a new block is the identity."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        bc = dim // 2
+        self.conv1 = nn.Conv2d(dim, bc, 1, bias=False)
+        self.norm1 = LayerNorm2d(bc)
+        self.conv2 = nn.Conv2d(bc, bc, 3, padding=1, bias=False)
+        self.norm2 = LayerNorm2d(bc)
+        self.conv3 = nn.Conv2d(bc, dim, 1, bias=False)
+        self.norm3 = LayerNorm2d(dim)
+
+
+@torch.no_grad()
+def init_res_bottleneck_(m: ResBottleneck, g) -> None:
+    """Random weights drawn from ``g`` (detector.init_module_weights_), with
+    norm3 at zero scale and bias (eva_vit.py:188)."""
+    from .detector import init_module_weights_
+    init_module_weights_(m, g)
+    m.norm3.weight.zero_()
+    m.norm3.bias.zero_()
+
+
+def res_bottleneck(m: ResBottleneck, x):
+    """x (B, H, W, C) channel-last -> x + the bottleneck's output."""
+    out = F.gelu(m.norm1(conv2d(m.conv1, x)))
+    out = F.gelu(m.norm2(conv2d(m.conv2, out)))
+    return x + m.norm3(conv2d(m.conv3, out))
 
 
 def rope_tensors(tables, device):

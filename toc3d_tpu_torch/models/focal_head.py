@@ -16,7 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..layers import inverse_sigmoid
+from ..layers import conv2d, inverse_sigmoid
 
 
 @dataclass(frozen=True)
@@ -44,13 +44,6 @@ class FocalHeadParams(nn.Module):
         self.centerness = nn.Conv2d(e, 1, 1)
         self.ltrb = nn.Conv2d(e, 4, 1)
         self.center2d = nn.Conv2d(e, 2, 1)
-
-
-def _conv(mod: nn.Conv2d, x):
-    """Channel-last conv in x's dtype (layers.conv2d)."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), mod.weight.to(x.dtype),
-                 mod.bias.to(x.dtype), padding=mod.padding)
-    return y.permute(0, 2, 3, 1)
 
 
 def group_norm(mod: nn.GroupNorm, x, eps: float = 1e-5):
@@ -106,14 +99,14 @@ def focal_head_forward(head: FocalHeadParams, cfg: FocalHeadConfig, feats,
     num_tokens = n * h * w
     num_sample = int(num_tokens * sample_ratio)
     cls_feat = F.relu(group_norm(head.shared_cls[1],
-                                 _conv(head.shared_cls[0], x)))
-    cls_logits = _conv(head.cls, cls_feat).reshape(b * n, h * w,
+                                 conv2d(head.shared_cls[0], x)))
+    cls_logits = conv2d(head.cls, cls_feat).reshape(b * n, h * w,
                                                    cfg.num_classes)
-    centerness = _conv(head.centerness, cls_feat).reshape(b * n, h * w, 1)
+    centerness = conv2d(head.centerness, cls_feat).reshape(b * n, h * w, 1)
     reg_feat = F.relu(group_norm(head.shared_reg[1],
-                                 _conv(head.shared_reg[0], x)))
-    ltrb = torch.sigmoid(_conv(head.ltrb, reg_feat))
-    c2d_off = _conv(head.center2d, reg_feat)
+                                 conv2d(head.shared_reg[0], x)))
+    ltrb = torch.sigmoid(conv2d(head.ltrb, reg_feat))
+    c2d_off = conv2d(head.center2d, reg_feat)
     pred_bboxes = apply_ltrb(locations, ltrb).reshape(b * n, h * w, 4)
     pred_centers2d = apply_center_offset(locations, c2d_off).reshape(
         b * n, h * w, 2)

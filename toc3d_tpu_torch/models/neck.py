@@ -7,7 +7,8 @@ from dataclasses import dataclass
 from typing import Tuple
 
 import torch.nn as nn
-import torch.nn.functional as F
+
+from ..layers import conv2d
 
 
 @dataclass(frozen=True)
@@ -36,16 +37,10 @@ class CPFPN(nn.Module):
             [ConvModule(cfg.out_channels, cfg.out_channels, 3)])
 
 
-def _conv(mod: nn.Conv2d, x):
-    """Channel-last conv in x's dtype (weights cast like layers.conv2d)."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), mod.weight.to(x.dtype),
-                 mod.bias.to(x.dtype), padding=mod.padding)
-    return y.permute(0, 2, 3, 1)
-
-
 def cpfpn_forward(neck: CPFPN, x, cfg: CPFPNConfig):
     """x (B, H, W, C_in) -> tuple of (B, H', W', out_channels)."""
-    out0 = _conv(neck.fpn_convs[0].conv, _conv(neck.lateral_convs[0].conv, x))
+    out0 = conv2d(neck.fpn_convs[0].conv,
+                  conv2d(neck.lateral_convs[0].conv, x))
     outs = [out0]
     for _ in range(cfg.num_outs - 1):
         outs.append(outs[-1][:, ::2, ::2, :])

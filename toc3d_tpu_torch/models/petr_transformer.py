@@ -8,6 +8,11 @@ gives the self-attention the DN mask or dropout its explicit masks
 torch.utils.checkpoint.
 Module names follow the reference: attentions.{0,1}.attn, ffns.0.layers,
 norms.{0,1,2}.
+
+The plain post-norm encoder (PETRTransformerEncoder, petr_transformer.py:
+170-195; registered in the reference, unused by the shipped configs) is
+EncoderLayer / Encoder / encoder_forward: self-attention on kernel D, then
+the FFN, each followed by its LayerNorm.
 """
 from __future__ import annotations
 
@@ -167,3 +172,40 @@ def decoder_forward(dec: Decoder, cfg: DecoderConfig, tgt, memory, query_pos,
                  else decoder_layer_forward(*args))
         outs.append(ln(dec.post_norm, query, LN_EPS))
     return torch.stack(outs)
+
+
+class EncoderLayer(nn.Module):
+    """One encoder layer: attentions.0.attn, ffns.0, norms.{0,1}."""
+
+    def __init__(self, cfg: DecoderConfig):
+        super().__init__()
+        self.attentions = nn.ModuleList([AttnWrapper(cfg)])
+        self.ffns = nn.ModuleList([FFN(cfg)])
+        self.norms = nn.ModuleList(
+            nn.LayerNorm(cfg.embed_dims, eps=LN_EPS) for _ in range(2))
+
+
+class Encoder(nn.Module):
+    """layers.{i} (EncoderLayer) and, with post_norm, a final LayerNorm."""
+
+    def __init__(self, cfg: DecoderConfig, num_layers: int,
+                 post_norm: bool = False):
+        super().__init__()
+        self.layers = nn.ModuleList(EncoderLayer(cfg)
+                                    for _ in range(num_layers))
+        self.post_norm = (nn.LayerNorm(cfg.embed_dims, eps=LN_EPS)
+                          if post_norm else None)
+
+
+def encoder_forward(enc: Encoder, cfg: DecoderConfig, x, pos):
+    """x, pos (B, N, C) -> (B, N, C) (petr_transformer.py:180-195, eval:
+    no dropout): per layer x = LN0(x + MHA(x + pos, x + pos, x)), then
+    x = LN1(x + FFN(x)); the post-norm last when the encoder has one."""
+    for layer in enc.layers:
+        out = mha(layer.attentions[0].attn, x + pos, x + pos, x,
+                  cfg.num_heads, cfg.quant)
+        x = ln(layer.norms[0], x + out, LN_EPS)
+        x = ln(layer.norms[1], ffn(layer.ffns[0], x, cfg.quant), LN_EPS)
+    if enc.post_norm is not None:
+        x = ln(enc.post_norm, x, LN_EPS)
+    return x

@@ -310,27 +310,17 @@ def temporal_alignment(head: StreamPETRHead, cfg: StreamPETRHeadConfig,
         rec_ego_pose
 
 
-def head_forward(head: StreamPETRHead, cfg: StreamPETRHeadConfig, feats,
-                 data, bank: MemoryBank, topk_indexes=None, dn=None,
-                 drop_masks=None, remat: bool = False):
-    """One frame (streampetr_head.py:403-502). feats (B, N, h, w, C) f32
-    neck features; data: intrinsics, img2lidar, timestamp, ego_pose,
-    ego_pose_inv, prev_exists and 'pad_shape'. Returns (outs, new
-    MemoryBank).
-
-    Training passes the memory tokens' FocalHead order ``topk_indexes``
-    (B, K, 1); ``dn`` (core/dn.prepare_for_dn, with
-    'padded_reference_points') puts the DN queries first under their
-    attention mask; the decoder takes the dropout masks ``drop_masks``
-    and, with ``remat``, checkpoints each layer. outs holds every layer's
-    scores and boxes of the matching queries and, with dn, of the DN
-    queries (dn_cls_scores, dn_bbox_preds)."""
-    bank = pre_update_memory(cfg, head, bank, data["timestamp"],
-                             data["ego_pose_inv"], data["prev_exists"])
+def head_queries(head: StreamPETRHead, cfg: StreamPETRHeadConfig, feats,
+                 data, topk_indexes=None, dn=None):
+    """The decoder's inputs before the temporal steps (streampetr_head.py:
+    403-455): the memory tokens and their position embedding (bf16 with
+    compute_dtype 'bfloat16', else f32), the queries' reference points (the
+    DN queries' first when ``dn`` is given), their position embedding and
+    zero content (f32). Returns (memory, pos_embed, tgt, query_pos,
+    reference_points, attn_mask, pad_size)."""
     b, n, h, w, c = feats.shape
     memory = topk_gather(feats.reshape(b, n * h * w, c), topk_indexes)
-    bf16 = cfg.compute_dtype == "bfloat16"
-    if bf16:
+    if cfg.compute_dtype == "bfloat16":
         memory = memory.to(torch.bfloat16)
     centers = location_grid(h, w, cfg.stride, *data["pad_shape"],
                             device=feats.device)
@@ -352,18 +342,16 @@ def head_forward(head: StreamPETRHead, cfg: StreamPETRHeadConfig, feats,
                          pos2posemb3d(reference_points,
                                       num_pos_feats=cfg.embed_dims // 2))
     tgt = torch.zeros_like(query_pos)
-    (tgt, query_pos, reference_points, temp_memory, temp_pos,
-     rec_ego_pose) = temporal_alignment(head, cfg, bank, query_pos, tgt,
-                                        reference_points)
-    if bf16:
-        tgt, memory, query_pos, pos_embed, temp_memory, temp_pos = (
-            t.to(torch.bfloat16) for t in (tgt, memory, query_pos, pos_embed,
-                                           temp_memory, temp_pos))
-    outs_dec = decoder_forward(head.transformer.decoder, cfg.decoder, tgt,
-                               memory, query_pos, pos_embed, temp_memory,
-                               temp_pos, attn_mask=attn_mask,
-                               drop_masks=drop_masks, remat=remat)
-    outs_dec = torch.nan_to_num(outs_dec.float())
+    return memory, pos_embed, tgt, query_pos, reference_points, attn_mask, \
+        pad_size
+
+
+def head_outputs(head: StreamPETRHead, cfg: StreamPETRHeadConfig, outs_dec,
+                 reference_points):
+    """Every decoder layer's scores and boxes (streampetr_head.py:476-495):
+    the shared branches over outs_dec (L, B, Q, C) f32, the centres offset
+    from the reference points and denormalised to pc_range. Returns
+    (all_cls_scores, all_bbox_preds)."""
     ref_inv = inverse_sigmoid(reference_points.clamp(0.0, 1.0))
     all_cls, all_box = [], []
     for lvl in range(outs_dec.shape[0]):
@@ -374,16 +362,58 @@ def head_forward(head: StreamPETRHead, cfg: StreamPETRHeadConfig, feats,
         all_box.append(torch.cat([xyz, tmp[..., 3:]], dim=-1))
     all_cls_scores = torch.stack(all_cls)
     all_bbox_preds = torch.stack(all_box)
-    pc = const_vector(cfg.pc_range, all_bbox_preds.dtype, feats.device)
+    pc = const_vector(cfg.pc_range, all_bbox_preds.dtype, outs_dec.device)
     xyz = all_bbox_preds[..., 0:3] * (pc[3:6] - pc[0:3]) + pc[0:3]
-    all_bbox_preds = torch.cat([xyz, all_bbox_preds[..., 3:]], dim=-1)
-    bank = post_update_memory(cfg, bank, data["timestamp"], data["ego_pose"],
-                              all_cls_scores, all_bbox_preds, outs_dec,
-                              rec_ego_pose, pad_size)
+    return all_cls_scores, torch.cat([xyz, all_bbox_preds[..., 3:]], dim=-1)
+
+
+def split_dn(all_cls_scores, all_bbox_preds, pad_size: int) -> dict:
+    """The head's outs: the matching queries' scores and boxes and, with
+    pad_size DN queries in front, theirs as dn_cls_scores /
+    dn_bbox_preds."""
     if pad_size > 0:
         return {"all_cls_scores": all_cls_scores[:, :, pad_size:],
                 "all_bbox_preds": all_bbox_preds[:, :, pad_size:],
                 "dn_cls_scores": all_cls_scores[:, :, :pad_size],
-                "dn_bbox_preds": all_bbox_preds[:, :, :pad_size]}, bank
+                "dn_bbox_preds": all_bbox_preds[:, :, :pad_size]}
     return {"all_cls_scores": all_cls_scores,
-            "all_bbox_preds": all_bbox_preds}, bank
+            "all_bbox_preds": all_bbox_preds}
+
+
+def head_forward(head: StreamPETRHead, cfg: StreamPETRHeadConfig, feats,
+                 data, bank: MemoryBank, topk_indexes=None, dn=None,
+                 drop_masks=None, remat: bool = False):
+    """One frame (streampetr_head.py:403-502). feats (B, N, h, w, C) f32
+    neck features; data: intrinsics, img2lidar, timestamp, ego_pose,
+    ego_pose_inv, prev_exists and 'pad_shape'. Returns (outs, new
+    MemoryBank).
+
+    Training passes the memory tokens' FocalHead order ``topk_indexes``
+    (B, K, 1); ``dn`` (core/dn.prepare_for_dn, with
+    'padded_reference_points') puts the DN queries first under their
+    attention mask; the decoder takes the dropout masks ``drop_masks``
+    and, with ``remat``, checkpoints each layer. outs holds every layer's
+    scores and boxes of the matching queries and, with dn, of the DN
+    queries (dn_cls_scores, dn_bbox_preds)."""
+    bank = pre_update_memory(cfg, head, bank, data["timestamp"],
+                             data["ego_pose_inv"], data["prev_exists"])
+    (memory, pos_embed, tgt, query_pos, reference_points, attn_mask,
+     pad_size) = head_queries(head, cfg, feats, data, topk_indexes, dn)
+    (tgt, query_pos, reference_points, temp_memory, temp_pos,
+     rec_ego_pose) = temporal_alignment(head, cfg, bank, query_pos, tgt,
+                                        reference_points)
+    if cfg.compute_dtype == "bfloat16":
+        tgt, memory, query_pos, pos_embed, temp_memory, temp_pos = (
+            t.to(torch.bfloat16) for t in (tgt, memory, query_pos, pos_embed,
+                                           temp_memory, temp_pos))
+    outs_dec = decoder_forward(head.transformer.decoder, cfg.decoder, tgt,
+                               memory, query_pos, pos_embed, temp_memory,
+                               temp_pos, attn_mask=attn_mask,
+                               drop_masks=drop_masks, remat=remat)
+    outs_dec = torch.nan_to_num(outs_dec.float())
+    all_cls_scores, all_bbox_preds = head_outputs(head, cfg, outs_dec,
+                                                  reference_points)
+    bank = post_update_memory(cfg, bank, data["timestamp"], data["ego_pose"],
+                              all_cls_scores, all_bbox_preds, outs_dec,
+                              rec_ego_pose, pad_size)
+    return split_dn(all_cls_scores, all_bbox_preds, pad_size), bank

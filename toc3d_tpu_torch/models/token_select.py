@@ -8,6 +8,11 @@ branch); the eval token mask is the noiseless softmax, or with Gumbel noise
 handed in as a tensor (the reference's stochastic eval mask); top-k is a
 stable descending sort, so ties keep ascending index order like
 lax.sort_key_val on -scores (token_select.py:255-268).
+
+score_type 'attention' aggregates the token-query attention map with one
+linear; 'score' concatenates each projected token with the mean of the
+motion-aware queries and scores it with an MLPBlock (token_select.py:
+154-166), and returns no attention map.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from ..layers import MLN, lin, ln, mln
 from ..ops.consts import const_vector
 from ..ops.posenc import (nerf_positional_encoding, pos2posemb1d,
                           pos2posemb3d)
+from .common import MLPBlock, mlp_block
 
 LN_EPS = 1e-5  # selector LNs are torch defaults
 
@@ -34,19 +40,20 @@ class SelectorConfig:
     ratio: float = 0.5
     attn_scale: bool = True
     use_mask: bool = True
-    score_type: str = "attention"  # only 'attention' is ported
+    score_type: str = "attention"  # 'attention' | 'score'
     pc_range: Tuple[float, ...] = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)
 
 
 class Selector(nn.Module):
     """MotionAwareQueryGuidedTokenSelector parameters with the reference
     names (in_conv/out_conv score MLP, input_proj, aggregate,
-    query_embedding, ego_pose_pe, ego_pose_queries, time_embedding)."""
+    query_embedding, ego_pose_pe, ego_pose_queries, time_embedding). The
+    aggregate is aggregate.0, a Linear(num_queries, 2) for 'attention' and
+    an MLPBlock(2 * query_dim, query_dim, 2) for 'score'
+    (toc3d_utils.py:306-318)."""
 
     def __init__(self, cfg: SelectorConfig):
         super().__init__()
-        if cfg.score_type != "attention":
-            raise NotImplementedError("only score_type='attention' is ported")
         c, qd = cfg.embed_dim, cfg.query_dim
         self.in_conv = nn.Sequential(nn.LayerNorm(c, eps=LN_EPS),
                                      nn.Linear(c, c), nn.GELU())
@@ -54,7 +61,13 @@ class Selector(nn.Module):
             nn.Linear(c, c // 2), nn.GELU(), nn.Linear(c // 2, c // 4),
             nn.GELU(), nn.Linear(c // 4, 2))
         self.input_proj = nn.Sequential(nn.Linear(c, qd))
-        self.aggregate = nn.Sequential(nn.Linear(cfg.num_queries, 2))
+        if cfg.score_type == "attention":
+            self.aggregate = nn.Sequential(nn.Linear(cfg.num_queries, 2))
+        elif cfg.score_type == "score":
+            self.aggregate = nn.Sequential(MLPBlock(2 * qd, qd, 2))
+        else:
+            raise ValueError(f"score_type {cfg.score_type!r}: 'attention' "
+                             "or 'score'")
         self.query_embedding = nn.Sequential(
             nn.Linear(qd * 3 // 2, qd), nn.ReLU(), nn.Linear(qd, qd))
         self.ego_pose_pe = MLN(180, qd)
@@ -101,10 +114,15 @@ def get_motion_aware_queries(p: Selector, cfg: SelectorConfig, temp_queries,
 
 def query_based_score(p: Selector, cfg: SelectorConfig, tokens, queries):
     """tokens (BN, N, C), queries (B, Q, Cq) -> ((BN, N, 2) log-softmax
-    scores, (BN, N, Q) attention) (toc3d_utils.py:232-252)."""
+    scores, the (BN, N, Q) attention for 'attention' or None for 'score')
+    (toc3d_utils.py:232-252; token_select.py:133-166)."""
     bn, b = tokens.shape[0], queries.shape[0]
     x = lin(p.input_proj[0], tokens)
     q = queries.repeat_interleave(bn // b, dim=0)
+    if cfg.score_type == "score":
+        mean_q = q.mean(dim=1, keepdim=True).expand_as(x)
+        logits = mlp_block(p.aggregate[0], torch.cat([x, mean_q], dim=-1))
+        return F.log_softmax(logits, dim=-1), None
     scale = cfg.query_dim ** -0.5 if cfg.attn_scale else 1.0
     attn = torch.einsum("bnc,bqc->bnq", x.float(), q.float()) * scale
     logits = lin(p.aggregate[0], attn.to(x.dtype))
@@ -121,7 +139,7 @@ def selector_score(p: Selector, cfg: SelectorConfig, tokens_hw, mask,
     train_blend: the training blend of the first-frame fallback, which
     keeps only channel 0 of the MLP score, broadcast over both channels
     (token_select.py:210-214; toc3d_utils.py:264-266).
-    Returns (scores (BN, H*W), pred (BN, H*W, 2), attn)."""
+    Returns (scores (BN, H*W), pred (BN, H*W, 2), attn or None)."""
     bn, h, w, c = tokens_hw.shape
     use_mask = cfg.use_mask and mask is not None
     x = tokens_hw.reshape(bn, h * w, c)

@@ -6,6 +6,8 @@ toc3d_tpu_torch.tools.traineval`` (the closed loop), ``python3 -m
 toc3d_tpu_torch.tools.export`` (the serving artifact), ``python3 -m
 toc3d_tpu_torch.tools.dryrun`` (the multi-process dry run), ``python3 -m
 toc3d_tpu_torch.tools.create_data_nusc`` (nuScenes info pkls from the raw
-tables) and ``python3 -m toc3d_tpu_torch.tools.visualize`` (detections
-drawn on the cameras and a BEV panel); the eval and the trainer take
+tables), ``python3 -m toc3d_tpu_torch.tools.visualize`` (detections drawn
+on the cameras and a BEV panel) and ``python3 -m
+toc3d_tpu_torch.tools.host_pipeline_bench`` (host, infer and end-to-end
+rates over JPEGs it writes); the eval and the trainer take
 ``--distributed``."""
