@@ -1743,7 +1743,7 @@ def phase_eval(name="ToC3D_faster_1600", scenes=2, frames_per_scene=6,
     it; mAP and NDS (nusc_metrics) and the tracker's AMOTA (tools.track
     --eval) are finite and in [0, 1]. Prints the readers, eval frames/s over
     the frames after the captures and the prefetch queue's fill, the host
-    ms to build a frame and the card ms a frame by stage (CUDA events)."""
+    ms to build a frame and the card ms a frame by stage (the stage timer)."""
     import gc
     import tempfile
     import PIL
@@ -1831,7 +1831,9 @@ def phase_eval(name="ToC3D_faster_1600", scenes=2, frames_per_scene=6,
             k0 = min(5, n - 2)
             done = out["done_at"]
             fps = (n - 1 - k0) / (done[-1] - done[k0])
-            stage = {k: v[2:] for k, v in out["stage_ms"].items()}
+            # a frame's top-level spans (a child's time is in its parent)
+            stage = {k: v[2:] for k, v in out["stage_ms"].items()
+                     if "/" not in k}
             card = [sum(x) for x in zip(*stage.values())]
             build = out["build_ms"]
             log(f"eval {tag} ({dtype} frames{', normalized on the card' if fast else ''}), "
@@ -1846,7 +1848,7 @@ def phase_eval(name="ToC3D_faster_1600", scenes=2, frames_per_scene=6,
                 f"({1e3 / fps:.3f} ms/frame); host build ms/frame mean "
                 f"{sum(build) / len(build):.3f} (min {min(build):.3f}, max "
                 f"{max(build):.3f}, one prefetch thread); card ms/frame "
-                f"over frames 2-{n - 1} by CUDA events: "
+                f"over frames 2-{n - 1} by the stage timer: "
                 + ", ".join(f"{k} {sum(v) / len(v):.3f}"
                             for k, v in stage.items())
                 + f", total {sum(card) / len(card):.3f}; loop wall after each "
@@ -3320,7 +3322,7 @@ def phase_train(results, captured):
     3. 30 steps on the fixed batch (bench.py --train's protocol, the first
        3 to settle): losses finite, the mean of the last 5 below the mean of
        the first 5, no non-finite skip; steps/s, samples/s, peak memory and
-       the ms a step by stage (CUDA events: noise draw, pack rebuild,
+       the ms a step by stage (the stage timer: noise draw, pack rebuild,
        forward, host matching, losses, backward, optimizer), then 2 steps
        under torch.profiler (train_profile), then MATCH_STEPS steps with
        the 'callback' matcher (the native LAP on the host) pinned, timed
@@ -3423,7 +3425,7 @@ def phase_train(results, captured):
         f"{timed / wall:.4f} steps/s, {b * timed / wall:.4f} samples/s, "
         f"{wall / timed * 1e3:.3f} ms/step wall; peak memory {peak:.3f} GiB "
         f"{'ok' if ok_s else 'FAIL'}")
-    log("train ms a step by stage (CUDA events, mean over "
+    log("train ms a step by stage (stage timer, mean over "
         f"{timed} steps): " + json.dumps(
             {k: round(v["mean"], 3) for k, v in stages.items()}))
     results["train"] = dict(steps_per_s=timed / wall,
@@ -3686,7 +3688,7 @@ def phase_train_1600(results):
     (c) TRAIN1600_SETTLE + TRAIN1600_TIMED more steps: every loss of the
         run finite, the mean of its last 5 below the mean of its first 5,
         no non-finite skip; steps/s, samples/s, peak memory (over (b) and
-        (c)) and the ms a step by stage (CUDA events);
+        (c)) and the ms a step by stage (the stage timer);
     then the backbone alone under the default and each other regime
         (backbone_peak), the part of the step the view scan bounds;
     (d) each of TRAIN1600_REGIMES, on the same state: its first step with

@@ -27,7 +27,7 @@ queued. On the card the frame runs through the captured ``make_infer_fn``
 runs it eagerly (a check of the protocol, not a measurement of a device).
 
 Prints the nvidia-smi name and power limit, the peak device memory, the wall
-ms/frame, the per-stage device time from CUDA events (runtime/timer.py;
+ms/frame, the per-stage device time from the stage timer (runtime/timer.py;
 bench.py has no split, the JAX package's GlobalTimer gives one) and, last,
 one JSON line {"metric", "value", "unit", "vs_baseline"}: frames/s against
 the paper's A100 whole-pipeline latency.

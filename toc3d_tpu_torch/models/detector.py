@@ -438,7 +438,9 @@ def infer_step(model: ToC3DDetector, state: DetectorState, frame,
     eagerly. The frame's arrays may lie on the host (numpy or tensors) or
     on the model's device; host ones are moved there (frame_to_device).
     ``timer`` (runtime/timer.StageTimer): the spans "inputs",
-    "backbone+neck" and "head+decode" are recorded on it. mask_noise: the
+    "backbone+neck" and "head+decode", and their stages
+    "backbone+neck/select" (each token selector) and
+    "head+decode/decoder", are recorded on it. mask_noise: the
     selectors' Gumbel noise under eval_mask 'gumbel' (MaskNoise.draw; none:
     the noiseless mask)."""
     steady = is_steady(frame)
@@ -592,7 +594,7 @@ def make_infer_fn(model: ToC3DDetector, timer=None, mask_seed: int = 0):
     and head + decode); a capture that fails raises. On the CPU it runs
     ``infer_step`` eagerly (``eager_infer_fn``). ``timer``
     (runtime/timer.StageTimer): the spans "inputs", "backbone+neck" and
-    "head+decode" are recorded on it."""
+    "head+decode" and their stages (``infer_step``) are recorded on it."""
     if next(model.parameters()).is_cuda:
         from ..runtime.graphs import CapturedInfer
         return CapturedInfer(model, timer, mask_seed)

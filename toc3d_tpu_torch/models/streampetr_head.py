@@ -28,6 +28,7 @@ from ..ops.posenc import (nerf_positional_encoding, pos2posemb1d,
                           pos2posemb3d)
 from ..core.boxes import transform_reference_points
 from ..core.state import MemoryBank
+from ..runtime.timer import stage
 from .petr_transformer import DecoderConfig, Transformer, decoder_forward
 
 LN_EPS = 1e-5
@@ -406,10 +407,11 @@ def head_forward(head: StreamPETRHead, cfg: StreamPETRHeadConfig, feats,
         tgt, memory, query_pos, pos_embed, temp_memory, temp_pos = (
             t.to(torch.bfloat16) for t in (tgt, memory, query_pos, pos_embed,
                                            temp_memory, temp_pos))
-    outs_dec = decoder_forward(head.transformer.decoder, cfg.decoder, tgt,
-                               memory, query_pos, pos_embed, temp_memory,
-                               temp_pos, attn_mask=attn_mask,
-                               drop_masks=drop_masks, remat=remat)
+    with stage("decoder"):
+        outs_dec = decoder_forward(head.transformer.decoder, cfg.decoder,
+                                   tgt, memory, query_pos, pos_embed,
+                                   temp_memory, temp_pos, attn_mask=attn_mask,
+                                   drop_masks=drop_masks, remat=remat)
     outs_dec = torch.nan_to_num(outs_dec.float())
     all_cls_scores, all_bbox_preds = head_outputs(head, cfg, outs_dec,
                                                   reference_points)

@@ -17,6 +17,7 @@ import torch.nn as nn
 
 from ..ops.cuda.vit_block import fused_compressed_block_int8
 from ..ops.trainable import trainable_compressed_block
+from ..runtime.timer import stage
 from .eva_vit import (EVAViT, EVAViTConfig, Block, block_forward,
                       drop_path_rates, embed)
 from .token_select import (SelectorConfig, Selector, hard_mask,
@@ -155,18 +156,19 @@ def toc3d_vit_forward(model: ToC3DViT, x, motion_ctx, prev_exists,
     for i in range(cfg.depth):
         if i in cfg.pruning_loc:
             scfg = cfg.selector_config(seg)
-            scores, pred, _ = selector_score(
-                model.score_predictor[seg], scfg, x, masks, motion_ctx,
-                prev_exists, steady=steady, train_blend=train)
-            if cfg.eval_mask == "hard" and not train:
-                masks = hard_mask(scores, scfg.ratio).to(x.dtype)
-            else:
-                noise = None
-                if (train or cfg.eval_mask == "gumbel") and \
-                        mask_noise is not None:
-                    noise = mask_noise[seg]
-                masks = soft_mask(pred, noise)
-            masks = masks.reshape(bn, h, w, 1)
+            with stage("select"):
+                scores, pred, _ = selector_score(
+                    model.score_predictor[seg], scfg, x, masks, motion_ctx,
+                    prev_exists, steady=steady, train_blend=train)
+                if cfg.eval_mask == "hard" and not train:
+                    masks = hard_mask(scores, scfg.ratio).to(x.dtype)
+                else:
+                    noise = None
+                    if (train or cfg.eval_mask == "gumbel") and \
+                            mask_noise is not None:
+                        noise = mask_noise[seg]
+                    masks = soft_mask(pred, noise)
+                masks = masks.reshape(bn, h, w, 1)
             collected["token_masks"].append(masks)
             ratio = scfg.ratio
             seg += 1

@@ -68,7 +68,15 @@ SIGNATURES = {
     "auction": {
         "toc3d_auction": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     },
+    "stamp": {
+        "toc3d_stamp": [_P, _P, _I, _I, _P],
+    },
 }
+
+# libraries that only a stage timer on the card loads (runtime/timer.py):
+# built at its first use, never by build_all's default, so a run without a
+# timer builds nothing for them
+ON_USE = ("stamp",)
 
 # entry points that return a count (>= 0) or -(CUDA error), not an error
 # code; they launch nothing and take no stream (see ``occupancy``)
@@ -104,11 +112,12 @@ def library_path(name: str) -> Path:
 
 
 def build_all(names=None) -> dict:
-    """Compile the named libraries (default: all) that are not built yet,
-    one nvcc per source, all started together. Returns {name: seconds}
-    (0.0 for a library already built). Raises with nvcc's output if any
-    build fails."""
-    names = list(SIGNATURES) if names is None else list(names)
+    """Compile the named libraries (default: all but ON_USE) that are not
+    built yet, one nvcc per source, all started together. Returns {name:
+    seconds} (0.0 for a library already built). Raises with nvcc's output
+    if any build fails."""
+    names = [n for n in SIGNATURES if n not in ON_USE] if names is None \
+        else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()

@@ -13,20 +13,26 @@ carries on eagerly.
 Launch counters: a replay runs no Python wrapper, so each capture records
 every counter's change (the capture itself launches nothing, and the
 counters are put back) and each replay adds that change.
+
+Stage spans (runtime/timer.py): a program captured while a stage timer is
+current holds that timer's stamp nodes, which write into its log on every
+replay; the program keeps the timer, and so its log, alive.
 """
 from __future__ import annotations
 
 import torch
 
 from ..ops.cuda import counted_wrappers
+from .timer import current
 
 
 class Program:
-    """One captured graph, its output and the launches each replay
-    makes."""
+    """One captured graph, its output, the launches each replay makes and
+    the stage timer whose log its stamps write (or None)."""
 
-    def __init__(self, graph, out, launches):
+    def __init__(self, graph, out, launches, timer):
         self.graph, self.out, self.launches = graph, out, launches
+        self.timer = timer
 
     def replay(self):
         self.graph.replay()
@@ -58,5 +64,5 @@ def run_captured(programs: dict, name, fn, stream, pool, device):
         for f, n in zip(counters, before):
             f.launches = n
     programs[name] = Program(graph, captured,
-                             [(f, n) for f, n in launches if n])
+                             [(f, n) for f, n in launches if n], current())
     return out

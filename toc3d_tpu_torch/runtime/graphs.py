@@ -59,7 +59,10 @@ class CapturedInfer:
     """``infer(state, frame) -> (state', DecodedBoxes)`` on a CUDA model,
     as replayed CUDA graphs (see the module note). ``timer``: a
     runtime.timer.StageTimer for the spans "inputs", "backbone+neck" and
-    "head+decode"; ``mask_seed``: the seed of the eval_mask 'gumbel'
+    "head+decode", opened around each program's first eager run and its
+    capture too, so the stages inside ("backbone+neck/select",
+    "head+decode/decoder") are captured as stamp nodes; without a timer the
+    graphs hold none. ``mask_seed``: the seed of the eval_mask 'gumbel'
     noise (MaskNoise)."""
 
     def __init__(self, model, timer=None, mask_seed: int = 0):

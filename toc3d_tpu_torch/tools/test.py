@@ -38,7 +38,8 @@ eval), it evaluates over that group.
 ``main(argv)`` returns a summary for callers in the same process: the
 submission's path, its metrics, the host's ms to build each frame, the
 loop's wall clock after each frame and, with ``--speed-test``, each
-frame's per-stage device ms (CUDA events, runtime/timer.py).
+frame's per-stage device ms (runtime/timer.py's stamp log; printed as
+an indented 'A/B' tree of the nested spans).
 """
 from __future__ import annotations
 
@@ -125,7 +126,7 @@ def main(argv=None) -> dict:
     from ..runtime.eval import (evaluate_submission,
                                 gather_results_multihost, sample_annos,
                                 write_submission)
-    from ..runtime.timer import StageTimer
+    from ..runtime.timer import LOG_ENTRIES, StageTimer, tree
 
     device = torch.device(args.device)
     cuda = device.type == "cuda"
@@ -167,7 +168,9 @@ def main(argv=None) -> dict:
         print("WARNING: no checkpoint — evaluating random weights")
         model = build_detector(cfg, device=device, seed=0)
 
-    timer = StageTimer(device) if args.speed_test else None
+    # 14 stamps a ToC3D frame (7 spans), twice that as room
+    timer = StageTimer(device, max(LOG_ENTRIES, 32 * n)) \
+        if args.speed_test else None
     infer = make_infer_fn(model, timer, mask_seed=args.ref_parity_seed)
 
     build_ms = []
@@ -247,9 +250,10 @@ def main(argv=None) -> dict:
     if timed:
         print(f"speed: {timed / t_total:.3f} frames/s "
               f"({1000 * t_total / timed:.1f} ms/frame, warmup 200)")
-    for name, xs in stage_ms.items():
-        print(f"  {name:14s} {'device' if cuda else 'host'} ms/frame mean "
-              f"{sum(xs) / len(xs):.3f} (n {len(xs)})")
+    if stage_ms:
+        print(f"stages, {'device' if cuda else 'host'} ms a span:")
+        for line in tree(stage_ms):
+            print("  " + line)
 
     try:
         metrics = evaluate_submission(path, args.data_root or ".",

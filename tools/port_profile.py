@@ -17,7 +17,7 @@ frame, the summed device time of the CUDA kernels per frame (copies and
 fills not counted), the device idle share (1 - kernel time / wall time),
 the device time of the port's own kernels grouped by family and the top
 kernels; then the time per frame between the first and last kernel of each
-program from CUDA events (runtime/timer.py), which stands in for the
+program from the stage timer (runtime/timer.py), which stands in for the
 kernel sum should the profiler see no kernel inside a replay. First line:
 the card's nvidia-smi name and power limit. Needs a CUDA card; exits
 non-zero without one.
@@ -159,11 +159,11 @@ def main() -> int:
         report(f"{mode} {name}", wall, kern, n, args.top)
         spans = timer.summary()
         dev_ms = spans["backbone+neck"]["mean"] + spans["head+decode"]["mean"]
-        print(f"{mode} {name}, CUDA events: backbone+neck "
+        print(f"{mode} {name}, stage timer: backbone+neck "
               f"{spans['backbone+neck']['mean']:.3f} + head+decode "
               f"{spans['head+decode']['mean']:.3f} = {dev_ms:.3f} ms/frame "
               f"between the programs' first and last kernels (inputs "
-              f"{spans['inputs']['mean']:.3f}); idle share by events "
+              f"{spans['inputs']['mean']:.3f}); idle share by the timer "
               f"{max(0.0, 1 - dev_ms / wall):.3f}"
               + ("" if kern else "; the profiler saw no kernel"), flush=True)
         del infer
