@@ -527,13 +527,17 @@ def phase_build():
                 if ("registers" in line or "spill" in line
                         or "Compiling entry" in line):
                     log(f"  ptxas {name}: {line.strip()}")
-    # window attention at d = 64 for every window size of the main path
+    # window attention at d = 64 and 32, each body: one persistent block
+    # an SM whose ring holds ceil(n / 64) slots of a window of n rows
     # (B: 256, 400 rows; C: kr = k + 1 at ratios .5 / .4 / .3)
-    occ = {n: build.occupancy("vit_block", "toc3d_window_attention_occupancy",
-                              n, 64)
-           for n in (256, 400, 128, 103, 77, 201, 161, 121)}
-    log(f"resident blocks per SM: window attention (d 64) by rows {occ}; "
-        f"flash partial (d 32) "
+    occ = {f"d {d} {body}": build.occupancy(
+        "vit_block", "toc3d_window_attention_occupancy", d, one)
+        for d in (64, 32) for body, one in (("one-pass", 1), ("two-pass", 0))}
+    slots = build.occupancy("vit_block", "toc3d_window_attention_slots", 64)
+    log(f"resident blocks per SM: window attention {occ}, ring of {slots} "
+        f"slots at d 64, slots a window by rows "
+        f"{ {n: -(-n // 64) for n in (256, 400, 201, 128, 103, 77, 161, 121)} }"
+        f"; flash partial (d 32) "
         f"{build.occupancy('cross_attn', 'toc3d_flash_occupancy', 32)}")
 
 
@@ -1088,11 +1092,12 @@ def phase_rows(model, results):
     and C and the row quantization of B8 / C8's proj_in site and of the
     head's 30000 image tokens (the input of H8's oracle, the old tile),
     timed beside their bounds (SDPA on windowed q / k / v for the
-    attention), and the per-frame bounds of the three families."""
+    attention; both of its bodies), and the per-frame bounds of the three
+    families."""
     import torch
     import torch.nn.functional as F
     from toc3d_tpu_torch.models.eva_vit import make_rope_tables, rope_tensors
-    from toc3d_tpu_torch.ops.cuda import int8, vit_block
+    from toc3d_tpu_torch.ops.cuda import build, int8, vit_block
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(6)
     cfg = model.cfg.backbone
@@ -1153,22 +1158,29 @@ def phase_rows(model, results):
             pos = torch.cat([plan.slow_idx, torch.full_like(
                 plan.slow_idx[:, :1], plan.k)], 1).to(torch.int32)
             pos = pos.contiguous()
-        run = lambda: vit_block.window_attention_launch(
-            qkv, out, (6, 50, 100), ws, nw, n, heads, image, pos, cos, sin)
+        def run(one_pass):
+            return lambda: vit_block.window_attention_launch(
+                qkv, out, (6, 50, 100), ws, nw, n, heads, image, pos, cos,
+                sin, one_pass=one_pass)
         qs, ks, vs = (torch.randn(nw, heads, n, d, device=dev,
                                   generator=g).to(bf) for _ in range(3))
         b_ms, b_by = bound(4 * nw * n * n * c,
                            (rows + image) * 3 * c * 4 + rows * c * 2
                            + ws * ws * d * 4 * 2)
+        # ms: the one-pass body (B, C); two_pass_ms: the int8 blocks' body
         entry = dict(shape=f"{'B' if image else 'C'} ws {ws}"
                            f"{'' if image else f', ratio {ratio}'}: {nw} "
                            f"windows x {n} rows, qkv ({rows + image},"
                            f"{3 * c}) f32 -> ({rows},{c}) bf16",
-                     ms=cuda_time(run, 20),
+                     ms=cuda_time(run(True), 20),
+                     two_pass_ms=cuda_time(run(False), 20),
                      library_ms=cuda_time(
                          lambda: F.scaled_dot_product_attention(
                              qs, ks, vs, scale=1.0), 20),
-                     bound_ms=b_ms, bound_by=b_by)
+                     bound_ms=b_ms, bound_by=b_by,
+                     blocks_per_sm=build.occupancy(
+                         "vit_block", "toc3d_window_attention_occupancy", d,
+                         1))
         log(f"time window attention: {json.dumps(entry)}")
         del qkv, out, qs, ks, vs
 
@@ -1552,7 +1564,8 @@ def phase_preset_shapes():
     return ok_all
 
 
-KERNELS = ("A", "B", "C", "D", "B8", "C8", "H8", "G", "G8", "LN", "AU")
+KERNELS = ("A", "B", "C", "D", "B8", "C8", "H8", "G", "G8", "LN", "AU", "W1",
+           "W2")
 
 
 def counters():
@@ -1560,7 +1573,8 @@ def counters():
     vit_block._gemm, under gemm_bf16 and every bf16 matmul of B and C, not
     A's product; G8: int8.gemm_s8_sm90, every weight matmul of B8 and C8;
     LN: vit_block.layernorm, every launch of the LayerNorm kernel, three a
-    block)."""
+    block; W1 / W2: the window attention's one-pass body, one launch a B or
+    C, and its two-pass body, one a B8 or C8)."""
     from toc3d_tpu_torch.ops.cuda import counted_wrappers
     return counted_wrappers()
 
@@ -1624,7 +1638,7 @@ def _stream(infer, state, frames):
 
 
 def phase_main_path(model, results, label="bf16",
-                    per_frame=(1, 6, 18, 12, 0, 0, 0, 96, 0, 72, 0),
+                    per_frame=(1, 6, 18, 12, 0, 0, 0, 96, 0, 72, 0, 24, 0),
                     record=("A", "B", "C", "D", "G", "LN"),
                     name="ToC3D_faster_1600", n_frames=6, selectors=3,
                     host_checks=True):
@@ -1722,8 +1736,8 @@ def phase_main_path(model, results, label="bf16",
     return ok, dets
 
 
-MAIN_PER_FRAME = (1, 6, 18, 12, 0, 0, 0, 96, 0, 72, 0)
-INT8_PER_FRAME = (1, 0, 0, 12, 6, 18, 60, 0, 96, 72, 0)
+MAIN_PER_FRAME = (1, 6, 18, 12, 0, 0, 0, 96, 0, 72, 0, 24, 0)
+INT8_PER_FRAME = (1, 0, 0, 12, 6, 18, 60, 0, 96, 72, 0, 0, 24)
 
 
 def phase_eval(name="ToC3D_faster_1600", scenes=2, frames_per_scene=6,
@@ -1978,13 +1992,13 @@ def phase_presets(results):
     from toc3d_tpu_torch.models.detector import build_detector
     ok_all = True
     runs = (("stream_petr_eva_vit_l_1600", "bf16", 6, 0,
-             (1, 24, 0, 12, 0, 0, 0, 96, 0, 72, 0)),
+             (1, 24, 0, 12, 0, 0, 0, 96, 0, 72, 0, 24, 0)),
             ("stream_petr_eva_vit_l_1600", "int8 dynamic", 6, 0,
-             (1, 0, 0, 12, 24, 0, 60, 0, 96, 72, 0)),
+             (1, 0, 0, 12, 24, 0, 60, 0, 96, 72, 0, 0, 24)),
             ("ToC3D_fast", "bf16", 3, 3,
-             (1, 6, 18, 12, 0, 0, 0, 96, 0, 72, 0)),
+             (1, 6, 18, 12, 0, 0, 0, 96, 0, 72, 0, 24, 0)),
             ("ToC3D_vit_b_faster", "bf16", 3, 3,
-             (1, 3, 9, 12, 0, 0, 0, 48, 0, 36, 0)))
+             (1, 3, 9, 12, 0, 0, 0, 48, 0, 36, 0, 12, 0)))
     for name, label, n, sel, per_frame in runs:
         cfg = get_config(name)
         if label != "bf16":
@@ -2905,7 +2919,8 @@ def phase_small_agreement(quant="none", plain=False):
 # ---------------------------------------------------------------------------
 
 TRAIN_PER_STEP = {"A": 1, "B": 1, "C": 18, "D": 0, "B8": 0, "C8": 0,
-                  "H8": 0, "G": 76, "G8": 0, "LN": 57, "AU": 7}
+                  "H8": 0, "G": 76, "G8": 0, "LN": 57, "AU": 7, "W1": 19,
+                  "W2": 0}
 TRAIN_STEPS, TRAIN_SETTLE = 30, 3
 MATCH_STEPS = 6   # steps timed with the 'callback' matcher pinned
 
@@ -3527,7 +3542,8 @@ def phase_train(results, captured):
 # view scan on, a chunk of 1 view: 6 chunks of 2 rows); unscanned, one
 # chunk of 12 rows (A 1, B 1, C 18, G 76, LN 57, as phase_train's)
 TRAIN1600_PER_STEP = {"A": 6, "B": 6, "C": 108, "D": 0, "B8": 0, "C8": 0,
-                      "H8": 0, "G": 456, "G8": 0, "LN": 342, "AU": 7}
+                      "H8": 0, "G": 456, "G8": 0, "LN": 342, "AU": 7,
+                      "W1": 114, "W2": 0}
 TRAIN1600_SETTLE, TRAIN1600_TIMED = 3, 10
 REGIME_TIMED = 3     # steps timed in each other regime, after its first
 # (label, make_train_step's options, views a chunk): JAX's bench flags
@@ -4778,8 +4794,8 @@ def main() -> int:
     keys = ("name", "op", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape", "shapes", "frame", "regime")
-    rows = list(KERNELS) + [D900_ROW] + [r for r in results
-                                         if " train" in r]
+    rows = [k for k in KERNELS if k in results] + [D900_ROW] + [
+        r for r in results if " train" in r]
     ops = kernel_ops()
     for r in rows:
         results[r]["op"] = ops.get(r.split()[0])

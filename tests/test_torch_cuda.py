@@ -7,7 +7,11 @@ key counts that are not a multiple of the flash kernel's key tile, key
 counts that span several splits of the split-K flash kernel with a ragged
 last split or fall short of one tile, ws 20 windows (full blocks, and
 compressed ones with kr = 201 at ratio .5 and ratio .3), and the window
-attention of kr = 201 rows on its own. Kernel G, the bf16 TMA + wgmma GEMM
+attention of kr = 201 rows on its own, and at the main path's own shapes
+on the 6 x 50 x 100 map (B at ws 16 and 20, C at ratios .5 and .3 with and
+without the representative row), each of its two bodies (a bf16 pack: the
+one-pass body; an int8 pack: the two-pass body), and each body's launches in
+a captured ToC3D_faster_1600 frame. Kernel G, the bf16 TMA + wgmma GEMM
 of B and C, alone with every epilogue, ragged M, N and K (K tails that TMA
 zero-fills), and the operands it refuses. The int8
 forms B8 / C8 (dynamic and static) and their parts: the mma.sync int8 GEMM
@@ -323,6 +327,44 @@ def test_attention_delta_kernel(dev, shape, c, heads, hidden, ws, use_rep,
     wts = vit_block.pack_block_weights(blk, heads, BF)
     _close(out, vit_block.attention_delta_plain(wts, x, heads, ws, tables,
                                                 plan))
+
+
+# the main path's window attention shapes on the 6 x 50 x 100 map: B at ws 16
+# (168 windows of 256 rows) and ws 20 (90 of 400), C at ws 16 / 20 and
+# ratios .5 / .3 with and without the representative row (k 127 / 76 at ws
+# 16, 200 / 120 at ws 20): the ring's wave tails over 132 SMs
+MAIN_ATTENTION = [(16, None, True), (20, None, True)] + [
+    (ws, ratio, rep) for ws in (16, 20) for ratio in (0.5, 0.3)
+    for rep in (True, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("ws,ratio,rep", MAIN_ATTENTION)
+def test_window_attention_main_shapes(dev, ws, ratio, rep, int8):
+    """window_attention_launch at the main path's own shapes (ViT-L, 16
+    heads of 64), through the attention delta of B / C (a bf16 pack: the
+    one-pass body) and of B8 / C8 (an int8 pack, dynamic: the two-pass
+    body), against the plain version; each launch counted on its body."""
+    blk = _block(1024, 16, 2730, 8, dev)
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = (torch.randn(6, 50, 100, 1024, device=dev, generator=g) * 0.5).to(BF)
+    tables = _rope(1024, 16, ws, dev)
+    plan = None
+    if ratio is not None:
+        scores = torch.randn(6, 5000, device=dev, generator=g).to(BF)
+        plan = vit_block.compress_plan(scores, 6, 50, 100, ws, ratio, rep,
+                                       True)
+    bodies = (vit_block.window_attention_one_pass,
+              vit_block.window_attention_two_pass)
+    before = [b.launches for b in bodies]
+    out = vit_block.attention_delta(blk, x, 16, ws, tables, plan, int8=int8)
+    assert [b.launches - n for b, n in zip(bodies, before)] == \
+        ([0, 1] if int8 else [1, 0])
+    pack = vit_block.pack_block_weights_int8 if int8 else \
+        vit_block.pack_block_weights
+    _close(out, vit_block.attention_delta_plain(pack(blk, 16, BF), x, 16, ws,
+                                                tables, plan))
 
 
 @pytest.mark.cuda
@@ -883,6 +925,43 @@ def test_captured_frame_counts_launches_per_replay(dev):
     eager = [c.launches - n for c, n in zip(counters, before)]
     assert replayed == eager
     assert min(replayed[:4]) > 0     # A, B, C and D
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["none", "dynamic"])
+def test_captured_main_frame_counts_window_attention_bodies(dev, quant):
+    """A replayed ToC3D_faster_1600 frame (6 views of 1600x800, random
+    weights) runs the window attention's one-pass body 24 times (6 B and
+    18 C) and the two-pass body never; with int8 blocks (dynamic) the
+    reverse."""
+    from dataclasses import replace
+    from toc3d_tpu_torch.configs import get_config
+    from toc3d_tpu_torch.models.detector import (build_detector, init_state,
+                                                 make_infer_fn,
+                                                 synthetic_frame)
+    cfg = get_config("ToC3D_faster_1600")
+    if quant != "none":
+        cfg = replace(cfg, backbone=replace(cfg.backbone, quant="int8"),
+                      head=replace(cfg.head, decoder=replace(
+                          cfg.head.decoder, quant="int8")))
+    model = build_detector(cfg, device="cuda", seed=0)
+    g = torch.Generator().manual_seed(9)
+    frames = []
+    for t in range(4):
+        f = synthetic_frame(g, t, height=800, width=1600, device="cpu")
+        f["prev_exists"] = torch.full((1,), float(t > 0))
+        frames.append({k: v.pin_memory() for k, v in f.items()})
+    infer = make_infer_fn(model)
+    state = init_state(1, cfg, device="cuda")
+    for f in frames[:3]:
+        state, _ = infer(state, f)
+    bodies = (vit_block.window_attention_one_pass,
+              vit_block.window_attention_two_pass)
+    before = [b.launches for b in bodies]
+    infer(state, frames[3])
+    torch.cuda.synchronize()
+    assert [b.launches - n for b, n in zip(bodies, before)] == \
+        ([24, 0] if quant == "none" else [0, 24])
 
 
 @pytest.mark.cuda

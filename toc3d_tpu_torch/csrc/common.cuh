@@ -163,6 +163,67 @@ __device__ __forceinline__ void p_fragment(unsigned* pa, float (&s)[8][4],
   pa[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
 }
 
+// the online softmax of the flash kernel (cross_attn.cu) and of the window
+// attention's one-pass body (vit_block.cu)
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x by the SFU (ex2.approx.ftz.f32: relative error about 2^-22; 2^-inf
+// is +0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One 16 x 64 tile of the online softmax, for the two rows (g, g + 8) a
+// thread holds in the m16n8 accumulator layout: s[8][4] are the logits
+// (masked ones at -inf), m* the running row maxima (raw logit units), l*
+// this thread's share of the running row sums, o[NO][4] the running P.V.
+// Turns s into p = 2^(s log2e - m log2e) = e^(s - m) (one FFMA and one
+// MUFU.EX2 per logit, FlashAttention's form) and rescales l and o. The
+// first tile must hold a finite logit in every row, so m never stays -inf.
+template <int NO>
+__device__ __forceinline__ void online_softmax_tile(float (&s)[8][4],
+                                                    float& m0, float& m1,
+                                                    float& l0, float& l1,
+                                                    float (&o)[NO][4]) {
+  float mx0 = m0, mx1 = m1;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+    mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  const float ms0 = mx0 * LOG2E, ms1 = mx1 * LOG2E;
+  const float al0 = ex2(fmaf(m0, LOG2E, -ms0));
+  const float al1 = ex2(fmaf(m1, LOG2E, -ms1));
+  m0 = mx0;
+  m1 = mx1;
+  float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    s[j][0] = ex2(fmaf(s[j][0], LOG2E, -ms0));
+    s[j][1] = ex2(fmaf(s[j][1], LOG2E, -ms0));
+    s[j][2] = ex2(fmaf(s[j][2], LOG2E, -ms1));
+    s[j][3] = ex2(fmaf(s[j][3], LOG2E, -ms1));
+    ps0 += s[j][0] + s[j][1];
+    ps1 += s[j][2] + s[j][3];
+  }
+  l0 = al0 * l0 + ps0;
+  l1 = al1 * l1 + ps1;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    o[n][0] *= al0;
+    o[n][1] *= al0;
+    o[n][2] *= al1;
+    o[n][3] *= al1;
+  }
+}
+
 #define TOC3D_EXPORT extern "C" __attribute__((visibility("default")))
 
 TOC3D_EXPORT const char* toc3d_error_string(int err) {

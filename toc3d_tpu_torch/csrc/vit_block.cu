@@ -44,13 +44,15 @@
 //                         only after every head has run); the head
 //                         decoder's int8 linears quantize their input inside
 //                         their own kernel (int8_linear.cu, H8)
-//   window_attention_kernel  one (window, head) per block: stages the
-//                         window's k/v rows (by window geometry, or dense
-//                         for compressed rows) in shared memory with
-//                         pairwise RoPE in f32, then softmax(q k^T) v in
-//                         two passes over 64-key tiles (row max, then P =
-//                         exp(s - max) and P.V) with S, P and o in
-//                         registers (note below)
+//   window_attention_kernel  a persistent block an SM over the (window,
+//                         head) items: producer warps stage each item's
+//                         q/k/v rows (by window geometry, or dense for
+//                         compressed rows) as bf16 64-row tiles in a ring
+//                         in shared memory, RoPE in f32 on the way;
+//                         consumer warpgroups run softmax(q k^T) v on them
+//                         with wgmma, S, P and o in registers, in one pass
+//                         (online softmax, bf16 blocks) or two (row max,
+//                         then P = exp(s - max); int8 blocks) (note below)
 //   gather_merge_kernel   compressed rows: slow tokens by index plus the
 //                         representative row = score-weighted mean of the
 //                         fast tokens (weights score / sum(score), pads of
@@ -561,27 +563,51 @@ __device__ __forceinline__ long long token_row(int w, int t, int H, int W,
   return ((long long)b * H + r) * W + c;
 }
 
-__device__ __forceinline__ long long attn_row(const WinGeom& g, int w, int n,
-                                              int t) {
-  if (!g.image) return (long long)w * n + t;
-  long long r = token_row(w, t, g.H, g.W, g.ws, g.nwh, g.nww);
-  return r < 0 ? g.pad_row : r;
-}
+// the qkv rows of one window: row t of the window (t < n) is a token of the
+// map by geometry, or the LN(0) row where that token lies outside the image
+// (image mode), or dense row w n + t
+struct WinRows {
+  long long base;  // image: the map row of the window's (0, 0) token
+  int r0, c0;      // image: that token's map row and column
+  __device__ __forceinline__ WinRows(const WinGeom& g, int w, int n) {
+    if (g.image) {
+      const int per = g.nwh * g.nww;
+      const int b = w / per, rem = w - b * per;
+      const int wi = rem / g.nww;
+      r0 = wi * g.ws;
+      c0 = (rem - wi * g.nww) * g.ws;
+      base = ((long long)b * g.H + r0) * g.W + c0;
+    } else {
+      r0 = c0 = 0;
+      base = (long long)w * n;
+    }
+  }
+  __device__ __forceinline__ long long row(const WinGeom& g, int t) const {
+    if (!g.image) return base + t;
+    const int dr = t / g.ws, dc = t - dr * g.ws;
+    if (r0 + dr >= g.H || c0 + dc >= g.W) return g.pad_row;
+    return base + (long long)dr * g.W + dc;
+  }
+};
 
 // element offset of 16-byte chunk ch of row r in a (rows, D) bf16 tile whose
-// chunks are XOR-swizzled by row: the 8 rows that one ldmatrix phase reads
-// land on 8 distinct 16-byte bank groups, with no padding
+// chunks are XOR-swizzled by row (wgmma's 128-byte swizzle at d = 64, the
+// 64-byte one at d = 32): the 8 rows that one ldmatrix phase reads land on
+// 8 distinct 16-byte bank groups, with no padding
 template <int D>
 __device__ __forceinline__ int swz(int r, int ch) {
   constexpr int CH = D / 8;   // chunks per row: 4 (two rows per 128 B) or 8
   return r * D + ((ch ^ ((CH == 8 ? r : r >> 1) & (CH - 1))) << 3);
 }
 
-// pairwise rotate-half RoPE of one pair (a, b) -> (-b, a), in f32
+// pairwise rotate-half RoPE of one pair (a, b) -> (-b, a), in f32: a c0 -
+// b s0 and b c1 + a s1, each one FMA over the rounded second product,
+// written out so that the compiler's choice of contraction, and with it the
+// int8 blocks' values, does not depend on the code around it
 __device__ __forceinline__ void rope2(float& a, float& b, float c0, float c1,
                                       float s0, float s1) {
-  const float na = a * c0 + (-b) * s0;
-  const float nb = b * c1 + a * s1;
+  const float na = __fmaf_rn(a, c0, __fmul_rn(-b, s0));
+  const float nb = __fmaf_rn(b, c1, __fmul_rn(a, s1));
   a = na;
   b = nb;
 }
@@ -590,74 +616,108 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ uint4 pack8(const float4& a, const float4& b) {
-  return make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w),
-                    pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
-}
-
-// Window attention of one (head, window) per block, softmax(q k^T) v over
-// the window's n tokens (or a compressed window's kr rows).
+// Window attention of one (window, head) item at a time, softmax(q k^T) v
+// over the window's n tokens (or a compressed window's kr rows), as two
+// bodies of one source: the one-pass body (ONE_PASS, the bf16 blocks B and
+// C) and the two-pass body (the int8 blocks B8 and C8). The wrapper picks
+// the body from the weight pack.
 //
-// Bound: operations. At ws 16 (B) it is 4 n^2 C = 45 GFLOP a call over the
-// 168 windows (~45 us at 989 TFLOP/s) and 176 M exponentials (~50 us on
-// the SFUs), against the 369 MB f32 qkv read once (~110 us at 3.35 TB/s):
-// the read of qkv bounds it at the main-path shapes.
+// Bound. At ws 16 (B) a call is 4 n^2 C = 45 GFLOP over the 168 windows
+// (~45 us at 989 TFLOP/s) and 176 M exponentials (~50 us on the SFUs),
+// against the 369 MB f32 qkv read once (~110 us at 3.35 TB/s) and the
+// 61 MB bf16 output: the f32 read bounds it at every main-path shape
+// (0.1284 ms at B ws 16; 2.03 ms a ToC3D frame, 3.08 ms a StreamPETR one).
+// The products and exponentials fit under that read only if they overlap
+// it, so the design is a pipeline whose producer keeps the read going.
 //
-// Design (FlashAttention's register-resident tiles, on a window that fits
-// on chip): the block stages the window's K and V once, as bf16 in shared
-// memory: 16-byte chunks of 8 values, read as two float4 loads of the f32
-// qkv rows, K rotated (RoPE) in f32 on the way; rows are XOR-swizzled, not
-// padded, so K/V of a ws 20 window at d = 64 take 100 KB and two blocks fit
-// on an SM. Each warp then owns 16 query rows at a time: it builds its q
-// fragments straight from the f32 rows (RoPE in f32; a quad of lanes reads
-// 32 contiguous bytes of a row, whole sectors, and the tables in float2
-// pairs) and walks the keys in 64-key
-// tiles: S = q k^T and o += bf16(P) v are mma.sync m16n8k16 products on
-// ldmatrix fragments (V transposed on the load), and S, P, o and the row
-// statistics stay in registers, never in shared memory. The block has
-// ceil(tiles / rounds) warps for rounds = ceil(tiles / 8), so 13 query
-// tiles (kr = 201) run as 7 + 6 on 7 warps and 25 (n = 400) as 7 + 7 + 7
-// + 4. Rows past n are zero in shared memory and their logits -inf.
+// Design (a persistent grid, warp-specialized, FlashAttention's
+// register-resident tiles): one block of 16 warps on each SM walks the
+// (window, head) items blockIdx.x, + gridDim.x, ... (the heads of a window
+// are neighbouring items, so the blocks in flight read neighbouring 256-byte
+// pieces of the same qkv rows). A ring of 64-row slots in shared memory
+// (9 slots of 24 KB at d = 64, 16 of 12 KB at d = 32), each slot holding
+// the bf16 Q, K and V of 64 rows of one item in the 128-byte (d = 64) or
+// 64-byte (d = 32) XOR swizzle, with a full and an empty mbarrier each:
+//   producer, two warpgroups (setmaxnreg to 104 registers): for each of an
+//     item's ceil(n / 64) tiles, loads the f32 q, k and v of the tile's rows
+//     (16-byte loads; a warp reads two whole 256-byte head rows a load),
+//     applies RoPE to q and k in f32 with one read of the tables for both,
+//     rounds to bf16 and, once the slot is empty, stores the three 64-row
+//     tiles (rows past n as zeros), fences the stores for the async proxy
+//     that wgmma reads through, and each warp arrives on the slot's full
+//     barrier. Loads run a batch ahead of the stores, across tiles and
+//     items, and a compressed window's table rows (pos) a tile ahead.
+//   consumer, two warpgroups (setmaxnreg to 152 registers): at d = 64, the
+//     items' 64-row query tiles in one round robin over the warpgroups;
+//     S = q k^T by wgmma m64n64k16 from the Q and K slots (both K-major),
+//     o += bf16(P) v by wgmma with P from registers and v transposed, S, P,
+//     o and the row statistics in registers (the accumulator is mma.sync's
+//     m16n8 layout, which is the A fragment of P.V). At d = 32 the eight
+//     warps take 16-row query tiles in one round robin and run mma.sync
+//     m16n8k16 on ldmatrix fragments (no main path runs d = 32). A warp
+//     leaves an item by waiting for each of its slots to be full (so that
+//     it never arrives on an empty barrier ahead of the producer's phase)
+//     and arriving on each empty barrier; a slot is refilled when all 8
+//     have left.
+// The whole window is resident while its query tiles run (a query tile
+// walks every key tile), so the ring holds one ws 20 window (7 slots) and
+// two more slots, or two ws 16 windows (4 slots each) and one more. Why
+// wgmma, and 64-row query tiles: with mma.sync on eight warps the
+// consumers alone took 0.34 ms at B ws 16 and bounded the kernel (the
+// producer alone 0.24 ms); wgmma's asynchronous products and operands read
+// straight from the ring took them to 0.20 ms. Its 64-row tiles pad a
+// window's last query tile (400 rows: 448; 77: 128), work the f32 read
+// hides. Why 8 producer warps: with 4 the read ran at half the card's
+// rate, and on compressed windows the table load behind each pos load
+// stalled the in-order issue of everything after it.
 //
-// Two passes over the keys, not one: pass 1 takes each row's max, pass 2
-// forms P = exp(s - max) with expf, at the plain version's rounding points.
-// A one-pass online softmax (running max, as flash_partial_kernel) stayed
-// inside the attention-delta bound at every main-path shape, but rounds P
-// at the running max, so most attention outputs moved by a last bf16 bit;
-// B8 and C8 quantize that output (proj_in) and the MLP's inputs to int8,
-// where a last-bit move flips whole int8 steps, and their block outputs
-// then exceeded the 2^-6 mean bound (B8 ws 16 static on an H100: 0.0179
-// against 0.0131). The second pass recomputes q k^T (one more mma.sync
-// per P.V one) and keeps S in registers all the same.
+// The one-pass body keeps a running row max and sum (FlashAttention-2's
+// rescale of o) with p = 2^(s log2e - m log2e) by ex2.approx (the max
+// subtraction and the scale one FFMA; online_softmax_tile, as kernel D),
+// and multiplies by 1 / l at the end. P is rounded to bf16 at the running
+// max for P.V, so most outputs move by a last bf16 bit against the two-pass
+// form, inside the attention-delta bound at every main-path shape
+// (ops/cuda/vit_block.py holds its plain twin). The two-pass body keeps the
+// rounding points of the int8 blocks: pass 1 takes each row's max over all
+// keys, pass 2 forms P = exp(s - max) with expf at that max, and o / l is
+// an IEEE divide. B8 and C8 quantize the attention output (proj_in) and the
+// MLP's inputs to int8, where a last-bit move flips whole int8 steps: with
+// the one-pass form their block outputs exceeded the 2^-6 mean bound (B8
+// ws 16 static on an H100: 0.0179 against 0.0131). The two bodies share
+// the load path, and wgmma's sums equal mma.sync's, so the int8 body's
+// values are the earlier kernel's, bit for bit (checked on an H100 at the
+// main-path shapes).
+//
+// Measured (an H100 80GB HBM3 at 700 W, CUDA events, against the earlier
+// two-pass mma.sync kernel of one block a (head, window)): one-pass B ws 16
+// 0.261 ms (0.494), B ws 20 0.392 (0.711), C ws 16 .5 0.128 (0.200), C
+// ws 20 .5 0.138 (0.249), C ws 16 .3 0.091 (0.124); two-pass 0.349, 0.545,
+// 0.143, 0.188, 0.124 ms.
 //
 // Image mode reads the rows of each window by geometry and points
 // out-of-image tokens at the LN(0) row (pad_row); their outputs are not
-// stored.
+// stored. Keys past n are -inf; their rows are zero in the ring.
 
-// S = q k^T for 16 query rows x the 64 keys from key0, logits of keys past
-// n at -inf (keys past npad are not read)
+constexpr int WA_TILE = 64;       // rows a slot holds (the key tile)
+constexpr int WA_CONSUMERS = 8;   // warps: two warpgroups
+constexpr int WA_PRODUCERS = 8;   // warps: two warpgroups
+// registers a thread of each role keeps after setmaxnreg: 256 x (104 +
+// 152) = the SM's 65536
+constexpr int WA_PRODUCER_REGS = 104, WA_CONSUMER_REGS = 152;
+constexpr int WA_THREADS = 32 * (WA_CONSUMERS + WA_PRODUCERS);
+
 template <int D>
-__device__ __forceinline__ void window_scores(float (&s)[8][4],
-                                              unsigned (&qf)[D / 16][4],
-                                              const bf16* Ks, int key0, int n,
-                                              int npad, int lane) {
-  const int b_row = ldsm_b_row(lane), b_half = ldsm_b_half(lane);
-  const int t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      if (key0 + jj * 16 < npad) {
-        unsigned r[4];
-        ldsm_x4(r, Ks + swz<D>(key0 + jj * 16 + b_row, kk * 2 + b_half));
-        mma16816(s[2 * jj], qf[kk], r[0], r[1]);
-        mma16816(s[2 * jj + 1], qf[kk], r[2], r[3]);
-      }
-    }
+struct WaRing {
+  static constexpr int SLOTS = D == 64 ? 9 : 16;
+  static constexpr int MAT = WA_TILE * D;      // bf16 elements of a tile
+  static constexpr int SLOT = 3 * MAT;         // Q, K, V
+  static constexpr int BYTES = SLOTS * SLOT * 2 + 2 * SLOTS * 8 + 1024;
+};
+
+// the logits of keys past n at -inf (key0: the window's index of the
+// tile's first key; t: the thread's column pair in the m16n8 layout)
+__device__ __forceinline__ void mask_keys(float (&s)[8][4], int key0, int n,
+                                          int t) {
   if (key0 + 64 > n) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -668,195 +728,567 @@ __device__ __forceinline__ void window_scores(float (&s)[8][4],
   }
 }
 
+// d = 32 (mma.sync): S = q k^T for 16 query rows x the 64 keys of tile Kt,
+// whose first key is key key0 of the window, keys past n masked (16-key
+// chunks at or past npad are not read)
 template <int D>
-__global__ void __launch_bounds__(256, 2) window_attention_kernel(
-    const float* qkv, const int* pos, const float* cosT, const float* sinT,
-    bf16* out, int n, int npad, int heads, WinGeom g) {
-  constexpr int CH = D / 8;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int C = heads * D;
-  const int h = blockIdx.x, w = blockIdx.y;
-  const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int warp = tid >> 5, lane = tid & 31, nwarps = nthreads >> 5;
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + npad * D;
-  int* rowid = reinterpret_cast<int*>(Vs + npad * D);   // qkv row, -1 past n
-  int* prow = rowid + npad;                            // RoPE table row
-
-  for (int r = tid; r < npad; r += nthreads) {
-    rowid[r] = r < n ? static_cast<int>(attn_row(g, w, n, r)) : -1;
-    prow[r] = (r < n && pos) ? pos[(long long)w * n + r] : r;
-  }
-  __syncthreads();
-  for (int idx = tid; idx < npad * CH; idx += nthreads) {
-    const int r = idx / CH, ch = idx - r * CH;
-    const int R = rowid[r];
-    uint4 kq = make_uint4(0u, 0u, 0u, 0u), vq = kq;
-    if (R >= 0) {
-      const float* base = qkv + (long long)R * 3 * C + C + h * D + ch * 8;
-      float4 k0 = ld4(base), k1 = ld4(base + 4);
-      if (cosT) {
-        const long long tr = (long long)prow[r] * D + ch * 8;
-        const float4 c0 = ld4(cosT + tr), c1 = ld4(cosT + tr + 4);
-        const float4 s0 = ld4(sinT + tr), s1 = ld4(sinT + tr + 4);
-        rope2(k0.x, k0.y, c0.x, c0.y, s0.x, s0.y);
-        rope2(k0.z, k0.w, c0.z, c0.w, s0.z, s0.w);
-        rope2(k1.x, k1.y, c1.x, c1.y, s1.x, s1.y);
-        rope2(k1.z, k1.w, c1.z, c1.w, s1.z, s1.w);
+__device__ __forceinline__ void window_scores(float (&s)[8][4],
+                                              unsigned (&qf)[D / 16][4],
+                                              const bf16* Kt, int key0, int n,
+                                              int npad, int lane) {
+  const int b_row = ldsm_b_row(lane), b_half = ldsm_b_half(lane);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      if (key0 + jj * 16 < npad) {
+        unsigned r[4];
+        ldsm_x4(r, Kt + swz<D>(jj * 16 + b_row, kk * 2 + b_half));
+        mma16816(s[2 * jj], qf[kk], r[0], r[1]);
+        mma16816(s[2 * jj + 1], qf[kk], r[2], r[3]);
       }
-      kq = pack8(k0, k1);
-      vq = pack8(ld4(base + C), ld4(base + C + 4));
     }
-    *reinterpret_cast<uint4*>(Ks + swz<D>(r, ch)) = kq;
-    *reinterpret_cast<uint4*>(Vs + swz<D>(r, ch)) = vq;
-  }
-  __syncthreads();
+  mask_keys(s, key0, n, lane & 3);
+}
 
+// d = 32: o += bf16(P) v over the 64 keys of tile Vt (key0 as above)
+template <int D>
+__device__ __forceinline__ void window_pv(float (&o)[D / 8][4],
+                                          float (&s)[8][4], const bf16* Vt,
+                                          int key0, int npad, int lane) {
+  const int a_row = ldsm_a_row(lane), a_half = ldsm_a_half(lane);
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+    if (key0 + kc * 16 < npad) {
+      unsigned pa[4];
+      p_fragment(pa, s, kc);
+#pragma unroll
+      for (int dd = 0; dd < D / 16; ++dd) {
+        unsigned r[4];
+        ldsm_x4_trans(r, Vt + swz<D>(kc * 16 + a_row, dd * 2 + a_half));
+        mma16816(o[2 * dd], pa, r[0], r[1]);
+        mma16816(o[2 * dd + 1], pa, r[2], r[3]);
+      }
+    }
+  }
+}
+
+// the producer warps' part: thread p (0 .. 255) owns float4 column f of
+// the rows r0, r0 + RPP, ... of each tile (a pass: one such row). A tile's
+// passes go in two batches, through two register sets: batch 1's loads are
+// issued before batch 0 is stored, and the next tile's batch 0 before batch
+// 1 is stored, so loads run ahead of the ring across tiles and items and
+// only the stores wait for a slot to be empty. A compressed window's RoPE
+// table rows (pos) are loaded a tile earlier still, so that no table load
+// waits on its index.
+template <int D>
+__device__ __forceinline__ void window_produce(
+    const float* qkv, const int* pos, const float* cosT, const float* sinT,
+    int n, int heads, int items, const WinGeom& g, bf16* ring,
+    uint64_t* full, uint64_t* empty, int p) {
+  using R = WaRing<D>;
+  constexpr int F4 = D / 4;                      // float4s of a head row
+  constexpr int RPP = WA_PRODUCERS * 32 / F4;    // rows a pass covers
+  constexpr int PASSES = WA_TILE / RPP;
+  constexpr int BATCH = PASSES / 2;
+  static_assert(BATCH * 2 == PASSES, "two batches a tile");
+  struct Batch {
+    float4 q[BATCH], k[BATCH], v[BATCH], c[BATCH], s[BATCH];
+    int row[BATCH];   // the RoPE table row of the next batch of this set
+  };
+  struct Tile {   // the block's tile tp: tile j of window w, head h
+    int j, w, h;
+    WinRows rows;
+  };
+  const int C = heads * D;
+  const int f = p % F4, r0 = p / F4, col = 4 * f;
+  const int T = (n + WA_TILE - 1) / WA_TILE;
+  const int tiles = ((items - 1 - blockIdx.x) / gridDim.x + 1) * T;
+  auto tile = [&](int tp) {
+    const int i = tp / T, it = blockIdx.x + i * gridDim.x;
+    const int w = it / heads;
+    return Tile{tp - i * T, w, it - w * heads, WinRows(g, w, n)};
+  };
+  auto token = [&](const Tile& tl, int b, int e) {
+    return tl.j * WA_TILE + (b * BATCH + e) * RPP + r0;
+  };
+  // the table rows of batch b of tile tl, into x.row
+  auto rows_of = [&](Batch& x, const Tile& tl, int b) {
+#pragma unroll
+    for (int e = 0; e < BATCH; ++e) {
+      const int tok = token(tl, b, e);
+      x.row[e] = (pos && tok < n) ? pos[(long long)tl.w * n + tok] : tok;
+    }
+  };
+  auto load = [&](Batch& x, const Tile& tl, int b, bool on) {
+#pragma unroll
+    for (int e = 0; e < BATCH; ++e) {
+      const int tok = token(tl, b, e);
+      x.q[e] = x.k[e] = x.v[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+      x.c[e] = x.s[e] = x.q[e];
+      if (on && tok < n) {
+        const float* x0 =
+            qkv + tl.rows.row(g, tok) * 3 * C + tl.h * D + col;
+        x.q[e] = ld4(x0);
+        x.k[e] = ld4(x0 + C);
+        x.v[e] = ld4(x0 + 2 * C);
+        if (cosT) {
+          const long long tr = (long long)x.row[e] * D + col;
+          x.c[e] = ld4(cosT + tr);
+          x.s[e] = ld4(sinT + tr);
+        }
+      }
+    }
+  };
+  auto store = [&](Batch& x, bf16* Qs, int b) {
+#pragma unroll
+    for (int e = 0; e < BATCH; ++e) {
+      if (cosT) {
+        rope2(x.q[e].x, x.q[e].y, x.c[e].x, x.c[e].y, x.s[e].x, x.s[e].y);
+        rope2(x.q[e].z, x.q[e].w, x.c[e].z, x.c[e].w, x.s[e].z, x.s[e].w);
+        rope2(x.k[e].x, x.k[e].y, x.c[e].x, x.c[e].y, x.s[e].x, x.s[e].y);
+        rope2(x.k[e].z, x.k[e].w, x.c[e].z, x.c[e].w, x.s[e].z, x.s[e].w);
+      }
+      const int o = swz<D>((b * BATCH + e) * RPP + r0, col >> 3) + (col & 4);
+      *reinterpret_cast<uint2*>(Qs + o) = make_uint2(
+          pack_bf16(x.q[e].x, x.q[e].y), pack_bf16(x.q[e].z, x.q[e].w));
+      *reinterpret_cast<uint2*>(Qs + R::MAT + o) = make_uint2(
+          pack_bf16(x.k[e].x, x.k[e].y), pack_bf16(x.k[e].z, x.k[e].w));
+      *reinterpret_cast<uint2*>(Qs + 2 * R::MAT + o) = make_uint2(
+          pack_bf16(x.v[e].x, x.v[e].y), pack_bf16(x.v[e].z, x.v[e].w));
+    }
+  };
+  Batch xa, xb;
+  Tile cur = tile(0), next = tile(tiles > 1 ? 1 : 0);
+  rows_of(xa, cur, 0);
+  load(xa, cur, 0, true);
+  rows_of(xa, next, 0);
+  rows_of(xb, cur, 1);
+  for (int tp = 0; tp < tiles; ++tp) {
+    const Tile after = tile(tp + 2 < tiles ? tp + 2 : tiles - 1);
+    const int slot = tp % R::SLOTS;
+    bf16* Qs = ring + slot * R::SLOT;
+    load(xb, cur, 1, true);
+    rows_of(xb, next, 1);
+    gemm90::mbar_wait(&empty[slot], ((tp / R::SLOTS) & 1) ^ 1);
+    store(xa, Qs, 0);
+    load(xa, next, 0, tp + 1 < tiles);
+    rows_of(xa, after, 0);
+    store(xb, Qs, 1);
+    // the ring's stores are generic-proxy writes that wgmma reads through
+    // the async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncwarp();
+    if ((p & 31) == 0) gemm90::mbar_arrive(&full[slot]);
+    cur = next;
+    next = after;
+  }
+}
+
+// a consumer warp's side of the ring: ready(i, j) waits for tile j of the
+// block's i-th item to be full and returns its slot; leave(upto, lane)
+// releases the items before upto, each after waiting for its slots to be
+// full, so that no arrival on an empty barrier runs ahead of the producer
+template <int D>
+struct WaView {
+  const bf16* ring;
+  uint64_t* full;
+  uint64_t* empty;
+  int T;          // slots an item takes
+  int left = 0;   // items this warp has left
+  __device__ __forceinline__ const bf16* ready(int i, int j) const {
+    const int u = i * T + j, slot = u % WaRing<D>::SLOTS;
+    gemm90::mbar_wait(&full[slot], (u / WaRing<D>::SLOTS) & 1);
+    return ring + slot * WaRing<D>::SLOT;
+  }
+  __device__ __forceinline__ void leave(int upto, int lane) {
+    for (; left < upto; ++left)
+      for (int j = 0; j < T; ++j) {
+        ready(left, j);
+        __syncwarp();
+        if (lane == 0)
+          gemm90::mbar_arrive(&empty[(left * T + j) % WaRing<D>::SLOTS]);
+      }
+  }
+};
+
+// o / l of the thread's two rows r0 and r0 + 8 of a window, in bf16, to
+// their qkv rows (out-of-image and past-n rows are not stored); the
+// two-pass body divides (IEEE), the one-pass body multiplies by 1 / l
+template <int D, bool ONE_PASS>
+__device__ __forceinline__ void window_store(bf16* out, float (&o)[D / 8][4],
+                                             float l0, float l1, int r0,
+                                             int n, int w, int h, int C,
+                                             const WinGeom& g, int t) {
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const WinRows rows(g, w, n);
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = r0 + 8 * rr;
+    if (r >= n) continue;
+    const long long Rw = rows.row(g, r);
+    if (g.image && Rw == g.pad_row) continue;
+    const float l = rr ? l1 : l0, inv = 1.f / l;
+    bf16* dst = out + Rw * C + h * D + 2 * t;
+#pragma unroll
+    for (int nn = 0; nn < D / 8; ++nn)
+      *reinterpret_cast<bf162*>(dst + nn * 8) =
+          ONE_PASS ? __floats2bfloat162_rn(o[nn][2 * rr] * inv,
+                                           o[nn][2 * rr + 1] * inv)
+                   : __floats2bfloat162_rn(o[nn][2 * rr] / l,
+                                           o[nn][2 * rr + 1] / l);
+  }
+}
+
+// the two-pass body's first pass over one tile of logits: the row maxima
+__device__ __forceinline__ void row_max(float (&s)[8][4], float& m0,
+                                        float& m1) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
+    m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
+  }
+}
+
+// the two-pass body's second pass over one tile: p = exp(s - max) in f32
+// at the final max, l += p
+__device__ __forceinline__ void exp_at_max(float (&s)[8][4], float m0,
+                                           float m1, float& l0, float& l1) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    s[j][0] = expf(s[j][0] - m0);
+    s[j][1] = expf(s[j][1] - m0);
+    s[j][2] = expf(s[j][2] - m1);
+    s[j][3] = expf(s[j][3] - m1);
+    l0 += s[j][0] + s[j][1];
+    l1 += s[j][2] + s[j][3];
+  }
+}
+
+__device__ __forceinline__ void quad_max(float& m0, float& m1) {
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+  }
+}
+
+// the consumer at d = 32 (mma.sync): warp c takes the block's 16-row query
+// tiles c, c + 8, ... in order over its items
+template <int D, bool ONE_PASS>
+__device__ __forceinline__ void window_consume_mma(bf16* out, int n,
+                                                   int heads, int items,
+                                                   const WinGeom& g,
+                                                   WaView<D>& v, int warp,
+                                                   int lane) {
+  using R = WaRing<D>;
+  const int C = heads * D, T = v.T;
+  const int nqt = (n + 15) / 16, npad = nqt * 16;
+  const int mine = (items - 1 - blockIdx.x) / gridDim.x + 1;
   const int a_row = ldsm_a_row(lane), a_half = ldsm_a_half(lane);
   const int gq = lane >> 2, t = lane & 3;
-  const int nqt = npad / 16, nkt = (npad + 63) / 64;
-  for (int qt = warp; qt < nqt; qt += nwarps) {
-    // q fragments: rows gq and gq + 8, columns (2t, 2t + 1) and
-    // (2t + 8, 2t + 9) of each 16-column chunk (the m16n8k16 A layout)
+  for (int gt = warp; gt < mine * nqt; gt += WA_CONSUMERS) {
+    const int i = gt / nqt, qt = gt - i * nqt;
+    v.leave(i, lane);
+    const int it = blockIdx.x + i * gridDim.x;
+    const int w = it / heads, h = it - w * heads;
     unsigned qf[D / 16][4];
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const int r = qt * 16 + gq + 8 * rr;
-      const int R = rowid[r];
+    {
+      const bf16* Qs = v.ready(i, qt >> 2);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int col = kk * 16 + hf * 8 + 2 * t;
-          float2 x = make_float2(0.f, 0.f);
-          if (R >= 0) {
-            x = *reinterpret_cast<const float2*>(qkv + (long long)R * 3 * C +
-                                                 h * D + col);
-            if (cosT) {
-              const long long tr = (long long)prow[r] * D + col;
-              const float2 c = *reinterpret_cast<const float2*>(cosT + tr);
-              const float2 sn = *reinterpret_cast<const float2*>(sinT + tr);
-              rope2(x.x, x.y, c.x, c.y, sn.x, sn.y);
-            }
-          }
-          qf[kk][rr + 2 * hf] = pack_bf16(x.x, x.y);
-        }
+        ldsm_x4(qf[kk], Qs + swz<D>((qt & 3) * 16 + a_row, kk * 2 + a_half));
     }
-
-    // pass 1: the row maxima over all keys
-    float m0 = -INFINITY, m1 = -INFINITY;
-    for (int kt = 0; kt < nkt; ++kt) {
-      float s[8][4];
-      window_scores<D>(s, qf, Ks, kt * 64, n, npad, lane);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
-        m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
-      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
-    }
-    // pass 2: p = exp(s - max) in f32, l = sum p, o += bf16(p) v
     float o[D / 8][4];
 #pragma unroll
     for (int nn = 0; nn < D / 8; ++nn)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[nn][e] = 0.f;
-    float l0 = 0.f, l1 = 0.f;
-    for (int kt = 0; kt < nkt; ++kt) {
-      const int key0 = kt * 64;
-      float s[8][4];
-      window_scores<D>(s, qf, Ks, key0, n, npad, lane);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        s[j][0] = expf(s[j][0] - m0);
-        s[j][1] = expf(s[j][1] - m0);
-        s[j][2] = expf(s[j][2] - m1);
-        s[j][3] = expf(s[j][3] - m1);
-        l0 += s[j][0] + s[j][1];
-        l1 += s[j][2] + s[j][3];
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    if constexpr (ONE_PASS) {
+      for (int kt = 0; kt < T; ++kt) {
+        const bf16* Ks = v.ready(i, kt) + R::MAT;
+        float s[8][4];
+        window_scores<D>(s, qf, Ks, kt * 64, n, npad, lane);
+        online_softmax_tile<D / 8>(s, m0, m1, l0, l1, o);
+        window_pv<D>(o, s, Ks + R::MAT, kt * 64, npad, lane);
       }
+    } else {
+      for (int kt = 0; kt < T; ++kt) {
+        float s[8][4];
+        window_scores<D>(s, qf, v.ready(i, kt) + R::MAT, kt * 64, n, npad,
+                         lane);
+        row_max(s, m0, m1);
+      }
+      quad_max(m0, m1);
+      for (int kt = 0; kt < T; ++kt) {
+        const bf16* Ks = v.ready(i, kt) + R::MAT;
+        float s[8][4];
+        window_scores<D>(s, qf, Ks, kt * 64, n, npad, lane);
+        exp_at_max(s, m0, m1, l0, l1);
+        window_pv<D>(o, s, Ks + R::MAT, kt * 64, npad, lane);
+      }
+    }
+    window_store<D, ONE_PASS>(out, o, l0, l1, qt * 16 + gq, n, w, h, C, g,
+                              t);
+  }
+  v.leave(mine, lane);
+}
+
+// wgmma m64n64k16, f32 (+)= bf16 x bf16, for the window attention at d = 64:
+// d is a warp's m16n8 accumulator layout over its 16 rows of the 64 (d[j]:
+// columns 8j .. 8j + 7), as mma.sync's. wa_wgmma_ss: A and B from shared
+// memory, both K-major (q k^T); wa_wgmma_rs: A from registers (the m16n8k16
+// A fragment of the warp's rows: P) and B transposed, MN-major (v)
+#define WA_WGMMA_D                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "                                     \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "                                \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "                              \
+  "%24, %25, %26, %27, %28, %29, %30, %31}"
+#define WA_WGMMA_ACC \
+  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), \
+  "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), \
+  "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), \
+  "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), \
+  "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), \
+  "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), \
+  "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), \
+  "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+
+__device__ __forceinline__ void wa_wgmma_ss(float (&d)[8][4], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WA_WGMMA_D
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WA_WGMMA_ACC
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wa_wgmma_rs(float (&d)[8][4],
+                                            const unsigned (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WA_WGMMA_D
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WA_WGMMA_ACC
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+#undef WA_WGMMA_ACC
+#undef WA_WGMMA_D
+
+// issue S = q k^T for a warpgroup's 64 query rows (the Q tile at
+// descriptor dq) x the 64 keys of tile Kt, as one wgmma group
+__device__ __forceinline__ void wg_qk(float (&s)[8][4], uint64_t dq,
+                                      const bf16* Kt) {
+  const uint64_t dk = gemm90::sw128_desc(Kt);
+  gemm90::wgmma_fence();
 #pragma unroll
-      for (int kc = 0; kc < 4; ++kc) {
-        if (key0 + kc * 16 < npad) {
-          unsigned pa[4];
-          p_fragment(pa, s, kc);
+  for (int kk = 0; kk < 4; ++kk)   // 16 columns a step: 32 bytes, 2 units
+    wa_wgmma_ss(s, dq + 2 * kk, dk + 2 * kk, kk);
+  gemm90::wgmma_commit();
+}
+
+// S = q k^T of tile Kt, waited for, keys past n masked
+__device__ __forceinline__ void wg_scores(float (&s)[8][4], uint64_t dq,
+                                          const bf16* Kt, int key0, int n,
+                                          int t) {
+  wg_qk(s, dq, Kt);
+  gemm90::wgmma_wait<0>();
+  gemm90::fence_acc(reinterpret_cast<float(&)[32]>(s));
+  mask_keys(s, key0, n, t);
+}
+
+// issue o += bf16(P) v over the 64 keys of tile Vt as one wgmma group: P
+// from registers (pa, which must live until the group completes), v
+// transposed (16 keys a step: two 8-row groups, 2048 bytes, 128 units)
+__device__ __forceinline__ void wg_pv(float (&o)[8][4], float (&s)[8][4],
+                                      unsigned (&pa)[4][4], const bf16* Vt) {
 #pragma unroll
-          for (int dd = 0; dd < D / 16; ++dd) {
-            unsigned r[4];
-            ldsm_x4_trans(r, Vs + swz<D>(key0 + kc * 16 + a_row,
-                                         dd * 2 + a_half));
-            mma16816(o[2 * dd], pa, r[0], r[1]);
-            mma16816(o[2 * dd + 1], pa, r[2], r[3]);
-          }
+  for (int kc = 0; kc < 4; ++kc) p_fragment(pa[kc], s, kc);
+  const uint64_t dv = gemm90::sw128_desc(Vt);
+  gemm90::wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) wa_wgmma_rs(o, pa[kc], dv + 128 * kc);
+  gemm90::wgmma_commit();
+}
+
+// the consumer at d = 64 (wgmma): warpgroup c (warps 4c .. 4c + 3) takes
+// the block's 64-row query tiles c, c + 2, ... in order over its items;
+// warp 4c + q holds rows 16q .. 16q + 15 of a tile
+template <bool ONE_PASS>
+__device__ __forceinline__ void window_consume_wgmma(bf16* out, int n,
+                                                     int heads, int items,
+                                                     const WinGeom& g,
+                                                     WaView<64>& v, int warp,
+                                                     int lane) {
+  using R = WaRing<64>;
+  constexpr int GROUPS = WA_CONSUMERS / 4;
+  const int C = heads * 64, T = v.T;
+  const int mine = (items - 1 - blockIdx.x) / gridDim.x + 1;
+  const int wg = warp >> 2, wq = warp & 3, gq = lane >> 2, t = lane & 3;
+  for (int gm = wg; gm < mine * T; gm += GROUPS) {
+    const int i = gm / T, mt = gm - i * T;
+    v.leave(i, lane);
+    const int it = blockIdx.x + i * gridDim.x;
+    const int w = it / heads, h = it - w * heads;
+    const uint64_t dq = gemm90::sw128_desc(v.ready(i, mt));
+    float o[8][4];
+#pragma unroll
+    for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nn][e] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    unsigned pa[4][4];
+    float s[8][4];
+    if constexpr (!ONE_PASS) {
+      // the first pass two tiles to a wait
+      float s2[8][4];
+      for (int kt = 0; kt < T; kt += 2) {
+        const bool two = kt + 1 < T;
+        wg_qk(s, dq, v.ready(i, kt) + R::MAT);
+        if (two) wg_qk(s2, dq, v.ready(i, kt + 1) + R::MAT);
+        gemm90::wgmma_wait<0>();
+        gemm90::fence_acc(reinterpret_cast<float(&)[32]>(s));
+        gemm90::fence_acc(reinterpret_cast<float(&)[32]>(s2));
+        mask_keys(s, kt * 64, n, t);
+        row_max(s, m0, m1);
+        if (two) {
+          mask_keys(s2, kt * 64 + 64, n, t);
+          row_max(s2, m0, m1);
         }
       }
+      quad_max(m0, m1);
     }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    for (int kt = 0; kt < T; ++kt) {
+      const bf16* Ks = v.ready(i, kt) + R::MAT;
+      wg_scores(s, dq, Ks, kt * 64, n, t);
+      if constexpr (ONE_PASS)
+        online_softmax_tile<8>(s, m0, m1, l0, l1, o);
+      else
+        exp_at_max(s, m0, m1, l0, l1);
+      wg_pv(o, s, pa, Ks + R::MAT);
+      gemm90::wgmma_wait<0>();
+      gemm90::fence_acc(reinterpret_cast<float(&)[32]>(o));
     }
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const int r = qt * 16 + gq + 8 * rr;
-      const int R = rowid[r];
-      if (R < 0 || (g.image && R == g.pad_row)) continue;
-      const float l = rr ? l1 : l0;
-      bf16* dst = out + (long long)R * C + h * D + 2 * t;
-#pragma unroll
-      for (int nn = 0; nn < D / 8; ++nn)
-        *reinterpret_cast<bf162*>(dst + nn * 8) = __floats2bfloat162_rn(
-            o[nn][2 * rr] / l, o[nn][2 * rr + 1] / l);
-    }
+    window_store<64, ONE_PASS>(out, o, l0, l1, mt * 64 + wq * 16 + gq, n, w,
+                               h, C, g, t);
   }
+  v.leave(mine, lane);
 }
 
-// the launch shape of a window of n rows: threads, dynamic shared bytes
-template <int D>
-static void window_attention_shape(int n, int* threads, int* smem) {
-  const int npad = (n + 15) / 16 * 16;
-  const int tiles = npad / 16;
-  const int rounds = (tiles + 7) / 8;
-  *threads = 32 * ((tiles + rounds - 1) / rounds);
-  *smem = npad * (4 * D + 8);   // K, V bf16; row and RoPE indices
+template <int D, bool ONE_PASS>
+__global__ void __launch_bounds__(WA_THREADS, 1) window_attention_kernel(
+    const float* qkv, const int* pos, const float* cosT, const float* sinT,
+    bf16* out, int n, int heads, int items, WinGeom g) {
+  using R = WaRing<D>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  // the ring on a 1024-byte boundary: the 128-byte swizzle of wgmma's
+  // operands repeats every 8 rows of 128 bytes
+  unsigned char* base =
+      smem_raw + ((1024 - (gemm90::smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* ring = reinterpret_cast<bf16*>(base);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + R::SLOTS * R::SLOT * 2);
+  uint64_t* empty = full + R::SLOTS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < R::SLOTS; ++s) {
+      gemm90::mbar_init(&full[s], WA_PRODUCERS);   // a lane 0 a warp
+      gemm90::mbar_init(&empty[s], WA_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warp >= WA_CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        WA_PRODUCER_REGS));
+    window_produce<D>(qkv, pos, cosT, sinT, n, heads, items, g, ring, full,
+                      empty, threadIdx.x - 32 * WA_CONSUMERS);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      WA_CONSUMER_REGS));
+  WaView<D> v{ring, full, empty, (n + WA_TILE - 1) / WA_TILE};
+  if constexpr (D == 64)
+    window_consume_wgmma<ONE_PASS>(out, n, heads, items, g, v, warp, lane);
+  else
+    window_consume_mma<D, ONE_PASS>(out, n, heads, items, g, v, warp, lane);
 }
 
-template <int D>
-static int set_window_attention_smem() {
-  static bool attr_set = false;
-  if (attr_set) return 0;
+template <int D, bool ONE_PASS>
+static int window_attention_blocks_per_sm() {
+  static int nb = 0;
+  if (nb) return nb;
   cudaError_t e = cudaFuncSetAttribute(
-      window_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      227 * 1024);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  attr_set = true;
-  return 0;
+      window_attention_kernel<D, ONE_PASS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, WaRing<D>::BYTES);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  int v = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &v, window_attention_kernel<D, ONE_PASS>, WA_THREADS, WaRing<D>::BYTES);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  if (v < 1) return -static_cast<int>(cudaErrorInvalidConfiguration);
+  nb = v;
+  return nb;
 }
 
-template <int D>
+template <int D, bool ONE_PASS>
 static int launch_window_attention(const float* qkv, const int* pos,
                                    const float* cosT, const float* sinT,
                                    bf16* out, int nw, int n, int heads,
                                    const WinGeom& g, cudaStream_t stream) {
-  if (int e = set_window_attention_smem<D>()) return e;
+  static int sms = 0;
+  const int nb = window_attention_blocks_per_sm<D, ONE_PASS>();
+  if (nb < 0) return -nb;
+  if (!sms) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   if (nw <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
-  int threads, smem;
-  window_attention_shape<D>(n, &threads, &smem);
-  dim3 grid(heads, nw);
-  window_attention_kernel<D><<<grid, threads, smem, stream>>>(
-      qkv, pos, cosT, sinT, out, n, (n + 15) / 16 * 16, heads, g);
+  // a window's tiles must all fit in the ring at once
+  if ((n + WA_TILE - 1) / WA_TILE > WaRing<D>::SLOTS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int items = nw * heads;
+  const int grid = items < sms * nb ? items : sms * nb;
+  window_attention_kernel<D, ONE_PASS>
+      <<<grid, WA_THREADS, WaRing<D>::BYTES, stream>>>(
+          qkv, pos, cosT, sinT, out, n, heads, items, g);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+static int launch_window_attention(int one_pass, const float* qkv,
+                                   const int* pos, const float* cosT,
+                                   const float* sinT, bf16* out, int nw,
+                                   int n, int heads, const WinGeom& g,
+                                   cudaStream_t stream) {
+  return one_pass ? launch_window_attention<D, true>(qkv, pos, cosT, sinT,
+                                                     out, nw, n, heads, g,
+                                                     stream)
+                  : launch_window_attention<D, false>(qkv, pos, cosT, sinT,
+                                                      out, nw, n, heads, g,
+                                                      stream);
+}
+
+// one_pass: 1 for the bf16 blocks' body, 0 for the int8 blocks'
 TOC3D_EXPORT int toc3d_window_attention(const void* qkv, const void* pos,
                                         const void* cosT, const void* sinT,
                                         void* out, int nw, int n, int heads,
                                         int head_dim, int image, int B, int H,
-                                        int W, int ws, void* stream) {
+                                        int W, int ws, int one_pass,
+                                        void* stream) {
   WinGeom g;
   g.image = image;
   g.H = H;
@@ -872,27 +1304,32 @@ TOC3D_EXPORT int toc3d_window_attention(const void* qkv, const void* pos,
   const float* sn = static_cast<const float*>(sinT);
   bf16* o = static_cast<bf16*>(out);
   if (head_dim == 64)
-    return launch_window_attention<64>(q, p, c, sn, o, nw, n, heads, g, s);
+    return launch_window_attention<64>(one_pass, q, p, c, sn, o, nw, n,
+                                       heads, g, s);
   if (head_dim == 32)
-    return launch_window_attention<32>(q, p, c, sn, o, nw, n, heads, g, s);
+    return launch_window_attention<32>(one_pass, q, p, c, sn, o, nw, n,
+                                       heads, g, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int D>
-static int window_attention_occupancy(int n) {
-  if (int e = set_window_attention_smem<D>()) return -e;
-  int threads, smem, nb = 0;
-  window_attention_shape<D>(n, &threads, &smem);
-  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &nb, window_attention_kernel<D>, threads, smem);
-  return e == cudaSuccess ? nb : -static_cast<int>(e);
+// resident blocks per SM of a body of the window attention (for the record;
+// the ring's size does not depend on n), or -(CUDA error)
+TOC3D_EXPORT int toc3d_window_attention_occupancy(int head_dim,
+                                                  int one_pass) {
+  if (head_dim == 64)
+    return one_pass ? window_attention_blocks_per_sm<64, true>()
+                    : window_attention_blocks_per_sm<64, false>();
+  if (head_dim == 32)
+    return one_pass ? window_attention_blocks_per_sm<32, true>()
+                    : window_attention_blocks_per_sm<32, false>();
+  return -static_cast<int>(cudaErrorInvalidValue);
 }
 
-// resident blocks per SM of the window attention for windows of n rows (for
-// the record), or -(CUDA error)
-TOC3D_EXPORT int toc3d_window_attention_occupancy(int n, int head_dim) {
-  if (head_dim == 64) return window_attention_occupancy<64>(n);
-  if (head_dim == 32) return window_attention_occupancy<32>(n);
+// the ring slots of the window attention at head_dim: a window of n rows
+// launches if ceil(n / 64) <= slots
+TOC3D_EXPORT int toc3d_window_attention_slots(int head_dim) {
+  if (head_dim == 64) return WaRing<64>::SLOTS;
+  if (head_dim == 32) return WaRing<32>::SLOTS;
   return -static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -141,14 +141,16 @@ def param_key(module, *extra):
 def counted_wrappers():
     """Every kernel wrapper that counts its launches in ``launches``: A,
     B, C, D, B8, C8, H8, then G (every bf16 matmul of B and C), G8 (every
-    int8 matmul of B8 and C8), the blocks' LayerNorm and the training
-    matcher's auction (one launch a cost tensor). The counts of A-D, B8,
-    C8 and H8 tick in their ops' CUDA implementations, so a loaded
-    exported program's launches count too."""
+    int8 matmul of B8 and C8), the blocks' LayerNorm, the training
+    matcher's auction (one launch a cost tensor), and the window
+    attention's one-pass and two-pass bodies (one launch a B or C, and a B8
+    or C8). The counts of A-D, B8, C8 and H8 tick in their ops' CUDA
+    implementations, so a loaded exported program's launches count too."""
     from . import auction, cross_attn, int8, patch_embed, vit_block
     return (patch_embed.patchify_matmul, vit_block.fused_full_block,
             vit_block.fused_compressed_block, cross_attn.flash_attention_core,
             vit_block.fused_full_block_int8,
             vit_block.fused_compressed_block_int8, int8.int8_linear,
             vit_block._gemm, int8.gemm_s8_sm90, vit_block.layernorm,
-            auction.auction_match)
+            auction.auction_match, vit_block.window_attention_one_pass,
+            vit_block.window_attention_two_pass)

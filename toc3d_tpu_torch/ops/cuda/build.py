@@ -51,7 +51,7 @@ SIGNATURES = {
         "toc3d_gemm_s8_sm90": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _I, _P,
                                _I, _I, _I, _I, _I, _I, _P],
         "toc3d_window_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                   _I, _I, _I, _I, _P],
+                                   _I, _I, _I, _I, _I, _P],
         "toc3d_gather_merge": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _P],
         "toc3d_scatter_update": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -81,7 +81,8 @@ ON_USE = ("stamp",)
 # entry points that return a count (>= 0) or -(CUDA error), not an error
 # code; they launch nothing and take no stream (see ``occupancy``)
 QUERIES = {
-    "vit_block": {"toc3d_window_attention_occupancy": [_I, _I]},
+    "vit_block": {"toc3d_window_attention_occupancy": [_I, _I],
+                  "toc3d_window_attention_slots": [_I]},
     "cross_attn": {"toc3d_flash_occupancy": [_I]},
 }
 
@@ -176,8 +177,9 @@ def call(name: str, fn: str, *args) -> None:
 
 
 def occupancy(name: str, fn: str, *args) -> int:
-    """Resident blocks per SM that query ``fn`` of library ``name``
-    reports for a kernel; raises on a CUDA error."""
+    """The count that query ``fn`` of library ``name`` reports for a
+    kernel (resident blocks per SM; the window attention's ring slots);
+    raises on a CUDA error."""
     lib = load(name)
     n = getattr(lib, fn)(*args)
     if n < 0:

@@ -33,6 +33,7 @@ on the CPU in f32 they are the JAX block math.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -44,7 +45,7 @@ from ..rope import rotate_half
 from ..window import pad_hw, window_partition, window_unpartition
 from . import (cached_pack, check_cuda, check_device, check_pairs,
                check_res, param_key, tma_out)
-from .build import call, stream_of
+from .build import call, occupancy, stream_of
 from .int8 import (gemm_s8_sm90, int8_dot, quantize_weight, row_quant,
                    rowquant, statquant)
 
@@ -218,11 +219,46 @@ def _mm(wts: BlockWeights, a, which: str):
     return _qmm(*_actquant(a, wts, which), w, s) + b
 
 
-def _attention_plain(wts: BlockWeights, hid, num_heads: int, rope, pos):
+def softmax_pv_plain(q, k, v, dt):
+    """softmax(q k^T) v of (..., n, d) f32 q, k, v in two passes, as the
+    two-pass body of the window attention kernel: P = exp(s - max) at each
+    row's max over all keys, rounded to dt for P.V, f32 sums; the output in
+    dt."""
+    s = q @ k.transpose(-1, -2)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    return ((p.to(dt).float() @ v) / l).to(dt)
+
+
+def softmax_pv_one_pass_plain(q, k, v, dt, tile: int = 64):
+    """The one-pass twin of ``softmax_pv_plain``, as the kernel's one-pass
+    body (the bf16 blocks): the keys in tiles of ``tile``, a running row max
+    m and sum l; each tile's P = exp(s - m) at the running max, rounded to
+    dt for P.V, and the f32 o and l rescaled by exp(m_old - m) when the max
+    grows. The kernel's ex2.approx on prescaled logits differs from exp by
+    ~1e-6 relative, below the rounding of P."""
+    s = q @ k.transpose(-1, -2)
+    m = torch.full_like(s[..., :1], float("-inf"))
+    l = torch.zeros_like(m)
+    o = torch.zeros_like(q[..., :v.shape[-1]])
+    for j in range(0, s.shape[-1], tile):
+        st = s[..., j:j + tile]
+        mn = torch.maximum(m, st.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - mn)
+        p = torch.exp(st - mn)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        o = alpha * o + p.to(dt).float() @ v[..., j:j + tile, :]
+        m = mn
+    return (o / l).to(dt)
+
+
+def _attention_plain(wts: BlockWeights, hid, num_heads: int, rope, pos,
+                     one_pass: bool = False):
     """hid: (W, n, C) LN1 output -> raw attention delta (W, n, C) in
     hid.dtype: QKV, pairwise RoPE in f32 (at rows ``pos`` of the tables, or
-    0..n-1), softmax with f32 statistics, P in the activation dtype, O-proj
-    + bias."""
+    0..n-1), softmax with f32 statistics, P in the activation dtype
+    (``softmax_pv_plain``, or with one_pass its one-pass twin), O-proj +
+    bias."""
     nw, n, c = hid.shape
     d = c // num_heads
     dt = hid.dtype
@@ -237,11 +273,9 @@ def _attention_plain(wts: BlockWeights, hid, num_heads: int, rope, pos):
         q = q * cos + rotate_half(q) * sin
         k = k * cos + rotate_half(k) * sin
     q, k = q.to(dt), k.to(dt)
-    q, k, v = (t.transpose(1, 2) for t in (q, k, v))    # (W, heads, n, d)
-    s = q.float() @ k.float().transpose(-1, -2)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    l = p.sum(dim=-1, keepdim=True)
-    o = ((p.to(dt).float() @ v.float()) / l).to(dt)
+    q, k, v = (t.transpose(1, 2).float() for t in (q, k, v))  # (W, h, n, d)
+    o = (softmax_pv_one_pass_plain if one_pass else softmax_pv_plain)(
+        q, k, v, dt)
     o = o.transpose(1, 2).reshape(nw * n, c)
     return _mm(wts, o, "o").to(dt).reshape(nw, n, c)
 
@@ -265,13 +299,13 @@ def _add(a, b):
 
 
 def _full_attention_plain(wts: BlockWeights, x, num_heads: int, ws: int,
-                          rope_tables):
+                          rope_tables, one_pass: bool = False):
     """Attention delta of the full block as a (B, H, W, C) map."""
     b, h, w, c = x.shape
     xw, padded = window_partition(x, ws)
     nw = xw.shape[0]
     hid = layer_norm(xw.reshape(nw, ws * ws, c), wts.ln1w, wts.ln1b, LN_EPS)
-    raw1 = _attention_plain(wts, hid, num_heads, rope_tables, None)
+    raw1 = _attention_plain(wts, hid, num_heads, rope_tables, None, one_pass)
     return window_unpartition(raw1.reshape(nw, ws, ws, c), ws, padded,
                               (h, w))
 
@@ -335,10 +369,10 @@ def _gather_rows_plain(x, plan: CompressPlan, ws: int):
 
 
 def _rows_attention_plain(wts: BlockWeights, xs, pos, num_heads: int,
-                          rope_tables):
+                          rope_tables, one_pass: bool = False):
     """Attention delta of the compressed rows xs (W, kr, C)."""
     hid = layer_norm(xs, wts.ln1w, wts.ln1b, LN_EPS)
-    return _attention_plain(wts, hid, num_heads, rope_tables, pos)
+    return _attention_plain(wts, hid, num_heads, rope_tables, pos, one_pass)
 
 
 def compressed_block_plain(wts: BlockWeights, x, plan: CompressPlan,
@@ -653,22 +687,53 @@ def _mlp_chain(wts: BlockWeights, x, m: int, c: int, res=None, ln_res=None,
     return _proj(wts, gin, "w3", m, out, res=res)
 
 
+class BodyCount:
+    """The launch count of one body of a kernel (``launches``), counted
+    like a wrapper's."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+# the window attention's two bodies: one-pass for the bf16 blocks B and C,
+# two-pass (the int8 path's rounding points) for B8 and C8
+window_attention_one_pass = BodyCount()
+window_attention_two_pass = BodyCount()
+
+
+@functools.lru_cache(maxsize=None)
+def window_attention_slots(head_dim: int) -> int:
+    """The window attention ring's 64-row slots at head_dim: a window of n
+    rows must fit whole (ceil(n / 64) slots)."""
+    return occupancy("vit_block", "toc3d_window_attention_slots", head_dim)
+
+
 def window_attention_launch(qkv, out, map_shape, ws: int, nw: int, n: int,
                             num_heads: int, image: bool, pos=None, cos=None,
-                            sin=None):
+                            sin=None, *, one_pass: bool):
     """Launch the window attention kernel of B, C, B8 and C8 on the f32
     (rows, 3C) qkv of an attention chain into the bf16 (rows, C) ``out``:
     nw windows of n rows of the (B, H, W) map ``map_shape``, by window
     geometry (``image``; qkv's last row is LN(0)'s projection) or as dense
     rows at RoPE positions ``pos``; cos / sin the f32 RoPE tables or None.
-    Returns out."""
+    one_pass picks the body: the one-pass online softmax of the bf16 blocks,
+    or the two-pass form whose rounding points the int8 blocks keep (the
+    callers pass ``not is_quantized(wts)``). Returns out."""
     b, h, w = map_shape
     c = out.shape[1]
+    d = c // num_heads
+    if -(-n // 64) > window_attention_slots(d):
+        raise ValueError(f"window attention: a window of {n} rows does not "
+                         f"fit the ring of {window_attention_slots(d)} "
+                         f"64-row slots at head_dim {d}")
     call("vit_block", "toc3d_window_attention", qkv.data_ptr(),
          None if pos is None else pos.data_ptr(),
          None if cos is None else cos.data_ptr(),
          None if sin is None else sin.data_ptr(), out.data_ptr(), nw, n,
-         num_heads, c // num_heads, int(image), b, h, w, ws, stream_of(qkv))
+         num_heads, d, int(image), b, h, w, ws, int(one_pass),
+         stream_of(qkv))
+    body = window_attention_one_pass if one_pass else window_attention_two_pass
+    body.launches += 1
     return out
 
 
@@ -691,7 +756,8 @@ def _full_attention(wts: BlockWeights, x, num_heads: int, ws: int,
     cos, sin = _rope_args(rope_tables, n, x)
     attn = torch.empty(m, c, dtype=x.dtype, device=dev)
     return window_attention_launch(qkv, attn, (b, h, w), ws, nw, n,
-                                   num_heads, True, cos=cos, sin=sin)
+                                   num_heads, True, cos=cos, sin=sin,
+                                   one_pass=not is_quantized(wts))
 
 
 def _rows_attention(wts: BlockWeights, x, plan: CompressPlan, num_heads: int,
@@ -728,20 +794,24 @@ def _rows_attention(wts: BlockWeights, x, plan: CompressPlan, num_heads: int,
         pos = pos.contiguous()
     attn = torch.empty(rows, c, dtype=x.dtype, device=dev)
     window_attention_launch(qkv, attn, (b, h, w), ws, nw, kr, num_heads,
-                            False, pos, cos, sin)
+                            False, pos, cos, sin,
+                            one_pass=not is_quantized(wts))
     raw1 = torch.empty(rows, c, dtype=x.dtype, device=dev)
     _proj(wts, _o_in(wts, attn), "o", rows, raw1)
     return xs, raw1, slow32, fast32
 
 
 def attention_delta_plain(wts: BlockWeights, x, num_heads: int,
-                          window_size: int, rope_tables, plan=None):
-    """Plain version of ``attention_delta``."""
+                          window_size: int, rope_tables, plan=None,
+                          one_pass: bool = False):
+    """Plain version of ``attention_delta``; with one_pass, its softmax is
+    the one-pass twin of the kernel's one-pass body."""
     if plan is None:
         return _full_attention_plain(wts, x, num_heads, window_size,
-                                     rope_tables)
+                                     rope_tables, one_pass)
     _, xs, _, pos, _ = _gather_rows_plain(x, plan, window_size)
-    return _rows_attention_plain(wts, xs, pos, num_heads, rope_tables)
+    return _rows_attention_plain(wts, xs, pos, num_heads, rope_tables,
+                                 one_pass)
 
 
 def attention_delta(blk, x, num_heads: int, window_size: int, rope_tables,
