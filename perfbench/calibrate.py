@@ -1,7 +1,7 @@
 """Readings that the comparison's limits are set from: one process runs a
 cell on many seeds, with the program as the configuration states it, with
---control the program's own int8 path in its place (backbone and decoder,
-dynamic scales), or with --fault NAME a fault of perfbench/faults.py
+--control the program's own int8 path in its place (the encoder's and the
+decoder's, dynamic scales; perfbench/program.program_config), or with --fault NAME a fault of perfbench/faults.py
 planted under the timed path, and prints every compared frame's numbers
 and each seed's largest.
 

@@ -7,10 +7,12 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import replace
 
+from . import encoders
+
 # keys of a configuration file that describe it and are no field of the
 # program's configuration
 META_KEYS = ("name", "preset", "source", "reduced", "why", "views",
-             "assumed")
+             "assumed", "encoder")
 
 
 def _plain(o):
@@ -39,7 +41,8 @@ def mismatches(file_cfg: dict, program_cfg: dict, path=""):
 def program_config(file_cfg: dict, control: bool = False):
     """The program's configuration of the file's preset, checked key by key
     against the file; ``control``: the program's own int8 path switched on
-    (backbone and decoder quant 'int8', dynamic scales)."""
+    (the encoder's, perfbench/encoders, and the decoder's quant 'int8',
+    dynamic scales)."""
     from toc3d_tpu_torch.configs import get_config
     cfg = get_config(file_cfg["preset"])
     bad = mismatches(file_cfg, _plain(dataclasses.asdict(cfg)))
@@ -47,9 +50,9 @@ def program_config(file_cfg: dict, control: bool = False):
         raise ValueError("configuration file differs from the program's "
                          f"preset {file_cfg['preset']!r}: " + "; ".join(bad))
     if control:
-        cfg = replace(cfg, backbone=replace(cfg.backbone, quant="int8"),
-                      head=replace(cfg.head, decoder=replace(
-                          cfg.head.decoder, quant="int8")))
+        cfg = encoders.load(file_cfg).control(cfg)
+        cfg = replace(cfg, head=replace(cfg.head, decoder=replace(
+            cfg.head.decoder, quant="int8")))
     return cfg
 
 

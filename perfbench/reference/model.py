@@ -1,7 +1,8 @@
 """Plain float32 reference of one streaming frame of ToC3D / StreamPETR
-(the published mmdet3d models: EVA-02 ViT-L with motion-query-guided token
-compression, CPFPN, the StreamPETR head with its memory bank, the NMS-free
-decode).
+(the published mmdet3d models): the image encoder that the configuration
+file names (perfbench/encoders: the backbone and neck, image normalisation
+included), then the part every encoder shares, the StreamPETR head with
+its memory bank and the NMS-free decode.
 
 Written from the published description and the reference code's equations,
 in plain PyTorch, float32 only; it imports nothing of the measured program
@@ -10,23 +11,12 @@ file's sizes, a frame and the memory bank going into it. Call
 ``set_plain_math()`` first on a GPU: TF32 off, so every float32 product is
 float32.
 
-Semantics, each as the reference code has it:
-* a full block normalises with norm1, then zero-pads to whole windows
-  (ViTDet / EVA-02 ``Block``), attends within each window with the 2D RoPE
-  of its grid, and runs the SwiGLU MLP with its sub-LayerNorm;
-* from the first pruning location on, a selector scores the tokens (the
-  first-frame score MLP blended in by prev_exists), its soft mask is handed
-  to the next selector, and each block keeps per window the best
-  int(n * ratio) tokens (pads score -1e6), one fewer where k + 1 = 1 mod 128
-  when the configuration sets mxu_align_k, adds the score-weighted mean of
-  the dropped tokens as a representative row, runs attention with the RoPE
-  rows of the kept tokens and the MLP on those rows, adds the
-  representative's two deltas to every dropped token and scatters back;
-* the head aligns the bank to the current ego frame, resets it where
-  prev_exists is 0, splices the first num_propagated slots into the
-  queries, runs the post-norm decoder (self-attention over queries and
-  memory, cross-attention over every image token) and pushes the best
-  topk_proposals queries into the bank.
+The head, as the reference code has it, aligns the bank to the current ego
+frame, resets it where prev_exists is 0, splices the first num_propagated
+slots into the queries, runs the post-norm decoder (self-attention over
+queries and memory, cross-attention over every image token) and pushes the
+best topk_proposals queries into the bank. The small pieces below are
+shared with the encoders.
 """
 from __future__ import annotations
 
@@ -36,9 +26,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-IMG_NORM_MEAN = (103.530, 116.280, 123.675)
-IMG_NORM_STD = (57.375, 57.120, 58.395)
-VIT_LN_EPS = 1e-6
+from .. import encoders
+
 LN_EPS = 1e-5
 BANK_KEYS = ("embedding", "reference_point", "timestamp", "egopose", "velo")
 
@@ -123,266 +112,6 @@ def stable_topk(x, k):
     """Indices of the k largest along the last axis, best first; equal
     values keep ascending index order."""
     return torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
-
-
-# ---------------------------------------------------------------------------
-# backbone
-# ---------------------------------------------------------------------------
-
-def rope_table(half: int, pt_seq: int, ft_seq: int, device):
-    """EVA-02 2D RoPE over an ft x ft grid: (ft*ft, 2*half) cos and sin,
-    the first half of the lanes from the row index, the second from the
-    column index, each frequency on two neighbouring lanes."""
-    freqs = 1.0 / (10000.0 ** (np.arange(0, half, 2)[:half // 2]
-                               .astype(np.float64) / half))
-    t = np.arange(ft_seq, dtype=np.float64) / ft_seq * pt_seq
-    f = np.repeat(np.outer(t, freqs), 2, axis=-1)
-    grid = np.concatenate([np.broadcast_to(f[:, None], (ft_seq, ft_seq,
-                                                        f.shape[-1])),
-                           np.broadcast_to(f[None, :], (ft_seq, ft_seq,
-                                                        f.shape[-1]))],
-                          axis=-1).reshape(ft_seq * ft_seq, -1)
-    return (torch.tensor(np.cos(grid), dtype=torch.float32, device=device),
-            torch.tensor(np.sin(grid), dtype=torch.float32, device=device))
-
-
-def _rot(x):
-    x = x.unflatten(-1, (-1, 2))
-    return torch.stack([-x[..., 1], x[..., 0]], dim=-1).flatten(-2)
-
-
-def _windows(x, ws, value=0.0):
-    """(B, H, W, C) -> (B * nW, ws * ws, C), zero-padded (or ``value``)."""
-    b, h, w, c = x.shape
-    ph, pw = -h % ws, -w % ws
-    x = F.pad(x, (0, 0, 0, pw, 0, ph), value=value)
-    hp, wp = h + ph, w + pw
-    x = x.reshape(b, hp // ws, ws, wp // ws, ws, c).permute(0, 1, 3, 2, 4, 5)
-    return x.reshape(-1, ws * ws, c), (hp, wp)
-
-
-def _unwindows(xw, ws, padded, hw):
-    hp, wp = padded
-    h, w = hw
-    nwh, nww = hp // ws, wp // ws
-    b = xw.shape[0] // (nwh * nww)
-    x = xw.reshape(b, nwh, nww, ws, ws, -1).permute(0, 1, 3, 2, 4, 5)
-    return x.reshape(b, hp, wp, -1)[:, :h, :w]
-
-
-def _attention(sd, pre, x, heads, cos, sin, chunk=64):
-    """EVA attention over rows x (W, n, C): q/k/v projections (q and v
-    biases), RoPE on q and k (cos/sin (W or 1, n, d)), softmax, proj.
-    Windows in chunks, so the f32 logits stay bounded."""
-    nw, n, c = x.shape
-    d = c // heads
-    out = []
-    for s in range(0, nw, chunk):
-        xs = x[s:s + chunk]
-        cs = cos if cos.shape[0] == 1 else cos[s:s + chunk]
-        sn = sin if sin.shape[0] == 1 else sin[s:s + chunk]
-        q = F.linear(xs, sd[pre + "attn.q_proj.weight"],
-                     sd[pre + "attn.q_bias"])
-        k = F.linear(xs, sd[pre + "attn.k_proj.weight"])
-        v = F.linear(xs, sd[pre + "attn.v_proj.weight"],
-                     sd[pre + "attn.v_bias"])
-        q, k, v = (t.unflatten(-1, (heads, d)).transpose(1, 2)
-                   for t in (q, k, v))
-        cs, sn = cs[:, None], sn[:, None]
-        q = q * cs + _rot(q) * sn
-        k = k * cs + _rot(k) * sn
-        p = torch.softmax((q * d ** -0.5) @ k.transpose(-1, -2), dim=-1)
-        out.append((p @ v).transpose(1, 2).reshape(xs.shape[0], n, c))
-    return _lin(sd, pre + "attn.proj", torch.cat(out))
-
-
-def _swiglu(sd, pre, x):
-    h = F.silu(_lin(sd, pre + "mlp.w1", x)) * _lin(sd, pre + "mlp.w2", x)
-    return _lin(sd, pre + "mlp.w3", _ln(sd, pre + "mlp.ffn_ln", h,
-                                        VIT_LN_EPS))
-
-
-def _mlp_rows(sd, pre, x, chunk=8192):
-    return torch.cat([_swiglu(sd, pre, _ln(sd, pre + "norm2", r, VIT_LN_EPS))
-                      for r in x.split(chunk)])
-
-
-def full_block(sd, pre, x, heads, ws, table):
-    """ViTDet / EVA-02 block: norm1, zero-pad to windows, windowed
-    attention, residual; norm2, SwiGLU, residual."""
-    b, h, w, c = x.shape
-    xw, padded = _windows(_ln(sd, pre + "norm1", x, VIT_LN_EPS), ws)
-    cos, sin = (t[None, :ws * ws] for t in table)
-    a = _attention(sd, pre, xw, heads, cos, sin)
-    x = x + _unwindows(a.reshape(-1, ws, ws, c), ws, padded, (h, w))
-    flat = x.reshape(-1, c)
-    return (flat + _mlp_rows(sd, pre, flat)).reshape(b, h, w, c)
-
-
-def keep_count(n, ratio, mxu_align):
-    k = int(n * ratio)
-    if mxu_align and k > 1 and (k + 1) % 128 == 1:
-        k -= 1
-    return k
-
-
-def compressed_block(sd, pre, x, scores, heads, ws, table, ratio, bc):
-    """ToC3DEVAViTBlock: per window, the best k tokens and one
-    representative of the rest go through attention and the MLP; the rest
-    take the representative's two deltas."""
-    b, h, w, c = x.shape
-    n = ws * ws
-    xw, padded = _windows(x, ws)
-    sw = _windows(scores.reshape(b, h, w, 1), ws, value=-1e6)[0][..., 0]
-    k = keep_count(n, ratio, bc["mxu_align_k"])
-    order = torch.sort(sw, dim=-1, descending=True, stable=True)
-    slow_idx, fast_idx = order.indices[:, :k], order.indices[:, k:]
-    fast_score = order.values[:, k:]
-    take = lambda t, i: torch.gather(t, 1, i[..., None].expand(-1, -1, c))
-    xs, fast = take(xw, slow_idx), take(xw, fast_idx)
-    rep = bc["use_represent_tokens"] and n - k > 0
-    pos = slow_idx
-    if rep:
-        wgt = fast_score / fast_score.sum(dim=1, keepdim=True)
-        xs = torch.cat([xs, (wgt[..., None] * fast).sum(1, keepdim=True)], 1)
-        pos = torch.cat([pos, torch.full_like(pos[:, :1], k)], dim=1)
-    cos, sin = table
-    if bc["rope_acc"]:
-        cos, sin = cos[pos], sin[pos]
-    else:
-        cos, sin = cos[None, :pos.shape[1]], sin[None, :pos.shape[1]]
-    raw1 = _attention(sd, pre, _ln(sd, pre + "norm1", xs, VIT_LN_EPS), heads,
-                      cos, sin)
-    s1 = xs + raw1
-    raw2 = _mlp_rows(sd, pre, s1.reshape(-1, c)).reshape(s1.shape)
-    y = s1 + raw2
-    if rep:
-        fast = fast + (raw1[:, k:k + 1] + raw2[:, k:k + 1])
-    out = torch.zeros_like(xw)
-    out.scatter_(1, slow_idx[..., None].expand(-1, -1, c), y[:, :k])
-    out.scatter_(1, fast_idx[..., None].expand(-1, -1, c), fast)
-    return _unwindows(out.reshape(-1, ws, ws, c), ws, padded, (h, w))
-
-
-def motion_queries(sd, pre, bc, bank, ego_pose_inv):
-    """The selector's motion-aware queries from the first
-    pruning_num_queries bank slots."""
-    nq, qd = bc["pruning_num_queries"], bc["query_dim"]
-    pc = torch.tensor(bc["pc_range"], dtype=torch.float32,
-                      device=ego_pose_inv.device)
-    ref = transform_points(bank["reference_point"][:, :nq], ego_pose_inv)
-    ref = (ref - pc[:3]) / (pc[3:] - pc[:3])
-    pos = _lin(sd, pre + "query_embedding.2", F.relu(_lin(
-        sd, pre + "query_embedding.0", pos2posemb3d(ref, qd // 2))))
-    ego = bank["egopose"][:, :nq]
-    motion = nerf_pe(torch.cat([bank["velo"][:, :nq],
-                                bank["timestamp"][:, :nq],
-                                ego[..., :3, :].flatten(-2)], dim=-1))
-    pos = _mlp_ln_pos(sd, pre, pos, motion, bank["timestamp"][:, :nq], qd)
-    return _mln(sd, pre + "ego_pose_queries", bank["embedding"][:, :nq],
-                motion) + pos
-
-
-def _mlp_ln_pos(sd, pre, pos, motion, ts, dim):
-    pos = _mln(sd, pre + "ego_pose_pe", pos, motion)
-    te = _lin(sd, pre + "time_embedding.0", pos2posemb1d(ts, dim))
-    return pos + _ln(sd, pre + "time_embedding.1", te, LN_EPS)
-
-
-def selector(sd, pre, bc, x, mask, bank, ego_pose_inv, prev_exists):
-    """MotionAwareQueryGuidedTokenSelector: (BN, H, W, C) tokens ->
-    (scores (BN, H*W), log-softmax pair (BN, H*W, 2))."""
-    bn, h, w, c = x.shape
-    b = prev_exists.shape[0]
-    t = x.reshape(bn, h * w, c)
-    if bc["score_mask"] and mask is not None:
-        t = t * mask.reshape(bn, h * w, 1)
-    q = motion_queries(sd, pre, bc, bank, ego_pose_inv)
-    q = q.repeat_interleave(bn // b, dim=0)
-    proj = _lin(sd, pre + "input_proj.0", t)
-    scale = bc["query_dim"] ** -0.5 if bc["pruning_attn_scale"] else 1.0
-    attn = torch.einsum("bnc,bqc->bnq", proj, q) * scale
-    pred = F.log_softmax(_lin(sd, pre + "aggregate.0", attn), dim=-1)
-    pe = prev_exists.reshape(b, 1, 1, 1).expand(b, bn // b, 1, 1)
-    pe = pe.reshape(bn, 1, 1)
-    if bool((prev_exists <= 0).any()):
-        hh = F.gelu(_lin(sd, pre + "in_conv.1",
-                         _ln(sd, pre + "in_conv.0", t, LN_EPS)))
-        half = hh.shape[-1] // 2
-        glob = hh[..., half:].mean(dim=1, keepdim=True)
-        hh = torch.cat([hh[..., :half], glob.expand_as(hh[..., :half])], -1)
-        hh = F.gelu(_lin(sd, pre + "out_conv.0", hh))
-        hh = F.gelu(_lin(sd, pre + "out_conv.2", hh))
-        mlp = F.log_softmax(_lin(sd, pre + "out_conv.4", hh), dim=-1)
-        pred = mlp * (1.0 - pe) + pred * pe
-    return pred[..., 0], pred
-
-
-def abs_pos(sd, bc, h, w):
-    pe = sd["img_backbone.pos_embed"]
-    if bc["pretrain_use_cls_token"]:
-        pe = pe[:, 1:]
-    size = int(round(math.sqrt(pe.shape[1])))
-    grid = pe.reshape(1, size, size, -1).permute(0, 3, 1, 2)
-    if (size, size) != (h, w):
-        grid = F.interpolate(grid, size=(h, w), mode="bicubic",
-                             align_corners=False)
-    return grid.permute(0, 2, 3, 1)
-
-
-def backbone(sd, cfg, img, bank, frame):
-    """(B, N, H, W, 3) uint8 BGR images -> (B*N, h, w, C) features."""
-    bc = cfg["backbone"]
-    b, n, hh, ww, _ = img.shape
-    mean = torch.tensor(IMG_NORM_MEAN, device=img.device)
-    std = torch.tensor(IMG_NORM_STD, device=img.device)
-    x = ((img.float() - mean) / std).reshape(b * n, hh, ww, 3)
-    p = bc["patch_size"]
-    x = F.conv2d(x.permute(0, 3, 1, 2),
-                 sd["img_backbone.patch_embed.proj.weight"],
-                 sd["img_backbone.patch_embed.proj.bias"], stride=p)
-    x = x.permute(0, 2, 3, 1)
-    bn, h, w, c = x.shape
-    if bc["use_abs_pos"]:
-        x = x + abs_pos(sd, bc, h, w)
-    half = bc["embed_dim"] // bc["num_heads"] // 2
-    ft_win = bc["window_size"] if bc["intp_freq"] else bc["pt_hw_seq_len"]
-    ft_glb = (bc["img_size"] // p) if bc["intp_freq"] else \
-        bc["pt_hw_seq_len"]
-    tables = {False: rope_table(half, bc["pt_hw_seq_len"], ft_win, x.device),
-              True: rope_table(half, bc["pt_hw_seq_len"], ft_glb, x.device)}
-    prune = list(bc.get("pruning_loc", ()))
-    mask = torch.ones(bn, h * w, 1, device=x.device)
-    scores, ratio, seg = None, None, 0
-    for i in range(bc["depth"]):
-        pre = f"img_backbone.blocks.{i}."
-        if i in prune:
-            scores, pred = selector(
-                sd, f"img_backbone.score_predictor.{seg}.", bc, x, mask,
-                bank, frame["ego_pose_inv"], frame["prev_exists"])
-            mask = torch.softmax(pred, dim=-1)[..., 0:1]
-            ratio = bc["token_ratio"][seg]
-            seg += 1
-        glob = i in bc["global_attn_indexes"]
-        ws = bc["global_window_size"] if glob else bc["window_size"]
-        accelerated = bool(prune) and i >= prune[0] and (
-            not glob or bc["accelerate_global"])
-        if accelerated:
-            x = compressed_block(sd, pre, x, scores, bc["num_heads"], ws,
-                                 tables[glob], ratio, bc)
-        else:
-            x = full_block(sd, pre, x, bc["num_heads"], ws, tables[glob])
-    return x
-
-
-def neck(sd, x):
-    """CPFPN's first level: 1x1 then 3x3 convolution."""
-    y = F.conv2d(x.permute(0, 3, 1, 2),
-                 sd["img_neck.lateral_convs.0.conv.weight"],
-                 sd["img_neck.lateral_convs.0.conv.bias"])
-    y = F.conv2d(y, sd["img_neck.fpn_convs.0.conv.weight"],
-                 sd["img_neck.fpn_convs.0.conv.bias"], padding=1)
-    return y.permute(0, 2, 3, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -600,8 +329,7 @@ def frame_forward(sd, cfg, frame, bank):
     the global frame that the bank keeps, "queries": (B, Q, C) decoder
     outputs}, the bank after it)."""
     b, n = frame["img"].shape[:2]
-    feats = backbone(sd, cfg, frame["img"], bank, frame)
-    f = neck(sd, feats)
+    f = encoders.load(cfg).features(sd, cfg, frame["img"], bank, frame)
     f = f.reshape(b, n, f.shape[1], f.shape[2], -1)
     logits, boxes, out, bank = head(sd, cfg, f, frame, bank)
     return {"logits": logits, "boxes": decode_boxes(boxes), "code": boxes,

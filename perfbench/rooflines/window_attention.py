@@ -7,17 +7,17 @@ Bytes: q, k and v read once and the output written once, ``qkv_bytes`` and
 2 bytes an element (bf16 by default: the configuration's dtype)."""
 from __future__ import annotations
 
-from .. import counting
+from ..encoders import eva_vit
 
 MATCH = "window_attention_kernel"
 EXCLUDE = ()
 
 
 def launches(cfg, views, batch, qkv_bytes=2):
-    maps, h, w = counting.grid(cfg, views, batch)
+    maps, h, w = eva_vit.grid(cfg, views, batch)
     c = cfg["backbone"]["embed_dim"]
     out = []
-    for blk in counting.blocks(cfg, views, batch):
+    for blk in eva_vit.blocks(cfg, views, batch):
         if blk["kind"] == "full":
             rows = maps * h * w
             flops = 4.0 * rows * blk["ws"] ** 2 * c

@@ -32,7 +32,7 @@ def tiny_config_file(**overrides) -> dict:
     from perfbench.program import _plain
     cfg = {"name": "tiny", "preset": "tiny", "views": 6, "reduced": [],
            "source": "the program's tiny preset", "why": "CPU tests",
-           "assumed": {}}
+           "assumed": {}, "encoder": "eva_vit"}
     cfg.update(_plain(dataclasses.asdict(get_config("tiny"))))
     cfg.update(overrides)
     return cfg

@@ -27,7 +27,8 @@ def _python(code: str, cwd, timeout=300):
 
 def test_the_reference_imports_neither_jax_nor_the_program():
     out = _python(
-        "import sys, perfbench.reference.model, perfbench.check; "
+        "import sys, perfbench.reference.model, perfbench.check, "
+        "perfbench.encoders.eva_vit; "
         "print(sorted({m.split('.')[0] for m in sys.modules}))", REPO)
     loaded = set(json.loads(out.replace("'", '"')))
     assert not loaded & (FORBIDDEN | {"toc3d_tpu_torch"})

@@ -6,7 +6,8 @@ import json
 
 import pytest
 
-from perfbench import counting, metrics, rooflines
+from perfbench import counting, encoders, metrics, rooflines
+from perfbench.encoders import eva_vit
 from perfbench.tests.conftest import REPO
 
 BENCH = json.loads((REPO / "BENCHMARK.json").read_text())
@@ -23,6 +24,9 @@ def test_every_file_is_found_by_name():
         c["file"].split("/")[-1][:-5] for c in BENCH["configs"]}
     assert {c["name"] for c in BENCH["configs"]} == {
         c["file"].split("/")[-1][:-5] for c in BENCH["configs"]}
+    assert _stems("encoders", ".py") == {
+        json.loads((REPO / c["file"]).read_text())["encoder"]
+        for c in BENCH["configs"]}
     assert _stems("workloads", ".json") == {
         w["traffic"] for w in BENCH["workloads"]}
     assert _stems("cells", ".json") == {w["name"] for w in BENCH["workloads"]}
@@ -49,6 +53,10 @@ def test_config_file_matches_the_program_preset(path):
     from perfbench import program
     cfg = json.loads(path.read_text())
     assert cfg["name"] == path.stem and cfg["reduced"] == []
+    # the encoder is the file's own key, found as a module by its name
+    assert "encoder" in program.META_KEYS
+    mod = encoders.load(cfg)
+    assert mod.__name__ == "perfbench.encoders." + cfg["encoder"]
     for c in BENCH["configs"]:
         if c["name"] == cfg["name"]:
             assert (c["source"], c["reduced"]) == (cfg["source"], [])
@@ -74,7 +82,7 @@ def _cfg(name):
 
 def test_block_gemms_at_30001_rows_are_the_table_shapes():
     # the SwiGLU's 2730 wide hidden layer, which the program pads to 2736
-    shapes = counting.block_gemms(_cfg("ToC3D_faster_1600"), 30001)
+    shapes = eva_vit.block_gemms(_cfg("ToC3D_faster_1600"), 30001)
     assert [s[1:] for s in shapes] == [(30001, 3072, 1024),
                                        (30001, 1024, 1024),
                                        (30001, 5460, 1024),
@@ -93,8 +101,8 @@ def test_window_attention_counts_reproduce_the_kernel_table():
 
 
 def test_block_schedule_of_the_two_configurations():
-    toc = counting.blocks(_cfg("ToC3D_faster_1600"), 6, 1)
-    sp = counting.blocks(_cfg("stream_petr_eva_vit_l_1600"), 6, 1)
+    toc = eva_vit.blocks(_cfg("ToC3D_faster_1600"), 6, 1)
+    sp = eva_vit.blocks(_cfg("stream_petr_eva_vit_l_1600"), 6, 1)
     assert [b["kind"] for b in toc] == ["full"] * 6 + ["compressed"] * 18
     assert all(b["kind"] == "full" and b["rows"] == 30000 for b in sp)
     # ws 16 windows: 168 at k 127 + 1; ws 20: 90 at k 200 + 1
@@ -108,7 +116,7 @@ def test_model_operations_are_counted_from_the_configuration():
     toc = counting.model_flops(_cfg("ToC3D_faster_1600"), 6, 1)
     sp = counting.model_flops(_cfg("stream_petr_eva_vit_l_1600"), 6, 1)
     # G alone is 24 x 756 GFLOP on 30000 rows in the plain backbone
-    g = 24 * sum(counting.mm(*s[1:]) for s in counting.block_gemms(
+    g = 24 * sum(counting.mm(*s[1:]) for s in eva_vit.block_gemms(
         _cfg("stream_petr_eva_vit_l_1600"), 30000))
     assert 18.1e12 < g < sp < 20.5e12
     assert 11e12 < toc < 14e12

@@ -1,31 +1,31 @@
 """Seeded random weights under the reference (mmdet3d) parameter names, made
 on the device in a few generator calls.
 
-The layout is the reference checkpoint's: the EVA-02 backbone (patch
-embedding, absolute position table, blocks), the token selectors of a
-compressing backbone, the CPFPN neck, the StreamPETR head with its shared
-branches stored once (index 0) and the 2D FocalHead. The distributions are
-the benchmark's own choice: every linear and convolution weight normal with
-standard deviation 1 / sqrt(fan_in), so activations keep unit scale through
-the 24 blocks; biases, q / v biases and the position table normal at 0.02;
-every LayerNorm's and GroupNorm's weight 1 + N(0, 0.1) and bias N(0, 0.1),
-as trained norms are never at their initial 1 and 0, but for the outlier
-channels below; the query and pseudo reference points uniform in [0, 1);
-the classifier's bias at the 0.01 prior probability. Float32, as both the
-program and the reference load them.
+The layout is the reference checkpoint's. Its first part is the image
+encoder's own (perfbench/encoders: the configuration file's ``encoder``
+gives its ``layout``); the rest is shared by every encoder: the StreamPETR
+head with its shared branches stored once (index 0) and the 2D FocalHead.
+The distributions are the benchmark's own choice: every linear and
+convolution weight normal with standard deviation 1 / sqrt(fan_in), so
+activations keep unit scale through deep stacks; biases and tables normal
+at 0.02; every LayerNorm's and GroupNorm's weight 1 + N(0, 0.1) and bias
+N(0, 0.1), as trained norms are never at their initial 1 and 0, but for
+the outlier channels below; the query and pseudo reference points uniform
+in [0, 1); the classifier's bias at the 0.01 prior probability. Float32,
+as both the program and the reference load them.
 
 Outlier channels: trained transformers carry a few channels far larger
 than the rest, the inter-channel variation that post-training quantization
-has to handle. The LayerNorms in front of the blocks' weight products
-(norm1, norm2, the SwiGLU's sub-LN) carry 1% of their channels at weight
-10. In the decoder they sit in the FFNs' hidden layers, where they meet
-small weights in the product that reads them: 1% of each FFN's hidden
-channels run 30 times larger, read at 1/30, which leaves the function as
-it is. Such channels set the scale of a row quantized to int8, as they do
-on trained weights. The decoder's LayerNorms carry none: channels there
-would feed the attention logits, and at weight 4 to 10 they made the
-random head's attention so sharp that its bf16 error swung 4x from seed to
-seed.
+has to handle. An encoder marks the norms that carry them (kind 'nwo':
+1% of their channels at weight 10; the EVA-02 ViT marks those in front of
+its blocks' weight products). In the decoder they sit in the FFNs' hidden
+layers, where they meet small weights in the product that reads them: 1%
+of each FFN's hidden channels run 30 times larger, read at 1/30, which
+leaves the function as it is. Such channels set the scale of a row
+quantized to int8, as they do on trained weights. The decoder's LayerNorms
+carry none: channels there would feed the attention logits, and at weight
+4 to 10 they made the random head's attention so sharp that its bf16 error
+swung 4x from seed to seed.
 """
 from __future__ import annotations
 
@@ -34,14 +34,14 @@ import re
 
 import torch
 
+from . import encoders
+
 PRIOR_BIAS = -math.log((1 - 0.01) / 0.01)
 NORM_SPREAD = 0.1
 OUTLIER_SHARE = 0.01
-# the blocks' outlier channels: in each LayerNorm whose name matches, a
-# share OUTLIER_SHARE of the channels (rounded, at least one) drawn from
-# the seed carries the weight BLOCK_OUTLIER_WEIGHT
-BLOCK_OUTLIER_NORMS = r"img_backbone\.blocks\.\d+\.(norm1|norm2|mlp\.ffn_ln)$"
-BLOCK_OUTLIER_WEIGHT = 10.0
+# a norm of kind 'nwo': a share OUTLIER_SHARE of its channels (rounded, at
+# least one) drawn from the seed carries the weight OUTLIER_WEIGHT
+OUTLIER_WEIGHT = 10.0
 # the decoder's FFNs: in each, a share OUTLIER_SHARE of the hidden channels
 # drawn from the seed runs FFN_OUTLIER_GAIN times larger (the rows of the
 # first layer's weight and bias), and the second layer reads them at its
@@ -50,70 +50,36 @@ FFN_FIRST = r"transformer\.decoder\.layers\.\d+\.ffns\.0\.layers\.0\.0\."
 FFN_OUTLIER_GAIN = 30.0
 
 
-def _spec(cfg):
+class Layout(list):
     """[(name, shape, kind)]: kind 'w' (fan-in normal), 'b' (normal 0.02),
     'nw' (a norm's weight), 'nwo' (a norm's weight with outlier channels),
-    'nb' (a norm's bias), 'u' (uniform [0, 1))."""
-    bc, hc, nc = cfg["backbone"], cfg["head"], cfg["neck"]
-    out = []
+    'nb' (a norm's bias), 'u' (uniform [0, 1)); appended by layer."""
 
-    def lin(name, din, dout, bias=True):
-        out.append((name + ".weight", (dout, din), "w"))
+    def lin(self, name, din, dout, bias=True):
+        self.append((name + ".weight", (dout, din), "w"))
         if bias:
-            out.append((name + ".bias", (dout,), "b"))
+            self.append((name + ".bias", (dout,), "b"))
 
-    def norm(name, d):
-        outlier = re.search(BLOCK_OUTLIER_NORMS, name) is not None
-        out.append((name + ".weight", (d,), "nwo" if outlier else "nw"))
-        out.append((name + ".bias", (d,), "nb"))
+    def norm(self, name, d, outliers=False):
+        self.append((name + ".weight", (d,), "nwo" if outliers else "nw"))
+        self.append((name + ".bias", (d,), "nb"))
 
-    def conv(name, cin, cout, k):
-        out.append((name + ".weight", (cout, cin, k, k), "w"))
-        out.append((name + ".bias", (cout,), "b"))
+    def conv(self, name, cin, cout, k):
+        self.append((name + ".weight", (cout, cin, k, k), "w"))
+        self.append((name + ".bias", (cout,), "b"))
 
-    def mln(name, cdim, fdim):
-        lin(name + ".reduce.0", cdim, fdim)
-        lin(name + ".gamma", fdim, fdim)
-        lin(name + ".beta", fdim, fdim)
+    def mln(self, name, cdim, fdim):
+        self.lin(name + ".reduce.0", cdim, fdim)
+        self.lin(name + ".gamma", fdim, fdim)
+        self.lin(name + ".beta", fdim, fdim)
 
-    d, p = bc["embed_dim"], bc["patch_size"]
-    hid = int(d * bc["mlp_ratio"])
-    conv("img_backbone.patch_embed.proj", 3, d, p)
-    npos = (bc["pretrain_img_size"] // p) ** 2 + int(
-        bc["pretrain_use_cls_token"])
-    out.append(("img_backbone.pos_embed", (1, npos, d), "b"))
-    for i in range(bc["depth"]):
-        pre = f"img_backbone.blocks.{i}."
-        norm(pre + "norm1", d)
-        norm(pre + "norm2", d)
-        for n in ("q_proj", "k_proj", "v_proj"):
-            lin(pre + "attn." + n, d, d, bias=False)
-        out.append((pre + "attn.q_bias", (d,), "b"))
-        out.append((pre + "attn.v_bias", (d,), "b"))
-        lin(pre + "attn.proj", d, d)
-        lin(pre + "mlp.w1", d, hid)
-        lin(pre + "mlp.w2", d, hid)
-        lin(pre + "mlp.w3", hid, d)
-        norm(pre + "mlp.ffn_ln", hid)
-    qd = bc.get("query_dim", 0)
-    for i in range(len(bc.get("pruning_loc", ()))):
-        pre = f"img_backbone.score_predictor.{i}."
-        norm(pre + "in_conv.0", d)
-        lin(pre + "in_conv.1", d, d)
-        lin(pre + "out_conv.0", d, d // 2)
-        lin(pre + "out_conv.2", d // 2, d // 4)
-        lin(pre + "out_conv.4", d // 4, 2)
-        lin(pre + "input_proj.0", d, qd)
-        lin(pre + "aggregate.0", bc["pruning_num_queries"], 2)
-        lin(pre + "query_embedding.0", qd * 3 // 2, qd)
-        lin(pre + "query_embedding.2", qd, qd)
-        mln(pre + "ego_pose_pe", 180, qd)
-        mln(pre + "ego_pose_queries", 180, qd)
-        lin(pre + "time_embedding.0", qd, qd)
-        norm(pre + "time_embedding.1", qd)
-    oc = nc["out_channels"]
-    conv("img_neck.lateral_convs.0.conv", nc["in_channels"][0], oc, 1)
-    conv("img_neck.fpn_convs.0.conv", oc, oc, 3)
+
+def _spec(cfg):
+    """The whole model's layout: the encoder's, then the head's and the
+    FocalHead's."""
+    hc = cfg["head"]
+    out = Layout(encoders.load(cfg).layout(cfg))
+    lin, norm, conv, mln = out.lin, out.norm, out.conv, out.mln
     e = hc["embed_dims"]
     h = "pts_bbox_head."
     lin(h + "position_encoder.0", hc["depth_num"] * 3, e * 4)
@@ -195,7 +161,7 @@ def make_state_dict(cfg, seed: int, device) -> dict:
                 t.add_(1.0)
             if kind == "nwo":
                 count = max(1, round(OUTLIER_SHARE * n))
-                t[unif[j:j + n].topk(count).indices] = BLOCK_OUTLIER_WEIGHT
+                t[unif[j:j + n].topk(count).indices] = OUTLIER_WEIGHT
                 j += n
             sd[name] = t
         sd["pts_bbox_head.cls_branches.0.6.bias"].add_(PRIOR_BIAS)
