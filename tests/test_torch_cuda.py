@@ -30,7 +30,11 @@ with its LN(0) row, LN2 with the residual and the stored sum, the sub-LN's
 streaming eval (runtime/eval.streaming_eval) through the captured frame
 against eager infer_step on float32 and uint8 eval frames, the token
 visualizer's step (infer_step_with_aux) against infer_step, and the loaded
-export's captured and eager runs against make_infer_fn.
+export's captured and eager runs against make_infer_fn. StreamPETR's V2-99
+frame at 800x320 (VoVNet-99-eSE on packed cuDNN convolutions, the
+two-level CPFPN): captured against eager bit for bit, 106 convolution
+launches a frame, and no weight cast or layout transpose in its replayed
+backbone+neck program.
 
 Every test needs a CUDA card and skips without one. This file imports no
 JAX, so a GPU host without JAX runs it (the tests' conftest.py imports JAX,
@@ -1186,3 +1190,107 @@ def test_infer_step_with_aux_equals_infer_step(dev):
         h, w = (s // cfg.patch_size for s in model.cfg.pad_shape)
         assert [tuple(m.shape) for m in aux["token_masks"]] == \
             [(f["img"].shape[1], h, w, 1)] * len(cfg.pruning_loc)
+
+
+# ---------------------------------------------------------------------------
+# StreamPETR V2-99: VoVNet-99-eSE and the two-level CPFPN in the captured
+# frame
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def v299():
+    """stream_petr_vov_flash_800_bs2_seq_24e on the card with seeded random
+    weights behind make_infer_fn, and 4 pinned host frames of 6 views at
+    800x320 (a scene start, then steady)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from toc3d_tpu_torch.configs import get_config
+    from toc3d_tpu_torch.models.detector import (build_detector,
+                                                 make_infer_fn,
+                                                 synthetic_frame)
+    cfg = get_config("stream_petr_vov_flash_800_bs2_seq_24e")
+    model = build_detector(cfg, device="cuda", seed=0)
+    g = torch.Generator().manual_seed(0)
+    frames = [{k: v.pin_memory() for k, v in synthetic_frame(
+        g, t, height=320, width=800, device="cpu").items()}
+        for t in range(4)]
+    return model, make_infer_fn(model), frames
+
+
+@pytest.mark.cuda
+def test_v299_captured_frame_equals_eager(v299):
+    """Each frame through the captured graphs equals eager infer_step on
+    the same weights and bank, bit for bit: boxes, scores, labels and the
+    bank."""
+    from toc3d_tpu_torch.models.detector import infer_step, init_state
+    model, infer, frames = v299
+    s_cap = init_state(1, model.cfg, device="cuda")
+    s_eag = init_state(1, model.cfg, device="cuda")
+    for t, f in enumerate(frames):
+        s_cap, d_cap = infer(s_cap, f)
+        s_eag, d_eag = infer_step(model, s_eag, f)
+        for a, b in zip(_outputs((s_cap, d_cap)), _outputs((s_eag, d_eag))):
+            assert torch.equal(a, b), t
+
+
+@pytest.mark.cuda
+def test_v299_frame_counts_106_convolutions(v299):
+    """A replayed V2-99 frame, and an eager one, launch the encoder's 106
+    convolutions (3 stem, 16 blocks x 6, 4 eSE, 3 in the neck) through the
+    packed-convolution wrapper and kernel D 12 times (6 layers x self and
+    cross), and none of the ViT's kernels."""
+    from toc3d_tpu_torch.models.detector import infer_step, init_state
+    from toc3d_tpu_torch.ops.cuda import conv, counted_wrappers
+    model, infer, frames = v299
+    state = init_state(1, model.cfg, device="cuda")
+    for f in frames[:3]:
+        state, _ = infer(state, f)
+    counters = counted_wrappers()
+    for run in (infer, lambda s, f: infer_step(model, s, f)):
+        before = [c.launches for c in counters]
+        state, _ = run(state, frames[3])
+        got = {c: c.launches - n for c, n in zip(counters, before)}
+        assert got[conv.conv2d] == 106
+        assert got[cross_attn.flash_attention_core] == 12
+        assert sum(got.values()) == 118
+
+
+@pytest.mark.cuda
+def test_v299_replay_casts_no_weight_and_transposes_no_layout(v299):
+    """The replayed backbone+neck program holds no layout transpose of
+    cuDNN's (nchwToNhwc / nhwcToNchw) and one f32 -> bf16 cast, the image's:
+    no weight is cast (the per-call casts would add one a convolution). An
+    eager backbone+neck reads every parameter and buffer of the encoder
+    only through its packs: no copy, cast or arithmetic takes one."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from toc3d_tpu_torch.models.detector import extract_img_feat, init_state
+    model, infer, frames = v299
+    state = init_state(1, model.cfg, device="cuda")
+    for f in frames[:2]:
+        state, _ = infer(state, f)
+    (prog,) = [p for k, p in infer._programs.items()
+               if k[0] == "backbone+neck"]
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        prog.graph.replay()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) > 106
+    assert not [n for n in names if "nchwToNhwc" in n or "nhwcToNchw" in n]
+    assert sum("bfloat16_copy_kernel" in n for n in names) == 1
+    encoder = {t.data_ptr() for m in (model.img_backbone, model.img_neck)
+               for t in list(m.parameters()) + list(m.buffers())}
+    read = []
+
+    class Reads(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            for a in list(args) + list((kwargs or {}).values()):
+                if isinstance(a, torch.Tensor) and a.data_ptr() in encoder:
+                    read.append(str(func))
+            return func(*args, **(kwargs or {}))
+    f = {k: v.cuda() for k, v in frames[3].items()}
+    with torch.no_grad(), Reads():
+        extract_img_feat(model, f["img"], state.memory, f, steady=True)
+    assert read == []

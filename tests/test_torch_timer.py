@@ -1,7 +1,8 @@
 """The stage timer (toc3d_tpu_torch/runtime/timer.py) on the CPU, where its
 stamp log takes the host clock: nested spans and the model's stages
-("backbone+neck/select" a token selector, "head+decode/decoder") in an
-eager stream and in a traced tiny run of the benchmark, each child inside
+("backbone+neck/select" a token selector, "backbone+neck/neck" the neck,
+"head+decode/decoder") in an eager stream and in a traced tiny run of the
+benchmark, each child inside
 its parent, outputs untouched by timing, ``stage`` doing nothing without a
 timer or under torch.export, a full log reported, and a captured program
 keeping the timer its stamps write into. The card's own checks (in-graph
@@ -23,8 +24,8 @@ from toc3d_tpu_torch.runtime.timer import (StageTimer, current, span, stage,
 
 from test_torch_serving import cuda_standins  # noqa: F401
 
-STAGES = ("inputs", "backbone+neck", "backbone+neck/select", "head+decode",
-          "head+decode/decoder")
+STAGES = ("inputs", "backbone+neck", "backbone+neck/select",
+          "backbone+neck/neck", "head+decode", "head+decode/decoder")
 
 
 def _frames(cfg, n, seed=0):

@@ -71,6 +71,7 @@ def test_every_in_graph_span_is_stamped_on_each_replay(served):
         counts[path] = counts.get(path, 0) + 1
     assert counts == {"inputs": REPLAYS, "backbone+neck": REPLAYS,
                       "backbone+neck/select": selectors * REPLAYS,
+                      "backbone+neck/neck": REPLAYS,
                       "head+decode": REPLAYS,
                       "head+decode/decoder": REPLAYS}
     for parent, child, per in (("backbone+neck", "select", selectors),

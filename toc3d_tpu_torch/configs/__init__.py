@@ -1,1 +1,2 @@
-from .presets import PRESETS, apply_overrides, get_config  # noqa: F401
+from .presets import (PORT_PRESETS, PRESETS, apply_overrides,  # noqa: F401
+                      get_config)

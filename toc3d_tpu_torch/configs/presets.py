@@ -3,7 +3,9 @@ names, the ToC3D_ratio* sweep names and apply_overrides. Constants, presets
 and helpers are copied from presets.py:20-245, training fields included
 (grid mask, DN and loss settings, frame-gradient counts); the JAX
 package's fused_blocks switch is not carried (the port always runs its
-kernels on the card)."""
+kernels on the card). PORT_PRESETS holds the configurations that the port
+runs and the JAX package has no preset for: StreamPETR's V2-99 (VoVNet-99-
+eSE) and its CPU-test size."""
 from __future__ import annotations
 
 from ..models.detector import DetectorConfig, FocalHeadConfig
@@ -12,6 +14,7 @@ from ..models.neck import CPFPNConfig
 from ..models.petr_transformer import DecoderConfig
 from ..models.streampetr_head import StreamPETRHeadConfig
 from ..models.toc3d_vit import ToC3DViTConfig
+from ..models.vovnet import VoVNetConfig
 
 POINT_CLOUD_RANGE = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)
 POSITION_RANGE = (-61.2, -61.2, -10.0, 61.2, 61.2, 10.0)
@@ -62,13 +65,13 @@ def _head(compute_dtype="float32") -> StreamPETRHeadConfig:
 
 
 def _detector(backbone, pad_shape, compute_dtype="bfloat16",
-              vit_b=False) -> DetectorConfig:
+              vit_b=False, in_channels=None) -> DetectorConfig:
     """presets.py:77-89: the neck takes the backbone's width (768 for
-    ViT-B)."""
-    in_ch = 768 if vit_b else 1024
+    ViT-B), or the widths of its output levels ``in_channels``."""
+    in_ch = in_channels or ((768,) if vit_b else (1024,))
     return DetectorConfig(
         backbone=backbone,
-        neck=CPFPNConfig(in_channels=(in_ch,), out_channels=256, num_outs=2),
+        neck=CPFPNConfig(in_channels=in_ch, out_channels=256, num_outs=2),
         head=_head(compute_dtype),
         focal=FocalHeadConfig(num_classes=10, in_channels=256,
                               embed_dims=256, stride=16),
@@ -181,6 +184,31 @@ def tiny_test_config(**kw) -> DetectorConfig:
     return DetectorConfig(**defaults)
 
 
+def stream_petr_vov_flash_800_bs2_seq_24e(**kw) -> DetectorConfig:
+    """StreamPETR with VoVNet-99-eSE (V2-99) at 800x320 (arXiv 2303.11926;
+    exiawsh/StreamPETR projects/configs/StreamPETR/
+    stream_petr_vov_flash_800_bs2_seq_24e.py): VoVNetCP 'V-99-eSE' with
+    frozen BatchNorm, out_features stage4 / stage5, CPFPN(in_channels=[768,
+    1024], out_channels=256, num_outs=2), stride 16, position_level 0, and
+    the head of the other StreamPETR presets, _head() field for field (644
+    + 256 queries, a 1024-slot bank, 6 decoder layers of 256 wide with a
+    2048 FFN, LID depth bins, the same ranges and code weights). Served in
+    bf16, backbone and head, as the other served presets. Not carried: the
+    published file's training settings that inference does not read (the
+    decoder layers' with_cp, the data pipeline, the optimizer); the port
+    trains and exports the ViT backbones only."""
+    return _detector(VoVNetConfig("V-99-eSE", 3, ("stage4", "stage5")),
+                     (320, 800), in_channels=(768, 1024), **kw)
+
+
+def tiny_vov(**kw) -> DetectorConfig:
+    """The V2-99 backbone and two-level neck on the tiny preset's head and
+    pad shape (64x128), f32, for CPU tests."""
+    return tiny_test_config(
+        backbone=VoVNetConfig("V-99-eSE", 3, ("stage4", "stage5")),
+        neck=CPFPNConfig(in_channels=(768, 1024), out_channels=32), **kw)
+
+
 PRESETS = {
     "stream_petr_eva_vit_l": stream_petr_eva_vit_l,
     "stream_petr_eva_vit_l_1600": stream_petr_eva_vit_l_1600,
@@ -192,6 +220,12 @@ PRESETS = {
     "ToC3D_vit_b_fast": toc3d_vit_b_fast,
     "ToC3D_vit_b_faster": toc3d_vit_b_faster,
     "tiny": tiny_test_config,
+}
+
+PORT_PRESETS = {
+    "stream_petr_vov_flash_800_bs2_seq_24e":
+        stream_petr_vov_flash_800_bs2_seq_24e,
+    "tiny_vov": tiny_vov,
 }
 
 
@@ -221,10 +255,12 @@ def apply_overrides(cfg, options):
 
 
 def get_config(name: str, **kw) -> DetectorConfig:
-    """A preset by name, or a speed-sweep name such as ToC3D_ratio543 or
-    ToC3D_ratio543_1600 (presets.py:234-245)."""
+    """A preset by name (PRESETS or PORT_PRESETS), or a speed-sweep name
+    such as ToC3D_ratio543 or ToC3D_ratio543_1600 (presets.py:234-245)."""
     if name in PRESETS:
         return PRESETS[name](**kw)
+    if name in PORT_PRESETS:
+        return PORT_PRESETS[name](**kw)
     if name.startswith("ToC3D_ratio"):
         digits = name[len("ToC3D_ratio"):]
         res1600 = digits.endswith("_1600")
@@ -233,7 +269,8 @@ def get_config(name: str, **kw) -> DetectorConfig:
             raise KeyError(f"unknown ratio-sweep name {name!r}")
         return toc3d_ratio_sweep(int(digits[0]), int(digits[1]),
                                  int(digits[2]), res1600=res1600, **kw)
-    raise KeyError(f"unknown preset {name!r}; have {sorted(PRESETS)}")
+    raise KeyError(f"unknown preset {name!r}; have "
+                   f"{sorted(PRESETS) + sorted(PORT_PRESETS)}")
 
 
 def served_in_bf16(cfg: DetectorConfig) -> DetectorConfig:

@@ -21,7 +21,7 @@ from __future__ import annotations
 import math
 import re
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Tuple, Union
 
 import numpy as np
 import torch
@@ -30,12 +30,13 @@ import torch.nn as nn
 from ..core.coder import DecodedBoxes, nms_free_decode, to_bottom_center
 from ..core.state import DetectorState
 from ..ops.consts import const_vector
-from ..runtime.timer import span
-from .neck import CPFPN, CPFPNConfig, cpfpn_forward
+from ..runtime.timer import span, stage
+from .neck import CPFPN, CPFPNConfig, cpfpn_forward, pack_cpfpn
 from .streampetr_head import (MemoryBank, StreamPETRHead,
                               StreamPETRHeadConfig, head_forward, init_memory)
 from .eva_vit import EVAViT, EVAViTConfig, eva_vit_forward
 from .toc3d_vit import ToC3DViT, ToC3DViTConfig, toc3d_vit_forward
+from .vovnet import VoVNet, VoVNetConfig, pack_vovnet, vovnet_forward
 from .focal_head import FocalHeadConfig, FocalHeadParams
 from .token_select import gumbel_
 
@@ -43,10 +44,13 @@ from .token_select import gumbel_
 @dataclass(frozen=True)
 class DetectorConfig:
     """Field names of detector.py:35-55. backbone: an EVAViTConfig (the
-    plain EVA-02 of the StreamPETR presets) or a ToC3DViTConfig. The grid
-    mask, the 2D head and the frame-gradient counts are read by training
-    only (runtime/train.py)."""
-    backbone: EVAViTConfig = field(default_factory=ToC3DViTConfig)
+    plain EVA-02 of the StreamPETR presets), a ToC3DViTConfig, or a
+    VoVNetConfig (StreamPETR's V2-99; inference only), its neck's
+    in_channels then one a VoVNet output level. The grid mask, the 2D head
+    and the frame-gradient counts are read by training only
+    (runtime/train.py)."""
+    backbone: Union[EVAViTConfig, VoVNetConfig] = field(
+        default_factory=ToC3DViTConfig)
     neck: CPFPNConfig = field(default_factory=CPFPNConfig)
     head: StreamPETRHeadConfig = field(default_factory=StreamPETRHeadConfig)
     focal: FocalHeadConfig = field(default_factory=FocalHeadConfig)
@@ -59,6 +63,13 @@ class DetectorConfig:
     num_frame_losses: int = 1
     pad_shape: Tuple[int, int] = (320, 800)
     compute_dtype: str = "float32"   # backbone dtype: 'float32' | 'bfloat16'
+
+    @property
+    def is_vit(self) -> bool:
+        """An EVA-02 ViT backbone (EVAViTConfig or ToC3DViTConfig); else
+        the VoVNet CNN. Every model function that depends on the backbone
+        dispatches on this."""
+        return isinstance(self.backbone, EVAViTConfig)
 
     @property
     def is_toc3d(self) -> bool:
@@ -75,17 +86,34 @@ _BUFFER_PAT = re.compile(
     r"coords_d|cls_branches\.[1-9]|reg_branches\.[1-9])")
 
 
+def require_vit(cfg: DetectorConfig, what: str) -> None:
+    """Raise unless the backbone is an EVA-02 ViT: ``what`` (training,
+    export, the collected forward) is written for the ViT backbones
+    only."""
+    if not cfg.is_vit:
+        raise NotImplementedError(
+            f"{what} runs the EVA-02 ViT backbones only, not a "
+            f"{type(cfg.backbone).__name__} "
+            f"({getattr(cfg.backbone, 'spec_name', '')}) backbone")
+
+
+def build_backbone(cfg: DetectorConfig) -> nn.Module:
+    """ToC3DViT for a ToC3DViTConfig, the plain EVAViT for an EVAViTConfig
+    (detector.py:63-68; no score_predictor), VoVNet for a VoVNetConfig."""
+    if not cfg.is_vit:
+        return VoVNet(cfg.backbone)
+    return (ToC3DViT if isinstance(cfg.backbone, ToC3DViTConfig)
+            else EVAViT)(cfg.backbone)
+
+
 class ToC3DDetector(nn.Module):
     """Petr3D module tree with the reference (mmdet3d) parameter names; the
-    backbone is a ToC3DViT for a ToC3DViTConfig, else the plain EVAViT
-    (detector.py:63-68), which has no score_predictor."""
+    backbone as ``build_backbone`` makes it."""
 
     def __init__(self, cfg: DetectorConfig):
         super().__init__()
         self.cfg = cfg
-        self.img_backbone = (ToC3DViT if isinstance(cfg.backbone,
-                                                    ToC3DViTConfig)
-                             else EVAViT)(cfg.backbone)
+        self.img_backbone = build_backbone(cfg)
         self.img_neck = CPFPN(cfg.neck)
         self.pts_bbox_head = StreamPETRHead(cfg.head)
         self.img_roi_head = FocalHeadParams(cfg.focal)
@@ -95,9 +123,9 @@ class ToC3DDetector(nn.Module):
         """Load a reference-named state dict (numpy arrays or tensors).
         Buffer keys (RoPE tables, code weights, ranges) and the aliased
         cls/reg branch copies 1..L-1 are dropped first, as the JAX
-        converter skips them; everything else must match exactly. A block's
-        calibrated int8 activation scales (``img_backbone.blocks.{i}.
-        act_scales``, see convert.params_from_jax) are attached to that
+        converter skips them; everything else must match exactly. A ViT
+        block's calibrated int8 activation scales (``img_backbone.blocks.
+        {i}.act_scales``, see convert.params_from_jax) are attached to that
         block; a block without them in the dict loses any it had."""
         from .eva_vit import set_act_scales
         sd = {}
@@ -106,8 +134,10 @@ class ToC3DDetector(nn.Module):
                 continue
             sd[k] = v if isinstance(v, torch.Tensor) else torch.from_numpy(
                 np.ascontiguousarray(v))
-        for i, blk in enumerate(self.img_backbone.blocks):
-            set_act_scales(blk, sd.get(f"img_backbone.blocks.{i}.act_scales"))
+        if self.cfg.is_vit:
+            for i, blk in enumerate(self.img_backbone.blocks):
+                set_act_scales(blk,
+                               sd.get(f"img_backbone.blocks.{i}.act_scales"))
         return super().load_state_dict(sd, strict=strict, assign=assign)
 
 
@@ -207,13 +237,9 @@ def init_head_weights_(head: StreamPETRHead, g: torch.Generator) -> None:
     head.cls_branches[0][6].bias.fill_(bias_init_with_prob(0.01))
 
 
-@torch.no_grad()
-def init_weights_(model: ToC3DDetector, g: torch.Generator) -> None:
-    """Random weights with the JAX package's init distributions
-    (layers.py:30-78, eva_vit.py:96-118, streampetr_head.py:130-176)."""
-    from ..layers import bias_init_with_prob
-    init_module_weights_(model, g)
-    bb = model.img_backbone
+def _init_vit_(bb: nn.Module, g: torch.Generator) -> None:
+    """The EVA-02 backbone's own init (eva_vit.py:96-118): pos_embed and
+    the blocks' matrices truncated normal at 0.02, their biases zero."""
     if hasattr(bb, "pos_embed"):
         _trunc_normal_(bb.pos_embed, 0.02, g)
     for blk in bb.blocks:
@@ -224,6 +250,17 @@ def init_weights_(model: ToC3DDetector, g: torch.Generator) -> None:
                 lin_.bias.zero_()
         a.q_bias.zero_()
         a.v_bias.zero_()
+
+
+@torch.no_grad()
+def init_weights_(model: ToC3DDetector, g: torch.Generator) -> None:
+    """Random weights with the JAX package's init distributions
+    (layers.py:30-78, eva_vit.py:96-118, streampetr_head.py:130-176); a
+    VoVNet backbone takes init_module_weights_'s alone (vovnet.py)."""
+    from ..layers import bias_init_with_prob
+    init_module_weights_(model, g)
+    if model.cfg.is_vit:
+        _init_vit_(model.img_backbone, g)
     init_head_weights_(model.pts_bbox_head, g)
     roi = model.img_roi_head
     roi.cls.bias.fill_(bias_init_with_prob(0.01))
@@ -328,8 +365,11 @@ def extract_img_feat(model: ToC3DDetector, img, memory: MemoryBank, frame,
     """img (B, N, H, W, 3) -> neck features (B, N, h, w, C) float32. A uint8
     image is normalized here, on the device (detector.py:142-150). The
     backbone is toc3d_vit_forward, guided by the memory bank, when the
-    config compresses tokens (is_toc3d), else eva_vit_forward
-    (detector.py:206-230). collect_block_outs: also return the ToC3D
+    config compresses tokens (is_toc3d), eva_vit_forward for the plain
+    EVA-02 (detector.py:206-230), and vovnet_forward for a VoVNet, whose
+    two output levels the neck takes (inference only: train, view_scan and
+    collect_block_outs raise); the neck runs in the stage span "neck".
+    collect_block_outs: also return the ToC3D
     backbone's per-block inputs, outputs and scores (toc3d_vit_forward);
     quant overrides the backbone's cfg.quant ('none': the float blocks, as
     calibration runs them); mask_noise: the selectors' Gumbel noise for
@@ -358,6 +398,8 @@ def extract_img_feat(model: ToC3DDetector, img, memory: MemoryBank, frame,
         std = const_vector(IMG_NORM_STD, torch.float32, x.device)
         x = (x.float() - mean) / std
     x = x.to(dtype).contiguous()
+    if train or view_scan or collect_block_outs:
+        require_vit(cfg, "training, view_scan and the collected forward")
     if collect_block_outs and (view_scan or not cfg.is_toc3d):
         # as JAX's extract_img_feat (detector.py:155-159, :221-224), which
         # the static int8 calibration reaches through its collected forward
@@ -369,6 +411,8 @@ def extract_img_feat(model: ToC3DDetector, img, memory: MemoryBank, frame,
         if cfg.is_toc3d else None
 
     def backbone(xs, noise, keep):
+        if not cfg.is_vit:
+            return vovnet_forward(model.img_backbone, xs), {"token_masks": []}
         if cfg.is_toc3d:
             out = toc3d_vit_forward(
                 model.img_backbone, xs, motion_ctx, frame["prev_exists"],
@@ -402,7 +446,9 @@ def extract_img_feat(model: ToC3DDetector, img, memory: MemoryBank, frame,
             for ms in zip(*(o[1]["token_masks"] for o in outs))]}
     else:
         feats, collected = backbone(x, mask_noise, dp_keep)
-    f = cpfpn_forward(model.img_neck, feats, cfg.neck)[cfg.position_level]
+    with stage("neck"):
+        f = cpfpn_forward(model.img_neck, feats, cfg.neck,
+                          train=train)[cfg.position_level]
     f = f.reshape(b, n, f.shape[1], f.shape[2], -1).float()
     return (f, collected) if collect_block_outs or train else f
 
@@ -471,25 +517,42 @@ def infer_step_with_aux(model: ToC3DDetector, state: DetectorState, frame):
 
 @torch.no_grad()
 def precast_backbone_(model: ToC3DDetector) -> None:
-    """Cast the backbone's weight matrices to the compute dtype once
-    (detector.py:291-340). The blocks' and the patch embedding's matrices
-    go into the kernels' packed copies in the compute dtype
+    """Cast the backbone's and the neck's weights to the compute dtype once
+    (detector.py:291-340). The ViT blocks' and the patch embedding's
+    matrices go into the kernels' packed copies in the compute dtype
     (pack_block_weights, pack_patch_weight), built here and kept on the
     modules (every pack a frame reads: runtime/export traces with them as
     they stand); in bf16 the score predictors' matrices are cast in place.
     Biases, LN parameters and pos_embed stay f32; the cast is the same
-    rounding the per-call casts would do.
+    rounding the per-call casts would do. Every convolution of a VoVNet
+    backbone and of the neck goes into its pack (ops/cuda/conv.pack_conv:
+    the compute dtype, channels-last, a VoVNet BatchNorm folded in).
 
-    int8 serving (cfg.backbone.quant 'int8'): the blocks' int8 packs
+    int8 serving (cfg.backbone.quant 'int8', a ViT): the blocks' int8 packs
     instead (pack_block_weights_int8, static activation scales where
     attach_act_scales put them, else dynamic); with cfg.head.decoder.quant
     'int8' also the decoder linears' int8 packs (quantize_decoder_params).
     The kernels take bf16 activations only, so int8 on the card needs
     compute_dtype 'bfloat16'."""
+    from .petr_transformer import quantize_decoder_params
+    cfg = model.cfg
+    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" \
+        else torch.float32
+    if cfg.is_vit:
+        _precast_vit(model)
+    else:
+        pack_vovnet(model.img_backbone, dtype)
+    pack_cpfpn(model.img_neck, dtype)
+    if cfg.head.decoder.quant == "int8":
+        quantize_decoder_params(model.pts_bbox_head.transformer.decoder)
+
+
+def _precast_vit(model: ToC3DDetector) -> None:
+    """precast_backbone_'s ViT part: the patch embedding's, the blocks' and
+    (in bf16) the score predictors' weights."""
     from ..ops.cuda.patch_embed import pack_patch_weight
     from ..ops.cuda.vit_block import (pack_block_weights,
                                       pack_block_weights_int8)
-    from .petr_transformer import quantize_decoder_params
     cfg = model.cfg
     bb = model.img_backbone
     bf16 = cfg.compute_dtype == "bfloat16"
@@ -510,8 +573,6 @@ def precast_backbone_(model: ToC3DDetector) -> None:
             pack_block_weights_int8(blk, cfg.backbone.num_heads, dtype)
         else:
             pack_block_weights(blk, cfg.backbone.num_heads, dtype)
-    if cfg.head.decoder.quant == "int8":
-        quantize_decoder_params(model.pts_bbox_head.transformer.decoder)
 
 
 def frame_seed(mask_seed: int, t: int) -> int:
@@ -539,7 +600,7 @@ class MaskNoise:
         cfg = model.cfg
         self.active = cfg.is_toc3d and cfg.backbone.eval_mask == "gumbel"
         self.selectors = len(cfg.backbone.pruning_loc) if self.active else 0
-        self.patch = cfg.backbone.patch_size
+        self.patch = cfg.backbone.patch_size if self.active else None
         self.seed = mask_seed
         self.counter = 0
         self.generator = torch.Generator(
@@ -603,6 +664,7 @@ def make_infer_fn(model: ToC3DDetector, timer=None, mask_seed: int = 0):
 
 __all__ = ["DetectorConfig", "DetectorState", "DecodedBoxes",
            "FocalHeadConfig", "ToC3DDetector", "build_detector",
+           "build_backbone", "require_vit",
            "init_state", "infer_step", "infer_step_with_aux", "head_step",
            "extract_img_feat",
            "make_infer_fn", "eager_infer_fn", "precast_backbone_",

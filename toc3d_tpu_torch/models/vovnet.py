@@ -1,18 +1,30 @@
 """VoVNet / VoVNetCP CNN backbone, V2 OSA modules with eSE and identity
 (counterpart of toc3d_tpu/models/vovnet.py; reference backbones/
-vovnetcp.py, the StreamPETR V2-99 backbone; unused by the shipped ToC3D
-configs).
+vovnetcp.py): the backbone of StreamPETR's V2-99 configuration
+(configs/presets.stream_petr_vov_flash_800_bs2_seq_24e), which
+models/detector.py builds for a VoVNetConfig.
 
 Module names are the reference's: stem.stem_{1,2,3}/{conv,norm},
 stage{2..5}.OSA{s}_{j}.layers.{i}.OSA{s}_{j}_{i}/{conv,norm},
-...concat.OSA{s}_{j}_concat/{conv,norm}, ...ese.fc. As in the JAX package
-(vovnet.py:122-127), a stage's last block carries the eSE gate and the
-others none; every block after a stage's first adds its input.
+...concat.OSA{s}_{j}_concat/{conv,norm}, ...ese.fc. Every block after a
+stage's first adds its input. The eSE gate sits on each stage's last
+block, as the JAX package reads vovnetcp.py (vovnet.py:122-127). That
+placement is an assumption: one reading of the public ``_OSA_stage`` gives
+eSE to single-block stages only, and only a checkpoint's key set settles
+it. It costs at most one 1x1 convolution of a pooled vector a stage.
 
 BatchNorm is frozen (the reference trains with norm_eval): an affine map of
-the stored statistics, folded into a scale and a bias in f32 and applied in
-the activation dtype (vovnet.py:47-55). The convolutions are cuDNN's
-(F.conv2d), as JAX's are XLA's, on channel-last maps.
+the stored statistics, folded into its convolution's weight and bias in
+f32 (ops/cuda/conv.fold_conv), so a convolution, its BatchNorm and its
+ReLU are one convolution with a bias and a ReLU: one fused cuDNN call on
+the card. The convolutions are cuDNN's, as JAX's are XLA's, on
+channel-last maps, through the packs of ops/cuda/conv (the weight in the
+activation dtype, channels-last, built once by
+detector.precast_backbone_), so a captured frame casts no weight and
+transposes none. Inference only: the packs hold no autograd history.
+
+Stage spans (runtime/timer.stage): "stem" and "stage2" .. "stage5" inside
+the current timer's open span ("backbone+neck" in a served frame).
 """
 from __future__ import annotations
 
@@ -24,7 +36,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..layers import conv2d
+from ..ops.cuda.conv import pack_conv, packed_conv2d
+from ..runtime.timer import stage
 
 STAGE_SPECS: Dict[str, Dict] = {
     "V-39-eSE": dict(stem=(64, 64, 128), stage_conv_ch=(128, 160, 192, 224),
@@ -111,18 +124,10 @@ class VoVNet(nn.Module):
             in_ch = spec["stage_out_ch"][i]
 
 
-def frozen_bn(norm: nn.BatchNorm2d, x):
-    """Frozen BatchNorm of channel-last x: scale and bias from the stored
-    statistics in f32, cast to x's dtype, then x * scale + bias."""
-    inv = torch.rsqrt(norm.running_var.float() + norm.eps)
-    w = norm.weight.float() * inv
-    bias = (norm.bias.float()
-            - norm.running_mean.float() * norm.weight.float() * inv)
-    return x * w.to(x.dtype) + bias.to(x.dtype)
-
-
-def _cbr_forward(seq: nn.Sequential, x):
-    return F.relu(frozen_bn(seq[1], conv2d(seq[0], x)))
+def cbr_forward(seq: nn.Sequential, x):
+    """Conv -> frozen BatchNorm -> ReLU of a channel-last map, the norm
+    folded into the convolution (one fused cuDNN call on the card)."""
+    return packed_conv2d(seq[0], x, seq[1], relu=True)
 
 
 def osa_forward(m: OSAModule, x):
@@ -130,12 +135,13 @@ def osa_forward(m: OSAModule, x):
     outs = [x]
     y = x
     for layer in m.layers:
-        y = _cbr_forward(layer, y)
+        y = cbr_forward(layer, y)
         outs.append(y)
-    y = _cbr_forward(m.concat, torch.cat(outs, dim=-1))
+    y = cbr_forward(m.concat, torch.cat(outs, dim=-1))
     if hasattr(m, "ese"):
-        g = conv2d(m.ese.fc, y.mean(dim=(1, 2), keepdim=True))
-        y = y * ((g + 3.0).clamp(0.0, 6.0) / 6.0)          # hsigmoid
+        g = F.hardsigmoid(packed_conv2d(m.ese.fc,
+                                        y.mean(dim=(1, 2), keepdim=True)))
+        return torch.addcmul(x, y, g) if m.identity else y * g
     return y + x if m.identity else y
 
 
@@ -145,19 +151,35 @@ def maxpool_ceil(x, k: int = 3, s: int = 2):
                         ceil_mode=True).permute(0, 2, 3, 1)
 
 
+def pack_vovnet(model: VoVNet, dtype) -> None:
+    """Build the pack of every convolution of ``model`` in ``dtype`` (each
+    BatchNorm folded into the convolution before it), so that a frame
+    builds none (ops/cuda/conv.pack_conv; cached until the weights
+    change)."""
+    for mod in model.modules():
+        if isinstance(mod, nn.Sequential):
+            for conv, norm in zip(mod, mod[1:]):
+                if isinstance(norm, nn.BatchNorm2d):
+                    pack_conv(conv, dtype, norm)
+        elif isinstance(mod, ESE):
+            pack_conv(mod.fc, dtype)
+
+
 def vovnet_forward(model: VoVNet, x):
     """x (B, H, W, 3) -> the list of cfg.out_features maps ('stem',
-    'stage2' .. 'stage5', strides 4 .. 32), channel-last (vovnet.py:
-    143-160)."""
+    'stage2' .. 'stage5', strides 4 .. 32), channel-last, in x's dtype
+    (vovnet.py:143-160)."""
     cfg = model.cfg
-    for i in range(3):
-        x = _cbr_forward(model.stem[3 * i:3 * i + 3], x)
+    with stage("stem"):
+        for i in range(3):
+            x = cbr_forward(model.stem[3 * i:3 * i + 3], x)
     outs = [x] if "stem" in cfg.out_features else []
     for i in range(4):
-        if i:
-            x = maxpool_ceil(x)
-        for blk in getattr(model, f"stage{i + 2}"):
-            x = osa_forward(blk, x)
+        with stage(f"stage{i + 2}"):
+            if i:
+                x = maxpool_ceil(x)
+            for blk in getattr(model, f"stage{i + 2}"):
+                x = osa_forward(blk, x)
         if f"stage{i + 2}" in cfg.out_features:
             outs.append(x)
     return outs

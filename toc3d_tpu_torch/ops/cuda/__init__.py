@@ -4,7 +4,8 @@ toc3d_tpu/ops/pallas/: patch_embed (patchify_matmul), vit_block
 cross_attn (flash_attention_core); int8 holds the quantization math, the
 int8 GEMM G8 and row quantization of those int8 forms, and kernel H8, the
 head's int8 linears (csrc/int8_linear.cu); auction the training matcher
-(toc3d_tpu/core/auction.py, plain jnp in JAX).
+(toc3d_tpu/core/auction.py, plain jnp in JAX); conv the CNN encoder's
+convolutions on packed weights (cuDNN; XLA's convolutions in JAX).
 
 Each wrapper takes its plain PyTorch version only for tensors that lie on the
 CPU; for a CUDA tensor it launches the kernel or raises. Each wrapper counts
@@ -144,13 +145,15 @@ def counted_wrappers():
     int8 matmul of B8 and C8), the blocks' LayerNorm, the training
     matcher's auction (one launch a cost tensor), and the window
     attention's one-pass and two-pass bodies (one launch a B or C, and a B8
-    or C8). The counts of A-D, B8, C8 and H8 tick in their ops' CUDA
-    implementations, so a loaded exported program's launches count too."""
-    from . import auction, cross_attn, int8, patch_embed, vit_block
+    or C8), then the CNN encoder's convolutions on packed weights (conv:
+    one a VoVNet or CPFPN convolution at inference). The counts of A-D,
+    B8, C8 and H8 tick in their ops' CUDA implementations, so a loaded
+    exported program's launches count too."""
+    from . import auction, conv, cross_attn, int8, patch_embed, vit_block
     return (patch_embed.patchify_matmul, vit_block.fused_full_block,
             vit_block.fused_compressed_block, cross_attn.flash_attention_core,
             vit_block.fused_full_block_int8,
             vit_block.fused_compressed_block_int8, int8.int8_linear,
             vit_block._gemm, int8.gemm_s8_sm90, vit_block.layernorm,
             auction.auction_match, vit_block.window_attention_one_pass,
-            vit_block.window_attention_two_pass)
+            vit_block.window_attention_two_pass, conv.conv2d)

@@ -250,10 +250,12 @@ def export_detector(model, out_dir: str, batch_size: int = 1,
     attach calibrated scales before (ops/int8_calib.attach_act_scales).
     img_dtype torch.uint8: the programs take raw uint8 frames, normalized on
     the device. eval_mask 'gumbel' draws noise every frame and has no
-    fixed-signature program: it raises ValueError."""
+    fixed-signature program: it raises ValueError; a VoVNet backbone
+    raises NotImplementedError."""
     from ..models.detector import (extract_img_feat, head_step, init_state,
-                                   precast_backbone_)
+                                   precast_backbone_, require_vit)
     cfg = model.cfg
+    require_vit(cfg, "export")
     if getattr(cfg.backbone, "eval_mask", "softmax") == "gumbel":
         raise ValueError("eval_mask='gumbel' (stochastic eval) is not "
                          "exportable; use the deterministic default")

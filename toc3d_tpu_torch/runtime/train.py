@@ -61,7 +61,8 @@ import torch.distributed as dist
 from ..core.assigner import cost_2d, cost_3d, hungarian_match
 from ..core.dn import dn_reference_points, draw_dn_noise, prepare_for_dn
 from ..core.losses import token_selection_loss
-from ..models.detector import ToC3DDetector, extract_img_feat
+from ..models.detector import (ToC3DDetector, extract_img_feat,
+                               require_vit)
 from ..models.eva_vit import drop_path_rates
 from ..models.focal_head import focal_head_forward
 from ..models.focal_head_loss import focal_head_loss, scatter_rows
@@ -339,6 +340,7 @@ def build_train_packs(model: ToC3DDetector) -> None:
     from ..ops.cuda.patch_embed import pack_patch_weight
     from ..ops.cuda.vit_block import pack_block_weights
     cfg = model.cfg
+    require_vit(cfg, "training")
     bb = model.img_backbone
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" \
         else torch.float32
