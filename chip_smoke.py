@@ -1,6 +1,11 @@
 """Smoke run of the PyTorch / CUDA port (toc3d_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --qkv-handoff [TREE]
+
+(The second: check_qkv_handoff alone, the QKV epilogue and the window
+attention at the kernel table's shapes, beside the window attention of the
+checkout at TREE, e.g. a `git archive` of an earlier commit, when given.)
 
 Phases, each fatal on failure (exit code != 0):
   1. device: needs torch.cuda; prints the nvidia-smi name / power limit line;
@@ -962,10 +967,17 @@ def block_rows(cfg, ws, ratio, b=6, h=50, w=100):
     return nw, kr, nw * kr
 
 
+def pad_rows(ws, ratio, h=50, w=100):
+    """The rows of LN(0) a full block runs through LN1 and the QKV GEMM
+    beyond its tokens (ops/cuda/vit_block._full_attention): one a window
+    place where windows pass the (h, w) map's edge."""
+    return ws * ws if ratio is None and (h % ws or w % ws) else 0
+
+
 def ln_sites(cfg, b=6, h=50, w=100):
     """The LayerNorm call sites of every block shape of the backbone on a
     (b, h, w) patch map: {name: (x rows, output rows, n, npad, residual)}.
-    B: LN1 with its LN(0) row, LN2, the SwiGLU sub-LN on the gate output's
+    B: LN1 with its LN(0) rows, LN2, the SwiGLU sub-LN on the gate output's
     npad columns (hid of them the hidden width, in place in bf16); C at
     each (ws, ratio) on its k + 1 rows a window: LN1, LN2 that adds the
     attention delta and stores the sum, the sub-LN."""
@@ -976,7 +988,8 @@ def ln_sites(cfg, b=6, h=50, w=100):
     for ws, r in frame_blocks(cfg):
         rows = block_rows(cfg, ws, r, b, h, w)[2]
         kind = "B" if r is None else f"C ws{ws} r{r}"
-        sites[f"LN1 {kind}"] = (rows, rows + (r is None), c, c, False)
+        sites[f"LN1 {kind}"] = (rows, rows + pad_rows(ws, r, h, w), c, c,
+                                False)
         sites[f"LN2 {kind}"] = (rows, rows, c, c, r is not None)
         sites[f"sub-LN {kind}"] = (rows, rows, hid, hp, False)
     return sites
@@ -1091,8 +1104,8 @@ def phase_rows(model, results):
     that one call computes, F.layer_norm. Then the window attention of B
     and C and the row quantization of B8 / C8's proj_in site and of the
     head's 30000 image tokens (the input of H8's oracle, the old tile),
-    timed beside their bounds (SDPA on windowed q / k / v for the
-    attention; both of its bodies), and the per-frame bounds of the three
+    timed beside their bounds (check_qkv_handoff for the attention and the
+    QKV epilogue that feeds it), and the per-frame bounds of the three
     families."""
     import torch
     import torch.nn.functional as F
@@ -1119,7 +1132,8 @@ def phase_rows(model, results):
         total = 0.0
         for nw, n, rows, ws, r in blocks:
             full = r is None
-            total += (ln_bytes(rows, rows + full, c, c, False, mode)
+            total += (ln_bytes(rows, rows + pad_rows(ws, r), c, c, False,
+                               mode)
                       + ln_bytes(rows, rows, c, c, not full, mode)
                       + ln_bytes(rows, rows, hid, hp, False, mode))
         log(f"LayerNorm family bound per frame, {mode}: "
@@ -1128,8 +1142,7 @@ def phase_rows(model, results):
     wa_ms = {"bytes": 0.0, "operations": 0.0}
     rq_ms = 0.0
     for nw, n, rows, ws, r in blocks:
-        wa_ms["bytes"] += ((rows + (r is None)) * 3 * c * 4 + rows * c * 2
-                           + ws * ws * (c // heads) * 8) / PEAK_BYTES * 1e3
+        wa_ms["bytes"] += rows * c * (3 * 2 + 2) / PEAK_BYTES * 1e3
         wa_ms["operations"] += 4 * nw * n * n * c / PEAK_BF16_FLOPS * 1e3
         rq_ms += rows * (c * 3 + 4) / PEAK_BYTES * 1e3
     log(f"window attention family bound per frame: bytes "
@@ -1137,52 +1150,7 @@ def phase_rows(model, results):
         f"(24 launches); row quantization of the blocks' proj_in sites per "
         f"int8 frame: {rq_ms:.5f} ms (24 launches, dynamic)")
 
-    # window attention alone: B at ws 16 / 20, C at ws 16 / 20 ratio .5
-    win, glb = make_rope_tables(cfg)
-    rope = {cfg.window_size: rope_tensors(win, dev),
-            cfg.global_window_size: rope_tensors(glb, dev)}
-    d = c // heads
-    scores = torch.randn(6, 5000, device=dev, generator=g).to(bf)
-    for ws, ratio in ((cfg.window_size, None), (cfg.global_window_size, None),
-                      (cfg.window_size, cfg.token_ratio[0]),
-                      (cfg.global_window_size, cfg.token_ratio[0])):
-        nw, n, rows = block_rows(cfg, ws, ratio)
-        image = ratio is None
-        qkv = torch.randn(rows + image, 3 * c, device=dev, generator=g) * 0.3
-        out = torch.empty(rows, c, dtype=bf, device=dev)
-        cos, sin = (t[:ws * ws].float().contiguous() for t in rope[ws])
-        pos = None
-        if not image:
-            plan = vit_block.compress_plan(scores, 6, 50, 100, ws, ratio,
-                                           True, cfg.mxu_align_k)
-            pos = torch.cat([plan.slow_idx, torch.full_like(
-                plan.slow_idx[:, :1], plan.k)], 1).to(torch.int32)
-            pos = pos.contiguous()
-        def run(one_pass):
-            return lambda: vit_block.window_attention_launch(
-                qkv, out, (6, 50, 100), ws, nw, n, heads, image, pos, cos,
-                sin, one_pass=one_pass)
-        qs, ks, vs = (torch.randn(nw, heads, n, d, device=dev,
-                                  generator=g).to(bf) for _ in range(3))
-        b_ms, b_by = bound(4 * nw * n * n * c,
-                           (rows + image) * 3 * c * 4 + rows * c * 2
-                           + ws * ws * d * 4 * 2)
-        # ms: the one-pass body (B, C); two_pass_ms: the int8 blocks' body
-        entry = dict(shape=f"{'B' if image else 'C'} ws {ws}"
-                           f"{'' if image else f', ratio {ratio}'}: {nw} "
-                           f"windows x {n} rows, qkv ({rows + image},"
-                           f"{3 * c}) f32 -> ({rows},{c}) bf16",
-                     ms=cuda_time(run(True), 20),
-                     two_pass_ms=cuda_time(run(False), 20),
-                     library_ms=cuda_time(
-                         lambda: F.scaled_dot_product_attention(
-                             qs, ks, vs, scale=1.0), 20),
-                     bound_ms=b_ms, bound_by=b_by,
-                     blocks_per_sm=build.occupancy(
-                         "vit_block", "toc3d_window_attention_occupancy", d,
-                         1))
-        log(f"time window attention: {json.dumps(entry)}")
-        del qkv, out, qs, ks, vs
+    ok_all &= check_qkv_handoff(cfg, g)
 
     # row quantization alone: the proj_in site of B8 / C8, and the decoder's
     # 30000 image tokens of width 256 (H8 quantizes inside its own kernel;
@@ -1208,6 +1176,182 @@ def phase_rows(model, results):
                          library_ms=None, bound_ms=b_ms, bound_by=b_by,
                          equal_to_plain=ok)
             log(f"time row quantization: {json.dumps(entry)}")
+    return ok_all
+
+
+def rope2_bf16(v, rope, tr):
+    """bf16 of the kernels' rope2 on the f32 (rows, 3C) v at table rows tr
+    (tests/test_torch_cuda.py's restatement): each pair (a, b) of q and k
+    goes to fma(a, c0, fl(-b s0)) and fma(b, c1, fl(a s1)), v as it is."""
+    import torch
+    rows, c3 = v.shape
+    cos, sin = (t[tr].double().reshape(rows, 1, -1, 2) for t in rope)
+    qk = v[:, :2 * c3 // 3].double().reshape(rows, -1, cos.shape[2], 2)
+    a, b = qk[..., 0], qk[..., 1]
+    na = (a * cos[..., 0] + (-b * sin[..., 0]).float().double()).float()
+    nb = (b * cos[..., 1] + (a * sin[..., 1]).float().double()).float()
+    qk = torch.stack([na, nb], -1).reshape(rows, -1)
+    return torch.cat([qk.to(torch.bfloat16),
+                      v[:, 2 * c3 // 3:].to(torch.bfloat16)], 1)
+
+
+def parent_window_attention(tree):
+    """The window attention entry point of another checkout of this repo
+    (a tree whose kernel still reads the f32 q / k / v and the RoPE tables:
+    qkv, pos, cos, sin, out, nw, n, heads, head_dim, image, B, H, W, ws,
+    one_pass, stream), compiled from <tree>/toc3d_tpu_torch/csrc into
+    build/kernels/ with the port's flags."""
+    import ctypes
+    import hashlib
+    from pathlib import Path
+    from toc3d_tpu_torch.ops.cuda import build
+    src = Path(tree) / "toc3d_tpu_torch" / "csrc"
+    h = hashlib.sha256(b"".join((src / f).read_bytes() for f in
+                                ("vit_block.cu",) + build.HEADERS))
+    out = build.BUILD_DIR / f"libparent_vit_block-{h.hexdigest()[:16]}.so"
+    if not out.exists():
+        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        r = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o",
+                            str(out), str(src / "vit_block.cu")],
+                           capture_output=True, text=True)
+        if r.returncode:
+            raise RuntimeError(f"nvcc failed for {src}:\n{r.stdout}")
+    fn = ctypes.CDLL(str(out)).toc3d_window_attention
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_qkv_handoff(cfg, g, parent=None):
+    """The QKV hand-off at the kernel table's shapes (B ws 16 / 20; C ws 16
+    / 20 ratio .5, ws 16 ratio .3, each with the representative row):
+    kernel G's QKV epilogue (bf16 q / k / v, RoPE applied; and G8's) bit
+    for bit bf16(rope2(the f32 epilogue's output)), timed beside the f32
+    epilogue that fed the window attention before it; the window attention
+    on that output, each body, timed beside SDPA on windowed q / k / v and
+    the bound (q / k / v read in bf16); with ``parent``, a checkout whose
+    kernel reads the f32 output and applies RoPE in its producer, that
+    kernel on the f32 output, timed and bit for bit against the new
+    outputs, and the two paths' sums."""
+    import torch
+    import torch.nn.functional as F
+    from toc3d_tpu_torch.models.eva_vit import make_rope_tables, rope_tensors
+    from toc3d_tpu_torch.ops.cuda import build, int8, vit_block
+    from toc3d_tpu_torch.ops.cuda.build import stream_of
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    c, heads = cfg.embed_dim, cfg.num_heads
+    d = c // heads
+    old = parent_window_attention(parent) if parent else None
+    win, glb = make_rope_tables(cfg)
+    tabs = {cfg.window_size: rope_tensors(win, dev),
+            cfg.global_window_size: rope_tensors(glb, dev)}
+    scores = torch.randn(6, 5000, device=dev, generator=g).to(bf)
+    w = (torch.randn(3 * c, c, device=dev, generator=g) * c ** -0.5).to(bf)
+    bias = torch.randn(3 * c, device=dev, generator=g) * 0.1
+    wq = torch.randint(-127, 128, (3 * c, c), device=dev, generator=g,
+                       dtype=torch.int8)
+    sc = torch.rand(3 * c, device=dev, generator=g) * 1e-3 + 1e-4
+    ok_all = True
+    sums = {}
+    for ws, ratio in ((cfg.window_size, None), (cfg.global_window_size, None),
+                      (cfg.window_size, cfg.token_ratio[0]),
+                      (cfg.global_window_size, cfg.token_ratio[0]),
+                      (cfg.window_size, cfg.token_ratio[-1])):
+        nw, n, rows = block_rows(cfg, ws, ratio)
+        image = ratio is None
+        rope = tuple(t[:ws * ws].float().contiguous() for t in tabs[ws])
+        pos = None
+        m = rows + (ws * ws if image else 0)   # the map passes the windows
+        if not image:
+            plan = vit_block.compress_plan(scores, 6, 50, 100, ws, ratio,
+                                           True, cfg.mxu_align_k)
+            pos = torch.cat([plan.slow_idx, torch.full_like(
+                plan.slow_idx[:, :1], plan.k)], 1).to(torch.int32)
+            pos = pos.contiguous()
+        tr = vit_block.qkv_table_rows(m, pos, (6, 50, 100), ws).to(dev)
+        kw = dict(rope=rope, pos=pos, map_shape=(6, 50, 100), ws=ws)
+        hin = torch.randn(m, c, device=dev, generator=g).to(bf)
+        aq = torch.randint(-127, 128, (m, c), device=dev, generator=g,
+                           dtype=torch.int8)
+        xs = torch.rand(m, device=dev, generator=g) * 0.01 + 1e-3
+        if image:   # the pad rows are one row (LN(0)), as in the block
+            for t in (hin, aq, xs):
+                t[rows:] = t[rows]
+        f32 = {False: torch.empty(m, 3 * c, device=dev),
+               True: torch.empty(m, 3 * c, device=dev)}
+        q16 = {False: torch.empty(m, 3 * c, dtype=bf, device=dev),
+               True: torch.empty(m, 3 * c, dtype=bf, device=dev)}
+        runs = {
+            False: (lambda: vit_block.gemm_bf16(hin, w, bias, out_f32=True,
+                                                out=f32[False]),
+                    lambda: vit_block.gemm_qkv(hin, w, bias, out=q16[False],
+                                               **kw)),
+            True: (lambda: int8.gemm_s8_sm90(aq, xs, wq, sc, bias,
+                                             out_f32=True, out=f32[True]),
+                   lambda: vit_block.gemm_qkv(aq, wq, bias, xs=xs, scales=sc,
+                                              out=q16[True], **kw))}
+        out = torch.empty(rows, c, dtype=bf, device=dev)
+        out_old = torch.empty(rows, c, dtype=bf, device=dev)
+        qs, ks, vs = (torch.randn(nw, heads, n, d, device=dev,
+                                  generator=g).to(bf) for _ in range(3))
+        b_ms, b_by = bound(4 * nw * n * n * c, rows * c * (3 * 2 + 2))
+        tag = f"{'B' if image else 'C'} ws {ws}" + (
+            "" if image else f", ratio {ratio}")
+        for s8 in (False, True):
+            one_pass = not s8
+            run_f32, run_qkv = runs[s8]
+            run_f32()
+            run_qkv()
+            same = torch.equal(q16[s8], rope2_bf16(f32[s8], rope, tr))
+            ok_all &= same
+
+            def attn(one_pass=one_pass, s8=s8):
+                return vit_block.window_attention_launch(
+                    q16[s8], out, (6, 50, 100), ws, nw, n, heads, image,
+                    one_pass=one_pass)
+
+            def attn_old(one_pass=one_pass, s8=s8):
+                ptr = lambda t: None if t is None else t.data_ptr()
+                rc = old(f32[s8].data_ptr(), ptr(pos), rope[0].data_ptr(),
+                         rope[1].data_ptr(), out_old.data_ptr(), nw, n,
+                         heads, d, int(image), 6, 50, 100, ws,
+                         int(one_pass), stream_of(out_old))
+                assert rc == 0, rc
+            entry = dict(shape=f"{tag}: {nw} windows x {n} rows, "
+                               f"{'G8' if s8 else 'G'} QKV ({m},{3 * c}), "
+                               f"{'two' if s8 else 'one'}-pass body",
+                         qkv_bf16_equal_rope2_of_f32=same,
+                         qkv_ms=cuda_time(run_qkv, 20),
+                         qkv_f32_ms=cuda_time(run_f32, 20),
+                         ms=cuda_time(attn, 20),
+                         library_ms=cuda_time(
+                             lambda: F.scaled_dot_product_attention(
+                                 qs, ks, vs, scale=1.0), 20),
+                         bound_ms=b_ms, bound_by=b_by,
+                         blocks_per_sm=build.occupancy(
+                             "vit_block",
+                             "toc3d_window_attention_occupancy", d,
+                             int(one_pass)))
+            entry["path_ms"] = entry["qkv_ms"] + entry["ms"]
+            if old is not None:
+                attn()
+                attn_old()
+                torch.cuda.synchronize()
+                entry["equal_to_parent"] = torch.equal(out, out_old)
+                ok_all &= entry["equal_to_parent"]
+                entry["parent_ms"] = cuda_time(attn_old, 20)
+                entry["parent_path_ms"] = entry["qkv_f32_ms"] + \
+                    entry["parent_ms"]
+                entry["ms_again"] = cuda_time(attn, 20)
+            for k in ("path_ms", "parent_path_ms"):
+                if k in entry:
+                    sums[(s8, k)] = sums.get((s8, k), 0.0) + entry[k]
+            log(f"time qkv hand-off: {json.dumps(entry)}")
+        del f32, q16, hin, aq, out, out_old, qs, ks, vs
+    named = {("int8 " if s8 else "bf16 ") + k: v for (s8, k), v in
+             sums.items()}
+    log(f"qkv hand-off sums over the five shapes: {json.dumps(named)}")
     return ok_all
 
 
@@ -1458,7 +1602,7 @@ def preset_shapes(main="ToC3D_faster_1600"):
     those of ``main``, which phases 3-4 and 6 hold: {"A": {(h, w, c)}, "D":
     {keys}, "blocks": {(c, heads, hid, h, w, ws, ratio): (preset, backbone
     config)}, "gemm": {(c, hid): {rows}}, "ln": {site: name}}. A block's
-    GEMMs run at B's tokens plus the LN(0) row, or at C's rows; G and G8
+    QKV GEMM runs at B's tokens plus its LN(0) rows, or at C's rows; G and G8
     alone are held at each map's B rows and its largest C rows."""
     from toc3d_tpu_torch.configs import get_config
     from toc3d_tpu_torch.configs.presets import PRESETS
@@ -1478,7 +1622,8 @@ def preset_shapes(main="ToC3D_faster_1600"):
                                      (name, bcfg))
             rows = block_rows(bcfg, ws, r, 6, h, w)[2]
             if r is None:
-                out["gemm"].setdefault((c, hid), set()).add(rows + 1)
+                out["gemm"].setdefault((c, hid), set()).add(
+                    rows + pad_rows(ws, r, h, w))
             else:
                 c_rows = max(c_rows, rows)
         if c_rows:
@@ -4739,6 +4884,18 @@ def main() -> int:
     from toc3d_tpu_torch.configs import get_config
     from toc3d_tpu_torch.models.detector import build_detector
 
+    if sys.argv[1:2] == ["--qkv-handoff"]:
+        # the QKV hand-off alone, beside another checkout's window
+        # attention when its tree is given
+        from toc3d_tpu_torch.ops.cuda import build
+        build.build_all(["vit_block"])
+        g = torch.Generator(device="cuda").manual_seed(6)
+        with torch.no_grad():
+            ok = check_qkv_handoff(get_config("ToC3D_faster_1600").backbone,
+                                   g, sys.argv[2] if sys.argv[2:] else None)
+        log(smi)
+        log(json.dumps({"ok": ok}))
+        return 0 if ok else 1
     phase_build()
     t0 = time.perf_counter()
     model = build_detector(get_config("ToC3D_faster_1600"), device="cuda",

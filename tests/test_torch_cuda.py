@@ -11,7 +11,11 @@ attention of kr = 201 rows on its own, and at the main path's own shapes
 on the 6 x 50 x 100 map (B at ws 16 and 20, C at ratios .5 and .3 with and
 without the representative row), each of its two bodies (a bf16 pack: the
 one-pass body; an int8 pack: the two-pass body), and each body's launches in
-a captured ToC3D_faster_1600 frame. Kernel G, the bf16 TMA + wgmma GEMM
+a captured ToC3D_faster_1600 frame. Kernel G's and G8's QKV epilogue (q
+and k rotated by RoPE in f32, then bf16) bit for bit the f32 epilogue's
+output rotated the same way, at the main path's QKV shapes (B's pad table
+included) and small ones (head dim 32, no RoPE), and counted 24 times a
+ViT frame and never in a V2-99 one. Kernel G, the bf16 TMA + wgmma GEMM
 of B and C, alone with every epilogue, ragged M, N and K (K tails that TMA
 zero-fills), and the operands it refuses. The int8
 forms B8 / C8 (dynamic and static) and their parts: the mma.sync int8 GEMM
@@ -369,6 +373,104 @@ def test_window_attention_main_shapes(dev, ws, ratio, rep, int8):
         vit_block.pack_block_weights
     _close(out, vit_block.attention_delta_plain(pack(blk, 16, BF), x, 16, ws,
                                                 tables, plan))
+
+
+def _rope2_bf16(v, rope, tr):
+    """bf16 of the kernels' rope2 on the f32 (rows, 3C) v at table rows tr:
+    each pair (a, b) of q and k goes to fma(a, c0, fl(-b s0)) and fma(b, c1,
+    fl(a s1)) (products exact in f64, the FMA's rounding through f64), v as
+    it is."""
+    if rope is None:
+        return v.to(BF)
+    rows, c3 = v.shape
+    cos, sin = (t[tr].double().reshape(rows, 1, -1, 2) for t in rope)
+    qk = v[:, :2 * c3 // 3].double().reshape(rows, -1, cos.shape[2], 2)
+    a, b = qk[..., 0], qk[..., 1]
+    na = (a * cos[..., 0] + (-b * sin[..., 0]).float().double()).float()
+    nb = (b * cos[..., 1] + (a * sin[..., 1]).float().double()).float()
+    qk = torch.stack([na, nb], -1).reshape(rows, -1)
+    return torch.cat([qk.to(BF), v[:, 2 * c3 // 3:].to(BF)], 1)
+
+
+def _qkv_case(dev, g, shape, ws, ratio, rep, align=True):
+    """(rows, pos) of a QKV call: a full block's map rows and, where windows
+    pass the map's edge, its ws^2 pad rows; or a compressed block's rows at
+    their table rows."""
+    b, h, w = shape
+    if ratio is None:
+        pads = h % ws or w % ws
+        return b * h * w + (ws * ws if pads else 0), None
+    scores = torch.randn(b, h * w, device=dev, generator=g).to(BF)
+    plan = vit_block.compress_plan(scores, b, h, w, ws, ratio, rep, align)
+    pos = plan.slow_idx
+    if plan.has_rep:
+        pos = torch.cat([pos, torch.full_like(pos[:, :1], plan.k)], 1)
+    pos = pos.to(torch.int32).contiguous()
+    return pos.numel(), pos
+
+
+def _check_qkv_epilogue(dev, g, int8_, c, heads, shape, ws, rows, pos,
+                        rope):
+    """gemm_qkv (G, or G8 with int8_) against bf16(rope2(the same kernel's
+    f32 output)) bit for bit, one launch counted on G or G8."""
+    n = 3 * c
+    if int8_:
+        aq, xs, wq, sc, bias, _ = _s8_operands(dev, rows, n, c, False,
+                                               rows + n)
+        f32 = int8.gemm_s8_sm90(aq, xs, wq, sc, bias, out_f32=True)
+        kw = dict(xs=xs, scales=sc)
+        counter, a, wt = int8.gemm_s8_sm90, aq, wq
+    else:
+        a = torch.randn(rows, c, device=dev, generator=g).to(BF)
+        wt = (torch.randn(n, c, device=dev, generator=g) * c ** -0.5).to(BF)
+        bias = torch.randn(n, device=dev, generator=g)
+        f32 = vit_block.gemm_bf16(a, wt, bias, out_f32=True)
+        kw, counter = {}, vit_block._gemm
+    before = counter.launches
+    got = vit_block.gemm_qkv(a, wt, bias, rope=rope, pos=pos,
+                             map_shape=shape, ws=ws, **kw)
+    assert counter.launches == before + 1
+    tr = None if rope is None else vit_block.qkv_table_rows(
+        rows, pos, shape, ws).to(dev)
+    assert got.dtype == BF and got.shape == (rows, n)
+    assert torch.equal(got, _rope2_bf16(f32, rope, tr))
+
+
+# the QKV calls of the main path's blocks on the 6 x 50 x 100 map: B at ws
+# 16 / 20 (both pass the map's edge: the pad table), C at ws 16, ratios .5
+# and .3, with and without the representative row
+MAIN_QKV = [(16, None, True), (20, None, True)] + [
+    (16, ratio, rep) for ratio in (0.5, 0.3) for rep in (True, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8_", [False, True])
+@pytest.mark.parametrize("ws,ratio,rep", MAIN_QKV)
+def test_qkv_epilogue_main_shapes(dev, ws, ratio, rep, int8_):
+    """Kernel G's and G8's QKV epilogue at the main path's shapes (ViT-L,
+    16 heads of 64): bf16 q / k / v equal to bf16(rope2(the f32 epilogue's
+    output)), bit for bit, the pad table's rows included."""
+    g = torch.Generator(device=dev).manual_seed(ws + int(10 * (ratio or 0)))
+    shape = (6, 50, 100)
+    rows, pos = _qkv_case(dev, g, shape, ws, ratio, rep)
+    _check_qkv_epilogue(dev, g, int8_, 1024, 16, shape, ws, rows, pos,
+                        _rope(1024, 16, ws, dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8_", [False, True])
+@pytest.mark.parametrize("c,heads,mode,tables", [
+    (64, 2, "image", True),     # head_dim 32, N 192: q, k, v in one tile
+    (64, 2, "rows", True),
+    (128, 2, "image", False),   # no RoPE: the rounding alone
+    (128, 2, "rows", True)])
+def test_qkv_epilogue_small(dev, c, heads, mode, tables, int8_):
+    g = torch.Generator(device=dev).manual_seed(c + heads)
+    shape, ws = (2, 7, 11), 4
+    rows, pos = _qkv_case(dev, g, shape, ws, None if mode == "image" else
+                          0.5, True)
+    _check_qkv_epilogue(dev, g, int8_, c, heads, shape, ws, rows, pos,
+                        _rope(c, heads, ws, dev) if tables else None)
 
 
 @pytest.mark.cuda
@@ -937,7 +1039,7 @@ def test_captured_main_frame_counts_window_attention_bodies(dev, quant):
     """A replayed ToC3D_faster_1600 frame (6 views of 1600x800, random
     weights) runs the window attention's one-pass body 24 times (6 B and
     18 C) and the two-pass body never; with int8 blocks (dynamic) the
-    reverse."""
+    reverse. Either way the QKV epilogue hands it q / k / v 24 times."""
     from dataclasses import replace
     from toc3d_tpu_torch.configs import get_config
     from toc3d_tpu_torch.models.detector import (build_detector, init_state,
@@ -960,12 +1062,13 @@ def test_captured_main_frame_counts_window_attention_bodies(dev, quant):
     for f in frames[:3]:
         state, _ = infer(state, f)
     bodies = (vit_block.window_attention_one_pass,
-              vit_block.window_attention_two_pass)
+              vit_block.window_attention_two_pass,
+              vit_block.qkv_rope_epilogue)
     before = [b.launches for b in bodies]
     infer(state, frames[3])
     torch.cuda.synchronize()
     assert [b.launches - n for b, n in zip(bodies, before)] == \
-        ([24, 0] if quant == "none" else [0, 24])
+        ([24, 0, 24] if quant == "none" else [0, 24, 24])
 
 
 @pytest.mark.cuda
@@ -1238,7 +1341,7 @@ def test_v299_frame_counts_106_convolutions(v299):
     """A replayed V2-99 frame, and an eager one, launch the encoder's 106
     convolutions (3 stem, 16 blocks x 6, 4 eSE, 3 in the neck) through the
     packed-convolution wrapper and kernel D 12 times (6 layers x self and
-    cross), and none of the ViT's kernels."""
+    cross), and none of the ViT's kernels (the QKV epilogue 0 times)."""
     from toc3d_tpu_torch.models.detector import infer_step, init_state
     from toc3d_tpu_torch.ops.cuda import conv, counted_wrappers
     model, infer, frames = v299
@@ -1252,6 +1355,7 @@ def test_v299_frame_counts_106_convolutions(v299):
         got = {c: c.launches - n for c, n in zip(counters, before)}
         assert got[conv.conv2d] == 106
         assert got[cross_attn.flash_attention_core] == 12
+        assert got[vit_block.qkv_rope_epilogue] == 0
         assert sum(got.values()) == 118
 
 

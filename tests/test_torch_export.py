@@ -453,7 +453,7 @@ def test_capture_and_export_import_no_model_module():
         "import sys\n"
         "from toc3d_tpu_torch.runtime import capture, export\n"
         "from toc3d_tpu_torch.ops.cuda import counted_wrappers, library\n"
-        "assert len(counted_wrappers()) == 14\n"
+        "assert len(counted_wrappers()) == 15\n"
         "mods = [m for m in sys.modules\n"
         "        if m.startswith('toc3d_tpu_torch.models')]\n"
         "assert not mods, mods\n"

@@ -171,7 +171,8 @@ def test_tiny_train_step_on_card(dev):
     dropout, the auction 3: the two decoder layers' costs and the 2D
     head's, the card's default matcher, the window attention's one-pass
     body 4: one a B or C, the packed convolutions 0: training runs the neck
-    on per-call casts), the parameters moved, no skip."""
+    on per-call casts, the QKV epilogue 4: one a B or C), the parameters
+    moved, no skip."""
     from toc3d_tpu_torch.configs import get_config
     from toc3d_tpu_torch.configs.presets import served_in_bf16
     from toc3d_tpu_torch.models.detector import build_detector
@@ -213,7 +214,8 @@ def test_tiny_train_step_on_card(dev):
         state, m = step(state, batch, noise, steady=i > 0)
         torch.cuda.synchronize()
         counts = [f.launches for f in wrappers]
-        assert counts == [1, 2, 2, 0, 0, 0, 0, 16, 0, 12, 3, 4, 0, 0], counts
+        assert counts == [1, 2, 2, 0, 0, 0, 0, 16, 0, 12, 3, 4, 0, 0, 4], \
+            counts
         assert all(np.isfinite(float(v)) for v in m.values())
         assert int(m["nonfinite_skips"]) == 0
         batch["prev_exists"][:] = 1.0

@@ -26,6 +26,8 @@
 //   gate  : columns come in interleaved pairs (2j, 2j+1) = (w1 row j, w2 row
 //           j); out[m, j] = bf16(bf16(silu(bf16(a))) * bf16(b)), width N/2
 //   out_f32: store acc + bias as f32 (no rounding)
+// (gemm_sm90.cuh adds a fifth, the QKV epilogue: RoPE on acc + bias in f32,
+// then bf16; this tile has no such form.)
 // Requirements (checked by the Python wrappers): K a multiple of one 16-byte
 // chunk (16 int8), lda/ldb likewise, 16-byte aligned bases, N and ldc/ldr
 // even.
@@ -60,6 +62,16 @@ struct Args {
   int xs_row = 0;
   const float* ws = nullptr;
   int head = 0;
+  // gemm_sm90.cuh's QKV epilogue (OUT_QKV): the f32 RoPE tables (positions
+  // x rope_d; null: no rotation), applied to the columns below rope_cols
+  // (q and k) at the table row of each output row m: pos[m] (dense rows),
+  // else, for the map_rows rows of a (B, map_h, map_w) map, the token's
+  // place in its window of side win, and m - map_rows past them (the rows
+  // of out-of-image tokens, one a window place)
+  const float* cos_t = nullptr;
+  const float* sin_t = nullptr;
+  const int* pos = nullptr;
+  int rope_d = 0, rope_cols = 0, map_h = 0, map_w = 0, win = 0, map_rows = 0;
 };
 
 __device__ __forceinline__ void load_tile(const Args& a, unsigned char* As,

@@ -9,7 +9,9 @@
 // A is row-major (M, K) and W a torch Linear weight (N, K), both K-major,
 // both bf16 (f32 sums) or both int8 (exact s32 sums); the epilogues are
 // those of gemm.cuh's epilogue2 (int8 dequantization, bias, residual, SwiGLU
-// gate, f32 out) at the same rounding points.
+// gate, f32 out) at the same rounding points, and the blocks' QKV epilogue:
+// the f32 value the f32 epilogue stores, q and k rotated by RoPE in f32,
+// then bf16, the q / k / v the window attention reads.
 //
 // Replaces the weight products inside the TPU block kernels,
 // toc3d_tpu/ops/pallas/vit_block.py:
@@ -28,8 +30,9 @@
 // TFLOP/s in bf16, 0.38 ms at 1979 TOP/s in int8) against ~0.26 GB of
 // operands and outputs (~0.08 ms at 3.35 TB/s); the whole frame's block
 // GEMMs are 1.17e13 operations, 11.9 ms at the bf16 peak, 5.9 at the int8
-// one. The int8 QKV GEMM writes 369 MB of f32 at 30001 rows: 0.11 ms of
-// bytes against 0.1 ms of operations.
+// one. The int8 QKV GEMM writes 184 MB of bf16 q / k / v at 30001 rows
+// (0.06 ms of bytes against 0.1 ms of operations; 369 MB of f32 until the
+// QKV epilogue).
 //
 // Design (Hopper's TMA + wgmma, warp-specialised, persistent):
 //   * one TMA descriptor per operand (128-byte swizzle, boxes of one
@@ -64,7 +67,11 @@
 //     chunk are loaded while the previous chunk (or, for the first, the
 //     main loop) runs, but for the bias and scales of the gate and of the
 //     int8 residual epilogue, loaded at their chunk (beside the next
-//     chunk's they do not fit in registers); the results go through swizzled
+//     chunk's they do not fit in registers). The QKV epilogue turns the
+//     fragment into its f32 values and rotates q and k in place before it
+//     stages anything (value_chunk, rope_pass), with the RoPE tables of a
+//     few 8-column groups in flight, the first during the main loop; the
+//     results go through swizzled
 //     staging buffers to TMA stores, which clip rows and columns past M and
 //     N and drain while the next tile's main loop runs, so the tensor cores
 //     do not wait for the output's memory traffic.
@@ -303,7 +310,10 @@ __device__ __forceinline__ void wgmma(int (&d)[64], uint64_t da, uint64_t db,
 // The epilogue of a launch is fixed at compile time: the fragment's
 // epilogue is unrolled (128 column pairs a thread), and with every
 // branch of every epilogue in each copy it outgrows the instruction cache.
-enum Mode { OUT_BF16 = 0, OUT_F32 = 1, OUT_RES = 2, OUT_GATE = 3 };
+// OUT_QKV is the blocks' QKV product handed to the window attention: q and
+// k rotated by RoPE in f32, then q, k and v rounded to bf16.
+enum Mode { OUT_BF16 = 0, OUT_F32 = 1, OUT_RES = 2, OUT_GATE = 3,
+            OUT_QKV = 4 };
 
 // The output goes out in chunks of 128 bytes a row: each consumer
 // warpgroup writes its 64 rows of a chunk to one of its two 8 KB staging
@@ -319,6 +329,102 @@ struct Out {
   static constexpr int J = ACC_COLS / 8;   // 8-column groups per chunk
 };
 constexpr int OUT_BYTES = 64 * 128;        // one staging buffer
+
+// The QKV epilogue works on the accumulator registers in place, in two
+// passes before the staging, which only rounds: value_chunk turns each
+// chunk into the f32 value the f32 epilogue stores, and rope_pass rotates q
+// and k one 8-column group at a time, with the RoPE tables of RG groups in
+// flight (the first RG load during the main loop). Held whole beside the
+// accumulator (64 registers a thread), the tables spilled in G8. Each step
+// is an asm whose operands are tied to the accumulator register, so that
+// the compiler computes in place (G8's f32 values went to fresh registers
+// and spilled).
+__device__ __forceinline__ float as_value(float r) { return r; }
+__device__ __forceinline__ float as_value(int r) { return __int_as_float(r); }
+
+// pairwise rotate-half RoPE of one pair (a, b) -> (-b, a) in f32, in place:
+// a c0 - b s0 and b c1 + a s1, each one FMA over the rounded second
+// product (fma(a, c0, fl(-b s0)), fma(b, c1, fl(a s1))), written out so
+// that no choice of contraction can move the int8 blocks' values
+#define G90_ROPE2                                                         \
+  "mul.rn.f32 rp, rb, %4;\nneg.f32 rp, rp;\nmul.rn.f32 rq, ra, %5;\n"     \
+  "fma.rn.f32 rp, ra, %2, rp;\nfma.rn.f32 rq, rb, %3, rq;\n"
+__device__ __forceinline__ void rope2(float& x, float& y, float c0, float c1,
+                                      float s0, float s1) {
+  asm("{\n.reg .f32 ra, rb, rp, rq;\nmov.f32 ra, %0;\nmov.f32 rb, %1;\n"
+      G90_ROPE2 "mov.f32 %0, rp;\nmov.f32 %1, rq;\n}\n"
+      : "+f"(x), "+f"(y)
+      : "f"(c0), "f"(c1), "f"(s0), "f"(s1));
+}
+__device__ __forceinline__ void rope2(int& x, int& y, float c0, float c1,
+                                      float s0, float s1) {
+  asm("{\n.reg .f32 ra, rb, rp, rq;\nmov.b32 ra, %0;\nmov.b32 rb, %1;\n"
+      G90_ROPE2 "mov.b32 %0, rp;\nmov.b32 %1, rq;\n}\n"
+      : "+r"(x), "+r"(y)
+      : "f"(c0), "f"(c1), "f"(s0), "f"(s1));
+}
+#undef G90_ROPE2
+
+// the f32 value of one accumulator register, in place: acc (+ bias), or
+// for int8 float(acc) * scale (+ bias), each step rounded on its own as
+// stage_chunk's
+__device__ __forceinline__ void to_value(float& r, float, float bias,
+                                         bool has_bias) {
+  if (has_bias) asm("add.rn.f32 %0, %0, %1;\n" : "+f"(r) : "f"(bias));
+}
+__device__ __forceinline__ void to_value(int& r, float scale, float bias,
+                                         bool has_bias) {
+  if (has_bias)
+    asm("{\n.reg .f32 rf;\ncvt.rn.f32.s32 rf, %0;\nmul.rn.f32 rf, rf, %1;\n"
+        "add.rn.f32 rf, rf, %2;\nmov.b32 %0, rf;\n}\n"
+        : "+r"(r)
+        : "f"(scale), "f"(bias));
+  else
+    asm("{\n.reg .f32 rf;\ncvt.rn.f32.s32 rf, %0;\nmul.rn.f32 rf, rf, %1;\n"
+        "mov.b32 %0, rf;\n}\n"
+        : "+r"(r)
+        : "f"(scale));
+}
+
+// the table row of output row m (Args: cos_t); m < M
+__device__ __forceinline__ int table_row(const gemm::Args& a, int m) {
+  if (a.pos) return a.pos[m];
+  if (m >= a.map_rows) return m - a.map_rows;
+  const int y = (m / a.map_w) % a.map_h, x = m % a.map_w;
+  return (y % a.win) * a.win + x % a.win;
+}
+
+// an 8-byte read-only load that stays where it is written: the compiler
+// may move a plain read-only load (__ldg) across the pipeline's barriers
+// and the tensor-core asm, to where its registers are scarce
+__device__ __forceinline__ float2 ld_pinned(const float* p) {
+  float2 v;
+  asm volatile("ld.global.nc.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "l"(p));
+  return v;
+}
+
+// the tables of column group j (columns 8j + 2t of a head: a chunk of 64
+// columns starts on a head, rope_d 32 or 64 dividing 64) at the thread's
+// two rows, table rows tr
+__device__ __forceinline__ void load_group(const gemm::Args& a,
+                                           const int (&tr)[2], int t, int j,
+                                           float2 (&c)[2], float2 (&s)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long i =
+        (long long)tr[h] * a.rope_d + (8 * j + 2 * t) % a.rope_d;
+    c[h] = ld_pinned(a.cos_t + i);
+    s[h] = ld_pinned(a.sin_t + i);
+  }
+}
+
+// column groups whose tables are in flight: G's and G8's (whose scales
+// take registers too), the fastest on an H100 of 2, 4, 6 and 8 (ptxas
+// spilled at 8 in G and at 4 in G8)
+constexpr int RG_BF16 = 4, RG_S8 = 2;
+constexpr int RG_MAX = RG_BF16 > RG_S8 ? RG_BF16 : RG_S8;
 
 __device__ __forceinline__ void wg_sync(int id) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
@@ -361,7 +467,8 @@ __device__ __forceinline__ void load_res(const gemm::Args& a, int gm, int c0,
 // buffer sb: the fragment of m64n256 holds, in register 4j + e, row 16 *
 // warp + g (+ 8 for e >= 2) and column 8j + 2t + (e & 1), so the gate's
 // (w1 row j, w2 row j) pair is one thread's. xs: the int8 scales of rows g
-// and g + 8
+// and g + 8. OUT_QKV: the registers already hold the final f32 values
+// (value_chunk, rope_pass), which are only rounded.
 template <int MODE, typename Acc>
 __device__ __forceinline__ void stage_chunk(
     const gemm::Args& a, const Acc (&acc)[BN / 2], int ch, int warp, int g,
@@ -376,7 +483,10 @@ __device__ __forceinline__ void stage_chunk(
     for (int h = 0; h < 2; ++h) {
       const int i = 4 * (ch * J + j) + 2 * h;
       float v0, v1;
-      if constexpr (S8) {
+      if constexpr (MODE == OUT_QKV) {
+        v0 = as_value(acc[i]);
+        v1 = as_value(acc[i + 1]);
+      } else if constexpr (S8) {
         // float(acc) * (xs * ws), each product rounded on its own (no FMA
         // with the bias add below), as epilogue2 and _qmm
         v0 = __fmul_rn(__int2float_rn(acc[i]), __fmul_rn(xs[h], s[j].x));
@@ -385,7 +495,7 @@ __device__ __forceinline__ void stage_chunk(
         v0 = acc[i];
         v1 = acc[i + 1];
       }
-      if (a.bias) {
+      if (a.bias && MODE != OUT_QKV) {
         v0 += b[j].x;
         v1 += b[j].y;
       }
@@ -423,6 +533,56 @@ __device__ __forceinline__ void stage_chunk(
             __floats2bfloat162_rn(v0, v1);
       }
     }
+  }
+}
+
+// QKV epilogue, first pass: chunk ch of the fragment turned in place into
+// the f32 value the f32 epilogue stores (int8: dequantized as stage_chunk
+// does; then the bias), at the same rounding points
+template <int J, typename Acc>
+__device__ __forceinline__ void value_chunk(const gemm::Args& a,
+                                            Acc (&acc)[BN / 2], int ch,
+                                            const float2 (&b)[J],
+                                            const float2 (&s)[J],
+                                            const float (&xs)[2]) {
+  constexpr bool S8 = std::is_same<Acc, int>::value;
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = 4 * (ch * J + j) + 2 * h;
+      to_value(acc[i], S8 ? __fmul_rn(xs[h], s[j].x) : 0.f, b[j].x,
+               a.bias != nullptr);
+      to_value(acc[i + 1], S8 ? __fmul_rn(xs[h], s[j].y) : 0.f, b[j].y,
+               a.bias != nullptr);
+    }
+}
+
+// QKV epilogue, second pass: q and k (columns below rope_cols; the tile's
+// chunks start at column n0) rotated in place, one column group at a time
+// over the chunks: the tables of groups 0 .. RG - 1 are in gc / gs, and
+// group j + RG's load into group j's registers once they are used
+template <int J, int CHUNKS, int RG, typename Acc>
+__device__ __forceinline__ void rope_pass(const gemm::Args& a,
+                                          Acc (&acc)[BN / 2],
+                                          const int (&tr)[2], int t, int n0,
+                                          float2 (&gc)[RG_MAX][2],
+                                          float2 (&gs)[RG_MAX][2]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int r = j % RG;
+#pragma unroll
+    for (int ch = 0; ch < CHUNKS; ++ch) {
+      if (n0 + ch * 64 + 8 * j + 2 * t < a.rope_cols) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * (ch * J + j) + 2 * h;
+          rope2(acc[i], acc[i + 1], gc[r][h].x, gc[r][h].y, gs[r][h].x,
+                gs[r][h].y);
+        }
+      }
+    }
+    if (j + RG < J) load_group(a, tr, t, j + RG, gc[r], gs[r]);
   }
 }
 
@@ -505,6 +665,19 @@ __device__ __forceinline__ void gemm_sm90(const CUtensorMap& map_a,
         for (int h = 0; h < 2; ++h)
           xs[h] = gm + 8 * h < a.M ? a.xs[a.xs_row ? gm + 8 * h : 0] : 0.f;
       }
+      // OUT_QKV: the rows' table rows, and the tables of the first RG column
+      // groups once the second k tile is issued (a table row read from pos
+      // has landed by then)
+      constexpr int RG = S8 ? RG_S8 : RG_BF16;
+      float2 gc[RG_MAX][2], gs[RG_MAX][2];
+      int tr[2] = {0, 0};
+      const bool rot = MODE == OUT_QKV && a.cos_t && n0 < a.rope_cols;
+      if (rot) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (gm + 8 * h < a.M) tr[h] = table_row(a, gm + 8 * h);
+      }
+      const int tab_kt = ktiles > 1 ? 1 : 0;
       int prev = 0;
       for (int kt = 0; kt < ktiles; ++kt) {
         mbar_wait(&full[stage], phase);
@@ -518,6 +691,13 @@ __device__ __forceinline__ void gemm_sm90(const CUtensorMap& map_a,
           wgmma(acc, sw128_desc(as + kk * 32), sw128_desc(ws + kk * 32),
                 (kt > 0 || kk > 0) ? 1 : 0);
         wgmma_commit();
+        if constexpr (MODE == OUT_QKV) {
+          if (rot && kt == tab_kt) {
+#pragma unroll
+            for (int q = 0; q < RG; ++q)
+              load_group(a, tr, t, q, gc[q], gs[q]);
+          }
+        }
         // the group before this one has retired: its stage is free
         wgmma_wait<1>();
         if (kt > 0 && lane == 0) mbar_arrive(&empty[prev]);
@@ -535,8 +715,28 @@ __device__ __forceinline__ void gemm_sm90(const CUtensorMap& map_a,
       // chunk) and the int8 residual epilogue: beside the next chunk's those
       // do not fit in registers (ptxas spilled), so they load at their chunk
       constexpr int CHUNKS = BN / O::ACC_COLS;
-      constexpr bool vec_ahead =
-          MODE != OUT_GATE && !(S8 && MODE == OUT_RES);
+      constexpr bool vec_ahead = MODE != OUT_GATE &&
+                                 !(S8 && MODE == OUT_RES) && MODE != OUT_QKV;
+      if constexpr (MODE == OUT_QKV) {
+        // the values (the next chunk's bias and scales loading while a
+        // chunk is turned), then RoPE; the staging below only rounds
+#pragma unroll
+        for (int ch = 0; ch < CHUNKS; ++ch) {
+          float2 bn[O::J], sn[O::J];
+          const int c_next = n0 + (ch + 1) * O::ACC_COLS;
+          if (ch + 1 < CHUNKS) {
+            load_pairs(a.bias, a.N, c_next, t, bn);
+            if (S8) load_pairs(a.ws, a.N, c_next, t, sn);
+          }
+          value_chunk(a, acc, ch, b, s, xs);
+#pragma unroll
+          for (int j = 0; j < O::J; ++j) {
+            b[j] = bn[j];
+            s[j] = sn[j];
+          }
+        }
+        if (rot) rope_pass<O::J, CHUNKS, RG>(a, acc, tr, t, n0, gc, gs);
+      }
 #pragma unroll
       for (int ch = 0; ch < CHUNKS; ++ch) {
         float2 bn[O::J], sn[O::J];
@@ -547,7 +747,7 @@ __device__ __forceinline__ void gemm_sm90(const CUtensorMap& map_a,
           load_pairs(a.bias, a.N, c_next, t, bn);
           if (S8) load_pairs(a.ws, a.N, c_next, t, sn);
         }
-        if (!vec_ahead && ch > 0) {
+        if (!vec_ahead && MODE != OUT_QKV && ch > 0) {
           load_pairs(a.bias, a.N, n0 + ch * O::ACC_COLS, t, b);
           if (S8) load_pairs(a.ws, a.N, n0 + ch * O::ACC_COLS, t, s);
         }
@@ -766,6 +966,17 @@ inline int launch(const gemm::Args& a, cudaStream_t stream) {
   if (a.out_f32) return launch_mode<OUT_F32, T>(a, stream);
   if (a.res) return launch_mode<OUT_RES, T>(a, stream);
   return launch_mode<OUT_BF16, T>(a, stream);
+}
+
+// the same product with the QKV epilogue (Args: cos_t ..): the f32 value
+// OUT_F32 would store, RoPE on the columns below rope_cols, then bf16; the
+// tables (rope_d 32 or 64, f32 pairs on 8 bytes) are the wrapper's to check
+template <typename T>
+inline int launch_qkv(const gemm::Args& a, cudaStream_t stream) {
+  if (a.cos_t && (a.rope_d <= 0 || 64 % a.rope_d || !a.sin_t ||
+                  (!a.pos && (a.map_h <= 0 || a.map_w <= 0 || a.win <= 0))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_mode<OUT_QKV, T>(a, stream);
 }
 
 }  // namespace gemm90

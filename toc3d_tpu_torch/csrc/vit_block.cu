@@ -45,11 +45,12 @@
 //                         decoder's int8 linears quantize their input inside
 //                         their own kernel (int8_linear.cu, H8)
 //   window_attention_kernel  a persistent block an SM over the (window,
-//                         head) items: producer warps stage each item's
+//                         head) items: producer warps copy each item's bf16
 //                         q/k/v rows (by window geometry, or dense for
-//                         compressed rows) as bf16 64-row tiles in a ring
-//                         in shared memory, RoPE in f32 on the way;
-//                         consumer warpgroups run softmax(q k^T) v on them
+//                         compressed rows; RoPE already applied by the QKV
+//                         GEMM's epilogue) as 64-row tiles into a ring in
+//                         shared memory; consumer warpgroups run
+//                         softmax(q k^T) v on them
 //                         with wgmma, S, P and o in registers, in one pass
 //                         (online softmax, bf16 blocks) or two (row max,
 //                         then P = exp(s - max); int8 blocks) (note below)
@@ -62,8 +63,11 @@
 //   scatter_update_kernel slow rows back to their tokens; every fast token
 //                         becomes x + (raw1 + raw2) of the representative;
 //                         one warp per token, 16-byte accesses
-// Full blocks skip the zero-pad materialisation: the attention kernel reads
-// out-of-image tokens from one extra QKV row computed from LN(0).
+// The QKV GEMM hands the attention bf16 q / k / v with RoPE applied in f32
+// before the rounding (gemm_sm90.cuh OUT_QKV). Full blocks skip the zero-pad
+// materialisation: where windows pass the map's edge, the QKV GEMM runs ws^2
+// more rows of LN(0), one rotated at each window place, and the attention
+// kernel reads an out-of-image token at place t from the t-th of them.
 //
 // int8 quantization, exactly as the TPU kernel: dynamic rows are
 // round(x * (127 / a)) with a = max(amax, 1e-6) and scale a * (1/127);
@@ -543,6 +547,66 @@ TOC3D_EXPORT int toc3d_gemm_s8_sm90(const void* A, int lda, const void* xs,
       static_cast<cudaStream_t>(stream));
 }
 
+// the QKV epilogue's fields of a (gemm_sm90.cuh OUT_QKV): RoPE tables cos_t
+// / sin_t (positions x rope_d f32, or null), rotated columns rope_cols, and
+// each row's table row: pos (int32 a row), else the (B, map_h, map_w) map
+// of map_rows rows in windows of side win, then one row a window place
+static void qkv_args(gemm::Args& a, const void* cos_t, const void* sin_t,
+                     const void* pos, int rope_d, int rope_cols, int map_h,
+                     int map_w, int win, int map_rows) {
+  a.cos_t = static_cast<const float*>(cos_t);
+  a.sin_t = static_cast<const float*>(sin_t);
+  a.pos = static_cast<const int*>(pos);
+  a.rope_d = rope_d;
+  a.rope_cols = rope_cols;
+  a.map_h = map_h;
+  a.map_w = map_w;
+  a.win = win;
+  a.map_rows = map_rows;
+}
+
+// kernel G with the QKV epilogue: bf16 (M, N) q / k / v, RoPE applied
+TOC3D_EXPORT int toc3d_gemm_qkv(const void* A, int lda, const void* B,
+                                int ldb, const void* bias, void* C, int ldc,
+                                int M, int N, int K, const void* cos_t,
+                                const void* sin_t, const void* pos,
+                                int rope_d, int rope_cols, int map_h,
+                                int map_w, int win, int map_rows,
+                                void* stream) {
+  gemm::Args a;
+  a.A = A;
+  a.lda = lda;
+  a.B = B;
+  a.ldb = ldb;
+  a.bias = static_cast<const float*>(bias);
+  a.res = nullptr;
+  a.ldr = 0;
+  a.C = C;
+  a.ldc = ldc;
+  a.M = M;
+  a.N = N;
+  a.K = K;
+  a.out_f32 = 0;
+  a.gate = 0;
+  qkv_args(a, cos_t, sin_t, pos, rope_d, rope_cols, map_h, map_w, win,
+           map_rows);
+  return gemm90::launch_qkv<bf16>(a, static_cast<cudaStream_t>(stream));
+}
+
+// kernel G8 with the QKV epilogue (dequantized as toc3d_gemm_s8_sm90)
+TOC3D_EXPORT int toc3d_gemm_s8_sm90_qkv(
+    const void* A, int lda, const void* xs, int xs_row, const void* B,
+    int ldb, const void* ws, const void* bias, void* C, int ldc, int M, int N,
+    int K, const void* cos_t, const void* sin_t, const void* pos, int rope_d,
+    int rope_cols, int map_h, int map_w, int win, int map_rows,
+    void* stream) {
+  gemm::Args a = s8_args(A, lda, xs, xs_row, B, ldb, ws, bias, nullptr, 0, C,
+                         ldc, M, N, K, 0, 0, 0);
+  qkv_args(a, cos_t, sin_t, pos, rope_d, rope_cols, map_h, map_w, win,
+           map_rows);
+  return gemm90::launch_qkv<int8_t>(a, static_cast<cudaStream_t>(stream));
+}
+
 // ---------------------------------------------------------------------------
 // window attention
 // ---------------------------------------------------------------------------
@@ -550,7 +614,8 @@ TOC3D_EXPORT int toc3d_gemm_s8_sm90(const void* A, int lda, const void* xs,
 struct WinGeom {
   int image;  // 1: rows by window geometry on a (B, H, W) map; 0: dense
   int H, W, ws, nwh, nww;
-  long long pad_row;  // image mode: the row holding LN(0)'s projection
+  long long pad_row;  // image mode: the first of the ws^2 rows of LN(0)'s
+                      // projection (row pad_row + t: at window place t)
 };
 
 __device__ __forceinline__ long long token_row(int w, int t, int H, int W,
@@ -564,8 +629,8 @@ __device__ __forceinline__ long long token_row(int w, int t, int H, int W,
 }
 
 // the qkv rows of one window: row t of the window (t < n) is a token of the
-// map by geometry, or the LN(0) row where that token lies outside the image
-// (image mode), or dense row w n + t
+// map by geometry, or LN(0)'s row at place t where that token lies outside
+// the image (image mode), or dense row w n + t
 struct WinRows {
   long long base;  // image: the map row of the window's (0, 0) token
   int r0, c0;      // image: that token's map row and column
@@ -585,7 +650,7 @@ struct WinRows {
   __device__ __forceinline__ long long row(const WinGeom& g, int t) const {
     if (!g.image) return base + t;
     const int dr = t / g.ws, dc = t - dr * g.ws;
-    if (r0 + dr >= g.H || c0 + dc >= g.W) return g.pad_row;
+    if (r0 + dr >= g.H || c0 + dc >= g.W) return g.pad_row + t;
     return base + (long long)dr * g.W + dc;
   }
 };
@@ -600,22 +665,6 @@ __device__ __forceinline__ int swz(int r, int ch) {
   return r * D + ((ch ^ ((CH == 8 ? r : r >> 1) & (CH - 1))) << 3);
 }
 
-// pairwise rotate-half RoPE of one pair (a, b) -> (-b, a), in f32: a c0 -
-// b s0 and b c1 + a s1, each one FMA over the rounded second product,
-// written out so that the compiler's choice of contraction, and with it the
-// int8 blocks' values, does not depend on the code around it
-__device__ __forceinline__ void rope2(float& a, float& b, float c0, float c1,
-                                      float s0, float s1) {
-  const float na = __fmaf_rn(a, c0, __fmul_rn(-b, s0));
-  const float nb = __fmaf_rn(b, c1, __fmul_rn(a, s1));
-  a = na;
-  b = nb;
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
 // Window attention of one (window, head) item at a time, softmax(q k^T) v
 // over the window's n tokens (or a compressed window's kr rows), as two
 // bodies of one source: the one-pass body (ONE_PASS, the bf16 blocks B and
@@ -624,52 +673,50 @@ __device__ __forceinline__ float4 ld4(const float* p) {
 //
 // Bound. At ws 16 (B) a call is 4 n^2 C = 45 GFLOP over the 168 windows
 // (~45 us at 989 TFLOP/s) and 176 M exponentials (~50 us on the SFUs),
-// against the 369 MB f32 qkv read once (~110 us at 3.35 TB/s) and the
-// 61 MB bf16 output: the f32 read bounds it at every main-path shape
-// (0.1284 ms at B ws 16; 2.03 ms a ToC3D frame, 3.08 ms a StreamPETR one).
-// The products and exponentials fit under that read only if they overlap
-// it, so the design is a pipeline whose producer keeps the read going.
+// against the 184 MB bf16 q / k / v read once (~55 us at 3.35 TB/s) and the
+// 61 MB bf16 output: at B the products and exponentials bound it, at the
+// compressed blocks' few rows a window mostly the read.
 //
 // Design (a persistent grid, warp-specialized, FlashAttention's
 // register-resident tiles): one block of 16 warps on each SM walks the
 // (window, head) items blockIdx.x, + gridDim.x, ... (the heads of a window
-// are neighbouring items, so the blocks in flight read neighbouring 256-byte
+// are neighbouring items, so the blocks in flight read neighbouring 128-byte
 // pieces of the same qkv rows). A ring of 64-row slots in shared memory
 // (9 slots of 24 KB at d = 64, 16 of 12 KB at d = 32), each slot holding
 // the bf16 Q, K and V of 64 rows of one item in the 128-byte (d = 64) or
 // 64-byte (d = 32) XOR swizzle, with a full and an empty mbarrier each:
-//   producer, two warpgroups (setmaxnreg to 104 registers): for each of an
-//     item's ceil(n / 64) tiles, loads the f32 q, k and v of the tile's rows
-//     (16-byte loads; a warp reads two whole 256-byte head rows a load),
-//     applies RoPE to q and k in f32 with one read of the tables for both,
-//     rounds to bf16 and, once the slot is empty, stores the three 64-row
-//     tiles (rows past n as zeros), fences the stores for the async proxy
-//     that wgmma reads through, and each warp arrives on the slot's full
-//     barrier. Loads run a batch ahead of the stores, across tiles and
-//     items, and a compressed window's table rows (pos) a tile ahead.
-//   consumer, two warpgroups (setmaxnreg to 152 registers): at d = 64, the
+//   producer, one warpgroup (setmaxnreg to 40 registers): for each of an
+//     item's ceil(n / 64) tiles, once the slot is empty, copies the q, k
+//     and v head rows of the tile's 64 rows from global memory into the
+//     slot with 16-byte cp.async (rows past n zero-filled), up to three
+//     tiles in flight; when a tile's copies have landed, fences them for
+//     the async proxy that wgmma reads through, and each warp arrives on
+//     the slot's full barrier.
+//   consumer, three warpgroups (setmaxnreg to 152 registers): at d = 64, the
 //     items' 64-row query tiles in one round robin over the warpgroups;
 //     S = q k^T by wgmma m64n64k16 from the Q and K slots (both K-major),
 //     o += bf16(P) v by wgmma with P from registers and v transposed, S, P,
 //     o and the row statistics in registers (the accumulator is mma.sync's
-//     m16n8 layout, which is the A fragment of P.V). At d = 32 the eight
+//     m16n8 layout, which is the A fragment of P.V). At d = 32 the twelve
 //     warps take 16-row query tiles in one round robin and run mma.sync
 //     m16n8k16 on ldmatrix fragments (no main path runs d = 32). A warp
 //     leaves an item by waiting for each of its slots to be full (so that
 //     it never arrives on an empty barrier ahead of the producer's phase)
-//     and arriving on each empty barrier; a slot is refilled when all 8
+//     and arriving on each empty barrier; a slot is refilled when all 12
 //     have left.
 // The whole window is resident while its query tiles run (a query tile
 // walks every key tile), so the ring holds one ws 20 window (7 slots) and
 // two more slots, or two ws 16 windows (4 slots each) and one more. Why
 // wgmma, and 64-row query tiles: with mma.sync on eight warps the
-// consumers alone took 0.34 ms at B ws 16 and bounded the kernel (the
-// producer alone 0.24 ms); wgmma's asynchronous products and operands read
-// straight from the ring took them to 0.20 ms. Its 64-row tiles pad a
-// window's last query tile (400 rows: 448; 77: 128), work the f32 read
-// hides. Why 8 producer warps: with 4 the read ran at half the card's
-// rate, and on compressed windows the table load behind each pos load
-// stalled the in-order issue of everything after it.
+// consumers alone took 0.34 ms at B ws 16 and bounded the kernel; wgmma's
+// asynchronous products and operands read straight from the ring took them
+// to 0.20 ms. Its 64-row tiles pad a window's last query tile (400 rows:
+// 448; 77: 128). Until the QKV epilogue took RoPE over, eight producer
+// warps read f32 q / k / v and the tables and rotated them, and that read
+// bounded the kernel at every main-path shape; copying bf16 needs one
+// warpgroup, and a third consumer warpgroup at the same 152 registers took
+// the one-pass calls 11% and the two-pass ones 13% faster over the
+// frame's eight call shapes (H100, CUDA events, outputs bit for bit).
 //
 // The one-pass body keeps a running row max and sum (FlashAttention-2's
 // rescale of o) with p = 2^(s log2e - m log2e) by ex2.approx (the max
@@ -689,21 +736,23 @@ __device__ __forceinline__ float4 ld4(const float* p) {
 // main-path shapes).
 //
 // Measured (an H100 80GB HBM3 at 700 W, CUDA events, against the earlier
-// two-pass mma.sync kernel of one block a (head, window)): one-pass B ws 16
-// 0.261 ms (0.494), B ws 20 0.392 (0.711), C ws 16 .5 0.128 (0.200), C
-// ws 20 .5 0.138 (0.249), C ws 16 .3 0.091 (0.124); two-pass 0.349, 0.545,
-// 0.143, 0.188, 0.124 ms.
+// kernel, which read f32 q / k / v and rotated them, in the same process):
+// one-pass B ws 16 0.193 ms (0.264), B ws 20 0.313 (0.396), C ws 16 .5
+// 0.069 (0.132), C ws 20 .5 0.093 (0.141), C ws 16 .3 0.057 (0.092);
+// two-pass 0.316 (0.353), 0.452 (0.549), 0.086 (0.147), 0.158 (0.192),
+// 0.086 (0.124). The QKV epilogue that took the rotation over costs G
+// 0.3242 against 0.3169 ms at B's rows, and G8 0.2352 against 0.2078.
 //
 // Image mode reads the rows of each window by geometry and points
-// out-of-image tokens at the LN(0) row (pad_row); their outputs are not
-// stored. Keys past n are -inf; their rows are zero in the ring.
+// out-of-image tokens at LN(0)'s rows (pad_row + place); their outputs are
+// not stored. Keys past n are -inf; their rows are zero in the ring.
 
 constexpr int WA_TILE = 64;       // rows a slot holds (the key tile)
-constexpr int WA_CONSUMERS = 8;   // warps: two warpgroups
-constexpr int WA_PRODUCERS = 8;   // warps: two warpgroups
-// registers a thread of each role keeps after setmaxnreg: 256 x (104 +
-// 152) = the SM's 65536
-constexpr int WA_PRODUCER_REGS = 104, WA_CONSUMER_REGS = 152;
+constexpr int WA_CONSUMERS = 12;  // warps: three warpgroups
+constexpr int WA_PRODUCERS = 4;   // warps: one warpgroup
+// registers a thread of each role keeps after setmaxnreg: 128 x 40 + 384 x
+// 152 = 63488 of the SM's 65536
+constexpr int WA_PRODUCER_REGS = 40, WA_CONSUMER_REGS = 152;
 constexpr int WA_THREADS = 32 * (WA_CONSUMERS + WA_PRODUCERS);
 
 template <int D>
@@ -777,116 +826,83 @@ __device__ __forceinline__ void window_pv(float (&o)[D / 8][4],
   }
 }
 
-// the producer warps' part: thread p (0 .. 255) owns float4 column f of
-// the rows r0, r0 + RPP, ... of each tile (a pass: one such row). A tile's
-// passes go in two batches, through two register sets: batch 1's loads are
-// issued before batch 0 is stored, and the next tile's batch 0 before batch
-// 1 is stored, so loads run ahead of the ring across tiles and items and
-// only the stores wait for a slot to be empty. A compressed window's RoPE
-// table rows (pos) are loaded a tile earlier still, so that no table load
-// waits on its index.
+// the producer warps' part: thread p (0 .. 127) owns 16-byte chunk ch of
+// the rows r0, r0 + RPP, ... of each tile (a pass: one such row) and copies
+// it from q, k and v into the slot's three swizzled tiles with cp.async
+// (rows past n as zeros: a copy of 0 bytes zero-fills). The copies of a
+// tile go out once its slot is empty, and the slot is handed to the
+// consumers `lag` tiles later, when the thread's copies of it have landed,
+// so that lag + 1 tiles are in flight. lag is at most WA_LAG and leaves a
+// window's T tiles and the copies ahead of them room in the ring (T + lag
+// <= SLOTS): a consumer that waits on a tile of its window then never waits
+// on copies that wait for a slot it holds.
+constexpr int WA_LAG = 2;
+
+// wait for all but the newest lag groups of this thread's copies
+__device__ __forceinline__ void cp_async_wait_lag(int lag) {
+  if (lag >= 2)
+    cp_async_wait<2>();
+  else if (lag == 1)
+    cp_async_wait<1>();
+  else
+    cp_async_wait<0>();
+}
+
 template <int D>
-__device__ __forceinline__ void window_produce(
-    const float* qkv, const int* pos, const float* cosT, const float* sinT,
-    int n, int heads, int items, const WinGeom& g, bf16* ring,
-    uint64_t* full, uint64_t* empty, int p) {
+__device__ __forceinline__ void window_produce(const bf16* qkv, int n,
+                                               int heads, int items,
+                                               const WinGeom& g, bf16* ring,
+                                               uint64_t* full,
+                                               uint64_t* empty, int p) {
   using R = WaRing<D>;
-  constexpr int F4 = D / 4;                      // float4s of a head row
-  constexpr int RPP = WA_PRODUCERS * 32 / F4;    // rows a pass covers
+  constexpr int CH = D / 8;                      // 16-byte chunks of a head
+  constexpr int RPP = WA_PRODUCERS * 32 / CH;    // rows a pass covers
   constexpr int PASSES = WA_TILE / RPP;
-  constexpr int BATCH = PASSES / 2;
-  static_assert(BATCH * 2 == PASSES, "two batches a tile");
-  struct Batch {
-    float4 q[BATCH], k[BATCH], v[BATCH], c[BATCH], s[BATCH];
-    int row[BATCH];   // the RoPE table row of the next batch of this set
-  };
-  struct Tile {   // the block's tile tp: tile j of window w, head h
-    int j, w, h;
-    WinRows rows;
-  };
+  static_assert(PASSES * RPP == WA_TILE, "whole passes a tile");
   const int C = heads * D;
-  const int f = p % F4, r0 = p / F4, col = 4 * f;
+  const int ch = p % CH, r0 = p / CH;
   const int T = (n + WA_TILE - 1) / WA_TILE;
   const int tiles = ((items - 1 - blockIdx.x) / gridDim.x + 1) * T;
-  auto tile = [&](int tp) {
-    const int i = tp / T, it = blockIdx.x + i * gridDim.x;
-    const int w = it / heads;
-    return Tile{tp - i * T, w, it - w * heads, WinRows(g, w, n)};
-  };
-  auto token = [&](const Tile& tl, int b, int e) {
-    return tl.j * WA_TILE + (b * BATCH + e) * RPP + r0;
-  };
-  // the table rows of batch b of tile tl, into x.row
-  auto rows_of = [&](Batch& x, const Tile& tl, int b) {
-#pragma unroll
-    for (int e = 0; e < BATCH; ++e) {
-      const int tok = token(tl, b, e);
-      x.row[e] = (pos && tok < n) ? pos[(long long)tl.w * n + tok] : tok;
-    }
-  };
-  auto load = [&](Batch& x, const Tile& tl, int b, bool on) {
-#pragma unroll
-    for (int e = 0; e < BATCH; ++e) {
-      const int tok = token(tl, b, e);
-      x.q[e] = x.k[e] = x.v[e] = make_float4(0.f, 0.f, 0.f, 0.f);
-      x.c[e] = x.s[e] = x.q[e];
-      if (on && tok < n) {
-        const float* x0 =
-            qkv + tl.rows.row(g, tok) * 3 * C + tl.h * D + col;
-        x.q[e] = ld4(x0);
-        x.k[e] = ld4(x0 + C);
-        x.v[e] = ld4(x0 + 2 * C);
-        if (cosT) {
-          const long long tr = (long long)x.row[e] * D + col;
-          x.c[e] = ld4(cosT + tr);
-          x.s[e] = ld4(sinT + tr);
-        }
-      }
-    }
-  };
-  auto store = [&](Batch& x, bf16* Qs, int b) {
-#pragma unroll
-    for (int e = 0; e < BATCH; ++e) {
-      if (cosT) {
-        rope2(x.q[e].x, x.q[e].y, x.c[e].x, x.c[e].y, x.s[e].x, x.s[e].y);
-        rope2(x.q[e].z, x.q[e].w, x.c[e].z, x.c[e].w, x.s[e].z, x.s[e].w);
-        rope2(x.k[e].x, x.k[e].y, x.c[e].x, x.c[e].y, x.s[e].x, x.s[e].y);
-        rope2(x.k[e].z, x.k[e].w, x.c[e].z, x.c[e].w, x.s[e].z, x.s[e].w);
-      }
-      const int o = swz<D>((b * BATCH + e) * RPP + r0, col >> 3) + (col & 4);
-      *reinterpret_cast<uint2*>(Qs + o) = make_uint2(
-          pack_bf16(x.q[e].x, x.q[e].y), pack_bf16(x.q[e].z, x.q[e].w));
-      *reinterpret_cast<uint2*>(Qs + R::MAT + o) = make_uint2(
-          pack_bf16(x.k[e].x, x.k[e].y), pack_bf16(x.k[e].z, x.k[e].w));
-      *reinterpret_cast<uint2*>(Qs + 2 * R::MAT + o) = make_uint2(
-          pack_bf16(x.v[e].x, x.v[e].y), pack_bf16(x.v[e].z, x.v[e].w));
-    }
-  };
-  Batch xa, xb;
-  Tile cur = tile(0), next = tile(tiles > 1 ? 1 : 0);
-  rows_of(xa, cur, 0);
-  load(xa, cur, 0, true);
-  rows_of(xa, next, 0);
-  rows_of(xb, cur, 1);
-  for (int tp = 0; tp < tiles; ++tp) {
-    const Tile after = tile(tp + 2 < tiles ? tp + 2 : tiles - 1);
-    const int slot = tp % R::SLOTS;
-    bf16* Qs = ring + slot * R::SLOT;
-    load(xb, cur, 1, true);
-    rows_of(xb, next, 1);
-    gemm90::mbar_wait(&empty[slot], ((tp / R::SLOTS) & 1) ^ 1);
-    store(xa, Qs, 0);
-    load(xa, next, 0, tp + 1 < tiles);
-    rows_of(xa, after, 0);
-    store(xb, Qs, 1);
-    // the ring's stores are generic-proxy writes that wgmma reads through
-    // the async proxy
+  const int lag = WA_LAG < R::SLOTS - T ? WA_LAG : R::SLOTS - T;
+  // the slot of tile u is full once every producer warp has arrived
+  auto hand_over = [&](int u) {
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncwarp();
-    if ((p & 31) == 0) gemm90::mbar_arrive(&full[slot]);
-    cur = next;
-    next = after;
+    if ((p & 31) == 0) gemm90::mbar_arrive(&full[u % R::SLOTS]);
+  };
+  int i = 0, j = 0;   // the block's item and its tile
+  for (int tp = 0; tp < tiles; ++tp) {
+    const int it = blockIdx.x + i * gridDim.x;
+    const int w = it / heads, h = it - w * heads;
+    const WinRows rows(g, w, n);
+    const int slot = tp % R::SLOTS;
+    bf16* Qs = ring + slot * R::SLOT;
+    gemm90::mbar_wait(&empty[slot], ((tp / R::SLOTS) & 1) ^ 1);
+#pragma unroll
+    for (int e = 0; e < PASSES; ++e) {
+      const int r = e * RPP + r0, tok = j * WA_TILE + r;
+      const bool on = tok < n;
+      const bf16* src =
+          qkv + (on ? rows.row(g, tok) * 3 * C + h * D + ch * 8 : 0);
+      const int o = swz<D>(r, ch);
+      cp_async16(Qs + o, src, on);
+      cp_async16(Qs + R::MAT + o, src + C, on);
+      cp_async16(Qs + 2 * R::MAT + o, src + 2 * C, on);
+    }
+    cp_async_commit();
+    if (tp >= lag) {
+      // the ring's copies are generic-proxy writes that wgmma reads through
+      // the async proxy
+      cp_async_wait_lag(lag);
+      hand_over(tp - lag);
+    }
+    if (++j == T) {
+      j = 0;
+      ++i;
+    }
   }
+  cp_async_wait<0>();
+  for (int u = tiles > lag ? tiles - lag : 0; u < tiles; ++u) hand_over(u);
 }
 
 // a consumer warp's side of the ring: ready(i, j) waits for tile j of the
@@ -935,7 +951,7 @@ __device__ __forceinline__ void window_store(bf16* out, float (&o)[D / 8][4],
     const int r = r0 + 8 * rr;
     if (r >= n) continue;
     const long long Rw = rows.row(g, r);
-    if (g.image && Rw == g.pad_row) continue;
+    if (g.image && Rw >= g.pad_row) continue;
     const float l = rr ? l1 : l0, inv = 1.f / l;
     bf16* dst = out + Rw * C + h * D + 2 * t;
 #pragma unroll
@@ -982,7 +998,7 @@ __device__ __forceinline__ void quad_max(float& m0, float& m1) {
 }
 
 // the consumer at d = 32 (mma.sync): warp c takes the block's 16-row query
-// tiles c, c + 8, ... in order over its items
+// tiles c, c + 12, ... in order over its items
 template <int D, bool ONE_PASS>
 __device__ __forceinline__ void window_consume_mma(bf16* out, int n,
                                                    int heads, int items,
@@ -1123,7 +1139,7 @@ __device__ __forceinline__ void wg_pv(float (&o)[8][4], float (&s)[8][4],
 }
 
 // the consumer at d = 64 (wgmma): warpgroup c (warps 4c .. 4c + 3) takes
-// the block's 64-row query tiles c, c + 2, ... in order over its items;
+// the block's 64-row query tiles c, c + 3, ... in order over its items;
 // warp 4c + q holds rows 16q .. 16q + 15 of a tile
 template <bool ONE_PASS>
 __device__ __forceinline__ void window_consume_wgmma(bf16* out, int n,
@@ -1188,8 +1204,7 @@ __device__ __forceinline__ void window_consume_wgmma(bf16* out, int n,
 
 template <int D, bool ONE_PASS>
 __global__ void __launch_bounds__(WA_THREADS, 1) window_attention_kernel(
-    const float* qkv, const int* pos, const float* cosT, const float* sinT,
-    bf16* out, int n, int heads, int items, WinGeom g) {
+    const bf16* qkv, bf16* out, int n, int heads, int items, WinGeom g) {
   using R = WaRing<D>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   // the ring on a 1024-byte boundary: the 128-byte swizzle of wgmma's
@@ -1211,8 +1226,8 @@ __global__ void __launch_bounds__(WA_THREADS, 1) window_attention_kernel(
   if (warp >= WA_CONSUMERS) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
         WA_PRODUCER_REGS));
-    window_produce<D>(qkv, pos, cosT, sinT, n, heads, items, g, ring, full,
-                      empty, threadIdx.x - 32 * WA_CONSUMERS);
+    window_produce<D>(qkv, n, heads, items, g, ring, full, empty,
+                      threadIdx.x - 32 * WA_CONSUMERS);
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
@@ -1242,10 +1257,9 @@ static int window_attention_blocks_per_sm() {
 }
 
 template <int D, bool ONE_PASS>
-static int launch_window_attention(const float* qkv, const int* pos,
-                                   const float* cosT, const float* sinT,
-                                   bf16* out, int nw, int n, int heads,
-                                   const WinGeom& g, cudaStream_t stream) {
+static int launch_window_attention(const bf16* qkv, bf16* out, int nw, int n,
+                                   int heads, const WinGeom& g,
+                                   cudaStream_t stream) {
   static int sms = 0;
   const int nb = window_attention_blocks_per_sm<D, ONE_PASS>();
   if (nb < 0) return -nb;
@@ -1263,32 +1277,30 @@ static int launch_window_attention(const float* qkv, const int* pos,
   const int items = nw * heads;
   const int grid = items < sms * nb ? items : sms * nb;
   window_attention_kernel<D, ONE_PASS>
-      <<<grid, WA_THREADS, WaRing<D>::BYTES, stream>>>(
-          qkv, pos, cosT, sinT, out, n, heads, items, g);
+      <<<grid, WA_THREADS, WaRing<D>::BYTES, stream>>>(qkv, out, n, heads,
+                                                        items, g);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-static int launch_window_attention(int one_pass, const float* qkv,
-                                   const int* pos, const float* cosT,
-                                   const float* sinT, bf16* out, int nw,
-                                   int n, int heads, const WinGeom& g,
+static int launch_window_attention(int one_pass, const bf16* qkv, bf16* out,
+                                   int nw, int n, int heads, const WinGeom& g,
                                    cudaStream_t stream) {
-  return one_pass ? launch_window_attention<D, true>(qkv, pos, cosT, sinT,
-                                                     out, nw, n, heads, g,
-                                                     stream)
-                  : launch_window_attention<D, false>(qkv, pos, cosT, sinT,
-                                                      out, nw, n, heads, g,
-                                                      stream);
+  return one_pass ? launch_window_attention<D, true>(qkv, out, nw, n, heads,
+                                                     g, stream)
+                  : launch_window_attention<D, false>(qkv, out, nw, n, heads,
+                                                      g, stream);
 }
 
-// one_pass: 1 for the bf16 blocks' body, 0 for the int8 blocks'
-TOC3D_EXPORT int toc3d_window_attention(const void* qkv, const void* pos,
-                                        const void* cosT, const void* sinT,
-                                        void* out, int nw, int n, int heads,
-                                        int head_dim, int image, int B, int H,
-                                        int W, int ws, int one_pass,
-                                        void* stream) {
+// qkv: the bf16 (rows, 3 heads head_dim) q / k / v of the QKV epilogue,
+// RoPE applied; in image mode rows B H W .. B H W + ws^2 - 1 hold LN(0)'s
+// projection at each window place (needed only where windows pass the
+// map's edge). one_pass: 1 for the bf16 blocks' body, 0 for the int8
+// blocks'
+TOC3D_EXPORT int toc3d_window_attention(const void* qkv, void* out, int nw,
+                                        int n, int heads, int head_dim,
+                                        int image, int B, int H, int W,
+                                        int ws, int one_pass, void* stream) {
   WinGeom g;
   g.image = image;
   g.H = H;
@@ -1298,17 +1310,12 @@ TOC3D_EXPORT int toc3d_window_attention(const void* qkv, const void* pos,
   g.nww = ws > 0 ? (W + ws - 1) / ws : 0;
   g.pad_row = (long long)B * H * W;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* q = static_cast<const float*>(qkv);
-  const int* p = static_cast<const int*>(pos);
-  const float* c = static_cast<const float*>(cosT);
-  const float* sn = static_cast<const float*>(sinT);
+  const bf16* q = static_cast<const bf16*>(qkv);
   bf16* o = static_cast<bf16*>(out);
   if (head_dim == 64)
-    return launch_window_attention<64>(one_pass, q, p, c, sn, o, nw, n,
-                                       heads, g, s);
+    return launch_window_attention<64>(one_pass, q, o, nw, n, heads, g, s);
   if (head_dim == 32)
-    return launch_window_attention<32>(one_pass, q, p, c, sn, o, nw, n,
-                                       heads, g, s);
+    return launch_window_attention<32>(one_pass, q, o, nw, n, heads, g, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -146,9 +146,11 @@ def counted_wrappers():
     matcher's auction (one launch a cost tensor), and the window
     attention's one-pass and two-pass bodies (one launch a B or C, and a B8
     or C8), then the CNN encoder's convolutions on packed weights (conv:
-    one a VoVNet or CPFPN convolution at inference). The counts of A-D,
-    B8, C8 and H8 tick in their ops' CUDA implementations, so a loaded
-    exported program's launches count too."""
+    one a VoVNet or CPFPN convolution at inference), then the QKV epilogue
+    that hands the window attention bf16 q / k / v with RoPE applied (one
+    a B, C, B8 or C8; its launch is also one of G's or G8's). The counts
+    of A-D, B8, C8 and H8 tick in their ops' CUDA implementations, so a
+    loaded exported program's launches count too."""
     from . import auction, conv, cross_attn, int8, patch_embed, vit_block
     return (patch_embed.patchify_matmul, vit_block.fused_full_block,
             vit_block.fused_compressed_block, cross_attn.flash_attention_core,
@@ -156,4 +158,5 @@ def counted_wrappers():
             vit_block.fused_compressed_block_int8, int8.int8_linear,
             vit_block._gemm, int8.gemm_s8_sm90, vit_block.layernorm,
             auction.auction_match, vit_block.window_attention_one_pass,
-            vit_block.window_attention_two_pass, conv.conv2d)
+            vit_block.window_attention_two_pass, conv.conv2d,
+            vit_block.qkv_rope_epilogue)

@@ -50,8 +50,13 @@ SIGNATURES = {
                           _I, _I, _I, _I, _I, _I, _P],
         "toc3d_gemm_s8_sm90": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _I, _P,
                                _I, _I, _I, _I, _I, _I, _P],
-        "toc3d_window_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                   _I, _I, _I, _I, _I, _P],
+        "toc3d_gemm_qkv": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P,
+                           _P, _I, _I, _I, _I, _I, _I, _P],
+        "toc3d_gemm_s8_sm90_qkv": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _I,
+                                   _I, _I, _I, _P, _P, _P, _I, _I, _I, _I,
+                                   _I, _I, _P],
+        "toc3d_window_attention": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                   _I, _I, _P],
         "toc3d_gather_merge": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _P],
         "toc3d_scatter_update": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

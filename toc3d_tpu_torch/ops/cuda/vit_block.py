@@ -46,8 +46,8 @@ from ..window import pad_hw, window_partition, window_unpartition
 from . import (cached_pack, check_cuda, check_device, check_pairs,
                check_res, param_key, tma_out)
 from .build import call, occupancy, stream_of
-from .int8 import (gemm_s8_sm90, int8_dot, quantize_weight, row_quant,
-                   rowquant, statquant)
+from .int8 import (gemm_s8_plain, gemm_s8_sm90, int8_dot, quantize_weight,
+                   row_quant, rowquant, statquant)
 
 LN_EPS = 1e-6
 
@@ -252,27 +252,55 @@ def softmax_pv_one_pass_plain(q, k, v, dt, tile: int = 64):
     return (o / l).to(dt)
 
 
+def qkv_table_rows(rows: int, pos=None, map_shape=None, ws: int = 0):
+    """The RoPE table row of each of ``rows`` QKV rows, as the QKV epilogue
+    reads it: ``pos`` (one a row) for dense rows; else, for the B H W rows
+    of the (B, H, W) ``map_shape``, the token's place in its ws x ws window,
+    (y mod ws) ws + (x mod ws), and past them row - B H W: the rows of
+    LN(0)'s projection, one at each window place, that out-of-image tokens
+    read."""
+    if pos is not None:
+        return pos.reshape(-1)[:rows].long()
+    b, h, w = map_shape
+    r = torch.arange(rows)
+    t = (r // w % h % ws) * ws + r % w % ws
+    return torch.where(r < b * h * w, t, r - b * h * w)
+
+
+def qkv_rope_plain(qkv, rope=None, table_rows=None, dt=torch.bfloat16):
+    """Plain twin of kernel G's QKV epilogue: qkv (rows, 3C) f32, the QKV
+    product plus bias, -> (rows, 3C) in dt: q and k (columns below 2C)
+    rotated by the pairwise rotate-half RoPE in f32 at each row's table row
+    of rope = (cos, sin) (positions, d), v as it is, then all three
+    rounded to dt. With rope None, the rounding alone."""
+    if rope is None:
+        return qkv.to(dt)
+    cos, sin = rope
+    rows, c3 = qkv.shape
+    d = cos.shape[-1]
+    cs, sn = cos[table_rows][:, None], sin[table_rows][:, None]
+    qk = qkv[:, :2 * c3 // 3].reshape(rows, -1, d)
+    qk = (qk * cs + rotate_half(qk) * sn).reshape(rows, -1)
+    return torch.cat([qk.to(dt), qkv[:, 2 * c3 // 3:].to(dt)], 1)
+
+
 def _attention_plain(wts: BlockWeights, hid, num_heads: int, rope, pos,
                      one_pass: bool = False):
     """hid: (W, n, C) LN1 output -> raw attention delta (W, n, C) in
     hid.dtype: QKV, pairwise RoPE in f32 (at rows ``pos`` of the tables, or
-    0..n-1), softmax with f32 statistics, P in the activation dtype
+    0..n-1) and the rounding to the activation dtype (``qkv_rope_plain``),
+    softmax with f32 statistics, P in the activation dtype
     (``softmax_pv_plain``, or with one_pass its one-pass twin), O-proj +
     bias."""
     nw, n, c = hid.shape
     d = c // num_heads
     dt = hid.dtype
-    qkv = _mm(wts, hid.reshape(-1, c), "qkv").reshape(nw, n, 3, num_heads, d)
-    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2].to(dt)
-    if rope is not None:
-        cos, sin = rope
-        if pos is None:
-            cos, sin = cos[:n][None, :, None], sin[:n][None, :, None]
-        else:
-            cos, sin = cos[pos][:, :, None], sin[pos][:, :, None]
-        q = q * cos + rotate_half(q) * sin
-        k = k * cos + rotate_half(k) * sin
-    q, k = q.to(dt), k.to(dt)
+    qkv = _mm(wts, hid.reshape(-1, c), "qkv")
+    table_rows = torch.arange(n, device=hid.device).repeat(nw) \
+        if pos is None else pos.reshape(-1)
+    qkv = qkv_rope_plain(qkv, rope, table_rows, dt).reshape(
+        nw, n, 3, num_heads, d)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     q, k, v = (t.transpose(1, 2).float() for t in (q, k, v))  # (W, h, n, d)
     o = (softmax_pv_one_pass_plain if one_pass else softmax_pv_plain)(
         q, k, v, dt)
@@ -647,11 +675,95 @@ def _proj(wts: BlockWeights, inp, which: str, m: int, out, res=None,
 
 def _rope_args(rope_tables, n: int, x):
     if rope_tables is None:
-        return None, None
+        return None
     cos, sin = rope_tables
     cos = cos[:n].to(device=x.device, dtype=torch.float32).contiguous()
     sin = sin[:n].to(device=x.device, dtype=torch.float32).contiguous()
     return cos, sin
+
+
+def _launch_qkv(name, a, w, bias, out, m, rope, pos, map_shape, ws,
+                xs=None, scales=None):
+    """Launch kernel G (a bf16) or G8 (a int8, row scales xs, channel
+    scales) with the QKV epilogue over m rows into the bf16 ``out`` (None
+    allocates it); rope, pos, map_shape and ws as ``gemm_qkv`` takes them.
+    Returns out."""
+    s8 = xs is not None
+    check_cuda(name, a, w, dtype=torch.int8 if s8 else torch.bfloat16)
+    n, k = w.shape
+    if (a.dim() != 2 or a.shape[0] < m or a.shape[1] != k
+            or k % (16 if s8 else 8) or n % 3 or n % 2):
+        raise ValueError(f"{name}: unsupported shapes a {tuple(a.shape)}, w "
+                         f"{tuple(w.shape)} for m {m} (K a multiple of 16 "
+                         "bytes, N = 3C even)")
+    out = tma_out(name, out, m, n, torch.bfloat16, a.device)
+    if bias is not None:
+        check_pairs(name, bias, n)
+    cos = sin = None
+    d = 0
+    if rope is not None:
+        cos, sin = rope
+        check_cuda(name, cos, sin, dtype=torch.float32, aligned=False)
+        d = cos.shape[-1]
+        if d not in (32, 64) or cos.shape != sin.shape \
+                or cos.data_ptr() % 8 or sin.data_ptr() % 8:
+            raise ValueError(f"{name}: RoPE tables {tuple(cos.shape)} / "
+                             f"{tuple(sin.shape)} (head_dim 32 or 64, f32 "
+                             "pairs on 8 bytes)")
+        if pos is not None:
+            check_cuda(name, pos, dtype=torch.int32, aligned=False)
+            if pos.numel() < m:
+                raise ValueError(f"{name}: {pos.numel()} table rows for "
+                                 f"{m} rows")
+        elif map_shape is None or ws <= 0:
+            raise ValueError(f"{name}: table rows need pos or a map and a "
+                             "window size")
+    mb, mh, mw = map_shape if map_shape is not None else (0, 0, 0)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    tail = (ptr(cos), ptr(sin), None if rope is None else ptr(pos), d,
+            2 * n // 3, mh, mw, ws, mb * mh * mw, stream_of(a))
+    if s8:
+        check_cuda(name, xs, dtype=torch.float32, aligned=False)
+        check_pairs(name, scales, n)
+        if xs.numel() not in (1, m):
+            raise ValueError(f"{name}: {xs.numel()} row scales for {m} rows")
+        call("vit_block", "toc3d_gemm_s8_sm90_qkv", a.data_ptr(), k,
+             xs.data_ptr(), int(xs.numel() > 1), w.data_ptr(), k,
+             scales.data_ptr(), ptr(bias), out.data_ptr(), out.stride(0), m,
+             n, k, *tail)
+        gemm_s8_sm90.launches += 1
+    else:
+        call("vit_block", "toc3d_gemm_qkv", a.data_ptr(), a.shape[1],
+             w.data_ptr(), k, ptr(bias), out.data_ptr(), out.stride(0), m, n,
+             k, *tail)
+        _gemm.launches += 1
+    return out
+
+
+def gemm_qkv(a, w, bias=None, rope=None, pos=None, map_shape=None,
+             ws: int = 0, xs=None, scales=None, out=None):
+    """Kernel G (a (M, K) bf16) or G8 (a (M, K) int8 with row scales ``xs``
+    and channel scales ``scales``, dequantized as ``int8.gemm_s8_sm90``)
+    with the QKV epilogue: the f32 a @ w (3C, K)^T + bias that the f32
+    epilogue stores, q and k (columns below 2C) rotated in f32 by the
+    pairwise rotate-half RoPE of rope = (cos, sin) (positions, d) f32 tables
+    at each row's table row (``qkv_table_rows``: ``pos`` for dense rows,
+    else by window geometry on the (B, H, W) ``map_shape`` with windows of
+    side ``ws``, and one window place a row past the map's rows), then q, k
+    and v rounded to bf16 -> (M, 3C) bf16. rope None: the rounding alone.
+    On CPU tensors, the plain version (``qkv_rope_plain`` of the f32
+    product)."""
+    if a.device.type == "cpu":
+        if xs is None:
+            v, dt = gemm_bf16_plain(a, w, bias, out_f32=True), a.dtype
+        else:
+            v = gemm_s8_plain(a, xs, w, scales, bias, out_f32=True)
+            dt = torch.bfloat16
+        rows = None if rope is None else qkv_table_rows(a.shape[0], pos,
+                                                        map_shape, ws)
+        return qkv_rope_plain(v, rope, rows, dt)
+    return _launch_qkv("gemm_qkv", a, w, bias, out, a.shape[0], rope, pos,
+                       map_shape, ws, xs, scales)
 
 
 def _check_block(name, wts: BlockWeights, x, num_heads):
@@ -699,6 +811,26 @@ class BodyCount:
 # two-pass (the int8 path's rounding points) for B8 and C8
 window_attention_one_pass = BodyCount()
 window_attention_two_pass = BodyCount()
+# the QKV product of a B, C, B8 or C8 call handed to the window attention
+# as bf16 q / k / v with RoPE applied (G's or G8's QKV epilogue)
+qkv_rope_epilogue = BodyCount()
+
+
+def _qkv(wts: BlockWeights, inp, m: int, rope, pos=None, map_shape=None,
+         ws: int = 0):
+    """The attention chain's q / k / v: the (m, 3C) bf16 output of the QKV
+    matrix on inp (bf16, or for an int8 pack the (int8, scales) pair) by
+    G's or G8's QKV epilogue. Counted in ``qkv_rope_epilogue``."""
+    w, s, b = _matrix(wts, "qkv")
+    qkv = torch.empty(m, w.shape[0], dtype=torch.bfloat16,
+                      device=w.device)
+    if s is None:
+        _launch_qkv("gemm_qkv", inp, w, b, qkv, m, rope, pos, map_shape, ws)
+    else:
+        _launch_qkv("gemm_s8_sm90_qkv", inp[0], w, b, qkv, m, rope, pos,
+                    map_shape, ws, xs=inp[1], scales=s)
+    qkv_rope_epilogue.launches += 1
+    return qkv
 
 
 @functools.lru_cache(maxsize=None)
@@ -709,16 +841,16 @@ def window_attention_slots(head_dim: int) -> int:
 
 
 def window_attention_launch(qkv, out, map_shape, ws: int, nw: int, n: int,
-                            num_heads: int, image: bool, pos=None, cos=None,
-                            sin=None, *, one_pass: bool):
-    """Launch the window attention kernel of B, C, B8 and C8 on the f32
-    (rows, 3C) qkv of an attention chain into the bf16 (rows, C) ``out``:
-    nw windows of n rows of the (B, H, W) map ``map_shape``, by window
-    geometry (``image``; qkv's last row is LN(0)'s projection) or as dense
-    rows at RoPE positions ``pos``; cos / sin the f32 RoPE tables or None.
-    one_pass picks the body: the one-pass online softmax of the bf16 blocks,
-    or the two-pass form whose rounding points the int8 blocks keep (the
-    callers pass ``not is_quantized(wts)``). Returns out."""
+                            num_heads: int, image: bool, *, one_pass: bool):
+    """Launch the window attention kernel of B, C, B8 and C8 on the bf16
+    (rows, 3C) q / k / v of an attention chain (``gemm_qkv``'s output, RoPE
+    applied) into the bf16 (rows, C) ``out``: nw windows of n rows of the
+    (B, H, W) map ``map_shape``, by window geometry (``image``: a token
+    outside the map reads qkv row B H W + its window place, LN(0)'s
+    projection at that place) or as dense rows. one_pass picks the body:
+    the one-pass online softmax of the bf16 blocks, or the two-pass form
+    whose rounding points the int8 blocks keep (the callers pass ``not
+    is_quantized(wts)``). Returns out."""
     b, h, w = map_shape
     c = out.shape[1]
     d = c // num_heads
@@ -727,11 +859,8 @@ def window_attention_launch(qkv, out, map_shape, ws: int, nw: int, n: int,
                          f"fit the ring of {window_attention_slots(d)} "
                          f"64-row slots at head_dim {d}")
     call("vit_block", "toc3d_window_attention", qkv.data_ptr(),
-         None if pos is None else pos.data_ptr(),
-         None if cos is None else cos.data_ptr(),
-         None if sin is None else sin.data_ptr(), out.data_ptr(), nw, n,
-         num_heads, d, int(image), b, h, w, ws, int(one_pass),
-         stream_of(qkv))
+         out.data_ptr(), nw, n, num_heads, d, int(image), b, h, w, ws,
+         int(one_pass), stream_of(qkv))
     body = window_attention_one_pass if one_pass else window_attention_two_pass
     body.launches += 1
     return out
@@ -746,17 +875,17 @@ def _full_attention(wts: BlockWeights, x, num_heads: int, ws: int,
     m, n = b * h * w, ws * ws
     hp_, wp_ = pad_hw(h, w, ws)
     nw = b * (hp_ // ws) * (wp_ // ws)
-    dev = x.device
-    # row m of the LN output and of qkv is LN(0): the projection every
-    # zero-padded edge token reads (the TPU kernel zeroes out-of-image
-    # tokens before LN1)
-    hin = _ln_in(wts, "qkv", x, c, wts.ln1w, wts.ln1b, m + 1, m, c, c)
-    qkv = torch.empty(m + 1, 3 * c, dtype=torch.float32, device=dev)
-    _proj(wts, hin, "qkv", m + 1, qkv, out_f32=True)
-    cos, sin = _rope_args(rope_tables, n, x)
-    attn = torch.empty(m, c, dtype=x.dtype, device=dev)
+    # where windows pass the map's edge, rows m .. m + n - 1 of the LN
+    # output are LN(0) (the TPU kernel zeroes out-of-image tokens before
+    # LN1), and the QKV epilogue rotates row m + t at window place t: the
+    # rows an out-of-image token at place t reads
+    rows = m + (n if (hp_, wp_) != (h, w) else 0)
+    hin = _ln_in(wts, "qkv", x, c, wts.ln1w, wts.ln1b, rows, m, c, c)
+    qkv = _qkv(wts, hin, rows, _rope_args(rope_tables, n, x),
+               map_shape=(b, h, w), ws=ws)
+    attn = torch.empty(m, c, dtype=x.dtype, device=x.device)
     return window_attention_launch(qkv, attn, (b, h, w), ws, nw, n,
-                                   num_heads, True, cos=cos, sin=sin,
+                                   num_heads, True,
                                    one_pass=not is_quantized(wts))
 
 
@@ -783,19 +912,19 @@ def _rows_attention(wts: BlockWeights, x, plan: CompressPlan, num_heads: int,
          fast32.data_ptr(), fscore.data_ptr(), xs.data_ptr(), nw, h, w, c, ws,
          k, nf, hr, stream_of(x))
     hin = _ln_in(wts, "qkv", xs, c, wts.ln1w, wts.ln1b, rows, rows, c, c)
-    qkv = torch.empty(rows, 3 * c, dtype=torch.float32, device=dev)
-    _proj(wts, hin, "qkv", rows, qkv, out_f32=True)
-    cos, sin = _rope_args(rope_tables, n, x)
+    rope = _rope_args(rope_tables, n, x)
     pos = None
-    if cos is not None:
+    if rope is not None:
+        # the table row of each gathered row: its window place, and k for
+        # the representative row
         pos = slow32
         if hr:
             pos = torch.cat([slow32, torch.full_like(slow32[:, :1], k)], 1)
         pos = pos.contiguous()
+    qkv = _qkv(wts, hin, rows, rope, pos)
     attn = torch.empty(rows, c, dtype=x.dtype, device=dev)
     window_attention_launch(qkv, attn, (b, h, w), ws, nw, kr, num_heads,
-                            False, pos, cos, sin,
-                            one_pass=not is_quantized(wts))
+                            False, one_pass=not is_quantized(wts))
     raw1 = torch.empty(rows, c, dtype=x.dtype, device=dev)
     _proj(wts, _o_in(wts, attn), "o", rows, raw1)
     return xs, raw1, slow32, fast32
