@@ -402,11 +402,11 @@ def test_replayed_programs_are_captured_once_and_kept(artifact,
                                                       cuda_standins):
     """The CUDA path with CPU stand-ins for the graph API (a capture runs
     its function, a replay does nothing): over a stream with a scene reset
-    each program (backbone_first, backbone_steady, head) is captured once,
-    at its first use, into the buffers of the first frame's layout; the
-    first frame's result (its programs' eager first runs) is eager's. A
-    frame laid out with other strides drops the graphs and captures anew
-    on new buffers."""
+    each program (backbone_first, backbone_steady, then the head's
+    head+decode) is captured once, at its first use, into the buffers of
+    the first frame's layout; the first frame's result (its programs' eager
+    first runs) is eager's. A frame laid out with other strides drops the
+    graphs and captures anew on new buffers."""
     _, _, _, out, _ = artifact
     det = load_detector(out, device="cpu")
     frames = _frames(23, t_total=5)
@@ -417,18 +417,20 @@ def test_replayed_programs_are_captured_once_and_kept(artifact,
         if t == 0:
             s_ref, d_ref = det.eager(det.init_state(), frame)
             _equal(boxes, state, d_ref, s_ref, "frame 0")
-            buffers = dict(det._frame_buf)
-        for name, prog in det._graphs.items():
+            buffers = dict(det.runner.frame)
+        for name, prog in det.runner.programs.items():
             assert seen.setdefault(name, prog) is prog, (t, name)
-        assert all(det._frame_buf[k] is v for k, v in buffers.items())
-    assert sorted(seen) == ["backbone_first", "backbone_steady", "head"]
+        assert all(det.runner.frame[k] is v for k, v in buffers.items())
+    assert sorted(seen) == ["backbone_first", "backbone_steady",
+                            "head+decode"]
     f = dict(frames[4])
     f["img"] = torch.from_numpy(f["img"]).transpose(2, 3).contiguous() \
         .transpose(2, 3)
     det._replay(state, f)
-    assert det._frame_buf["img"] is not buffers["img"]
-    assert det._frame_buf["img"].stride() == f["img"].stride()
-    assert all(det._graphs[n] is not seen[n] for n in det._graphs)
+    assert det.runner.frame["img"] is not buffers["img"]
+    assert det.runner.frame["img"].stride() == f["img"].stride()
+    assert all(det.runner.programs[n] is not seen[n]
+               for n in det.runner.programs)
 
 
 def test_programs_hold_no_host_sync(served):
@@ -453,7 +455,8 @@ def test_capture_and_export_import_no_model_module():
         "import sys\n"
         "from toc3d_tpu_torch.runtime import capture, export\n"
         "from toc3d_tpu_torch.ops.cuda import counted_wrappers, library\n"
-        "assert len(counted_wrappers()) == 15\n"
+        "assert list(counted_wrappers()) == ['A', 'B', 'C', 'D', 'B8', "
+        "'C8', 'H8', 'G', 'G8', 'LN', 'AU', 'W1', 'W2', 'conv', 'qkv']\n"
         "mods = [m for m in sys.modules\n"
         "        if m.startswith('toc3d_tpu_torch.models')]\n"
         "assert not mods, mods\n"

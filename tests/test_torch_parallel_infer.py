@@ -24,11 +24,13 @@ make_infer_fn (each rank's products have other row counts, so last bits
 differ); the ranks of a view group equal bit for bit (the head is
 replicated). Also: the
 mesh-shape rules of tests/test_infer_spmd.py against JAX's view_mesh and
-product_mesh, the meshes the four ranks built, and the gumbel mask
-refused.
+product_mesh, the meshes the four ranks built, the gumbel mask refused,
+and the captured programs of ShardedCapturedInfer with CPU stand-ins for
+the CUDA graph API (one spawned rank).
 
-Run as a script, this file is one rank (``_rank_main``): it imports
-neither JAX nor the JAX package.
+Run as a script, this file is one rank (``_rank_main``; with a fourth
+argument ``captured``, ``_captured_rank``): it imports neither JAX nor the
+JAX package.
 """
 import dataclasses
 import os
@@ -102,6 +104,58 @@ def _rank_main(rank: int, world: int, work: str) -> None:
                     rec["frames"][ref].append(_outputs(state, det))
         out[name] = rec
     torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def _captured_rank(rank: int, world: int, work: str) -> None:
+    """test_sharded_captured_programs_are_kept_until_layout_change's rank:
+    ShardedCapturedInfer on a CPU model with the CPU stand-ins for the
+    CUDA graph API (a capture runs its function, a replay does nothing)."""
+    import torch.distributed as dist
+    from cuda_standins import install
+    from toc3d_tpu_torch.models import detector as td
+    from toc3d_tpu_torch.parallel import mesh
+
+    torch.set_num_threads(1)
+    install(setattr)
+    mesh.init_distributed(f"file://{work}/store", world, rank, "cpu")
+    cfg = get_config("tiny")
+    model = td.build_detector(cfg, device="cpu", seed=1)
+    infer = ts.ShardedCapturedInfer(model, ts.view_mesh(2))
+    runner = infer.runner
+    g = torch.Generator().manual_seed(4)
+
+    def frame(t, pe, b=1):
+        f = td.synthetic_frame(g, t, batch=b, views=2, height=64, width=128,
+                               device="cpu")
+        f["prev_exists"] = torch.full((b,), pe)
+        return f
+
+    state, seen = td.init_state(1, cfg, device="cpu"), {}
+    for t, pe in enumerate((0.0, 1.0, 1.0, 0.0, 1.0)):
+        f = frame(t, pe)
+        out = infer(state, f)
+        if t == 0:
+            want = td.infer_step(model, state, f)
+            for a, b in zip(_outputs(*out).values(),
+                            _outputs(*want).values()):
+                for k in a:
+                    assert torch.equal(a[k], b[k]), k
+            buffers, gather = dict(runner.frame), infer._gather
+        state = out[0]
+        for name, prog in runner.programs.items():
+            assert seen.setdefault(name, prog) is prog, (t, name)
+        assert all(runner.frame[k] is v for k, v in buffers.items())
+        assert infer._gather is gather and gather[0] is runner.feats
+    assert set(map(str, seen)) == {str(("backbone+neck", False)),
+                                   str(("backbone+neck", True)),
+                                   "head+decode"}
+    infer(td.init_state(2, cfg, device="cpu"), frame(5, 1.0, b=2))
+    assert list(map(str, runner.programs)) == [
+        str(("backbone+neck", True)), "head+decode"]
+    assert all(p is not seen[k] for k, p in runner.programs.items())
+    assert runner.frame["img"] is not buffers["img"]
+    assert infer._gather is not gather and infer._gather[0] is runner.feats
     dist.destroy_process_group()
 
 
@@ -300,6 +354,20 @@ def test_product_mesh_shapes(views, n_data, want):
         ts.mesh_shape(views, 8, 9)
 
 
+def test_sharded_captured_programs_are_kept_until_layout_change(tmp_path):
+    """The view-sharded frame on a CUDA model (ShardedCapturedInfer) with
+    CPU stand-ins for the CUDA graph API (tests/cuda_standins.py), at the
+    tiny preset, one rank over gloo in a process of its own: over a stream
+    with a scene reset each program (backbone + neck per steady value,
+    head + decode) is captured once, at its first use, and kept, as are the
+    frame's buffers and the all-gather's; the first frame's result (its
+    programs' eager first runs and the gather between them) is eager
+    infer_step's bit for bit. A frame of another batch drops the programs
+    and the buffers and captures anew."""
+    from test_torch_parallel_train import launch_ranks
+    launch_ranks(__file__, 1, str(tmp_path), "captured")
+
+
 def test_gumbel_rejected():
     from toc3d_tpu_torch.models.detector import build_detector
     cfg = get_config("tiny")
@@ -312,4 +380,5 @@ def test_gumbel_rejected():
 
 
 if __name__ == "__main__":
-    _rank_main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
+    main = _captured_rank if sys.argv[4:] == ["captured"] else _rank_main
+    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])

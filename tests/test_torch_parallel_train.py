@@ -135,14 +135,14 @@ def _rank_main(rank: int, world: int, work: str) -> None:
     dist.destroy_process_group()
 
 
-def launch_ranks(script: str, world: int, work: str):
-    """Spawn ``world`` ranks of ``script`` (each ``script rank world
-    work``), bounded by RANK_TIMEOUT each; fail with a rank's output if it
+def launch_ranks(script: str, world: int, work: str, *args: str):
+    """Spawn ``world`` ranks of ``script`` (each ``script rank world work
+    *args``), bounded by RANK_TIMEOUT each; fail with a rank's output if it
     fails or hangs."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     env.pop("JAX_PLATFORMS", None)
     procs = [subprocess.Popen([sys.executable, script, str(r), str(world),
-                               work], cwd=ROOT, env=env,
+                               work, *args], cwd=ROOT, env=env,
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for r in range(world)]

@@ -32,6 +32,7 @@ from toc3d_tpu.models.detector import init_state as jax_init_state
 from toc3d_tpu.models.detector import make_infer_fn as jax_make_infer_fn
 from toc3d_tpu.runtime.checkpoint import convert_detector_checkpoint
 
+from cuda_standins import install as cuda_standins_install
 from test_full_converter import build_reference_state_dict
 from test_parity_detector import make_frames
 
@@ -156,33 +157,9 @@ def test_steady_frame_builds_no_constant(monkeypatch):
 
 @pytest.fixture
 def cuda_standins(monkeypatch):
-    """CPU stand-ins for the CUDA stream and graph calls of
-    runtime/graphs.py: a capture runs its function (on the CPU it computes)
-    and a replay does nothing, so a test sees which programs
-    CapturedInfer captures, keeps and drops, not what a replay computes
-    (the card tests check that)."""
-    import contextlib
-
-    class Stream:
-        def __init__(self, *a):
-            pass
-
-        def wait_stream(self, other):
-            pass
-
-    class Graph:
-        def replay(self):
-            pass
-
-    monkeypatch.setattr(torch.cuda, "Stream", Stream)
-    monkeypatch.setattr(torch.cuda, "stream",
-                        lambda s: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None: Stream())
-    monkeypatch.setattr(torch.cuda, "graph",
-                        lambda g, pool=None, stream=None:
-                        contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
-    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
+    """CPU stand-ins for the CUDA stream and graph calls of the captured
+    frame's runner (tests/cuda_standins.py)."""
+    cuda_standins_install(monkeypatch.setattr)
 
 
 def test_captured_programs_are_kept_until_weights_or_layout_change(
@@ -208,7 +185,7 @@ def test_captured_programs_are_kept_until_weights_or_layout_change(
     seen = {}
     for t, pe in enumerate((0.0, 1.0, 1.0, 0.0, 1.0)):
         state, det = infer(state, frame(t, pe))
-        for name, prog in infer._programs.items():
+        for name, prog in infer.runner.programs.items():
             assert seen.setdefault(name, prog) is prog, (t, name)
     assert set(map(str, seen)) == {str(("backbone+neck", False)),
                                    str(("backbone+neck", True)),
@@ -217,11 +194,11 @@ def test_captured_programs_are_kept_until_weights_or_layout_change(
     model.load_state_dict(td.build_detector(cfg, device="cpu",
                                             seed=2).state_dict())
     infer(state, frame(5, 1.0))
-    assert infer._programs["head+decode"] is not seen["head+decode"]
-    assert list(infer._programs)[0] == ("backbone+neck", True)
-    kept = infer._programs["head+decode"]
+    assert infer.runner.programs["head+decode"] is not seen["head+decode"]
+    assert list(infer.runner.programs)[0] == ("backbone+neck", True)
+    kept = infer.runner.programs["head+decode"]
     infer(td.init_state(2, cfg, device="cpu"), frame(6, 1.0, b=2))
-    assert infer._programs["head+decode"] is not kept
+    assert infer.runner.programs["head+decode"] is not kept
 
 
 def test_is_steady_reads_the_host_copy():

@@ -183,10 +183,11 @@ def test_captured_programs_keep_the_timer_they_stamp(cuda_standins):
         state = td.init_state(1, cfg, device="cpu")
         for f in frames:
             state, _ = infer(state, f)
-        assert len(infer._programs) == 3
-        assert all(p.timer is timer for p in infer._programs.values())
+        assert len(infer.runner.programs) == 3
+        assert all(p.timer is timer
+                   for p in infer.runner.programs.values())
     infer = CapturedInfer(model)
     outer = StageTimer("cpu")
     with outer.span("caller"):
         infer(td.init_state(1, cfg, device="cpu"), frames[0])
-    assert all(p.timer is outer for p in infer._programs.values())
+    assert all(p.timer is outer for p in infer.runner.programs.values())

@@ -133,7 +133,7 @@ def test_program_spans_agree_with_cuda_events(served):
     """The log's 'backbone+neck' and 'head+decode' against CUDA events
     recorded around the same replays."""
     events = {"backbone+neck": [], "head+decode": []}
-    run = served.infer._run
+    run = served.infer.runner._run
 
     def timed(name, fn):
         a = torch.cuda.Event(enable_timing=True)
@@ -144,12 +144,12 @@ def test_program_spans_agree_with_cuda_events(served):
         events["head+decode" if name == "head+decode"
                else "backbone+neck"].append((a, b))
         return out
-    served.infer._run = timed
+    served.infer.runner._run = timed
     try:
         served.timer.reset()
         _replay(served, REPLAYS)
     finally:
-        del served.infer._run
+        del served.infer.runner._run
     samples = served.timer.samples()
     torch.cuda.synchronize()
     for name, pairs in events.items():

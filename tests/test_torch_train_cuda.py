@@ -209,13 +209,14 @@ def test_tiny_train_step_on_card(dev):
     wrappers = counted_wrappers()
     for i in range(2):
         noise = tr.draw_train_noise(cfg, 2, 2, gen, dev)
-        for f in wrappers:
+        for f in wrappers.values():
             f.launches = 0
         state, m = step(state, batch, noise, steady=i > 0)
         torch.cuda.synchronize()
-        counts = [f.launches for f in wrappers]
-        assert counts == [1, 2, 2, 0, 0, 0, 0, 16, 0, 12, 3, 4, 0, 0, 4], \
-            counts
+        counts = {k: f.launches for k, f in wrappers.items()}
+        assert counts == {"A": 1, "B": 2, "C": 2, "D": 0, "B8": 0, "C8": 0,
+                          "H8": 0, "G": 16, "G8": 0, "LN": 12, "AU": 3,
+                          "W1": 4, "W2": 0, "conv": 0, "qkv": 4}, counts
         assert all(np.isfinite(float(v)) for v in m.values())
         assert int(m["nonfinite_skips"]) == 0
         batch["prev_exists"][:] = 1.0

@@ -22,3 +22,12 @@ class MemoryBank(NamedTuple):
 
 class DetectorState(NamedTuple):
     memory: MemoryBank
+
+
+def is_steady(frame) -> bool:
+    """all(prev_exists > 0): whether every lane continues its scene, so the
+    selectors skip the first-frame score MLP. JAX decides this on the
+    device (lax.cond, token_select.py:227); here the host decides, reading
+    the frame's prev_exists where it lies: a numpy array or a host tensor
+    costs no device read, a device tensor one."""
+    return bool((frame["prev_exists"] > 0).all())

@@ -28,7 +28,7 @@ import torch
 import torch.nn as nn
 
 from ..core.coder import DecodedBoxes, nms_free_decode, to_bottom_center
-from ..core.state import DetectorState
+from ..core.state import DetectorState, is_steady
 from ..ops.consts import const_vector
 from ..runtime.timer import span, stage
 from .neck import CPFPN, CPFPNConfig, cpfpn_forward, pack_cpfpn
@@ -432,7 +432,7 @@ def extract_img_feat(model: ToC3DDetector, img, memory: MemoryBank, frame,
                 f"view_scan chunk {cs} must divide the view count {n}")
         nc = n // cs
         if cfg.is_toc3d and steady is None:
-            steady = bool((frame["prev_exists"] > 0).all())
+            steady = is_steady(frame)
         rows = lambda t: _view_chunks(t, b, nc)
         noise = None if mask_noise is None else [rows(t) for t in mask_noise]
         keep = {i: [rows(k) for k in pair]
@@ -466,15 +466,6 @@ def head_step(model: ToC3DDetector, state: DetectorState, feats, frame):
                           cfg.head.post_center_range)
     return DetectorState(memory), dec._replace(
         bboxes=to_bottom_center(dec.bboxes))
-
-
-def is_steady(frame) -> bool:
-    """all(prev_exists > 0): whether every lane continues its scene, so the
-    selectors skip the first-frame score MLP. JAX decides this on the
-    device (lax.cond, token_select.py:227); here the host decides, reading
-    the frame's prev_exists where it lies: a numpy array or a host tensor
-    costs no device read, a device tensor one."""
-    return bool((frame["prev_exists"] > 0).all())
 
 
 @torch.no_grad()

@@ -140,23 +140,27 @@ def param_key(module, *extra):
 
 
 def counted_wrappers():
-    """Every kernel wrapper that counts its launches in ``launches``: A,
-    B, C, D, B8, C8, H8, then G (every bf16 matmul of B and C), G8 (every
-    int8 matmul of B8 and C8), the blocks' LayerNorm, the training
-    matcher's auction (one launch a cost tensor), and the window
-    attention's one-pass and two-pass bodies (one launch a B or C, and a B8
-    or C8), then the CNN encoder's convolutions on packed weights (conv:
-    one a VoVNet or CPFPN convolution at inference), then the QKV epilogue
-    that hands the window attention bf16 q / k / v with RoPE applied (one
-    a B, C, B8 or C8; its launch is also one of G's or G8's). The counts
-    of A-D, B8, C8 and H8 tick in their ops' CUDA implementations, so a
-    loaded exported program's launches count too."""
+    """Every kernel wrapper that counts its launches in ``launches``, by
+    name: A, B, C, D, B8, C8, H8, then G (every bf16 matmul of B and C), G8
+    (every int8 matmul of B8 and C8), LN (the blocks' LayerNorm), AU (the
+    training matcher's auction, one launch a cost tensor), W1 / W2 (the
+    window attention's one-pass and two-pass bodies, one launch a B or C,
+    and a B8 or C8), conv (the CNN encoder's convolutions on packed
+    weights, one a VoVNet or CPFPN convolution at inference), qkv (the QKV
+    epilogue that hands the window attention bf16 q / k / v with RoPE
+    applied, one a B, C, B8 or C8; its launch is also one of G's or G8's).
+    The counts of A-D, B8, C8 and H8 tick in their ops' CUDA
+    implementations, so a loaded exported program's launches count too."""
     from . import auction, conv, cross_attn, int8, patch_embed, vit_block
-    return (patch_embed.patchify_matmul, vit_block.fused_full_block,
-            vit_block.fused_compressed_block, cross_attn.flash_attention_core,
-            vit_block.fused_full_block_int8,
-            vit_block.fused_compressed_block_int8, int8.int8_linear,
-            vit_block._gemm, int8.gemm_s8_sm90, vit_block.layernorm,
-            auction.auction_match, vit_block.window_attention_one_pass,
-            vit_block.window_attention_two_pass, conv.conv2d,
-            vit_block.qkv_rope_epilogue)
+    return {"A": patch_embed.patchify_matmul,
+            "B": vit_block.fused_full_block,
+            "C": vit_block.fused_compressed_block,
+            "D": cross_attn.flash_attention_core,
+            "B8": vit_block.fused_full_block_int8,
+            "C8": vit_block.fused_compressed_block_int8,
+            "H8": int8.int8_linear, "G": vit_block._gemm,
+            "G8": int8.gemm_s8_sm90, "LN": vit_block.layernorm,
+            "AU": auction.auction_match,
+            "W1": vit_block.window_attention_one_pass,
+            "W2": vit_block.window_attention_two_pass, "conv": conv.conv2d,
+            "qkv": vit_block.qkv_rope_epilogue}

@@ -27,9 +27,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..core.state import DetectorState
+from ..core.state import DetectorState, is_steady
 from ..models.detector import (extract_img_feat, frame_to_device, head_step,
-                               is_steady, precast_backbone_)
+                               precast_backbone_)
 from ..ops.cuda import param_key
 from ..runtime.graphs import CapturedInfer
 from ..runtime.timer import span
@@ -152,38 +152,27 @@ def gather_views(local: torch.Tensor, out: torch.Tensor, mesh: ProcessMesh,
 
 class ShardedCapturedInfer(CapturedInfer):
     """CapturedInfer with the backbone on this rank's views: the backbone
-    program writes its slice of the features, the slices are all-gathered
-    over the view group into the static buffer the head program reads,
-    between the two replays and outside the graphs."""
+    program writes its slice of the features, and the exchange step
+    all-gathers the slices over the view group into the static buffer the
+    head program reads, between the two replays and outside the graphs."""
 
     def __init__(self, model, mesh: ProcessMesh, timer=None):
         self.mesh = mesh
+        self._gather = None
         super().__init__(model, timer)
 
-    def _buffers(self, frame, bank):
-        shapes = self._shapes
-        super()._buffers(frame, bank)
-        if self._shapes != shapes:
-            self._local = self._parts = None
-
-    def _backbone(self, steady):
-        def fn():
-            f = self._frame
-            feats = extract_img_feat(self.model, f["img"], self._bank, f,
-                                     steady=steady)
-            if self._local is None:     # first eager run: static buffers
-                self._local = torch.empty_like(feats)
-                b, nl = feats.shape[:2]
-                self._parts = feats.new_empty((self.mesh.view,)
-                                              + tuple(feats.shape))
-                self._feats = feats.new_empty(
-                    (b, nl * self.mesh.view) + tuple(feats.shape[2:]))
-            return self._local.copy_(feats)
-        return fn
-
-    def _exchange(self):
+    def _exchange(self, local):
+        """The gather's scratch and output are static buffers, laid out
+        anew with the runner's features buffer ``local``."""
+        if self._gather is None or self._gather[0] is not local:
+            b, nl = local.shape[:2]
+            self._gather = (local, local.new_empty((self.mesh.view,)
+                                                   + tuple(local.shape)),
+                            local.new_empty((b, nl * self.mesh.view)
+                                            + tuple(local.shape[2:])))
+        _, parts, out = self._gather
         with span(self.timer, "all-gather"):
-            gather_views(self._local, self._feats, self.mesh, self._parts)
+            return gather_views(local, out, self.mesh, parts)
 
     def __call__(self, state: DetectorState, frame):
         return super().__call__(state, _local(frame, self.mesh))

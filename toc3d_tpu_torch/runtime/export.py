@@ -53,9 +53,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
 from ..core.coder import DecodedBoxes
-from ..core.state import DetectorState, MemoryBank
+from ..core.state import DetectorState, MemoryBank, is_steady
 from ..ops.cuda import PACK_CACHE
-from .capture import run_captured
+from .capture import FrameRunner
 
 FORMAT = "toc3d_tpu_torch.export.v1"
 
@@ -340,21 +340,18 @@ class ExportedDetector:
         state = det.init_state()
         state, boxes = det(state, frame)   # frame: dict of numpy / tensors
 
-    On CUDA a call replays captured CUDA graphs, as make_infer_fn's
-    runtime/graphs.CapturedInfer does: one graph per backbone program (the
-    host picks it from ``prev_exists``) and one for the head, in one memory
-    pool. Each call checks the frame against the manifest's shapes and
-    dtypes on the host (a replay runs no Python, so the loaded programs'
-    own input checks no longer run), copies it and the memory bank into
-    static buffers (without blocking the host from pinned memory), replays
-    the backbone graph, which writes one features buffer, then the head
-    graph, which reads it, and returns the state and boxes cloned out of the
-    graphs' outputs. A program's first use runs eagerly on a side stream
-    and is then captured (runtime/capture.py); the weights are the loaded
-    tensors, at fixed addresses for the detector's life. A capture or
-    replay that fails raises. ``eager(state, frame)`` runs the loaded
-    programs op by op (each op and kernel launched from the host), as
-    ``infer_step`` runs the model; on the CPU a call is that eager run.
+    On CUDA a call replays captured CUDA graphs through the runner
+    make_infer_fn's runtime/graphs.CapturedInfer uses
+    (runtime/capture.FrameRunner): one graph per backbone program (the
+    host picks it from ``prev_exists``) and one for the head. Each call
+    checks the frame against the manifest's shapes and dtypes on the host
+    (a replay runs no Python, so the loaded programs' own input checks no
+    longer run) before the runner copies it into static buffers; the
+    weights are the loaded tensors, at fixed addresses for the detector's
+    life. A capture or replay that fails raises. ``eager(state, frame)``
+    runs the loaded programs op by op (each op and kernel launched from the
+    host), as ``infer_step`` runs the model; on the CPU a call is that
+    eager run.
     """
 
     def __init__(self, path: str, device="cuda"):
@@ -379,7 +376,7 @@ class ExportedDetector:
         self._mem0 = MemoryBank(**mem)
         self._specs = {k: (tuple(s["shape"]), getattr(torch, s["dtype"]))
                        for k, s in m["frame_specs"].items()}
-        self._layout = None
+        self.runner = FrameRunner(self.device)
 
     def init_state(self) -> DetectorState:
         return DetectorState(MemoryBank(*(t.clone() for t in self._mem0)))
@@ -405,8 +402,7 @@ class ExportedDetector:
         a numpy array or a host tensor) to pick the backbone program."""
         if "backbone" in self._programs:
             return "backbone"
-        steady = bool((frame["prev_exists"] > 0).all())
-        return "backbone_steady" if steady else "backbone_first"
+        return "backbone_steady" if is_steady(frame) else "backbone_first"
 
     @torch.no_grad()
     def eager(self, state: DetectorState, frame) -> Tuple[DetectorState,
@@ -422,39 +418,13 @@ class ExportedDetector:
         mem, det = hd(w, mem, feats, frame)
         return DetectorState(MemoryBank(*mem)), DecodedBoxes(*det)
 
-    def _buffers(self, frame, bank):
-        """Static input buffers laid out as this frame's tensors and this
-        bank's (runtime/graphs.CapturedInfer._buffers); another layout
-        drops the graphs captured on the old buffers."""
-        layout = tuple((k, t.stride()) for k, t in frame.items()) + tuple(
-            tuple(t.shape) for t in bank)
-        if layout == self._layout:
-            return
-        self._layout = layout
-        self._graphs = {}
-        self._stream = torch.cuda.Stream(self.device)
-        self._pool = torch.cuda.graph_pool_handle()
-        dev = self.device
-        self._frame_buf = {k: torch.empty_strided(t.shape, t.stride(),
-                                                  dtype=t.dtype, device=dev)
-                           for k, t in frame.items()}
-        self._bank = tuple(torch.empty(t.shape, dtype=t.dtype, device=dev)
-                           for t in bank)
-        self._feats = None
-
     def _backbone(self, name):
-        def fn():
-            f = self._frame_buf
-            bb, w = self._programs[name]
-            feats = bb(w, f["img"], self._bank, f)
-            if self._feats is None:     # first eager run: the static output
-                self._feats = torch.empty_like(feats)
-            return self._feats.copy_(feats)
-        return fn
+        bb, w = self._programs[name]
+        return lambda frame, bank: bb(w, frame["img"], tuple(bank), frame)
 
-    def _head(self):
+    def _head(self, bank, feats, frame):
         hd, w = self._programs["head"]
-        return hd(w, self._bank, self._feats, self._frame_buf)
+        return hd(w, tuple(bank), feats, frame)
 
     @torch.no_grad()
     def __call__(self, state: DetectorState, frame) -> Tuple[DetectorState,
@@ -467,18 +437,8 @@ class ExportedDetector:
 
     def _replay(self, state, frame):
         name = self._backbone_name(frame)
-        frame = self._frame(frame)
-        self._buffers(frame, state.memory)
-        for k, t in frame.items():
-            self._frame_buf[k].copy_(t, non_blocking=True)
-        for buf, t in zip(self._bank, state.memory):
-            buf.copy_(t, non_blocking=True)
-        run_captured(self._graphs, name, self._backbone(name), self._stream,
-                     self._pool, self.device)
-        mem, det = run_captured(self._graphs, "head", self._head,
-                                self._stream, self._pool, self.device)
-        return (DetectorState(MemoryBank(*(t.clone() for t in mem))),
-                DecodedBoxes(*(t.clone() for t in det)))
+        return self.runner(self._frame(frame), state.memory, name,
+                           self._backbone(name), self._head)
 
 
 def load_detector(path: str, device="cuda") -> ExportedDetector:

@@ -13,8 +13,9 @@ clock.
 Spans nest. While a span of a timer is open, that timer is the current one
 (process-local), and ``stage(name)`` opens the child ``parent/name`` of its
 innermost open span, so the model marks its stages without a timer handed
-down to it: captured frames (runtime/graphs.py) open "backbone+neck" and
-"head+decode" around their first eager run and their capture, and the
+down to it: the captured frame's runner (runtime/capture.py) opens
+"backbone+neck" and "head+decode" around each program's first eager run
+and its capture, and the
 stages inside ("select" a token selector, "decoder") are captured with
 them. With no timer current, and under torch.export, ``stage`` does
 nothing, so a program captured without a timer holds no stamp. Every span

@@ -61,6 +61,7 @@ import torch.distributed as dist
 from ..core.assigner import cost_2d, cost_3d, hungarian_match
 from ..core.dn import dn_reference_points, draw_dn_noise, prepare_for_dn
 from ..core.losses import token_selection_loss
+from ..core.state import is_steady
 from ..models.detector import (ToC3DDetector, extract_img_feat,
                                require_vit)
 from ..models.eva_vit import drop_path_rates
@@ -364,7 +365,7 @@ def batch_to_device(batch, device):
         elif t.dtype != torch.bool and t.dtype != torch.uint8:
             t = t.long()
         out[k] = t
-    steady = bool((out["prev_exists"] > 0).all())
+    steady = is_steady(out)
     return {k: t.to(device, non_blocking=True) for k, t in out.items()}, \
         steady
 
